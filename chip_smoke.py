@@ -8,19 +8,31 @@ Phases, each of which raises on failure:
     `ei_nexus_tpu_torch/csrc` (one nvcc per source, all at once); TF32 is
     switched off for matmuls and convolutions so float32 comparisons are
     float32; the card's name and power limit are printed;
- 2. every kernel of the main path against its plain PyTorch version at the
-    main path's shapes, in float32 and bfloat16, timed with CUDA events
+ 2. every kernel of the two paths below against its plain PyTorch version
+    at the paths' shapes, in float32 and bfloat16, timed with CUDA events
     beside the plain version, the library call that computes the same
-    function (SDPA for the attention kernels) and the card's bound;
+    function (SDPA for the attention kernels: forward for A, B, D; SDPA's
+    backward, (forward + backward) - forward, for F) and the card's bound;
+    F's gradients are also held to a relative norm, which planted faults
+    (c = 0, c or the log-sum-exp of the neighbouring row) must break;
  3. the flagship EIM forward at full width (260x346, 16 bins, K=1024,
     9 LightGlue layers of 4x64, bfloat16, B=8) on bursty events, with the
     kernels' launch counts read around one forward, then timed one forward
     at a time (latency) and back to back (throughput, the pairs/s line);
- 4. one small float32 model on the CPU (plain versions) and on the card
-    (kernels), same weights and inputs, agreement bounded.
+ 4. the stage-2 training step at full width (the same model with both
+    extractors frozen and LightGlue trained, AdamW, B=8): launch counts
+    read around one step (D and F 36 each, C 2, A and B none), finite loss,
+    grad_norm > 0, frozen parameters and BatchNorm statistics bit-unchanged,
+    matcher parameters changed, the loss lower after 10 steps on the same
+    batch and fill, then steps/s over 24 steps back to back with the spread
+    of single steps, and peak memory;
+ 5. one small float32 model on the CPU (plain versions) and on the card
+    (kernels), same weights and inputs: the inference forward and one
+    stage-2 step (same batch and fill), agreement bounded.
 
-Prints the kernels' JSON line, the card's `nvidia-smi` line and the
-forward rate, and as its last line
+Prints the kernels' JSON line (launches: A, B, C from phase 3's forward;
+D, F from phase 4's step), the card's `nvidia-smi` line, the forward and
+step rates, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a card. Writes the nvcc/ptxas log to
 chiprun_out/chip_smoke_build.log.
@@ -48,6 +60,10 @@ PEAK_F32_FLOPS = 67e12        # CUDA cores, no tensor cores
 PEAK_BYTES = 3.35e12
 
 MAIN_B, MAIN_H, MAIN_N, MAIN_D = 8, 4, 1024, 64   # LightGlue attention
+# kernel F's gradients are far below 1 (|dq| ~ 0.06 at the flagship), so
+# beside the max|err| bound each is held to a relative norm: bfloat16's
+# rounding of the outputs alone gives ~2e-3, a dropped or misread c ~6e-2
+BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 NMS_SHAPE, NMS_RADIUS, NMS_ROUNDS = (8, 264, 352), 4, 4
 
 
@@ -68,6 +84,11 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b|| over the whole tensor."""
+    return float((a.float() - b.float()).norm() / b.float().norm())
 
 
 def require(ok, what: str) -> None:
@@ -153,12 +174,102 @@ def nms_bound_ms(score: torch.Tensor) -> tuple:
     return _bound(ops, PEAK_F32_FLOPS, nbytes)
 
 
+def fused_bound_ms(kind: str, q: torch.Tensor, k: torch.Tensor) -> tuple:
+    """Bound of one bf16 call of kernel D ("fwd") or F ("bwd") on
+    (B, h, N, d) queries and (B, h, M, d) keys. D: QK^T and PV (4BhNMd
+    operations); reads q, k, v and the float32 bias, writes the output and
+    the float32 log-sum-exp. F: the five products of the TPU backward
+    (10BhNMd); reads q, k, v, the output, dO, the bias and the log-sum-exp,
+    writes dq, dk, dv."""
+    B, h, N, d = q.shape
+    M = k.shape[2]
+    es = q.element_size()
+    if kind == "fwd":
+        flops = 4.0 * B * h * N * M * d
+        nbytes = (2 * N + 2 * M) * B * h * d * es + B * M * 4 + B * h * N * 4
+    else:
+        flops = 10.0 * B * h * N * M * d
+        nbytes = ((4 * N + 4 * M) * B * h * d * es + B * M * 4
+                  + B * h * N * 4)
+    return _bound(flops, PEAK_BF16_FLOPS, nbytes)
+
+
+def fused_cases(x):
+    """Kernel D/F operands as the training path gives them: self-attention
+    q, k after the rotary (applied outside) and v the stride-3 view, scale
+    d^-0.5; cross-attention the pre-scaled head views, scale 1."""
+    from ei_nexus_tpu_torch.ops import attention_kernels as ak
+    cos, sin = (t[:, None] for t in x["rot"])
+
+    def rot(t):
+        return t * cos + ak.rotate_half(t) * sin
+    return {"self": (rot(x["q"]), rot(x["k"]), x["v"], x["mask0"],
+                     MAIN_D ** -0.5),
+            "cross": (x["qk0"], x["qk1"], x["v1"], x["mask1"], 1.0)}
+
+
+def check_fused(x, dtype, tol, gen):
+    """Kernels D and F against their plain versions on both cases, and
+    planted faults of F (c = 0, c or the log-sum-exp of the neighbouring
+    row) that F's relative-norm check must catch; returns the largest
+    errors (D, F), the self case's tensors for timing and F's largest
+    relative norm."""
+    from ei_nexus_tpu_torch.ops import attention_kernels as ak
+    err_d = err_f = rel_f = 0.0
+    caught = float("inf")
+    for case, (q, k, v, mask, scale) in fused_cases(x).items():
+        B, h, N, d = q.shape
+        bias = ak.key_bias(mask, B, k.shape[2], "cuda")
+        out, lse = ak.attention_fwd(q, k, v, bias, scale)
+        want = ak.fused_attention_plain(q, k, v, mask, scale)
+        torch.cuda.synchronize()
+        e = max_err(out, want)
+        require(e <= tol * max(1.0, float(want.float().abs().max())),
+                f"attention_fwd ({case}) disagrees in {dtype}: {e:.3e}")
+        err_d = max(err_d, e)
+        # dO as autograd hands it: a (B, h, N, d) view of (B, N, h, d)
+        do = torch.randn(B, N, h, d, generator=gen, device="cuda").to(
+            dtype).permute(0, 2, 1, 3)
+        got = ak.attention_bwd(q, k, v, out, do, bias, lse, scale)
+        want = ak.fused_attention_bwd_plain(q, k, v, bias, do, scale)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            e, r = max_err(a, b), rel_err(a, b)
+            bound = tol * max(1.0, float(b.float().abs().max()))
+            require(e <= bound, f"attention_bwd {name} ({case}) disagrees "
+                                f"in {dtype}: {e:.3e} > {bound:.3e}")
+            require(r <= BWD_REL[dtype],
+                    f"attention_bwd {name} ({case}) disagrees in {dtype}: "
+                    f"relative norm {r:.3e} > {BWD_REL[dtype]:g}")
+            err_f, rel_f = max(err_f, e), max(rel_f, r)
+        # F reads c = rowsum(dO o O) from the output: a zero output plants
+        # c = 0, a rolled one the neighbouring row's c
+        for o, l in ((torch.zeros_like(out), lse), (out.roll(1, 2), lse),
+                     (out, lse.roll(1, 2))):
+            bad = ak.attention_bwd(q, k, v, o, do, bias, l, scale)
+            caught = min(caught, max(rel_err(a, b)
+                                     for a, b in zip(bad, want)))
+        if case == "self":
+            kept = (q, k, v, mask, scale, bias, out, lse, do)
+    torch.cuda.synchronize()
+    require(caught > 5 * BWD_REL[dtype],
+            f"a planted fault of attention_bwd moves the relative norm only "
+            f"{caught:.3e} in {dtype}")
+    print(f"[kernels] {dtype}: attention_fwd max|err| {err_d:.3e}, "
+          f"attention_bwd max|err| {err_f:.3e} (tol {tol:g} x max(1, "
+          f"max|ref|)), relative norm {rel_f:.3e} (tol {BWD_REL[dtype]:g}; "
+          f"planted faults: {caught:.3e} or more), self and cross, key-side "
+          f"masks")
+    return err_d, err_f, kept, rel_f
+
+
 def phase_kernels():
     from ei_nexus_tpu_torch.ops import attention_kernels as ak
     from ei_nexus_tpu_torch.ops import nms_kernel as nk
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
+    fused_errs = {}
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         x = attention_inputs(dtype, gen)
         got = ak.self_attention(x["q"], x["k"], x["v"], x["mask0"],
@@ -179,6 +290,7 @@ def phase_kernels():
         require(e_a <= tol and e_b <= tol,
                 f"attention kernel disagrees in {dtype}")
         errs[dtype] = (e_a, e_b)
+        fused_errs[dtype] = check_fused(x, dtype, tol, gen)
     # bfloat16 (the main path's type) timings; x holds the bf16 operands
     t_a = cuda_ms(lambda: ak.self_attention(x["q"], x["k"], x["v"],
                                             x["mask0"], rot=x["rot"]))
@@ -207,6 +319,30 @@ def phase_kernels():
                                        attn_mask=am0, scale=1.0)
     t_b_lib = cuda_ms(sdpa_bidir)
 
+    # D and F on the bf16 self-attention case
+    q, k, v, mask, scale, bias, out, lse, do = fused_errs[torch.bfloat16][2]
+    t_d = cuda_ms(lambda: ak.attention_fwd(q, k, v, bias, scale))
+    t_d_plain = cuda_ms(lambda: ak.fused_attention_plain(q, k, v, mask,
+                                                         scale), iters=5)
+    t_f = cuda_ms(lambda: ak.attention_bwd(q, k, v, out, do, bias, lse,
+                                           scale))
+    t_f_plain = cuda_ms(lambda: ak.fused_attention_bwd_plain(
+        q, k, v, bias, do, scale), iters=5)
+    qg, kg, vg = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
+    dog = do.contiguous()
+    am = mask[:, None, None, :]
+    with torch.no_grad():
+        t_d_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qg, kg, vg, attn_mask=am, scale=scale))
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=am,
+                                              scale=scale)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), dog)
+    t_f_lib = cuda_ms(sdpa_fwd_bwd) - cuda_ms(sdpa_fwd)
+
     score = torch.rand(*NMS_SHAPE, generator=gen, device="cuda")
     score = torch.where(score > 0.3, score, torch.zeros_like(score))
     got = nk.nms_rounds(score, NMS_RADIUS, NMS_ROUNDS)
@@ -227,6 +363,8 @@ def phase_kernels():
     b_a, by_a = attention_bound_ms("self", x["q"], x["k"])
     b_b, by_b = attention_bound_ms("cross", x["qk0"], x["qk1"])
     b_c, by_c = nms_bound_ms(score)
+    b_d, by_d = fused_bound_ms("fwd", q, k)
+    b_f, by_f = fused_bound_ms("bwd", q, k)
     rows = [
         dict(name="self_attention_rot", route="cuda",
              source="ei_nexus_tpu_torch/csrc/self_attention.cu",
@@ -248,6 +386,22 @@ def phase_kernels():
              max_abs_err=0.0, max_abs_err_f32=0.0,
              ms=t_c, plain_ms=t_c_plain, bound_ms=b_c, bound_by=by_c,
              library_ms=None),
+        dict(name="attention_fwd", route="cuda",
+             source="ei_nexus_tpu_torch/csrc/attention_fwd.cu",
+             replaces="ei_nexus_tpu/ops/pallas_attention.py:274",
+             max_abs_err=fused_errs[torch.bfloat16][0],
+             max_abs_err_f32=fused_errs[torch.float32][0],
+             ms=t_d, plain_ms=t_d_plain, bound_ms=b_d, bound_by=by_d,
+             library_ms=t_d_lib),
+        dict(name="attention_bwd", route="cuda",
+             source="ei_nexus_tpu_torch/csrc/attention_bwd.cu",
+             replaces="ei_nexus_tpu/ops/pallas_attention.py:349",
+             max_abs_err=fused_errs[torch.bfloat16][1],
+             max_abs_err_f32=fused_errs[torch.float32][1],
+             rel_err=fused_errs[torch.bfloat16][3],
+             rel_err_f32=fused_errs[torch.float32][3],
+             ms=t_f, plain_ms=t_f_plain, bound_ms=b_f, bound_by=by_f,
+             library_ms=t_f_lib),
     ]
     for r in rows:
         print(f"[kernels] {r['name']}: {r['ms']:.4f} ms (plain "
@@ -264,8 +418,6 @@ def phase_kernels():
 def phase_main_path():
     from ei_nexus_tpu_torch.data.synth import bursty_event_batch
     from ei_nexus_tpu_torch.flagship import build_flagship
-    from ei_nexus_tpu_torch.ops import attention_kernels as ak
-    from ei_nexus_tpu_torch.ops import nms_kernel as nk
     from ei_nexus_tpu_torch.train.steps import batch_representation
 
     B, max_events = 8, 1 << 17
@@ -281,16 +433,16 @@ def phase_main_path():
         rep, mask = batch_representation(ev, "VoxelGrid", bins, H, W)
         return model(rep, image, mask)
 
-    counters = (ak.self_attention, ak.cross_attention_bidir, nk.nms_rounds)
+    counters = kernel_counters()
     with torch.inference_mode():
-        for c in counters:
+        for c in counters.values():
             c.launches = 0
         f0, f1, m = forward()
         torch.cuda.synchronize()
-        launches = {c.__name__: c.launches for c in counters}
+        launches = {n: c.launches for n, c in counters.items()}
         print(f"[main] launches in one forward: {launches}")
-        want = {"self_attention": 18, "cross_attention_bidir": 9,
-                "nms_rounds": 2}
+        want = {"self_attention_rot": 18, "cross_attention_bidir": 9,
+                "nms_rounds": 2, "attention_fwd": 0, "attention_bwd": 0}
         require(launches == want, f"launch counts {launches} != {want}")
         K = 1024
         for f in (f0, f1):
@@ -346,7 +498,107 @@ def phase_main_path():
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the same small model on the CPU and on the card
+# phase 4: the stage-2 training step at full width
+# ---------------------------------------------------------------------------
+
+# the counters of every kernel, by the name the JSON line gives it
+def kernel_counters():
+    from ei_nexus_tpu_torch.ops import attention_kernels as ak
+    from ei_nexus_tpu_torch.ops import nms_kernel as nk
+    return {"self_attention_rot": ak.self_attention,
+            "cross_attention_bidir": ak.cross_attention_bidir,
+            "nms_rounds": nk.nms_rounds,
+            "attention_fwd": ak.attention_fwd,
+            "attention_bwd": ak.attention_bwd}
+
+
+def to_cuda(batch):
+    """A stage-2 batch of numpy arrays -> the same structure on the card."""
+    data0, data1, T01, T10 = batch
+    dev = {k: torch.as_tensor(v).cuda() for k, v in data0.items()}
+    return (dev, {k: torch.as_tensor(v).cuda() for k, v in data1.items()},
+            torch.as_tensor(T01).cuda(), torch.as_tensor(T10).cuda())
+
+
+def phase_stage2():
+    from ei_nexus_tpu_torch.data.synth import stage2_batch
+    from ei_nexus_tpu_torch.flagship import (build_stage2_flagship,
+                                             stage2_train_state)
+    from ei_nexus_tpu_torch.train.steps import make_stage2_train_step
+
+    B, max_events = 8, 1 << 17
+    model, (H, W, bins) = build_stage2_flagship(
+        dtype="bfloat16", generator=torch.Generator().manual_seed(0))
+    # 100 steps an epoch: the cosine schedule stays near its base lr here
+    state = stage2_train_state(model, steps_per_epoch=100)
+    batch = to_cuda(stage2_batch(np.random.default_rng(0), B,
+                                 int(max_events * 0.95), max_events, H, W))
+    step = make_stage2_train_step("VoxelGrid", bins, H, W)
+    fill = torch.Generator(device="cuda")
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    fill.manual_seed(1)
+    info = step(state, batch, fill)
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}
+    print(f"[stage2] launches in one step: {launches}")
+    want = {"self_attention_rot": 0, "cross_attention_bidir": 0,
+            "nms_rounds": 2, "attention_fwd": 36, "attention_bwd": 36}
+    require(launches == want, f"launch counts {launches} != {want}")
+    loss1, gnorm = float(info["loss"]), float(info["grad_norm"])
+    require(np.isfinite(loss1) and np.isfinite(gnorm) and gnorm > 0,
+            f"loss {loss1}, grad_norm {gnorm}")
+    print(f"[stage2] step 1: loss {loss1:.6f}, grad_norm {gnorm:.6f}, "
+          f"gt_matches {float(info['gt_matches']):.2f}")
+    for _ in range(10):
+        fill.manual_seed(1)     # the same batch and the same fill
+        info = step(state, batch, fill)
+    loss11 = float(info["loss"])
+    print(f"[stage2] loss after 10 more updates on the same batch and "
+          f"fill: {loss11:.6f} (step 1: {loss1:.6f})")
+    require(loss11 < loss1, "the loss did not decrease")
+    end = model.state_dict()
+    frozen = [k for k in start if not k.startswith("matcher.")]
+    changed = [k for k in frozen if not torch.equal(start[k], end[k])]
+    require(not changed, f"frozen tensors changed: {changed[:5]}")
+    n_stats = sum(k.endswith(("running_mean", "running_var")) for k in frozen)
+    moved = sum(not torch.equal(start[k], end[k]) for k in start
+                if k.startswith("matcher."))
+    n_matcher = sum(k.startswith("matcher.") for k in start)
+    print(f"[stage2] {len(frozen)} frozen tensors ({n_stats} BatchNorm "
+          f"statistics) bit-unchanged; {moved} of {n_matcher} matcher "
+          f"tensors changed")
+    require(moved == n_matcher, "a matcher parameter did not change")
+
+    # steps back to back, an event between each: the window's mean rate
+    # and the spread of single steps inside it
+    torch.cuda.reset_peak_memory_stats()
+    n = 24
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(n):
+        fill.manual_seed(1)
+        step(state, batch, fill)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    each = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    per_step = events[0].elapsed_time(events[-1]) / n
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[stage2] step B={B}: {per_step:.3f} ms per step back to back "
+          f"over {n} (CUDA events; host clock {host_ms:.3f} ms), "
+          f"{1e3 / per_step:.3f} steps/s; single steps min "
+          f"{min(each):.3f}, median {float(np.median(each)):.3f}, max "
+          f"{max(each):.3f} ms; peak memory {peak_gb:.2f} GB")
+    return launches, per_step
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the same small model on the CPU and on the card
 # ---------------------------------------------------------------------------
 
 
@@ -440,6 +692,74 @@ def phase_cpu_vs_gpu():
     return report, match_agree
 
 
+def phase_cpu_vs_gpu_train():
+    """One stage-2 step of a small float32 model (descriptors 256 in 4
+    heads of 64, 2 layers, K=128) on the CPU (plain versions) and on the
+    card (kernels D, F, C), same weights, batch and fill."""
+    from ei_nexus_tpu_torch.data.synth import stage2_batch
+    from ei_nexus_tpu_torch.flagship import (STAGE2_LR, stage2_config,
+                                             stage2_train_state)
+    from ei_nexus_tpu_torch.models.eim import EIM
+    from ei_nexus_tpu_torch.models.layers import init_parameters
+    from ei_nexus_tpu_torch.train.steps import make_stage2_train_step
+
+    H, W, bins, K, B = 64, 96, 4, 128, 2
+    cfg, _ = stage2_config(tiny=False, dtype="float32")
+    kp = dataclasses.replace(cfg.event_extractor.keypoints,
+                             detection_top_k=K, nms_impl="pallas")
+    cfg = dataclasses.replace(
+        cfg,
+        event_extractor=dataclasses.replace(
+            cfg.event_extractor, in_channels=bins, feat_channels=32,
+            lat_channels=64, keypoints=kp),
+        image_extractor=dataclasses.replace(cfg.image_extractor,
+                                            keypoints=kp),
+        matcher=dataclasses.replace(
+            cfg.matcher, max_points_num=K,
+            lightglue=dataclasses.replace(cfg.matcher.lightglue,
+                                          n_layers=2)))
+    cpu_model = EIM(cfg, training_heads=True)
+    init_parameters(cpu_model, torch.Generator().manual_seed(2))
+    gpu_model = copy.deepcopy(cpu_model).cuda()
+    rng = np.random.default_rng(2)
+    batch = stage2_batch(rng, B, 6000, 8192, H, W)
+    # one fill for both devices: positions uniform over the image (zero
+    # third column), unit normal descriptors
+    pos = np.concatenate([rng.uniform(0, 1, (B, K, 2)) * [H, W],
+                          np.zeros((B, K, 1))], -1).astype(np.float32)
+    desc = rng.normal(size=(B, K, 256))
+    desc = (desc / np.linalg.norm(desc, axis=-1, keepdims=True)).astype(
+        np.float32)
+    fill = tuple((torch.as_tensor(pos), torch.as_tensor(desc))
+                 for _ in range(2))
+    step = make_stage2_train_step("VoxelGrid", bins, H, W)
+    res = {}
+    for name, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+        state = stage2_train_state(model)
+        dev_fill = tuple((p.to(name), d.to(name)) for p, d in fill)
+        info = step(state, batch, fill=dev_fill)
+        res[name] = ({k: float(v) for k, v in info.items()},
+                     {k: v.cpu() for k, v in model.state_dict().items()})
+    (ic, sc), (ig, sg) = res["cpu"], res["cuda"]
+    e_loss = abs(ig["loss"] - ic["loss"]) / abs(ic["loss"])
+    e_norm = abs(ig["grad_norm"] - ic["grad_norm"]) / ic["grad_norm"]
+    e_par = max(max_err(sg[k], sc[k]) for k in sc)
+    lr = STAGE2_LR
+    print(f"[cpu-vs-gpu] stage-2 step: loss {ic['loss']:.6f} (cpu) vs "
+          f"{ig['loss']:.6f} (card), rel {e_loss:.2e}; grad_norm "
+          f"{ic['grad_norm']:.6f} vs {ig['grad_norm']:.6f}, rel "
+          f"{e_norm:.2e}; updated parameters max|err| {e_par:.2e}; "
+          f"gt_matches {ic['gt_matches']:.2f} vs {ig['gt_matches']:.2f}")
+    # float32 sums in another order (and the kernels' online softmax);
+    # Adam's first step moves a parameter by about lr whatever its
+    # gradient's size, so a near-zero gradient of another sign flips it
+    require(ic["gt_matches"] == ig["gt_matches"], "GT matches differ")
+    require(e_loss <= 1e-4, f"stage-2 loss differs: rel {e_loss:.2e}")
+    require(e_norm <= 1e-3, f"grad_norm differs: rel {e_norm:.2e}")
+    require(e_par <= 4 * lr, f"updated parameters differ: {e_par:.2e}")
+    return e_loss, e_norm, e_par
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -467,14 +787,18 @@ def main() -> int:
 
     rows = phase_kernels()
     launches, fwd_ms, B = phase_main_path()
+    train_launches, step_ms = phase_stage2()
     for r in rows:
-        r["launches"] = launches[{"self_attention_rot": "self_attention"}
-                                 .get(r["name"], r["name"])]
+        r["launches"] = (train_launches if r["name"].startswith(
+            "attention_") else launches)[r["name"]]
     phase_cpu_vs_gpu()
+    phase_cpu_vs_gpu_train()
 
     print(json.dumps({"kernels": rows}))
     print(f"flagship forward: {B / fwd_ms * 1e3:.2f} pairs/s "
           f"({fwd_ms:.3f} ms per batch of {B}, back to back) on {smi}")
+    print(f"stage-2 training step: {1e3 / step_ms:.3f} steps/s "
+          f"({step_ms:.3f} ms per step of {B} pairs, back to back) on {smi}")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
 // Flash-style row-softmax attention core shared by the self-attention
-// (kernel A, csrc/self_attention.cu) and bidirectional cross-attention
-// (kernel B, csrc/cross_attention.cu) kernels.
+// (kernel A, csrc/self_attention.cu), bidirectional cross-attention
+// (kernel B, csrc/cross_attention.cu) and differentiable attention forward
+// (kernel D, csrc/attention_fwd.cu) kernels; the backward (kernel F,
+// csrc/attention_bwd.cu) reuses its tensor-core fragments.
 //
 // One block computes BQ query rows of one (batch, head) problem. The query
 // tile stays on chip; key/value tiles of BK rows stream through shared
@@ -79,6 +81,9 @@ struct Problem {
   Output o;
   int nq, nk;
   float scale;         // applied to the float32 product, before the bias
+  float* lse = nullptr;  // optional (B, heads, nq) float32 row log-sum-exp
+                         // m + log(l) of the scaled, biased scores
+  int heads = 0;
 };
 
 // Two consecutive bf16 of shared memory as one 32-bit register, the lower
@@ -292,6 +297,8 @@ __device__ void flash_block_fma(const Problem& p, int b, int h, int q0,
   for (int i = 0; i < 4; ++i) {
     const int n = q0 + ty * 4 + i;
     if (n >= p.nq) continue;
+    if (p.lse != nullptr && tx == 0)
+      p.lse[((long long)b * p.heads + h) * p.nq + n] = m[i] + logf(l[i]);
     const float inv = 1.f / l[i];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
@@ -431,6 +438,8 @@ __device__ void flash_block_mma(const Problem& p, int b, int h, int q0,
   for (int hr = 0; hr < 2; ++hr) {
     const int n = q0 + w0 + g + 8 * hr;
     if (n >= p.nq) continue;
+    if (p.lse != nullptr && t == 0)
+      p.lse[((long long)b * p.heads + h) * p.nq + n] = m[hr] + logf(l[hr]);
     const float inv = 1.f / l[hr];
 #pragma unroll
     for (int jd = 0; jd < 8; ++jd)

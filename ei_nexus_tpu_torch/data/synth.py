@@ -3,6 +3,7 @@
 A copy of `ei_nexus_tpu/data/synth.py` (numpy only): temporally bursty,
 spatially clustered streams with hot pixels and exact timestamp ties, the
 regime that stresses voxelization and NMS. Same generator, same numbers.
+`stage2_batch` wraps them into the stage-2 training batch.
 """
 
 from __future__ import annotations
@@ -48,3 +49,26 @@ def bursty_event_batch(rng: np.random.Generator, batch: int, n: int,
         for k, v in zip(out, (xp, yp, tp, pp, m)):
             out[k].append(v)
     return {k: np.stack(v) for k, v in out.items()}
+
+
+def stage2_batch(rng: np.random.Generator, batch: int, n: int,
+                 max_events: int, height: int, width: int,
+                 focal: float = 199.0, depth: float = 2.0,
+                 shift: float = 0.05):
+    """A stage-2 training batch (data0, data1, T01, T10), as
+    tools/bench_train.py builds it: view 0 carries bursty events (`n` of
+    `max_events` slots), view 1 a random frame in [0, 255]; both views have
+    K = [[f, 0, W/2], [0, f, H/2], [0, 0, 1]] and a constant depth map;
+    T01 is an x-translation by `shift` and T10 its inverse. View 1's events
+    are never read by the step, so it has none."""
+    data0 = bursty_event_batch(rng, batch, n, max_events, height, width)
+    K = np.tile(np.array([[focal, 0, width / 2], [0, focal, height / 2],
+                          [0, 0, 1]], np.float32), (batch, 1, 1))
+    dmap = np.full((batch, height, width), depth, np.float32)
+    data0.update(K=K, depth=dmap)
+    data1 = {"image": rng.uniform(0, 255, (batch, height, width, 1)
+                                  ).astype(np.float32),
+             "K": K.copy(), "depth": dmap.copy()}
+    T01 = np.tile(np.eye(4, dtype=np.float32), (batch, 1, 1))
+    T01[:, 0, 3] = shift
+    return data0, data1, T01, np.linalg.inv(T01).astype(np.float32)

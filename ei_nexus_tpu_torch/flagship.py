@@ -4,20 +4,34 @@ at MVSEC scale, the configuration the JAX package's benchmark times.
 Counterpart of `__graft_entry__._flagship`, with the same shapes: full is
 260x346, 16 bins, K=1024, feature width 128, descriptors 256, 9 LightGlue
 layers of 4 heads; tiny is 32x48, 4 bins, K=32, width 16, descriptors 32,
-2 layers.
+2 layers. Its stage-2 variant (`build_stage2_flagship`) freezes the event
+extractor as tools/bench_train.py does and trains LightGlue with the
+optimizer of configs/train/train_stage2.yaml (`stage2_train_state`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple, Union
 
 import torch
 
 from .device import resolve_device
+from .train.partition import frozen_roots_from_config
+from .train.state import TrainState, create_train_state
 from .models.eim import EIM, EIMConfig, ExtractorSpec, MatcherConfig
 from .models.extractor import KeypointExtractorConfig
 from .models.layers import init_parameters
 from .models.lightglue import LightGlueConfig
+
+
+# configs/train/train_stage2.yaml
+STAGE2_OPTIMIZER = {"type": "AdamW",
+                    "AdamW": {"weight_decay": 1e-5, "betas": [0.9, 0.999],
+                              "eps": 1e-8}}
+STAGE2_SCHEDULER = {"type": "CosineAnnealingLR",
+                    "CosineAnnealingLR": {"T_max": 50, "eta_min": 1e-7}}
+STAGE2_LR = 1e-4
 
 
 def flagship_config(tiny: bool = False, dtype: str = "bfloat16"
@@ -61,3 +75,38 @@ def build_flagship(tiny: bool = False, dtype: str = "bfloat16",
         generator = torch.Generator().manual_seed(0)
     init_parameters(model, generator)
     return model.to(dev).eval(), shape
+
+
+def stage2_config(tiny: bool = False, dtype: str = "bfloat16",
+                  pad_mode: str = "random"
+                  ) -> Tuple[EIMConfig, Tuple[int, int, int]]:
+    """The flagship with its event extractor frozen (both extractors
+    frozen, LightGlue trained): stage 2."""
+    cfg, shape = flagship_config(tiny, dtype)
+    return dataclasses.replace(
+        cfg,
+        event_extractor=dataclasses.replace(cfg.event_extractor, freeze=True),
+        matcher=dataclasses.replace(cfg.matcher, pad_mode=pad_mode)), shape
+
+
+def build_stage2_flagship(tiny: bool = False, dtype: str = "bfloat16",
+                          device: Optional[Union[str, torch.device]] = "cuda",
+                          generator: Optional[torch.Generator] = None
+                          ) -> Tuple[EIM, Tuple[int, int, int]]:
+    """(stage-2 model on `device` with LightGlue's training heads,
+    (H, W, bins)); weights random from `generator` as `build_flagship`."""
+    dev = resolve_device(device)
+    cfg, shape = stage2_config(tiny, dtype)
+    model = EIM(cfg, training_heads=True)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    init_parameters(model, generator)
+    return model.to(dev), shape
+
+
+def stage2_train_state(model: EIM, steps_per_epoch: int = 1) -> TrainState:
+    """Freeze the config's frozen roots and build stage 2's AdamW with its
+    cosine schedule over the rest."""
+    return create_train_state(model, frozen_roots_from_config(model.config),
+                              STAGE2_OPTIMIZER, STAGE2_SCHEDULER, STAGE2_LR,
+                              steps_per_epoch)

@@ -1,5 +1,5 @@
 """Model zoo of the port: VGG blocks, the cell-8 event extractor,
-SuperPoint v1, LightGlue (inference) and the composite EIM. Counterpart of
+SuperPoint v1, LightGlue (inference and training) and the composite EIM. Counterpart of
 `ei_nexus_tpu/models/`; NHWC at the public functions."""
 
 from .vgg import VGGBlock, VGGBackbone, VGGDetectorHead, VGGDescriptorHead

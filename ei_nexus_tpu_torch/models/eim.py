@@ -3,11 +3,15 @@
 Counterpart of `ei_nexus_tpu/models/eim.py`: an event extractor, a frozen
 image extractor and the Matcher wrapper, dispatched from the same config
 dataclasses. At inference the Matcher fits the fixed-K slots to
-`max_points_num` and the validity masks flow into the matcher.
+`max_points_num` and the validity masks flow into the matcher. In training
+(stage 2: both extractors frozen, the matcher trained) the extractors run
+as at inference, BatchNorm on its running statistics and without
+gradient, and with pad_mode="random" the Matcher fills the invalid slots
+with random keypoints, after which every slot is valid.
 
-Ported in this slice: the "vgg" event extractor, the "superpointv1" image
-extractor and the LightGlue matcher, inference only. Other extractor and
-matcher types, training (random slot filling) and ImageImageMatcher raise
+Ported so far: the "vgg" event extractor, the "superpointv1" image
+extractor and the LightGlue matcher. Other extractor and matcher types,
+training an extractor (stage 1) and ImageImageMatcher raise
 NotImplementedError.
 """
 
@@ -79,22 +83,50 @@ def _build_extractor(spec: ExtractorSpec) -> nn.Module:
     raise NotImplementedError(f"extractor type {spec.type!r} is not ported")
 
 
+Fill = Tuple[torch.Tensor, torch.Tensor]
+
+
+def random_fill(feats: Dict[str, torch.Tensor], length: int,
+                scale: float = 1.0,
+                generator: Optional[torch.Generator] = None) -> Fill:
+    """The random keypoints of the training fill, one per slot: positions
+    (B, length, 3), uniform over the image (`image_size`, (H, W)) with a
+    zero third column; descriptors (B, length, D), normal, L2-normalised,
+    times `scale`. Drawn on the features' device from `generator` (a
+    generator of that device; torch's default when None), positions
+    first."""
+    pos = feats["sparse_positions"]
+    desc = feats["sparse_descriptors"]
+    B, D = pos.shape[0], desc.shape[-1]
+    u = torch.rand(B, length, 2, generator=generator, dtype=pos.dtype,
+                   device=pos.device)
+    yx = u * feats["image_size"][:, None, :].to(pos.dtype)
+    rand_pos = torch.cat([yx, yx.new_zeros(B, length, 1)], dim=-1)
+    n = torch.randn(B, length, D, generator=generator, dtype=desc.dtype,
+                    device=desc.device)
+    n = n / n.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+    return rand_pos, n * scale
+
+
 class Matcher(nn.Module):
     """Matcher wrapper: slot fitting + type dispatch."""
 
-    def __init__(self, config: MatcherConfig = MatcherConfig()):
+    def __init__(self, config: MatcherConfig = MatcherConfig(),
+                 training_heads: bool = False):
         super().__init__()
         self.config = config
         if config.type == "LightGlue":
-            self.lightglue = LightGlue(config.lightglue)
+            self.lightglue = LightGlue(config.lightglue, training_heads)
         elif config.type is not None:
             raise NotImplementedError(
                 f"matcher type {config.type!r} is not ported")
 
-    def _fit_slots(self, feats: Dict[str, torch.Tensor]
-                   ) -> Dict[str, torch.Tensor]:
-        """Truncate or zero-pad the fixed-K slots to max_points_num (the
-        eval path: invalid slots stay invalid and masked downstream)."""
+    def _fit_slots(self, feats: Dict[str, torch.Tensor],
+                   fill: Optional[Fill] = None) -> Dict[str, torch.Tensor]:
+        """Truncate or zero-pad the fixed-K slots to max_points_num. Without
+        `fill` (the eval path) invalid slots stay invalid and are masked
+        downstream; with fill = (positions, descriptors) for every slot,
+        invalid slots take the fill and all slots become valid."""
         L = self.config.max_points_num
         pos = feats["sparse_positions"]
         desc = feats["sparse_descriptors"]
@@ -109,6 +141,11 @@ class Matcher(nn.Module):
             pos = F.pad(pos, (0, 0, 0, L - K))
             desc = F.pad(desc, (0, 0, 0, L - K))
             valid = F.pad(valid, (0, L - K))
+        if fill is not None:
+            m = valid[..., None]
+            pos = torch.where(m, pos, fill[0].to(pos.dtype))
+            desc = torch.where(m, desc, fill[1].to(desc.dtype))
+            valid = torch.ones_like(valid)
         out = dict(feats)
         out["sparse_positions"] = pos
         out["sparse_descriptors"] = desc
@@ -117,14 +154,26 @@ class Matcher(nn.Module):
 
     def forward(self, feats0: Dict[str, torch.Tensor],
                 feats1: Dict[str, torch.Tensor],
-                training: bool = False) -> Optional[Dict[str, torch.Tensor]]:
-        if self.config.type is None:
+                training: bool = False,
+                generator: Optional[torch.Generator] = None,
+                fill: Optional[Tuple[Fill, Fill]] = None
+                ) -> Optional[Dict[str, torch.Tensor]]:
+        """In training with pad_mode="random" the invalid slots are filled:
+        from `fill` = (fill0, fill1) when given (each as `random_fill`
+        returns it), else drawn with `random_fill` from `generator`, side 0
+        first. The filled slots come back in input_feats0/1."""
+        cfg = self.config
+        if cfg.type is None:
             return None
-        if training:
-            raise NotImplementedError("Matcher training is not ported yet")
-        f0 = self._fit_slots(feats0)
-        f1 = self._fit_slots(feats1)
-        out = self.lightglue(f0, f1)
+        if not (training and cfg.pad_mode == "random"):
+            fill = (None, None)
+        elif fill is None:
+            fill = tuple(random_fill(f, cfg.max_points_num,
+                                     cfg.desc_scale_factor, generator)
+                         for f in (feats0, feats1))
+        f0 = self._fit_slots(feats0, fill[0])
+        f1 = self._fit_slots(feats1, fill[1])
+        out = self.lightglue(f0, f1, training=training)
         keys = ("sparse_positions", "sparse_descriptors", "sparse_valid",
                 "image_size")
         out["input_feats0"] = {k: f0[k] for k in keys}
@@ -135,26 +184,38 @@ class Matcher(nn.Module):
 class EIM(nn.Module):
     """Event extractor + (frozen) image extractor + matcher."""
 
-    def __init__(self, config: EIMConfig = EIMConfig()):
+    def __init__(self, config: EIMConfig = EIMConfig(),
+                 training_heads: bool = False):
         super().__init__()
         self.config = config
         self.event_extractor = _build_extractor(config.event_extractor)
         self.image_extractor = _build_extractor(config.image_extractor)
-        self.matcher = Matcher(config.matcher)
+        self.matcher = Matcher(config.matcher, training_heads)
 
     def forward(self, events: torch.Tensor, image: torch.Tensor,
                 events_mask: Optional[torch.Tensor] = None,
                 image_mask: Optional[torch.Tensor] = None,
-                training: bool = False, dense: bool = False
-                ) -> Tuple[Dict, Dict, Optional[Dict]]:
+                training: bool = False, dense: bool = False,
+                generator: Optional[torch.Generator] = None,
+                fill=None) -> Tuple[Dict, Dict, Optional[Dict]]:
         """events: (B, H, W, bins) NHWC; image: (B, H, W, 1) in [0, 255];
         events_mask: (B, H, W) bool occupancy. `dense=True` also returns
-        the full-resolution descriptor maps (see models/extractor.py)."""
-        if training:
-            raise NotImplementedError("EIM training is not ported yet")
-        events_feats = self.event_extractor(events, events_mask, dense)
-        image_feats = self.image_extractor(image, image_mask, dense)
-        matches = self.matcher(events_feats, image_feats)
+        the full-resolution descriptor maps (see models/extractor.py).
+        `training=True` trains the matcher unless it is frozen;
+        `generator` and `fill` drive its random slot fill (Matcher)."""
+        cfg = self.config
+        if training and not (cfg.event_extractor.freeze
+                             and cfg.image_extractor.freeze):
+            raise NotImplementedError(
+                "training an extractor (stage 1) is not ported yet")
+        # frozen extractors run as at inference (JAX's train=False): BN on
+        # its running statistics, and nothing to differentiate
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not training):
+            events_feats = self.event_extractor(events, events_mask, dense)
+            image_feats = self.image_extractor(image, image_mask, dense)
+        matches = self.matcher(events_feats, image_feats,
+                               training=training and not cfg.matcher.freeze,
+                               generator=generator, fill=fill)
         return events_feats, image_feats, matches
 
 

@@ -1,17 +1,25 @@
-"""LightGlue attention matcher, inference forward.
+"""LightGlue attention matcher: the inference forward and the training
+forward of stage 2.
 
 Counterpart of `ei_nexus_tpu/models/lightglue.py`: transformer layers with
 the rotary learnable-Fourier positional encoding, bidirectional shared-QK
 cross attention, the sigmoid-gated dual-softmax assignment head and
 mutual + threshold match filtering, over static K slots per side with
-validity masks.
+validity masks. In training (`forward(training=True)`, on a model built
+with `training_heads=True`) every layer's assignment head and the token
+confidence heads (on detached descriptors) feed the deep-supervision loss.
 
 `attention_impl`: "auto" and "pallas" take the fused kernels of
 ops/attention_kernels.py (the CUDA kernels on a CUDA tensor, their plain
-versions on a CPU tensor; key-side masks); "xla" takes the plain einsum
-path with `_attention_xla` and the CrossBlock's joint mask. Not in this
-slice, and refused at construction: training, "flash", scan_layers,
-adaptive depth/width and shard_heads.
+versions on a CPU tensor; key-side masks): kernels A and B at inference,
+the differentiable kernel D/F pair in training (rotary applied outside,
+scale d^-0.5 for self-attention, two calls at scale 1 for the
+cross-attention). Unlike the JAX package, which trains on XLA attention
+unless EI_NEXUS_ATTN_TRAIN=pallas is set, training takes the kernels
+without a switch. "xla" takes the plain einsum path with `_attention_xla`
+and the CrossBlock's joint mask, under autograd in training. Not in this
+slice, and refused at construction: "flash", scan_layers, adaptive
+depth/width and shard_heads.
 """
 
 from __future__ import annotations
@@ -23,8 +31,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention_kernels import (cross_attention_bidir, rotate_half,
-                                     self_attention)
+from ..ops.attention_kernels import (cross_attention_bidir, fused_attention,
+                                     rotate_half, self_attention)
 from .layers import LayerNorm, Linear
 
 _MASK_BIAS = -1e9
@@ -113,13 +121,18 @@ class SelfBlock(nn.Module):
         self.out_proj = Linear(embed_dim, embed_dim, dtype=dtype)
         self.ffn = _ffn(embed_dim, dtype)
 
-    def forward(self, x, encoding, kv_mask=None):
+    def forward(self, x, encoding, kv_mask=None, training: bool = False):
         B, N, D = x.shape
         h = self.num_heads
         # (B, N, h, hd, 3): q, k, v interleaved at stride 3
         qkv = self.Wqkv(x).unflatten(-1, (h, D // h, 3)).transpose(1, 2)
         q, k, v = qkv[..., 0], qkv[..., 1], qkv[..., 2]
-        if self.attn_impl == "pallas":
+        if self.attn_impl == "pallas" and training:
+            # kernels D/F: rotary outside, scale d^-0.5 on the product
+            q = apply_rotary(encoding, q)
+            k = apply_rotary(encoding, k)
+            ctx = fused_attention(q, k, v, kv_mask).to(q.dtype)
+        elif self.attn_impl == "pallas":
             # kernel A reads the strided views in place and rotates q, k
             rot = (encoding[0][:, 0], encoding[1][:, 0])   # (B, N, hd)
             ctx = self_attention(q, k, v, kv_mask, rot=rot).to(q.dtype)
@@ -147,7 +160,7 @@ class CrossBlock(nn.Module):
         self.to_out = Linear(embed_dim, embed_dim, dtype=dtype)
         self.ffn = _ffn(embed_dim, dtype)
 
-    def forward(self, x0, x1, mask0=None, mask1=None):
+    def forward(self, x0, x1, mask0=None, mask1=None, training: bool = False):
         B, N, D = x0.shape
         M = x1.shape[1]
         h = self.num_heads
@@ -164,7 +177,12 @@ class CrossBlock(nn.Module):
         v0 = split(self.to_v(x0))
         v1 = split(self.to_v(x1))
 
-        if self.attn_impl == "pallas":
+        if self.attn_impl == "pallas" and training:
+            # kernels D/F, one call a direction at scale 1 (pre-scaled qk);
+            # autograd sums the q-role and k-role gradients of the shared qk
+            m0 = fused_attention(qk0, qk1, v1, mask1, 1.0).to(v1.dtype)
+            m1 = fused_attention(qk1, qk0, v0, mask0, 1.0).to(v0.dtype)
+        elif self.attn_impl == "pallas":
             m0, m1 = cross_attention_bidir(qk0, qk1, v0, v1, mask0, mask1)
             m0, m1 = m0.to(v1.dtype), m1.to(v0.dtype)
         else:
@@ -200,10 +218,11 @@ class TransformerLayer(nn.Module):
         self.cross_attn = CrossBlock(embed_dim, num_heads, dtype, attn_impl,
                                      score_dtype)
 
-    def forward(self, desc0, desc1, enc0, enc1, mask0=None, mask1=None):
-        desc0 = self.self_attn(desc0, enc0, mask0)
-        desc1 = self.self_attn(desc1, enc1, mask1)
-        return self.cross_attn(desc0, desc1, mask0, mask1)
+    def forward(self, desc0, desc1, enc0, enc1, mask0=None, mask1=None,
+                training: bool = False):
+        desc0 = self.self_attn(desc0, enc0, mask0, training)
+        desc1 = self.self_attn(desc1, enc1, mask1, training)
+        return self.cross_attn(desc0, desc1, mask0, mask1, training)
 
 
 def sigmoid_log_double_softmax(sim: torch.Tensor, z0: torch.Tensor,
@@ -264,7 +283,13 @@ def _take(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 class LightGlue(nn.Module):
-    def __init__(self, config: LightGlueConfig = LightGlueConfig()):
+    """`training_heads=True` adds what training reads: every layer's
+    assignment head (`log_assignment.{i}`) and the token-confidence heads
+    (`token_confidence.{i}`, i < L-1), the parameters of the JAX package's
+    training init; inference needs only the last layer's head."""
+
+    def __init__(self, config: LightGlueConfig = LightGlueConfig(),
+                 training_heads: bool = False):
         super().__init__()
         cfg = config
         if cfg.attention_impl not in ("auto", "pallas", "xla"):
@@ -287,17 +312,22 @@ class LightGlue(nn.Module):
             TransformerLayer(D, cfg.num_heads, dtype, attn_impl,
                              getattr(torch, cfg.score_dtype))
             for _ in range(cfg.n_layers))
-        # inference reads only the last layer's assignment head; the
-        # training slice adds the other layers' heads and token confidences
+        L = cfg.n_layers
+        heads = range(L) if training_heads else [L - 1]
         self.log_assignment = nn.ModuleDict(
-            {str(cfg.n_layers - 1): MatchAssignment(D)})
+            {str(i): MatchAssignment(D) for i in heads})
+        self.token_confidence = nn.ModuleDict(
+            {str(i): Linear(D, 1) for i in range(L - 1)}
+            if training_heads else {})
+        self.training_heads = training_heads
         self.compute_dtype = dtype
 
     def forward(self, feats0: Dict[str, torch.Tensor],
                 feats1: Dict[str, torch.Tensor],
                 training: bool = False) -> Dict[str, torch.Tensor]:
-        if training:
-            raise NotImplementedError("LightGlue training is not ported yet")
+        if training and not self.training_heads:
+            raise ValueError("LightGlue training needs a model built with "
+                             "training_heads=True")
         cfg = self.config
         kpts0 = feats0["sparse_positions"][..., :2]
         kpts1 = feats1["sparse_positions"][..., :2]
@@ -315,12 +345,31 @@ class LightGlue(nn.Module):
         desc0, desc1 = desc0.to(dt), desc1.to(dt)
         enc0 = tuple(e.to(dt) for e in self.posenc(nk0))
         enc1 = tuple(e.to(dt) for e in self.posenc(nk1))
-        for layer in self.transformers:
-            desc0, desc1 = layer(desc0, desc1, enc0, enc1, mask0, mask1)
-        head = self.log_assignment[str(cfg.n_layers - 1)]
-        scores, sim = head(desc0.float(), desc1.float())
+        L = cfg.n_layers
+        all_scores, conf0, conf1 = [], [], []
+        for i, layer in enumerate(self.transformers):
+            desc0, desc1 = layer(desc0, desc1, enc0, enc1, mask0, mask1,
+                                 training)
+            if training or i == L - 1:
+                d0f, d1f = desc0.float(), desc1.float()
+                scores, sim = self.log_assignment[str(i)](d0f, d1f)
+                all_scores.append(scores)
+            if training and i < L - 1:
+                token = self.token_confidence[str(i)]
+                conf0.append(token(d0f.detach())[..., 0])
+                conf1.append(token(d1f.detach())[..., 0])
+        with torch.no_grad():
+            out = self._matches(scores, mask0, mask1)
+        out["similarity"] = sim
+        out["log_assignment"] = scores
+        if training:
+            out["all_log_assignments"] = torch.stack(all_scores, dim=1)
+            out["confidence_logits0"] = torch.stack(conf0, dim=1)
+            out["confidence_logits1"] = torch.stack(conf1, dim=1)
+        return out
 
-        m0, m1, ms0, ms1 = filter_matches(scores, cfg.filter_threshold)
+    def _matches(self, scores, mask0, mask1) -> Dict[str, torch.Tensor]:
+        m0, m1, ms0, ms1 = filter_matches(scores, self.config.filter_threshold)
         if mask0 is not None:
             m0 = torch.where(mask0, m0, -1)
             ms0 = torch.where(mask0, ms0, 0.0)
@@ -342,6 +391,4 @@ class LightGlue(nn.Module):
             "matches1": m1,
             "matching_scores0": ms0,
             "matching_scores1": ms1,
-            "similarity": sim,
-            "log_assignment": scores,
         }

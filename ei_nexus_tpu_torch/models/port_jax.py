@@ -10,9 +10,13 @@ submodule such as one extractor or LightGlue):
  - BatchNorm scale/bias + batch_stats mean/var become weight, bias,
    running_mean, running_var; LayerNorm scale/bias become weight/bias;
  - module names carry over, with flax's numbered siblings
-   (transformers_3, log_assignment_8) as torch list entries
-   (transformers.3, log_assignment.8) and the FFN's ffn_0 / ffn_norm /
-   ffn_3 as the Sequential's ffn.0 / ffn.1 / ffn.3.
+   (transformers_3, log_assignment_8, token_confidence_7) as torch list
+   entries (transformers.3, log_assignment.8, token_confidence.7: the token
+   head is a Dense named directly, not the reference's `.token.0`) and the
+   FFN's ffn_0 / ffn_norm / ffn_3 as the Sequential's ffn.0 / ffn.1 /
+   ffn.3. A training init's variables (every layer's assignment head and
+   the token confidences) load into a model built with
+   `training_heads=True`.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Kernels A and B: LightGlue's fused attention.
+"""Kernels A, B, D and F: LightGlue's fused attention.
 
 Counterpart of `ei_nexus_tpu/ops/pallas_attention.py`:
 
@@ -6,7 +6,12 @@ Counterpart of `ei_nexus_tpu/ops/pallas_attention.py`:
    self-attention with the rotary encoding fused in (TPU kernel
    `_whole_rot_kernel`);
  - `cross_attention_bidir(qk0, qk1, v0, v1, mask0, mask1)`: kernel B,
-   shared-QK bidirectional cross-attention (TPU kernel `_cross_kernel`).
+   shared-QK bidirectional cross-attention (TPU kernel `_cross_kernel`);
+ - `fused_attention(q, k, v, kv_mask, scale)`: the differentiable attention
+   of the training path (TPU `fused_attention_vjp`), a
+   `torch.autograd.Function` whose forward is kernel D (`attention_fwd`,
+   TPU `_generic_fwd_kernel`) and whose backward is kernel F
+   (`attention_bwd`, TPU `_attention_bwd_kernel`).
 
 On a CUDA tensor each launches its hand-written kernel (csrc/) or raises;
 on a CPU tensor each runs its plain PyTorch version (`*_plain`), which
@@ -20,6 +25,13 @@ operand dtype.
 The kernels read q/k/v through strides (no copy of the strided views the
 LightGlue blocks produce) and write their outputs as (B, h, N, d) views of
 (B, N, h, d) buffers, so the caller's merge of the heads is free.
+
+The backward's plain version reproduces the TPU kernel's rounding points:
+dO in the operand dtype, dS = P o (dP - c) and P^T rounded to it before
+their products, c = rowsum(dP o P), P^T from the forward's row statistics.
+Kernel F takes c = rowsum(dO o O) instead (equal up to the rounding of O)
+and P = exp(S - lse) from the log-sum-exp kernel D saves; the mask gets no
+gradient.
 """
 
 from __future__ import annotations
@@ -84,8 +96,43 @@ def cross_attention_bidir_plain(qk0: torch.Tensor, qk1: torch.Tensor,
             _row_attention(qk1, qk0, v0, bias0, 1.0))
 
 
-def _check_cuda(name: str, *tensors: torch.Tensor) -> int:
-    """Common checks of the kernel wrappers; returns the dtype code."""
+def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          kv_mask: Optional[torch.Tensor] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version of kernel D: q (B, h, N, d), k and v
+    (B, h, M, d), kv_mask (B, M) masks keys; scale defaults to d^-0.5."""
+    B, _, _, d = q.shape
+    scale = d ** -0.5 if scale is None else scale
+    return _row_attention(q, k, v, key_bias(kv_mask, B, k.shape[2], q.device),
+                          scale)
+
+
+def fused_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, bias: torch.Tensor,
+                              do: torch.Tensor, scale: float
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Plain PyTorch version of kernel F: (dq, dk, dv) of kernel D for the
+    output gradient `do` (cast to q's dtype) and the (B, M) float32 key
+    bias, rounded where the TPU kernel rounds."""
+    do = do.to(q.dtype)
+    s = torch.matmul(q.float(), k.float().mT) * scale + bias[:, None, None]
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    p = e / e.sum(dim=-1, keepdim=True)
+    dp = torch.matmul(do.float(), v.float().mT)
+    c = (dp * p).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - c)).to(q.dtype).float()
+    dq = (torch.matmul(ds, k.float()) * scale).to(q.dtype)
+    dv = torch.matmul(p.to(do.dtype).float().mT, do.float()).to(v.dtype)
+    dk = (torch.matmul(ds.mT, q.float()) * scale).to(k.dtype)
+    return dq, dk, dv
+
+
+def _check_cuda(name: str, *tensors: torch.Tensor,
+                differentiable: bool = False) -> int:
+    """Common checks of the kernel wrappers; returns the dtype code. Only
+    the autograd pieces (D, F) may see tensors that require grad."""
     dev, dt = tensors[0].device, tensors[0].dtype
     for t in tensors:
         if t.device != dev or t.dtype != dt:
@@ -93,9 +140,17 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> int:
         if t.ndim != 4 or t.shape[-1] != _HEAD_DIM:
             raise ValueError(f"{name}: expected (B, h, N, {_HEAD_DIM}) "
                              f"operands, got {tuple(t.shape)}")
-        if t.requires_grad and torch.is_grad_enabled():
+        if not differentiable and t.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(f"{name} has no backward")
     return dtype_code(dt)
+
+
+def _check_rows(name: str, t: torch.Tensor, shape) -> torch.Tensor:
+    """A float32 per-row tensor of the kernels (bias, lse), contiguous."""
+    if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32:
+        raise ValueError(f"{name}: expected a float32 {tuple(shape)} tensor, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+    return t.contiguous()
 
 
 def _heads_out(B: int, h: int, n: int, d: int, like: torch.Tensor):
@@ -191,5 +246,120 @@ def cross_attention_bidir(qk0: torch.Tensor, qk1: torch.Tensor,
     return out0, out1
 
 
+def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: torch.Tensor, scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel D: (out (B, h, N, d), lse (B, h, N) float32) of row-softmax
+    attention of q (B, h, N, d) over k, v (B, h, M, d) with the (B, M)
+    float32 key bias; lse is each row's log-sum-exp of the scaled, biased
+    scores, which kernel F reads.
+
+    CPU tensors: the plain version. CUDA tensors: the CUDA kernel, or an
+    exception (d must be 64)."""
+    if q.device.type == "cpu":
+        s = torch.matmul(q.float(), k.float().mT) * scale \
+            + bias[:, None, None]
+        return (_row_attention(q, k, v, bias, scale),
+                torch.logsumexp(s, dim=-1))
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_fwd: unsupported device {q.device}")
+    code = _check_cuda("attention_fwd", q, k, v, differentiable=True)
+    B, h, N, d = q.shape
+    M = k.shape[2]
+    if k.shape[:2] != (B, h) or v.shape != k.shape:
+        raise ValueError("attention_fwd: mismatched shapes")
+    bias = _check_rows("attention_fwd bias", bias, (B, M))
+    out = _heads_out(B, h, N, d, q)
+    lse = torch.empty(B, h, N, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = library("attention_fwd").ei_attention_fwd(
+            code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            int64_array(q.stride() + k.stride() + v.stride()),
+            bias.data_ptr(), out.data_ptr(), int64_array(out.stride()),
+            lse.data_ptr(), B, h, N, M, float(scale), stream)
+    check(err, "attention_fwd")
+    attention_fwd.launches += 1
+    return out, lse
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, do: torch.Tensor, bias: torch.Tensor,
+                  lse: torch.Tensor, scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel F: (dq, dk, dv) of kernel D, given its output `out` and
+    log-sum-exp `lse` and the output gradient `do` (cast to q's dtype).
+
+    CPU tensors: the plain version (which recomputes the row statistics
+    and c = rowsum(dP o P) as the TPU kernel does). CUDA tensors: the CUDA
+    kernel, or an exception."""
+    do = do.to(q.dtype)
+    if q.device.type == "cpu":
+        return fused_attention_bwd_plain(q, k, v, bias, do, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_bwd: unsupported device {q.device}")
+    code = _check_cuda("attention_bwd", q, k, v, out, do,
+                       differentiable=True)
+    B, h, N, d = q.shape
+    M = k.shape[2]
+    if k.shape[:2] != (B, h) or v.shape != k.shape or out.shape != q.shape \
+            or do.shape != q.shape:
+        raise ValueError("attention_bwd: mismatched shapes")
+    bias = _check_rows("attention_bwd bias", bias, (B, M))
+    lse = _check_rows("attention_bwd lse", lse, (B, h, N))
+    dq = _heads_out(B, h, N, d, q)
+    dk = _heads_out(B, h, M, d, q)
+    dv = _heads_out(B, h, M, d, q)
+    c = torch.empty(B, h, N, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = library("attention_bwd").ei_attention_bwd(
+            code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            do.data_ptr(),
+            int64_array(q.stride() + k.stride() + v.stride() + out.stride()
+                        + do.stride()),
+            bias.data_ptr(), lse.data_ptr(), c.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            int64_array(dq.stride() + dk.stride() + dv.stride()),
+            B, h, N, M, float(scale), stream)
+    check(err, "attention_bwd")
+    attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _FusedAttention(torch.autograd.Function):
+    """Forward: kernel D (saving q, k, v, the bias, the output and the
+    log-sum-exp); backward: kernel F. The bias gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        out, lse = attention_fwd(q, k, v, bias, scale)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, out, do, bias, lse, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_mask: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Differentiable fused attention (the training path): q (B, h, N, d)
+    over k, v (B, h, M, d), kv_mask (B, M) masks keys (no gradient); scale
+    defaults to d^-0.5 (1.0 for LightGlue's pre-scaled cross projections).
+    Kernel D forward, kernel F backward on CUDA tensors; their plain
+    versions on CPU tensors."""
+    B, _, _, d = q.shape
+    scale = d ** -0.5 if scale is None else float(scale)
+    bias = key_bias(kv_mask, B, k.shape[2], q.device)
+    return _FusedAttention.apply(q, k, v, bias, scale)
+
+
 self_attention.launches = 0
 cross_attention_bidir.launches = 0
+attention_fwd.launches = 0
+attention_bwd.launches = 0

@@ -27,6 +27,8 @@ SOURCES = {
     "self_attention": "self_attention.cu",
     "cross_attention": "cross_attention.cu",
     "nms": "nms.cu",
+    "attention_fwd": "attention_fwd.cu",
+    "attention_bwd": "attention_bwd.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -48,6 +50,16 @@ SIGNATURES = {
     "nms": {
         "ei_nms_rounds": ([_I, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
         "ei_nms_smem_bytes": ([_I], ctypes.c_longlong),
+    },
+    "attention_fwd": {
+        "ei_attention_fwd": (
+            [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+             ctypes.c_float, _P], _I),
+    },
+    "attention_bwd": {
+        "ei_attention_bwd": (
+            [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+             _I, _I, _I, _I, ctypes.c_float, _P], _I),
     },
 }
 

@@ -1,1 +1,3 @@
-"""Batch preparation of the port (training steps come later)."""
+"""Training of the port: batch preparation, freezing, optimizer and
+schedule, the training state and the stage-2 step. Counterpart of
+`ei_nexus_tpu/train/`."""

@@ -8,7 +8,15 @@ Run on the card: python -m pytest tests/test_torch_cuda.py -q -m cuda
 Tolerances: float32 atol 1e-4 (the kernels' float32 sums run in another
 order and their softmax is online); bfloat16 atol 2e-2 (the kernels round
 the unnormalised probabilities to bfloat16, the plain version the
-normalised ones); NMS bit-exact.
+normalised ones); NMS bit-exact. The backward (kernel F) is held to
+1e-4 * max(1, max|ref|) in float32 and 2e-2 * max(1, max|ref|) in bfloat16:
+its c = rowsum(dO o O) reads the output rounded to the operand type where
+the plain version sums dP o P, and its P = exp(S - lse) uses the forward's
+log-sum-exp; no atomics, so it repeats exactly from run to run. A typical
+gradient entry is far below 1, so each gradient is also held to a relative
+norm, ||got - want|| / ||want|| <= 1e-4 (float32) or 1e-2 (bfloat16, whose
+rounding of the outputs alone gives ~2e-3); planted faults (c = 0, c or the
+log-sum-exp read from the neighbouring row) move it by 6e-2 or more.
 """
 
 import pytest
@@ -18,6 +26,14 @@ from ei_nexus_tpu_torch.ops import attention_kernels as ak
 from ei_nexus_tpu_torch.ops import nms_kernel as nk
 
 pytestmark = pytest.mark.cuda
+
+# relative-norm bound of kernel F's gradients, by operand type
+BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b|| over the whole tensor."""
+    return float((a.float() - b.float()).norm() / b.float().norm())
 
 
 @pytest.fixture
@@ -76,6 +92,113 @@ def test_nms_kernel_bit_exact(cuda, shape, radius, n_iter):
     s = torch.where(s > 0.4, s, torch.zeros_like(s))
     assert torch.equal(nk.nms_rounds(s, radius, n_iter),
                        nk.nms_rounds_plain(s, radius, n_iter))
+
+
+def _strided_heads(gen, B, n, h, d, dtype, which=0):
+    """(B, h, n, d) view at stride 3 of a (B, n, h, d, 3) buffer, as
+    SelfBlock's Wqkv split produces."""
+    x = torch.randn(B, n, h * d * 3, generator=gen, device="cuda")
+    return x.to(dtype).unflatten(-1, (h, d, 3)).transpose(1, 2)[..., which]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("N,M,scale", [(200, 136, 0.125), (64, 320, 1.0)])
+def test_attention_fwd_kernel(cuda, dtype, tol, N, M, scale):
+    B, h, d = 2, 3, 64
+    q = _strided_heads(cuda, B, N, h, d, dtype)
+    k = _strided_heads(cuda, B, M, h, d, dtype, 1)
+    v = _strided_heads(cuda, B, M, h, d, dtype, 2)
+    mask = torch.rand(B, M, generator=cuda, device="cuda") > 0.2
+    bias = ak.key_bias(mask, B, M, "cuda")
+    before = ak.attention_fwd.launches
+    out, lse = ak.attention_fwd(q, k, v, bias, scale)
+    assert ak.attention_fwd.launches == before + 1
+    want = ak.fused_attention_plain(q, k, v, mask, scale)
+    s = torch.matmul(q.float(), k.float().mT) * scale + bias[:, None, None]
+    assert (out.float() - want.float()).abs().max() <= tol
+    assert (lse - torch.logsumexp(s, -1)).abs().max() <= 1e-4 * max(
+        1.0, float(lse.abs().max()))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("N,M,scale", [(200, 136, 0.125), (128, 256, 1.0)])
+def test_attention_bwd_kernel(cuda, dtype, tol, N, M, scale):
+    B, h, d = 2, 2, 64
+    q = _strided_heads(cuda, B, N, h, d, dtype)
+    k = _strided_heads(cuda, B, M, h, d, dtype, 1)
+    v = _strided_heads(cuda, B, M, h, d, dtype, 2)
+    mask = torch.rand(B, M, generator=cuda, device="cuda") > 0.2
+    bias = ak.key_bias(mask, B, M, "cuda")
+    out, lse = ak.attention_fwd(q, k, v, bias, scale)
+    do = torch.randn(B, h, N, d, generator=cuda, device="cuda").to(dtype)
+    before = ak.attention_bwd.launches
+    got = ak.attention_bwd(q, k, v, out, do, bias, lse, scale)
+    assert ak.attention_bwd.launches == before + 1
+    want = ak.fused_attention_bwd_plain(q, k, v, bias, do, scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        bound = tol * max(1.0, float(b.float().abs().max()))
+        assert (a.float() - b.float()).abs().max() <= bound, name
+        assert _rel(a, b) <= BWD_REL[dtype], name
+    # the same inputs give the same bits: no atomics in the sums
+    again = ak.attention_bwd(q, k, v, out, do, bias, lse, scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_bwd_check_catches_planted_faults(cuda, dtype):
+    """The relative-norm check of test_attention_bwd_kernel fails when F
+    drops c (a zero output zeroes c = rowsum(dO o O)), or reads c or the
+    log-sum-exp of the neighbouring row, at the flagship's self-attention
+    statistics (scale d^-0.5, ~80% of 1024 keys live)."""
+    B, h, N, M, d = 1, 2, 1024, 1024, 64
+    q = _strided_heads(cuda, B, N, h, d, dtype)
+    k = _strided_heads(cuda, B, M, h, d, dtype, 1)
+    v = _strided_heads(cuda, B, M, h, d, dtype, 2)
+    mask = torch.rand(B, M, generator=cuda, device="cuda") > 0.2
+    bias = ak.key_bias(mask, B, M, "cuda")
+    out, lse = ak.attention_fwd(q, k, v, bias, d ** -0.5)
+    do = torch.randn(B, h, N, d, generator=cuda, device="cuda").to(dtype)
+    want = ak.fused_attention_bwd_plain(q, k, v, bias, do, d ** -0.5)
+    for fault, o, l in (("c = 0", torch.zeros_like(out), lse),
+                        ("c of the next row", out.roll(1, 2), lse),
+                        ("lse of the next row", out, lse.roll(1, 2))):
+        got = ak.attention_bwd(q, k, v, o, do, bias, l, d ** -0.5)
+        worst = max(_rel(a, b) for a, b in zip(got, want))
+        assert worst > 5 * BWD_REL[dtype], fault
+
+
+def test_fused_attention_shared_qk_gradient(cuda):
+    """Cross-attention's shared qk receives the sum of its query-role and
+    key-role gradients through autograd across the two kernel calls; the
+    card (kernels D, F) agrees with the CPU (plain versions)."""
+    B, h, N, M, d = 2, 2, 96, 160, 64
+    g = torch.Generator().manual_seed(1)
+    qk0, qk1 = (torch.randn(B, h, n, d, generator=g) * d ** -0.25
+                for n in (N, M))
+    v0, v1 = torch.randn(B, h, N, d, generator=g), torch.randn(
+        B, h, M, d, generator=g)
+    m0, m1 = torch.rand(B, N, generator=g) > 0.2, torch.rand(
+        B, M, generator=g) > 0.2
+    c0, c1 = torch.randn(B, h, N, d, generator=g), torch.randn(
+        B, h, M, d, generator=g)
+
+    def grads(dev):
+        xs = [t.to(dev).requires_grad_() for t in (qk0, qk1, v0, v1)]
+        a, b, va, vb = xs
+        o0 = ak.fused_attention(a, b, vb, m1.to(dev), 1.0)
+        o1 = ak.fused_attention(b, a, va, m0.to(dev), 1.0)
+        loss = (o0 * c0.to(dev)).sum() + (o1 * c1.to(dev)).sum()
+        return [t.cpu() for t in torch.autograd.grad(loss, xs)]
+
+    before = (ak.attention_fwd.launches, ak.attention_bwd.launches)
+    got = grads("cuda")
+    assert (ak.attention_fwd.launches, ak.attention_bwd.launches) == (
+        before[0] + 2, before[1] + 2)
+    for a, b in zip(got, grads("cpu")):
+        assert (a - b).abs().max() <= 1e-4 * max(1.0, float(b.abs().max()))
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):

@@ -43,7 +43,8 @@ def test_no_jax_imports(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, chip_smoke, ei_nexus_tpu_torch.flagship, "
             "ei_nexus_tpu_torch.models, ei_nexus_tpu_torch.data.synth, "
-            "ei_nexus_tpu_torch.train.steps; "
+            "ei_nexus_tpu_torch.train.steps, ei_nexus_tpu_torch.geometry, "
+            "ei_nexus_tpu_torch.losses, ei_nexus_tpu_torch.train.state; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -60,8 +61,11 @@ def test_entry_points_default_to_the_card():
     from ei_nexus_tpu_torch.models.eim import build_model
     from ei_nexus_tpu_torch.train.steps import batch_representation
 
+    from ei_nexus_tpu_torch.flagship import build_stage2_flagship
     with pytest.raises(RuntimeError, match="CUDA"):
         build_flagship(tiny=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_stage2_flagship(tiny=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model("EIM", flagship_config(tiny=True)[0])
     ev = bursty_event_batch(np.random.default_rng(0), 1, 10, 16, 8, 8)
@@ -102,9 +106,35 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         EIM(dataclasses.replace(cfg, image_extractor=dataclasses.replace(
             cfg.image_extractor, type="silk")))
-    with pytest.raises(NotImplementedError):
-        EIM(cfg)(torch.zeros(1, 32, 48, 4), torch.zeros(1, 32, 48, 1),
-                 training=True)
+    # training a (trainable) event extractor is stage 1, not ported yet
+    with pytest.raises(NotImplementedError, match="stage 1"):
+        EIM(cfg, training_heads=True)(torch.zeros(1, 32, 48, 4),
+                                      torch.zeros(1, 32, 48, 1),
+                                      training=True)
+
+
+def test_unported_training_options_raise():
+    from ei_nexus_tpu_torch.flagship import build_stage2_flagship
+    from ei_nexus_tpu_torch.train.optim import (build_optimizer,
+                                                build_schedule)
+
+    sched = build_schedule({"type": "CosineAnnealingLR"}, 1e-4)
+    params = [torch.nn.Parameter(torch.zeros(2))]
+    for otype in ("Adam", "SGD"):
+        with pytest.raises(NotImplementedError):
+            build_optimizer({"type": otype}, params, sched)
+    for stype in ("StepLR", "OneCycleLR", "ReduceLROnPlateau"):
+        with pytest.raises(NotImplementedError):
+            build_schedule({"type": stype}, 1e-4)
+    # an inference-built LightGlue has only the last layer's head
+    model, (H, W, bins) = build_stage2_flagship(tiny=True, dtype="float32",
+                                                device="cpu")
+    lg = model.matcher.lightglue
+    assert sorted(lg.log_assignment) == ["0", "1"]
+    assert sorted(lg.token_confidence) == ["0"]
+    from ei_nexus_tpu_torch.models.lightglue import LightGlue
+    with pytest.raises(ValueError, match="training_heads"):
+        LightGlue(lg.config)({}, {}, training=True)
 
 
 def test_kernel_library_names_track_their_sources():

@@ -1,15 +1,22 @@
 #!/usr/bin/env python
-"""Where the time of the port's flagship forward goes, on one GPU.
+"""Where the time of the port's flagship forward, or of its stage-2
+training step, goes on one GPU.
 
-    python tools/profile_torch_forward.py [--seed 0] [--iters 3]
+    python tools/profile_torch_forward.py [--path forward|stage2]
+        [--seed 0] [--iters 3] [--no-trace]
 
 Builds the full-width flagship EIM of `ei_nexus_tpu_torch` (bf16, B=8,
-random weights from --seed), voxelizes bursty events on the card, warms up,
-then traces --iters forwards with torch.profiler. Prints the device time by
-kernel group (the port's three kernels, convolutions, matrix products,
-norms, voxel scatter, sorting, everything else), the device's busy and idle
-share of the traced wall time, and the 25 heaviest kernels; writes the chrome
-trace to chiprun_out/profile_torch_forward.json. Needs a CUDA device.
+random weights from --seed) on bursty events. `--path forward` (default)
+voxelizes on the card and runs the inference forward; `--path stage2`
+runs the stage-2 training step (both extractors frozen, LightGlue trained
+with AdamW; the same batch and random slot fill every step). After a
+warm-up it traces --iters forwards or steps with torch.profiler and prints
+the device time by kernel group (the port's kernels A-D and F,
+convolutions, matrix products, norms, voxel scatter, sorting, the
+optimizer, everything else), the device's busy and idle share of the
+traced wall time, and the 25 heaviest kernels; unless --no-trace, writes
+the chrome trace to chiprun_out/profile_torch_<path>.json. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
 import time
 from pathlib import Path
@@ -31,6 +39,11 @@ GROUPS = (
     ("self_attention_kernel", "A self_attention_rot"),
     ("cross_attention_kernel", "B cross_attention_bidir"),
     ("nms_kernel", "C nms_rounds"),
+    ("attention_fwd_kernel", "D attention_fwd"),
+    ("bwd_mma_kernel", "F attention_bwd"),
+    ("bwd_rows_kernel", "F attention_bwd"),
+    ("row_dot_kernel", "F attention_bwd"),
+    ("multi_tensor_apply", "optimizer (AdamW, foreach)"),
     ("indexFunc", "voxel scatter (index_add_)"),
     ("sort", "top-k sort"),
     ("Sort", "top-k sort"),
@@ -51,6 +64,9 @@ GROUPS = (
 )
 
 
+ANNOTATION = re.compile(r"[\w.]+#[\w.]+")
+
+
 def group_of(name: str) -> str:
     for frag, group in GROUPS:
         if frag in name:
@@ -62,43 +78,36 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=3)
+    ap.add_argument("--path", choices=("forward", "stage2"),
+                    default="forward")
+    ap.add_argument("--no-trace", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_forward: no CUDA device", file=sys.stderr)
         return 2
     from torch.profiler import ProfilerActivity, profile
 
-    from ei_nexus_tpu_torch.data.synth import bursty_event_batch
-    from ei_nexus_tpu_torch.flagship import build_flagship
-    from ei_nexus_tpu_torch.train.steps import batch_representation
-
-    B, max_events = 8, 1 << 17
-    model, (H, W, bins) = build_flagship(
-        dtype="bfloat16", generator=torch.Generator().manual_seed(args.seed))
-    rng = np.random.default_rng(args.seed)
-    ev = bursty_event_batch(rng, B, int(max_events * 0.95), max_events, H, W)
-    ev = {k: torch.as_tensor(v).cuda() for k, v in ev.items()}
-    image = torch.as_tensor(
-        rng.uniform(0, 255, (B, H, W, 1)).astype(np.float32)).cuda()
-
-    def forward():
-        rep, mask = batch_representation(ev, "VoxelGrid", bins, H, W)
-        return model(rep, image, mask)
-
-    with torch.inference_mode():
-        for _ in range(3):
-            forward()
+    B = 8
+    run = (forward_runner if args.path == "forward" else stage2_runner)(
+        B, args.seed)
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.iters):
+            run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(args.iters):
-                forward()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
 
+    # device-side events, without the ranges the profiler annotates on the
+    # device timeline ("Optimizer.step#AdamW.step"), which overlap the
+    # kernels they enclose (kernel names may hold "#" too: "{lambda()#3}")
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not ANNOTATION.fullmatch(e.name)]
     by_name, by_group = {}, {}
     for e in kernels:
         us = e.device_time if hasattr(e, "device_time") else e.cuda_time
@@ -107,28 +116,79 @@ def main() -> int:
         by_group[g] = by_group.get(g, 0.0) + us
     busy_ms = sum(by_name.values()) / 1e3
     per = args.iters
-    print(f"{torch.cuda.get_device_name(0)}: {per} traced forwards of "
+    what = "forward" if args.path == "forward" else "step"
+    print(f"{torch.cuda.get_device_name(0)}: {per} traced {what}s of "
           f"B={B}, wall {wall_ms / per:.3f} ms each (host clock, traced), "
           f"device busy {busy_ms / per:.3f} ms each, idle share "
           f"{1 - busy_ms / wall_ms:.3f}")
-    print("device time per forward by group:")
+    print(f"device time per {what} by group:")
     for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"  {us / 1e3 / per:9.3f} ms  {100 * us / 1e3 / busy_ms:5.1f}%"
               f"  {g}")
-    print("heaviest kernels per forward:")
+    print(f"heaviest kernels per {what}:")
     for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
         print(f"  {us / 1e3 / per:9.3f} ms  {n[:110]}")
-    os.makedirs("chiprun_out", exist_ok=True)
-    prof.export_chrome_trace(os.path.join("chiprun_out",
-                                          "profile_torch_forward.json"))
+    if not args.no_trace:
+        os.makedirs("chiprun_out", exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            "chiprun_out", f"profile_torch_{args.path}.json"))
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "batch": B,
-        "traced_wall_ms_per_forward": wall_ms / per,
-        "device_busy_ms_per_forward": busy_ms / per,
+        "path": args.path,
+        f"traced_wall_ms_per_{what}": wall_ms / per,
+        f"device_busy_ms_per_{what}": busy_ms / per,
         "idle_share": 1 - busy_ms / wall_ms,
-        "groups_ms_per_forward": {g: us / 1e3 / per
+        f"groups_ms_per_{what}": {g: us / 1e3 / per
                                   for g, us in by_group.items()}}))
     return 0
+
+
+def forward_runner(B: int, seed: int):
+    """One inference forward of the flagship (voxel grid included)."""
+    from ei_nexus_tpu_torch.data.synth import bursty_event_batch
+    from ei_nexus_tpu_torch.flagship import build_flagship
+    from ei_nexus_tpu_torch.train.steps import batch_representation
+
+    max_events = 1 << 17
+    model, (H, W, bins) = build_flagship(
+        dtype="bfloat16", generator=torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    ev = bursty_event_batch(rng, B, int(max_events * 0.95), max_events, H, W)
+    ev = {k: torch.as_tensor(v).cuda() for k, v in ev.items()}
+    image = torch.as_tensor(
+        rng.uniform(0, 255, (B, H, W, 1)).astype(np.float32)).cuda()
+
+    @torch.inference_mode()
+    def forward():
+        rep, mask = batch_representation(ev, "VoxelGrid", bins, H, W)
+        return model(rep, image, mask)
+    return forward
+
+
+def stage2_runner(B: int, seed: int):
+    """One stage-2 training step of the flagship, the same batch and slot
+    fill every time (as chip_smoke.py's stage-2 phase)."""
+    from ei_nexus_tpu_torch.data.synth import stage2_batch
+    from ei_nexus_tpu_torch.flagship import (build_stage2_flagship,
+                                             stage2_train_state)
+    from ei_nexus_tpu_torch.train.steps import make_stage2_train_step
+
+    max_events = 1 << 17
+    model, (H, W, bins) = build_stage2_flagship(
+        dtype="bfloat16", generator=torch.Generator().manual_seed(seed))
+    state = stage2_train_state(model, steps_per_epoch=100)
+    d0, d1, T01, T10 = stage2_batch(np.random.default_rng(seed), B,
+                                    int(max_events * 0.95), max_events, H, W)
+    batch = ({k: torch.as_tensor(v).cuda() for k, v in d0.items()},
+             {k: torch.as_tensor(v).cuda() for k, v in d1.items()},
+             torch.as_tensor(T01).cuda(), torch.as_tensor(T10).cuda())
+    step = make_stage2_train_step("VoxelGrid", bins, H, W)
+    fill = torch.Generator(device="cuda")
+
+    def run():
+        fill.manual_seed(seed + 1)
+        return step(state, batch, fill)
+    return run
 
 
 if __name__ == "__main__":
