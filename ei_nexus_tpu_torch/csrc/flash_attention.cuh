@@ -1,23 +1,32 @@
 // Flash-style row-softmax attention core shared by the self-attention
 // (kernel A, csrc/self_attention.cu), bidirectional cross-attention
-// (kernel B, csrc/cross_attention.cu) and differentiable attention forward
-// (kernel D, csrc/attention_fwd.cu) kernels; the backward (kernel F,
+// (kernel B, csrc/cross_attention.cu), differentiable attention forward
+// (kernel D, csrc/attention_fwd.cu), q-blocked attention (kernel E,
+// csrc/qblock_attention.cu) and segment-masked flash attention (kernel G,
+// csrc/flash_segment.cu) kernels; the backward (kernel F,
 // csrc/attention_bwd.cu) reuses its tensor-core fragments.
 //
-// One block computes BQ query rows of one (batch, head) problem. The query
-// tile stays on chip; key/value tiles of BK rows stream through shared
-// memory; the softmax is online in float32 (running row max m and row sum
-// l, the output rescaled by exp(m_old - m_new) per tile), so the (N, M)
-// similarity never reaches device memory. Two instances:
-//  - bfloat16 (the main path): 128 query rows per block, 8 warps of 16
-//    rows, multiplying on the tensor cores with mma.sync m16n8k16 (bf16
+// One block computes ROWS query rows of one (batch, head) problem. The
+// query tile stays on chip; key/value tiles of BK rows stream through
+// shared memory; the softmax is online in float32 (running row max m and
+// row sum l, the output rescaled by exp(m_old - m_new) per tile), so the
+// (N, M) similarity never reaches device memory. Two instances:
+//  - bfloat16 (the main path): ROWS query rows per block (128 unless the
+//    kernel asks for another multiple of 16), one warp per 16 rows,
+//    multiplying on the tensor cores with mma.sync m16n8k16 (bf16
 //    operands from shared memory, V's fragments through ldmatrix.trans,
 //    float32 accumulators); the probabilities go from the S accumulators
 //    straight into the A operand of the PV product;
 //  - float32 (tests and the comparison phases): 256 threads in a 16x16
-//    grid, each owning a 4x4 sub-tile of S and of O, on the CUDA cores.
+//    grid, each owning a 4x4 sub-tile of S and of O, on the CUDA cores,
+//    64 query rows at a time (ROWS = 128 runs two row groups in turn).
 // Both round at the same points: rotated q/k and the probabilities P in
 // the storage type, S and O in float32.
+//
+// Masks: a float32 key-side bias row added after the scale (A, B, D, E),
+// or, with SEG (G), jax's TPU flash-attention rule: -0.7 * FLT_MAX added
+// after the scale wherever the query's int32 segment id differs from the
+// key's. Keys past the end of the problem get -inf either way.
 //
 // Inputs are read through element strides, so strided views (the (B, N, h,
 // hd, 3) split of SelfBlock's Wqkv output, the (B, N, h, d) head split of
@@ -25,6 +34,7 @@
 // strides as well.
 #pragma once
 
+#include <float.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -34,33 +44,44 @@
 namespace ei {
 
 constexpr int kHD = 64;        // head dim (the only one compiled)
-constexpr int kBQ = 64;        // float32: query rows per block
+constexpr int kBQ = 64;        // float32: query rows per row group
 constexpr int kBK = 64;        // keys per streamed tile
 constexpr int kThreads = 256;  // float32: 16 x 16, each a 4 x 4 sub-tile
 constexpr int kPad = 68;       // padded row length of V and P tiles (floats)
-constexpr int kMmaRows = 128;     // bfloat16: query rows per block,
+constexpr int kMmaRows = 128;     // bfloat16: default query rows per block,
 constexpr int kMmaThreads = 256;  // 8 warps x 16 rows
 constexpr int kLd = 72;        // padded bf16 row: 36 words, so the 32-bit
                                // fragment loads of a warp hit 32 banks and
                                // ldmatrix's 8 row reads hit 8 bank groups
+// jax's TPU flash attention's DEFAULT_MASK_VALUE, rounded to float32 as a
+// Python float is: finite, so a fully masked row stays finite (uniform)
+constexpr float kMaskValue = -0.7 * (double)FLT_MAX;
 
 // Shared memory: Q^T and K^T tiles (d-major), V and P tiles (row-major,
 // padded so that the float4 row accesses of 8 neighbouring threads hit
 // distinct banks).
 constexpr int kSmemFloats = kHD * kBQ + kHD * kBK + kBK * kPad + kBQ * kPad;
 
+// Query rows of one block by storage type, unless a kernel asks for more.
+template <typename T> constexpr int kDefaultRows = kBQ;
+template <> constexpr int kDefaultRows<__nv_bfloat16> = kMmaRows;
+
 // Query rows, threads and dynamic shared memory of one block, by storage
-// type. The bfloat16 instance keeps its Q, K and V tiles row-major in bf16.
-template <typename T> struct Tiles {
-  static constexpr int rows = kBQ;
+// type and row count. The float32 instance covers ROWS in row groups of
+// kBQ; the bfloat16 instance keeps its Q, K and V tiles row-major in bf16
+// and runs one warp per 16 rows.
+template <typename T, int ROWS = kDefaultRows<T>> struct Tiles {
+  static_assert(ROWS % kBQ == 0, "float32 rows come in groups of kBQ");
+  static constexpr int rows = ROWS;
   static constexpr int threads = kThreads;
   static constexpr size_t smem = kSmemFloats * sizeof(float);
 };
-template <> struct Tiles<__nv_bfloat16> {
-  static constexpr int rows = kMmaRows;
-  static constexpr int threads = kMmaThreads;
+template <int ROWS> struct Tiles<__nv_bfloat16, ROWS> {
+  static_assert(ROWS % 16 == 0 && ROWS <= 128, "16 rows a warp, 8 warps");
+  static constexpr int rows = ROWS;
+  static constexpr int threads = 2 * ROWS;
   static constexpr size_t smem =
-      (kMmaRows + 2 * kBK) * kLd * sizeof(__nv_bfloat16);
+      (ROWS + 2 * kBK) * kLd * sizeof(__nv_bfloat16);
 };
 
 struct Operand {
@@ -84,7 +105,37 @@ struct Problem {
   float* lse = nullptr;  // optional (B, heads, nq) float32 row log-sum-exp
                          // m + log(l) of the scaled, biased scores
   int heads = 0;
+  const int* q_seg = nullptr;   // SEG only: (B, nq) and (B, nk) int32
+  const int* kv_seg = nullptr;  // segment ids, contiguous
 };
+
+// The scaled score of query row `n` against key `c` with its mask: the
+// key-side bias, or with SEG the segment rule; -inf past the last key.
+// No FMA contraction, so the rounding is that of the plain versions.
+template <bool SEG>
+__device__ __forceinline__ float masked_score(const Problem& p, int b,
+                                              int q_id, int c, float s) {
+  if (c >= p.nk) return -INFINITY;
+  const long long kc = (long long)b * p.nk + c;
+  const float add = SEG ? (q_id == p.kv_seg[kc] ? 0.f : kMaskValue)
+                        : p.bias[kc];
+  return __fadd_rn(__fmul_rn(s, p.scale), add);
+}
+
+// A query row's segment id (SEG only; 0 past the last row, never read).
+template <bool SEG>
+__device__ __forceinline__ int query_segment(const Problem& p, int b, int n) {
+  return SEG && n < p.nq ? p.q_seg[(long long)b * p.nq + n] : 0;
+}
+
+// exp(m_old - m_new), 0 while m_old is still -inf (the first tile), as jax's
+// flash kernel's alpha; and 1/l with 1 for an empty row (its l_inv_safe).
+__device__ __forceinline__ float rescale(float m_old, float m_new) {
+  return m_old == -INFINITY ? 0.f : expf(m_old - m_new);
+}
+__device__ __forceinline__ float inv_safe(float l) {
+  return l == 0.f ? 1.f : 1.f / l;
+}
 
 // Two consecutive bf16 of shared memory as one 32-bit register, the lower
 // index in the low half.
@@ -164,14 +215,15 @@ __device__ __forceinline__ void load_tile(const Problem& p, const Operand& a,
 }
 
 // bfloat16 instance: rows [r0, r0 + rows) into row-major bf16 shared
-// memory (row length kLd). Consecutive threads take consecutive d lanes of
-// a row, so a warp reads two rows' worth of neighbouring addresses.
-template <bool ROT>
+// memory (row length kLd), by a block of THREADS threads. Consecutive
+// threads take consecutive d lanes of a row, so a warp reads two rows'
+// worth of neighbouring addresses.
+template <bool ROT, int THREADS = kMmaThreads>
 __device__ __forceinline__ void load_rows_bf16(const Problem& p,
                                                const Operand& a, int b,
                                                int h, int r0, int n_rows,
                                                int rows, __nv_bfloat16* dst) {
-  for (int e = threadIdx.x; e < rows * (kHD / 4); e += kMmaThreads) {
+  for (int e = threadIdx.x; e < rows * (kHD / 4); e += THREADS) {
     const int r = e / (kHD / 4);
     const int d0 = (e % (kHD / 4)) * 4;
     float t[4];
@@ -182,7 +234,7 @@ __device__ __forceinline__ void load_rows_bf16(const Problem& p,
   }
 }
 
-template <typename T, bool ROT>
+template <typename T, bool ROT, bool SEG>
 __device__ void flash_block_fma(const Problem& p, int b, int h, int q0,
                                 float* smem) {
   float* Qs = smem;             // [kHD][kBQ]
@@ -194,10 +246,12 @@ __device__ void flash_block_fma(const Problem& p, int b, int h, int q0,
   load_tile<T, ROT, true>(p, p.q, b, h, q0, p.nq, kBQ, Qs, kBQ);
 
   float m[4], l[4], o[4][4];
+  int qs[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
+    qs[i] = query_segment<SEG>(p, b, q0 + ty * 4 + i);
 #pragma unroll
     for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
   }
@@ -225,17 +279,11 @@ __device__ void flash_block_fma(const Problem& p, int b, int h, int q0,
         for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
     }
 
-    // scale on the float32 product, then the key-side bias (no FMA
-    // contraction, so the rounding is that of the plain version)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = k0 + tx * 4 + j;
-      const float bj = c < p.nk ? p.bias[(long long)b * p.nk + c] : 0.f;
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        s[i][j] = c < p.nk ? __fadd_rn(__fmul_rn(s[i][j], p.scale), bj)
-                           : -INFINITY;
-    }
+        s[i][j] = masked_score<SEG>(p, b, qs[i], k0 + tx * 4 + j, s[i][j]);
 
     // online softmax; a row's 64 columns live in the 16 lanes of one
     // half-warp, so shuffles over lane offsets 8..1 reduce a row
@@ -246,7 +294,7 @@ __device__ void flash_block_fma(const Problem& p, int b, int h, int q0,
       for (int off = 8; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
+      const float alpha = rescale(m[i], m_new);
       float pe[4], rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -299,7 +347,7 @@ __device__ void flash_block_fma(const Problem& p, int b, int h, int q0,
     if (n >= p.nq) continue;
     if (p.lse != nullptr && tx == 0)
       p.lse[((long long)b * p.heads + h) * p.nq + n] = m[i] + logf(l[i]);
-    const float inv = 1.f / l[i];
+    const float inv = inv_safe(l[i]);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       out[n * p.o.sn + (tx * 4 + j) * p.o.sd] = from_f<T>(o[i][j] * inv);
@@ -320,18 +368,21 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <bool ROT>
+template <bool ROT, int ROWS, bool SEG>
 __device__ void flash_block_mma(const Problem& p, int b, int h, int q0,
                                 __nv_bfloat16* smem) {
   using T = __nv_bfloat16;
-  T* Qs = smem;                 // [kMmaRows][kLd]
-  T* Ks = Qs + kMmaRows * kLd;  // [kBK][kLd]
+  constexpr int kThr = Tiles<T, ROWS>::threads;
+  T* Qs = smem;                 // [ROWS][kLd]
+  T* Ks = Qs + ROWS * kLd;      // [kBK][kLd]
   T* Vs = Ks + kBK * kLd;       // [kBK][kLd]
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int w0 = (threadIdx.x / 32) * 16;  // the warp's first row in the tile
+  const int qs[2] = {query_segment<SEG>(p, b, q0 + w0 + g),
+                     query_segment<SEG>(p, b, q0 + w0 + g + 8)};
 
-  load_rows_bf16<ROT>(p, p.q, b, h, q0, p.nq, kMmaRows, Qs);
+  load_rows_bf16<ROT, kThr>(p, p.q, b, h, q0, p.nq, ROWS, Qs);
   __syncthreads();
   uint32_t qa[4][4];  // Q as A fragments, one per 16-wide d chunk
 #pragma unroll
@@ -351,8 +402,8 @@ __device__ void flash_block_mma(const Problem& p, int b, int h, int q0,
 
   for (int k0 = 0; k0 < p.nk; k0 += kBK) {
     __syncthreads();  // every warp is done with the previous K and V
-    load_rows_bf16<ROT>(p, p.k, b, h, k0, p.nk, kBK, Ks);
-    load_rows_bf16<false>(p, p.v, b, h, k0, p.nk, kBK, Vs);
+    load_rows_bf16<ROT, kThr>(p, p.k, b, h, k0, p.nk, kBK, Ks);
+    load_rows_bf16<false, kThr>(p, p.v, b, h, k0, p.nk, kBK, Vs);
     __syncthreads();
 
     // S = Q K^T for the warp's 16 rows x 64 keys: 8 n-tiles of 8 keys
@@ -368,19 +419,14 @@ __device__ void flash_block_mma(const Problem& p, int b, int h, int q0,
       }
     }
 
-    // scale on the float32 product, then the key-side bias (no FMA
-    // contraction, so the rounding is that of the plain version)
+    // rows g (s[j][0..1]) and g+8 (s[j][2..3]) against keys j*8 + 2t + e
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = k0 + j * 8 + 2 * t + e;
-        const bool in = c < p.nk;
-        const float bj = in ? p.bias[(long long)b * p.nk + c] : 0.f;
-        s[j][e] = in ? __fadd_rn(__fmul_rn(s[j][e], p.scale), bj)
-                     : -INFINITY;
-        s[j][2 + e] = in ? __fadd_rn(__fmul_rn(s[j][2 + e], p.scale), bj)
-                         : -INFINITY;
+        s[j][e] = masked_score<SEG>(p, b, qs[0], c, s[j][e]);
+        s[j][2 + e] = masked_score<SEG>(p, b, qs[1], c, s[j][2 + e]);
       }
 
     // online softmax for rows g (hr=0) and g+8 (hr=1); a row's 64 columns
@@ -394,7 +440,7 @@ __device__ void flash_block_mma(const Problem& p, int b, int h, int q0,
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m[hr], mx);
-      const float alpha = expf(m[hr] - m_new);
+      const float alpha = rescale(m[hr], m_new);
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -440,7 +486,7 @@ __device__ void flash_block_mma(const Problem& p, int b, int h, int q0,
     if (n >= p.nq) continue;
     if (p.lse != nullptr && t == 0)
       p.lse[((long long)b * p.heads + h) * p.nq + n] = m[hr] + logf(l[hr]);
-    const float inv = 1.f / l[hr];
+    const float inv = inv_safe(l[hr]);
 #pragma unroll
     for (int jd = 0; jd < 8; ++jd)
 #pragma unroll
@@ -450,15 +496,23 @@ __device__ void flash_block_mma(const Problem& p, int b, int h, int q0,
   }
 }
 
-// The flash loop of storage type T; `smem` is the block's dynamic shared
-// memory (Tiles<T>::smem bytes), the block Tiles<T>::threads wide.
-template <typename T, bool ROT>
+// The flash loop of storage type T over query rows [q0, q0 + ROWS); `smem`
+// is the block's dynamic shared memory (Tiles<T, ROWS>::smem bytes), the
+// block Tiles<T, ROWS>::threads wide. SEG selects the segment-id mask.
+template <typename T, bool ROT, int ROWS = kDefaultRows<T>, bool SEG = false>
 __device__ __forceinline__ void flash_block(const Problem& p, int b, int h,
                                             int q0, void* smem) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    flash_block_mma<ROT>(p, b, h, q0, static_cast<__nv_bfloat16*>(smem));
-  else
-    flash_block_fma<T, ROT>(p, b, h, q0, static_cast<float*>(smem));
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    flash_block_mma<ROT, ROWS, SEG>(p, b, h, q0,
+                                    static_cast<__nv_bfloat16*>(smem));
+  } else {
+#pragma unroll 1
+    for (int r = 0; r < ROWS; r += kBQ) {
+      if (r > 0) __syncthreads();  // the previous group's tiles are consumed
+      flash_block_fma<T, ROT, SEG>(p, b, h, q0 + r,
+                                   static_cast<float*>(smem));
+    }
+  }
 }
 
 // Fill an Operand / Output from a stride array laid out (b, h, n, d).

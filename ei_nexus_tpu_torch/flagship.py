@@ -4,7 +4,10 @@ at MVSEC scale, the configuration the JAX package's benchmark times.
 Counterpart of `__graft_entry__._flagship`, with the same shapes: full is
 260x346, 16 bins, K=1024, feature width 128, descriptors 256, 9 LightGlue
 layers of 4 heads; tiny is 32x48, 4 bins, K=32, width 16, descriptors 32,
-2 layers. Its stage-2 variant (`build_stage2_flagship`) freezes the event
+2 layers. `attention_impl` and `block_q` are the counterparts of
+`_flagship`'s EI_NEXUS_ATTN and EI_NEXUS_ATTN_QBLOCK: "auto" (kernels A and
+B, or kernel E with block_q 64 or 128), "flash" (kernel G) or "xla". Its
+stage-2 variant (`build_stage2_flagship`) freezes the event
 extractor as tools/bench_train.py does and trains LightGlue with the
 optimizer of configs/train/train_stage2.yaml (`stage2_train_state`).
 """
@@ -34,9 +37,11 @@ STAGE2_SCHEDULER = {"type": "CosineAnnealingLR",
 STAGE2_LR = 1e-4
 
 
-def flagship_config(tiny: bool = False, dtype: str = "bfloat16"
+def flagship_config(tiny: bool = False, dtype: str = "bfloat16",
+                    attention_impl: str = "auto", block_q: int = 0
                     ) -> Tuple[EIMConfig, Tuple[int, int, int]]:
-    """(EIMConfig, (H, W, bins)) of the flagship."""
+    """(EIMConfig, (H, W, bins)) of the flagship, LightGlue's attention
+    taken as `attention_impl` with q blocks of `block_q` rows."""
     if tiny:
         H, W, bins, K, feat, desc, layers = 32, 48, 4, 32, 16, 32, 2
     else:
@@ -55,21 +60,23 @@ def flagship_config(tiny: bool = False, dtype: str = "bfloat16"
             lightglue=LightGlueConfig(
                 input_dim=desc, descriptor_dim=desc, n_layers=layers,
                 num_heads=4, dtype=dtype, score_dtype=dtype,
-                attention_impl="auto")))
+                attention_impl=attention_impl, block_q=block_q)))
     return cfg, (H, W, bins)
 
 
 def build_flagship(tiny: bool = False, dtype: str = "bfloat16",
                    device: Optional[Union[str, torch.device]] = "cuda",
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   attention_impl: str = "auto", block_q: int = 0
                    ) -> Tuple[EIM, Tuple[int, int, int]]:
-    """(model in eval mode on `device`, (H, W, bins)).
+    """(model in eval mode on `device`, (H, W, bins)); `attention_impl`
+    and `block_q` as `flagship_config`.
 
     The weights are random, drawn with flax's default initialisers from
     `generator` (a CPU generator; seed 0 when None) before the model moves
     to `device`, so one seed gives the same weights on every device."""
     dev = resolve_device(device)
-    cfg, shape = flagship_config(tiny, dtype)
+    cfg, shape = flagship_config(tiny, dtype, attention_impl, block_q)
     model = EIM(cfg)
     if generator is None:
         generator = torch.Generator().manual_seed(0)

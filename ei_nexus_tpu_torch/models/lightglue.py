@@ -12,14 +12,23 @@ confidence heads (on detached descriptors) feed the deep-supervision loss.
 `attention_impl`: "auto" and "pallas" take the fused kernels of
 ops/attention_kernels.py (the CUDA kernels on a CUDA tensor, their plain
 versions on a CPU tensor; key-side masks): kernels A and B at inference,
-the differentiable kernel D/F pair in training (rotary applied outside,
-scale d^-0.5 for self-attention, two calls at scale 1 for the
-cross-attention). Unlike the JAX package, which trains on XLA attention
-unless EI_NEXUS_ATTN_TRAIN=pallas is set, training takes the kernels
-without a switch. "xla" takes the plain einsum path with `_attention_xla`
-and the CrossBlock's joint mask, under autograd in training. Not in this
-slice, and refused at construction: "flash", scan_layers, adaptive
-depth/width and shard_heads.
+or kernel E (q-blocked; rotary fused for self-attention, two rotary-free
+launches at scale 1 for the cross-attention) when `block_q` > 0 divides
+the token counts, the counterpart of the JAX package's
+EI_NEXUS_ATTN_QBLOCK; the differentiable kernel D/F pair in training
+(rotary applied outside, scale d^-0.5 for self-attention, two calls at
+scale 1 for the cross-attention). Unlike the JAX package, which trains on
+XLA attention unless EI_NEXUS_ATTN_TRAIN=pallas is set, training takes
+the kernels without a switch. "flash" takes kernel G
+(ops/flash_kernel.py, jax's TPU flash attention with the key mask as
+segment ids) at inference where the JAX package does, for token counts
+that are multiples of 128 (its `_flash_supported` without the backend
+term): rotary applied outside and scale d^-0.5 for self-attention, two
+passes at scale 1 for the cross-attention; elsewhere, and in training, the
+einsum path. "xla" takes the plain einsum path with `_attention_xla` and
+the CrossBlock's joint mask, under autograd in training. Not ported, and
+refused at construction: scan_layers, adaptive depth/width and
+shard_heads.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import torch.nn.functional as F
 
 from ..ops.attention_kernels import (cross_attention_bidir, fused_attention,
                                      rotate_half, self_attention)
+from ..ops.flash_kernel import flash_attention, segment_ids_from_mask
 from .layers import LayerNorm, Linear
 
 _MASK_BIAS = -1e9
@@ -50,7 +60,11 @@ class LightGlueConfig:
     dtype: str = "float32"       # compute dtype of dense/attention layers
     score_dtype: str = "float32"  # dtype of the einsum path's score matrices
     shard_heads: bool = False
-    attention_impl: str = "auto"  # "auto" | "pallas" | "xla" ("flash" later)
+    attention_impl: str = "auto"  # "auto" | "pallas" | "xla" | "flash"
+    # q-block size of the "auto"/"pallas" inference kernels (0: kernels A
+    # and B; 64 or 128: kernel E where it divides the token counts), the
+    # counterpart of ops/pallas_attention._QBLOCK
+    block_q: int = 0
     scan_layers: bool = False
     depth_confidence: float = -1.0
     width_confidence: float = -1.0
@@ -90,6 +104,19 @@ def _scalar(value: float, like: torch.Tensor) -> float:
     return torch.tensor(value, dtype=like.dtype).item()
 
 
+def _flash_supported(n: int, d: int) -> bool:
+    """Token counts kernel G takes in LightGlue: the JAX package's
+    `_flash_supported` (tiles of at least 128) without its backend term."""
+    return n % 128 == 0 and n >= 128 and d % 8 == 0
+
+
+def _flash(q, k, v, kv_mask, sm_scale: float) -> torch.Tensor:
+    """Kernel G with the key mask as segment ids (queries 1, valid keys 1,
+    invalid keys 2), as the JAX package's `_flash_attention`."""
+    q_seg, kv_seg = segment_ids_from_mask(kv_mask, q.shape[2])
+    return flash_attention(q, k, v, q_seg, kv_seg, sm_scale)
+
+
 def _attention_xla(q, k, v, kv_mask: Optional[torch.Tensor],
                    score_dtype=torch.float32) -> torch.Tensor:
     """(B, h, N, d) attention, kv_mask (B, M) masks keys: the scale folded
@@ -112,11 +139,12 @@ def _ffn(dim: int, dtype) -> nn.Sequential:
 class SelfBlock(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int,
                  dtype=torch.float32, attn_impl: str = "xla",
-                 score_dtype=torch.float32):
+                 score_dtype=torch.float32, block_q: int = 0):
         super().__init__()
         self.num_heads = num_heads
         self.attn_impl = attn_impl
         self.score_dtype = score_dtype
+        self.block_q = block_q
         self.Wqkv = Linear(embed_dim, 3 * embed_dim, dtype=dtype)
         self.out_proj = Linear(embed_dim, embed_dim, dtype=dtype)
         self.ffn = _ffn(embed_dim, dtype)
@@ -133,13 +161,19 @@ class SelfBlock(nn.Module):
             k = apply_rotary(encoding, k)
             ctx = fused_attention(q, k, v, kv_mask).to(q.dtype)
         elif self.attn_impl == "pallas":
-            # kernel A reads the strided views in place and rotates q, k
+            # kernel A (or E) reads the strided views in place and rotates
+            # q, k
             rot = (encoding[0][:, 0], encoding[1][:, 0])   # (B, N, hd)
-            ctx = self_attention(q, k, v, kv_mask, rot=rot).to(q.dtype)
+            ctx = self_attention(q, k, v, kv_mask, rot=rot,
+                                 block_q=self.block_q).to(q.dtype)
         else:
             q = apply_rotary(encoding, q)
             k = apply_rotary(encoding, k)
-            ctx = _attention_xla(q, k, v, kv_mask, self.score_dtype)
+            if self.attn_impl == "flash" and not training \
+                    and _flash_supported(N, D // h):
+                ctx = _flash(q, k, v, kv_mask, (D // h) ** -0.5).to(q.dtype)
+            else:
+                ctx = _attention_xla(q, k, v, kv_mask, self.score_dtype)
         message = self.out_proj(ctx.transpose(1, 2).reshape(B, N, D))
         y = self.ffn(torch.cat([x, message], dim=-1))
         return x + y.to(x.dtype)
@@ -150,11 +184,12 @@ class CrossBlock(nn.Module):
 
     def __init__(self, embed_dim: int, num_heads: int,
                  dtype=torch.float32, attn_impl: str = "xla",
-                 score_dtype=torch.float32):
+                 score_dtype=torch.float32, block_q: int = 0):
         super().__init__()
         self.num_heads = num_heads
         self.attn_impl = attn_impl
         self.score_dtype = score_dtype
+        self.block_q = block_q
         self.to_qk = Linear(embed_dim, embed_dim, dtype=dtype)
         self.to_v = Linear(embed_dim, embed_dim, dtype=dtype)
         self.to_out = Linear(embed_dim, embed_dim, dtype=dtype)
@@ -183,8 +218,14 @@ class CrossBlock(nn.Module):
             m0 = fused_attention(qk0, qk1, v1, mask1, 1.0).to(v1.dtype)
             m1 = fused_attention(qk1, qk0, v0, mask0, 1.0).to(v0.dtype)
         elif self.attn_impl == "pallas":
-            m0, m1 = cross_attention_bidir(qk0, qk1, v0, v1, mask0, mask1)
+            m0, m1 = cross_attention_bidir(qk0, qk1, v0, v1, mask0, mask1,
+                                           block_q=self.block_q)
             m0, m1 = m0.to(v1.dtype), m1.to(v0.dtype)
+        elif self.attn_impl == "flash" and not training \
+                and _flash_supported(N, hd) and M % 128 == 0:
+            # two passes of kernel G (qk pre-scaled on both sides)
+            m0 = _flash(qk0, qk1, v1, mask1, 1.0).to(v1.dtype)
+            m1 = _flash(qk1, qk0, v0, mask0, 1.0).to(v0.dtype)
         else:
             sim = torch.matmul(qk0.float(), qk1.float().mT).to(
                 self.score_dtype)
@@ -211,12 +252,13 @@ class CrossBlock(nn.Module):
 
 class TransformerLayer(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, dtype=torch.float32,
-                 attn_impl: str = "xla", score_dtype=torch.float32):
+                 attn_impl: str = "xla", score_dtype=torch.float32,
+                 block_q: int = 0):
         super().__init__()
         self.self_attn = SelfBlock(embed_dim, num_heads, dtype, attn_impl,
-                                   score_dtype)
+                                   score_dtype, block_q)
         self.cross_attn = CrossBlock(embed_dim, num_heads, dtype, attn_impl,
-                                     score_dtype)
+                                     score_dtype, block_q)
 
     def forward(self, desc0, desc1, enc0, enc1, mask0=None, mask1=None,
                 training: bool = False):
@@ -292,7 +334,7 @@ class LightGlue(nn.Module):
                  training_heads: bool = False):
         super().__init__()
         cfg = config
-        if cfg.attention_impl not in ("auto", "pallas", "xla"):
+        if cfg.attention_impl not in ("auto", "pallas", "xla", "flash"):
             raise NotImplementedError(
                 f"attention_impl={cfg.attention_impl!r} is not ported yet")
         if (cfg.shard_heads or cfg.scan_layers or cfg.depth_confidence > 0
@@ -310,7 +352,7 @@ class LightGlue(nn.Module):
         self.posenc = FourierPositionalEncoding(D // cfg.num_heads)
         self.transformers = nn.ModuleList(
             TransformerLayer(D, cfg.num_heads, dtype, attn_impl,
-                             getattr(torch, cfg.score_dtype))
+                             getattr(torch, cfg.score_dtype), cfg.block_q)
             for _ in range(cfg.n_layers))
         L = cfg.n_layers
         heads = range(L) if training_heads else [L - 1]

@@ -1,7 +1,8 @@
 """Shared compute kernels: padding, NMS, keypoint selection, descriptor
 sampling and the fused attention kernels. Counterpart of
 `ei_nexus_tpu/ops/`; the TPU kernels are CUDA kernels here, each beside its
-plain PyTorch version (`nms_kernel.py`, `attention_kernels.py`)."""
+plain PyTorch version (`nms_kernel.py`, `attention_kernels.py`,
+`flash_kernel.py`)."""
 
 from .pad import Padder
 from .detector import (
@@ -19,6 +20,8 @@ from .descriptor import (
     upsample_descriptors,
     dense_descriptors,
 )
+from .attention_kernels import qblock_attention
+from .flash_kernel import flash_attention, segment_ids_from_mask
 
 __all__ = [
     "Padder",
@@ -26,4 +29,5 @@ __all__ = [
     "select_topk_keypoints", "smooth_score_mask", "dense_positions",
     "normalize_descriptors", "sample_descriptors_lowres",
     "upsample_descriptors", "dense_descriptors",
+    "qblock_attention", "flash_attention", "segment_ids_from_mask",
 ]

@@ -1,12 +1,18 @@
-"""Kernels A, B, D and F: LightGlue's fused attention.
+"""Kernels A, B, D, E and F: LightGlue's fused attention.
 
 Counterpart of `ei_nexus_tpu/ops/pallas_attention.py`:
 
- - `self_attention(q, k, v, kv_mask, rot=(cos, sin))`: kernel A, row-softmax
-   self-attention with the rotary encoding fused in (TPU kernel
-   `_whole_rot_kernel`);
- - `cross_attention_bidir(qk0, qk1, v0, v1, mask0, mask1)`: kernel B,
-   shared-QK bidirectional cross-attention (TPU kernel `_cross_kernel`);
+ - `self_attention(q, k, v, kv_mask, rot=(cos, sin), block_q=0)`: kernel
+   A, row-softmax self-attention with the rotary encoding fused in (TPU
+   kernel `_whole_rot_kernel`); without rot, kernel D's forward (TPU
+   `_generic_fwd_kernel`); with block_q > 0 dividing N, kernel E;
+ - `cross_attention_bidir(qk0, qk1, v0, v1, mask0, mask1, block_q=0)`:
+   kernel B, shared-QK bidirectional cross-attention (TPU kernel
+   `_cross_kernel`); with block_q > 0 dividing N and M, two launches of
+   kernel E, one a direction, at scale 1;
+ - `qblock_attention(q, k, v, bias, scale, block_q, rot=None)`: kernel E,
+   q-blocked attention with or without the fused rotary (TPU kernels
+   `_qblock_kernel` and `_qblock_rot_kernel`), block_q 64 or 128;
  - `fused_attention(q, k, v, kv_mask, scale)`: the differentiable attention
    of the training path (TPU `fused_attention_vjp`), a
    `torch.autograd.Function` whose forward is kernel D (`attention_fwd`,
@@ -20,7 +26,8 @@ defines the semantics: masks are KEY-side only, as additive float32 biases
 after the product (self: d^-0.5; cross: 1, its inputs come pre-scaled);
 the row softmax is float32 and its probabilities enter the PV product in
 the value dtype; the rotary encoding t*cos + rotate_half(t)*sin runs in the
-operand dtype.
+operand dtype. Kernel E computes the same function as A and D (its blocks
+own block_q query rows instead of 128), so the plain versions are shared.
 
 The kernels read q/k/v through strides (no copy of the strided views the
 LightGlue blocks produce) and write their outputs as (B, h, N, d) views of
@@ -67,6 +74,13 @@ def _row_attention(q, k, v, bias, scale: float) -> torch.Tensor:
     return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
+def _rotate(t: torch.Tensor, rot) -> torch.Tensor:
+    """The rotary encoding of (B, h, N, d) `t` with head-shared (B, N, d)
+    (cos, sin) tables, in t's dtype."""
+    cos, sin = rot[0][:, None], rot[1][:, None]
+    return t * cos + rotate_half(t) * sin
+
+
 def self_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_mask: Optional[torch.Tensor] = None,
                          rot: Optional[Tuple[torch.Tensor, torch.Tensor]]
@@ -74,12 +88,20 @@ def self_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain PyTorch version of kernel A on (B, h, N, d) operands; rot =
     (cos, sin) head-shared (B, N, d) tables."""
     B, _, N, d = q.shape
+    return qblock_attention_plain(q, k, v, key_bias(kv_mask, B, N, q.device),
+                                  d ** -0.5, rot)
+
+
+def qblock_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, bias: torch.Tensor, scale: float,
+                           rot: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                           = None) -> torch.Tensor:
+    """Plain PyTorch version of kernel E (the arithmetic of A and D): q
+    (B, h, N, d) over k, v (B, h, M, d) with the (B, M) float32 key bias;
+    rot = (cos, sin) (B, N, d) tables rotate q and k (then N == M)."""
     if rot is not None:
-        cos, sin = rot[0][:, None], rot[1][:, None]
-        q = q * cos + rotate_half(q) * sin
-        k = k * cos + rotate_half(k) * sin
-    return _row_attention(q, k, v, key_bias(kv_mask, B, N, q.device),
-                          d ** -0.5)
+        q, k = _rotate(q, rot), _rotate(k, rot)
+    return _row_attention(q, k, v, bias, scale)
 
 
 def cross_attention_bidir_plain(qk0: torch.Tensor, qk1: torch.Tensor,
@@ -159,34 +181,44 @@ def _heads_out(B: int, h: int, n: int, d: int, like: torch.Tensor):
                        device=like.device).permute(0, 2, 1, 3)
 
 
-def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   kv_mask: Optional[torch.Tensor] = None,
-                   rot: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                   ) -> torch.Tensor:
-    """Kernel A: (B, h, N, d) self-attention, kv_mask (B, N) masks keys,
-    rot = (cos, sin) (B, N, d) tables fused into q and k.
-
-    CPU tensors: the plain version. CUDA tensors: the CUDA kernel, or an
-    exception (d must be 64; the rotary-free variant is a later kernel)."""
-    if q.device.type == "cpu":
-        return self_attention_plain(q, k, v, kv_mask, rot)
-    if q.device.type != "cuda":
-        raise ValueError(f"self_attention: unsupported device {q.device}")
-    if rot is None:
-        raise NotImplementedError(
-            "self_attention without rot (TPU kernel _generic_fwd_kernel) "
-            "has no CUDA kernel yet")
-    code = _check_cuda("self_attention", q, k, v)
-    B, h, N, d = q.shape
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("self_attention: q, k, v must have one shape")
+def _rot_tables(name: str, rot, q: torch.Tensor):
+    """(cos, sin) contiguous, checked to be (B, N, d) in q's dtype and
+    device."""
+    B, _, N, d = q.shape
     cos, sin = (t.contiguous() for t in rot)
     for t in (cos, sin):
         if t.shape != (B, N, d) or t.dtype != q.dtype \
                 or t.device != q.device:
-            raise ValueError("self_attention: rot tables must be (B, N, d) "
-                             "in the operands' dtype and device")
+            raise ValueError(f"{name}: rot tables must be (B, N, d) in the "
+                             f"operands' dtype and device")
+    return cos, sin
+
+
+def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   kv_mask: Optional[torch.Tensor] = None,
+                   rot: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                   block_q: int = 0) -> torch.Tensor:
+    """(B, h, N, d) self-attention, kv_mask (B, N) masks keys, rot =
+    (cos, sin) (B, N, d) tables fused into q and k.
+
+    CPU tensors: the plain version. CUDA tensors (d must be 64): kernel E
+    when block_q > 0 divides N (as the TPU's `self_attention` picks its
+    q-blocked kernels), else kernel A with rot and kernel D's forward
+    without; or an exception."""
+    if q.device.type == "cpu":
+        return self_attention_plain(q, k, v, kv_mask, rot)
+    if q.device.type != "cuda":
+        raise ValueError(f"self_attention: unsupported device {q.device}")
+    B, h, N, d = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("self_attention: q, k, v must have one shape")
     bias = key_bias(kv_mask, B, N, q.device)
+    if block_q and N % block_q == 0:
+        return qblock_attention(q, k, v, bias, d ** -0.5, block_q, rot)
+    if rot is None:
+        return attention_fwd(q, k, v, bias, d ** -0.5)[0]
+    code = _check_cuda("self_attention", q, k, v)
+    cos, sin = _rot_tables("self_attention", rot, q)
     if bias.shape != (B, N):
         raise ValueError("self_attention: kv_mask must be (B, N)")
     out = _heads_out(B, h, N, d, q)
@@ -202,17 +234,63 @@ def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def qblock_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor, scale: float, block_q: int,
+                     rot: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                     ) -> torch.Tensor:
+    """Kernel E: q (B, h, N, d) over k, v (B, h, M, d) with the (B, M)
+    float32 key bias and softmax scale, blocks of block_q query rows; rot =
+    (cos, sin) (B, N, d) tables fused into q and k (then N == M).
+
+    CPU tensors: the plain version. CUDA tensors: the CUDA kernel, or an
+    exception (d must be 64; block_q 64 or 128, the compiled tiles)."""
+    if q.device.type == "cpu":
+        return qblock_attention_plain(q, k, v, bias, scale, rot)
+    if q.device.type != "cuda":
+        raise ValueError(f"qblock_attention: unsupported device {q.device}")
+    if block_q not in (64, 128):
+        raise ValueError(f"qblock_attention: block_q={block_q}; the kernel "
+                         f"is compiled for 64 and 128")
+    code = _check_cuda("qblock_attention", q, k, v)
+    B, h, N, d = q.shape
+    M = k.shape[2]
+    if k.shape[:2] != (B, h) or v.shape != k.shape:
+        raise ValueError("qblock_attention: mismatched shapes")
+    bias = _check_rows("qblock_attention bias", bias, (B, M))
+    cos = sin = None
+    if rot is not None:
+        if M != N:
+            raise ValueError("qblock_attention: rot needs N == M")
+        cos, sin = _rot_tables("qblock_attention", rot, q)
+    out = _heads_out(B, h, N, d, q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = library("qblock_attention").ei_qblock_attention(
+            code, block_q, int(rot is not None), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), int64_array(q.stride() + k.stride() + v.stride()),
+            None if cos is None else cos.data_ptr(),
+            None if sin is None else sin.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), int64_array(out.stride()), B, h, N, M,
+            float(scale), stream)
+    check(err, "qblock_attention")
+    qblock_attention.launches += 1
+    return out
+
+
 def cross_attention_bidir(qk0: torch.Tensor, qk1: torch.Tensor,
                           v0: torch.Tensor, v1: torch.Tensor,
                           mask0: Optional[torch.Tensor] = None,
-                          mask1: Optional[torch.Tensor] = None
+                          mask1: Optional[torch.Tensor] = None,
+                          block_q: int = 0
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel B: shared-QK bidirectional cross attention. qk0 (B, h, N, d)
     and qk1 (B, h, M, d) are pre-scaled by d^-0.25; returns
     (m0 (B, h, N, d), m1 (B, h, M, d)) with key-side masks only.
 
-    CPU tensors: the plain version. CUDA tensors: the CUDA kernel (one
-    launch for both directions), or an exception (d must be 64)."""
+    CPU tensors: the plain version. CUDA tensors (d must be 64): two
+    launches of kernel E at scale 1, (qk0 -> qk1, v1) and (qk1 -> qk0, v0),
+    when block_q > 0 divides N and M (the TPU's q-blocked cross path),
+    else kernel B (one launch for both directions); or an exception."""
     if qk0.device.type == "cpu":
         return cross_attention_bidir_plain(qk0, qk1, v0, v1, mask0, mask1)
     if qk0.device.type != "cuda":
@@ -229,6 +307,9 @@ def cross_attention_bidir(qk0: torch.Tensor, qk1: torch.Tensor,
     if bias0.shape != (B, N) or bias1.shape != (B, M):
         raise ValueError("cross_attention_bidir: masks must be (B, N), "
                          "(B, M)")
+    if block_q and N % block_q == 0 and M % block_q == 0:
+        return (qblock_attention(qk0, qk1, v1, bias1, 1.0, block_q),
+                qblock_attention(qk1, qk0, v0, bias0, 1.0, block_q))
     out0 = _heads_out(B, h, N, d, qk0)
     out1 = _heads_out(B, h, M, d, qk0)
     with torch.cuda.device(qk0.device):
@@ -361,5 +442,6 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 self_attention.launches = 0
 cross_attention_bidir.launches = 0
+qblock_attention.launches = 0
 attention_fwd.launches = 0
 attention_bwd.launches = 0

@@ -29,6 +29,8 @@ SOURCES = {
     "nms": "nms.cu",
     "attention_fwd": "attention_fwd.cu",
     "attention_bwd": "attention_bwd.cu",
+    "qblock_attention": "qblock_attention.cu",
+    "flash_segment": "flash_segment.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -60,6 +62,16 @@ SIGNATURES = {
         "ei_attention_bwd": (
             [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
              _I, _I, _I, _I, ctypes.c_float, _P], _I),
+    },
+    "qblock_attention": {
+        "ei_qblock_attention": (
+            [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+             ctypes.c_float, _P], _I),
+    },
+    "flash_segment": {
+        "ei_flash_segment": (
+            [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+             ctypes.c_float, _P], _I),
     },
 }
 

@@ -8,7 +8,8 @@ Run on the card: python -m pytest tests/test_torch_cuda.py -q -m cuda
 Tolerances: float32 atol 1e-4 (the kernels' float32 sums run in another
 order and their softmax is online); bfloat16 atol 2e-2 (the kernels round
 the unnormalised probabilities to bfloat16, the plain version the
-normalised ones); NMS bit-exact. The backward (kernel F) is held to
+normalised ones), times max(1, max|ref|) for E and G; NMS bit-exact. The
+pose tail on the card is held to the CPU in float64 (R, t to 1e-4). The backward (kernel F) is held to
 1e-4 * max(1, max|ref|) in float32 and 2e-2 * max(1, max|ref|) in bfloat16:
 its c = rowsum(dO o O) reads the output rounded to the operand type where
 the plain version sums dP o P, and its P = exp(S - lse) uses the forward's
@@ -208,3 +209,143 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         nk.nms_rounds(torch.zeros(1, 8, 8, device="cuda",
                                   dtype=torch.float16), 2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("block_q", [64, 128])
+@pytest.mark.parametrize("rot", [False, True])
+def test_qblock_attention_kernel(cuda, dtype, tol, block_q, rot):
+    """Kernel E at ragged N != M (rot-free) or N == M = 200 (rot), strided
+    operands, against its plain version."""
+    B, h, d = 2, 3, 64
+    N, M = (200, 200) if rot else (200, 136)
+    q = _strided_heads(cuda, B, N, h, d, dtype)
+    k = _strided_heads(cuda, B, M, h, d, dtype, 1)
+    v = _strided_heads(cuda, B, M, h, d, dtype, 2)
+    table = None
+    if rot:
+        ang = torch.rand(B, N, d // 2, generator=cuda, device="cuda") * 6.28
+        table = tuple(torch.repeat_interleave(f(ang), 2, -1).to(dtype)
+                      for f in (torch.cos, torch.sin))
+    mask = torch.rand(B, M, generator=cuda, device="cuda") > 0.2
+    bias = ak.key_bias(mask, B, M, "cuda")
+    before = ak.qblock_attention.launches
+    got = ak.qblock_attention(q, k, v, bias, 0.125, block_q, table)
+    assert ak.qblock_attention.launches == before + 1
+    want = ak.qblock_attention_plain(q, k, v, bias, 0.125, table)
+    bound = tol * max(1.0, float(want.float().abs().max()))
+    assert (got.float() - want.float()).abs().max() <= bound
+
+
+def test_qblock_dispatch_and_refusals(cuda):
+    """block_q dividing N takes E (cross: two launches); otherwise A and B;
+    self-attention without rot takes D's forward; other tile sizes raise."""
+    B, h, N, d = 1, 2, 128, 64
+    q, k, v = (torch.randn(B, h, N, d, generator=cuda, device="cuda")
+               for _ in range(3))
+    counts = lambda: (ak.self_attention.launches, ak.qblock_attention.launches,
+                      ak.attention_fwd.launches,
+                      ak.cross_attention_bidir.launches)
+    c0 = counts()
+    ak.self_attention(q, k, v, block_q=64)
+    ak.cross_attention_bidir(q, k, q, v, block_q=64)
+    ak.self_attention(q, k, v)                    # rot-free, whole rows: D
+    ak.self_attention(q, k, v, block_q=96)        # 96 does not divide 128
+    c1 = counts()
+    assert tuple(b - a for a, b in zip(c0, c1)) == (0, 3, 2, 0)
+    with pytest.raises(ValueError):
+        ak.self_attention(q, k, v, block_q=32)    # divides N, not compiled
+    bias = ak.key_bias(None, B, N, "cuda")
+    with pytest.raises(ValueError):
+        ak.qblock_attention(q, k[:, :, :64], v[:, :, :64], bias[:, :64], 1.0,
+                            64, rot=(q[:, 0], q[:, 0]))   # rot needs N == M
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("N,M", [(200, 136), (128, 384)])
+def test_flash_segment_kernel(cuda, dtype, tol, N, M):
+    """Kernel G at ragged N != M, strided operands and general segment ids
+    (one batch row fully masked), against its plain version, and the same
+    bits on a second call."""
+    from ei_nexus_tpu_torch.ops import flash_kernel as fk
+    B, h, d = 3, 2, 64
+    q = _strided_heads(cuda, B, N, h, d, dtype)
+    k = _strided_heads(cuda, B, M, h, d, dtype, 1)
+    v = _strided_heads(cuda, B, M, h, d, dtype, 2)
+    q_seg = torch.randint(0, 3, (B, N), generator=cuda, device="cuda",
+                          dtype=torch.int32)
+    kv_seg = torch.randint(0, 3, (B, M), generator=cuda, device="cuda",
+                           dtype=torch.int32)
+    kv_seg[2] = 7                                 # no query shares it
+    before = fk.flash_attention.launches
+    got = fk.flash_attention(q, k, v, q_seg, kv_seg, 0.125)
+    assert fk.flash_attention.launches == before + 1
+    want = fk.flash_attention_plain(q, k, v, q_seg, kv_seg, 0.125)
+    bound = tol * max(1.0, float(want.float().abs().max()))
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max() <= bound
+    assert torch.equal(fk.flash_attention(q, k, v, q_seg, kv_seg, 0.125), got)
+    # without ids: no mask
+    got = fk.flash_attention(q, k, v, sm_scale=1.0)
+    want = fk.flash_attention_plain(q, k, v, sm_scale=1.0)
+    bound = tol * max(1.0, float(want.float().abs().max()))
+    assert (got.float() - want.float()).abs().max() <= bound
+
+
+def test_pose_on_the_card_matches_the_cpu(cuda):
+    """estimate_pose_batch with injected indices, on the card and on the
+    CPU. In float64 the two agree (R, t to 1e-4, n_inliers +-1): the card's
+    QR returns another nullspace basis, so the candidates come in another
+    order, but the same set. In float32 an ill-conditioned minimal sample's
+    candidates move under rounding alone, so there both are held to the
+    truth (< 1 degree)."""
+    import numpy as np
+    from ei_nexus_tpu_torch.metrics import ransac as tr
+    rng = np.random.default_rng(0)
+    B, N = 3, 512
+    p0 = np.zeros((B, N, 2))
+    p1 = np.zeros((B, N, 2))
+    mask = np.zeros((B, N), bool)
+    truth = []
+    for b, n in enumerate((300, 200, 0)):
+        if n:
+            P = rng.uniform(-1.5, 1.5, (n, 3)) + [0, 0, 4.0]
+            R = _rotation(rng.normal(size=3) * 0.1)
+            t = rng.normal(size=3)
+            t /= np.linalg.norm(t)
+            Q = P @ R.T + t
+            p0[b, :n] = P[:, :2] / P[:, 2:] + rng.normal(0, 5e-4, (n, 2))
+            p1[b, :n] = Q[:, :2] / Q[:, 2:] + rng.normal(0, 5e-4, (n, 2))
+            mask[b, :n] = True
+            truth.append(R)
+    gen = torch.Generator().manual_seed(0)
+    indices = tr.sample_indices(torch.from_numpy(mask), 128, "5pt", gen)
+    for dtype in (torch.float64, torch.float32):
+        args = [torch.from_numpy(a) for a in (p0, p1)]
+        args = [a.to(dtype) for a in args] + [
+            torch.from_numpy(mask), torch.full((B,), 5e-3, dtype=dtype)]
+        R_c, t_c, _, n_c = tr.estimate_pose_batch(*args, indices=indices)
+        dev = tr.estimate_pose_batch(*(a.cuda() for a in args),
+                                     indices=tuple(i.cuda() for i in indices))
+        assert all(x.device.type == "cuda" for x in dev)
+        R_g, t_g, _, n_g = (x.cpu() for x in dev)
+        assert n_g[2] == n_c[2] == 0
+        if dtype == torch.float64:
+            assert (n_c - n_g).abs().max() <= 1
+            assert (R_c[:2] - R_g[:2]).abs().max() <= 1e-4
+            assert (t_c[:2] - t_g[:2]).abs().max() <= 1e-4
+        for b in range(2):
+            for R in (R_c[b], R_g[b]):
+                c = (np.trace(R.double().numpy().T @ truth[b]) - 1) / 2
+                assert np.degrees(np.arccos(np.clip(c, -1, 1))) < 1.0
+
+
+def _rotation(w):
+    """Rodrigues' rotation of the axis-angle vector w (numpy)."""
+    import numpy as np
+    th = np.linalg.norm(w)
+    k = w / th
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K

@@ -44,7 +44,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, chip_smoke, ei_nexus_tpu_torch.flagship, "
             "ei_nexus_tpu_torch.models, ei_nexus_tpu_torch.data.synth, "
             "ei_nexus_tpu_torch.train.steps, ei_nexus_tpu_torch.geometry, "
-            "ei_nexus_tpu_torch.losses, ei_nexus_tpu_torch.train.state; "
+            "ei_nexus_tpu_torch.losses, ei_nexus_tpu_torch.train.state, "
+            "ei_nexus_tpu_torch.metrics; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -71,6 +72,12 @@ def test_entry_points_default_to_the_card():
     ev = bursty_event_batch(np.random.default_rng(0), 1, 10, 16, 8, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         batch_representation(ev, "VoxelGrid", 4, 8, 8)
+    from ei_nexus_tpu_torch.metrics import estimate_pose_batch_from_matches
+    pos = np.zeros((1, 8, 2), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        estimate_pose_batch_from_matches(pos, pos, np.zeros((1, 8), int),
+                                         np.eye(3)[None], np.eye(3)[None],
+                                         1.0)
     # asking for the CPU works
     model, _ = build_flagship(tiny=True, dtype="float32", device="cpu")
     assert next(model.parameters()).device.type == "cpu"
@@ -98,8 +105,8 @@ def test_unported_paths_raise():
 
     with pytest.raises(NotImplementedError):
         Matcher(MatcherConfig(type="MNN"))
-    for bad in (dict(attention_impl="flash"), dict(scan_layers=True),
-                dict(depth_confidence=0.95), dict(shard_heads=True)):
+    for bad in (dict(scan_layers=True), dict(depth_confidence=0.95),
+                dict(shard_heads=True)):
         with pytest.raises(NotImplementedError):
             LightGlue(LightGlueConfig(**bad))
     cfg, _ = flagship_config(tiny=True, dtype="float32")

@@ -3,20 +3,25 @@
 training step, goes on one GPU.
 
     python tools/profile_torch_forward.py [--path forward|stage2]
-        [--seed 0] [--iters 3] [--no-trace]
+        [--attention auto|flash|qblock] [--pose] [--seed 0] [--iters 3]
+        [--no-trace]
 
 Builds the full-width flagship EIM of `ei_nexus_tpu_torch` (bf16, B=8,
 random weights from --seed) on bursty events. `--path forward` (default)
-voxelizes on the card and runs the inference forward; `--path stage2`
-runs the stage-2 training step (both extractors frozen, LightGlue trained
-with AdamW; the same batch and random slot fill every step). After a
-warm-up it traces --iters forwards or steps with torch.profiler and prints
-the device time by kernel group (the port's kernels A-D and F,
-convolutions, matrix products, norms, voxel scatter, sorting, the
-optimizer, everything else), the device's busy and idle share of the
-traced wall time, and the 25 heaviest kernels; unless --no-trace, writes
-the chrome trace to chiprun_out/profile_torch_<path>.json. Needs a CUDA
-device.
+voxelizes on the card and runs the inference forward, with LightGlue's
+attention as --attention gives it: "auto" (kernels A and B), "flash"
+(kernel G) or "qblock" ("auto" with block_q=64: kernel E); with --pose
+the forward is chained with the 5-point RANSAC pose tail as chip_smoke.py's
+serving phase chains it, and the pose tail alone (on one forward's
+matches) is traced as well. `--path stage2` runs the stage-2 training step
+(both extractors frozen, LightGlue trained with AdamW; the same batch and
+random slot fill every step). After a warm-up it traces --iters runs with
+torch.profiler and prints the device time by kernel group (the port's
+kernels A-G, the pose tail's QR, SVD and sampling, convolutions, matrix
+products, norms, voxel scatter, sorting, the optimizer, everything else),
+the device's busy and idle share of the traced wall time, and the 25
+heaviest kernels; unless --no-trace, writes the chrome trace to
+chiprun_out/profile_torch_<what>.json. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -40,10 +45,19 @@ GROUPS = (
     ("cross_attention_kernel", "B cross_attention_bidir"),
     ("nms_kernel", "C nms_rounds"),
     ("attention_fwd_kernel", "D attention_fwd"),
+    ("qblock_attention_kernel", "E qblock_attention"),
+    ("flash_segment_kernel", "G flash_attention"),
     ("bwd_mma_kernel", "F attention_bwd"),
     ("bwd_rows_kernel", "F attention_bwd"),
     ("row_dot_kernel", "F attention_bwd"),
     ("multi_tensor_apply", "optimizer (AdamW, foreach)"),
+    ("geqrf", "pose: QR and SVD (cuSOLVER, cuBLAS)"),
+    ("orgqr", "pose: QR and SVD (cuSOLVER, cuBLAS)"),
+    ("larf", "pose: QR and SVD (cuSOLVER, cuBLAS)"),
+    ("gesvd", "pose: QR and SVD (cuSOLVER, cuBLAS)"),
+    ("svd", "pose: QR and SVD (cuSOLVER, cuBLAS)"),
+    ("cusolver", "pose: QR and SVD (cuSOLVER, cuBLAS)"),
+    ("multinomial", "pose: sampling"),
     ("indexFunc", "voxel scatter (index_add_)"),
     ("sort", "top-k sort"),
     ("Sort", "top-k sort"),
@@ -80,16 +94,28 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--path", choices=("forward", "stage2"),
                     default="forward")
+    ap.add_argument("--attention", choices=("auto", "flash", "qblock"),
+                    default="auto")
+    ap.add_argument("--pose", action="store_true")
     ap.add_argument("--no-trace", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_forward: no CUDA device", file=sys.stderr)
         return 2
-    from torch.profiler import ProfilerActivity, profile
-
     B = 8
-    run = (forward_runner if args.path == "forward" else stage2_runner)(
-        B, args.seed)
+    if args.path == "stage2":
+        runs = {"step": stage2_runner(B, args.seed)}
+    else:
+        runs = forward_runners(B, args.seed, args.attention, args.pose)
+    for what, run in runs.items():
+        profile_run(what, run, B, args)
+    return 0
+
+
+def profile_run(what: str, run, B: int, args) -> None:
+    """Trace --iters calls of `run` after a warm-up and print where the
+    device time goes."""
+    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         run()
     torch.cuda.synchronize()
@@ -116,9 +142,8 @@ def main() -> int:
         by_group[g] = by_group.get(g, 0.0) + us
     busy_ms = sum(by_name.values()) / 1e3
     per = args.iters
-    what = "forward" if args.path == "forward" else "step"
-    print(f"{torch.cuda.get_device_name(0)}: {per} traced {what}s of "
-          f"B={B}, wall {wall_ms / per:.3f} ms each (host clock, traced), "
+    print(f"{torch.cuda.get_device_name(0)}: {per} traced runs of {what} "
+          f"(B={B}), wall {wall_ms / per:.3f} ms each (host clock, traced), "
           f"device busy {busy_ms / per:.3f} ms each, idle share "
           f"{1 - busy_ms / wall_ms:.3f}")
     print(f"device time per {what} by group:")
@@ -131,27 +156,31 @@ def main() -> int:
     if not args.no_trace:
         os.makedirs("chiprun_out", exist_ok=True)
         prof.export_chrome_trace(os.path.join(
-            "chiprun_out", f"profile_torch_{args.path}.json"))
+            "chiprun_out",
+            f"profile_torch_{re.sub(r'[^a-z0-9]+', '_', what).strip('_')}"
+            ".json"))
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "batch": B,
-        "path": args.path,
-        f"traced_wall_ms_per_{what}": wall_ms / per,
-        f"device_busy_ms_per_{what}": busy_ms / per,
+        "device": torch.cuda.get_device_name(0), "batch": B, "run": what,
+        "traced_wall_ms": wall_ms / per, "device_busy_ms": busy_ms / per,
         "idle_share": 1 - busy_ms / wall_ms,
-        f"groups_ms_per_{what}": {g: us / 1e3 / per
-                                  for g, us in by_group.items()}}))
-    return 0
+        "groups_ms": {g: us / 1e3 / per for g, us in by_group.items()}}))
 
 
-def forward_runner(B: int, seed: int):
-    """One inference forward of the flagship (voxel grid included)."""
+def forward_runners(B: int, seed: int, attention: str, pose: bool):
+    """{name: run}: one inference forward of the flagship (voxel grid
+    included) with the given attention setting; with `pose`, the forward
+    chained with the pose tail, and the pose tail alone on one forward's
+    matches."""
     from ei_nexus_tpu_torch.data.synth import bursty_event_batch
     from ei_nexus_tpu_torch.flagship import build_flagship
+    from ei_nexus_tpu_torch.metrics.ransac import estimate_pose_batch
     from ei_nexus_tpu_torch.train.steps import batch_representation
 
     max_events = 1 << 17
     model, (H, W, bins) = build_flagship(
-        dtype="bfloat16", generator=torch.Generator().manual_seed(seed))
+        dtype="bfloat16", generator=torch.Generator().manual_seed(seed),
+        attention_impl="flash" if attention == "flash" else "auto",
+        block_q=64 if attention == "qblock" else 0)
     rng = np.random.default_rng(seed)
     ev = bursty_event_batch(rng, B, int(max_events * 0.95), max_events, H, W)
     ev = {k: torch.as_tensor(v).cuda() for k, v in ev.items()}
@@ -162,7 +191,30 @@ def forward_runner(B: int, seed: int):
     def forward():
         rep, mask = batch_representation(ev, "VoxelGrid", bins, H, W)
         return model(rep, image, mask)
-    return forward
+
+    name = f"forward ({attention})"
+    if not pose:
+        return {name: forward}
+    # as bench.py:239-258: focal 199, centre (W/2, H/2), threshold 1/199
+    cc = torch.tensor([W / 2.0, H / 2.0], device="cuda")
+    thr = torch.full((B,), 1.0 / 199.0, device="cuda")
+    gen = torch.Generator(device="cuda")
+
+    @torch.inference_mode()
+    def pose_of(out):
+        f0, f1, m = out
+        m0 = m["matches0"].long()
+        idx = m0.clamp(0, m0.shape[-1] - 1)[..., None].expand(-1, -1, 2)
+        p0 = m["input_feats0"]["sparse_positions"][..., :2].flip(-1)
+        p1 = torch.gather(m["input_feats1"]["sparse_positions"][..., :2]
+                          .flip(-1), 1, idx)
+        gen.manual_seed(seed)
+        return estimate_pose_batch(((p0 - cc) / 199.0).float(),
+                                   ((p1 - cc) / 199.0).float(), m0 > -1,
+                                   thr, generator=gen)
+    out = forward()
+    return {f"{name} + pose": lambda: pose_of(forward()),
+            "pose tail": lambda: pose_of(out)}
 
 
 def stage2_runner(B: int, seed: int):
