@@ -8,22 +8,30 @@ Phases, each of which raises on failure:
     `ei_nexus_tpu_torch/csrc` (one nvcc per source, all at once); TF32 is
     switched off for matmuls and convolutions so float32 comparisons are
     float32; the card's name and power limit are printed;
- 2. every kernel (A-G) against its plain PyTorch version at the paths'
-    shapes, in float32 and bfloat16 (E at block_q 64 and 128, with and
-    without rot; G at 1024 and 2048 tokens with random query and key
-    segments and a fully masked batch row), timed with CUDA events beside
-    the plain version, the library call that computes the same function
-    (SDPA for the attention kernels: forward for A, B, D, E, G, with the
-    same bool mask; SDPA's backward, (forward + backward) - forward, for F)
-    and the card's bound; F's gradients are also held to a relative norm,
-    which planted faults (c = 0, c or the log-sum-exp of the neighbouring
-    row) must break;
+ 2. the build of the Hopper loop of A and E (csrc/flash_sm90.cuh): its
+    kernels' ptxas lines (no spill, no C7508 "setmaxnreg ignored"), shared
+    memory, and HGMMA and UTMALDG instructions in the SASS where the
+    toolkit has cuobjdump; then every kernel (A-G) against its plain
+    PyTorch version at the paths' shapes, in float32 and bfloat16 (E at
+    block_q 64 and 128, with and without rot; G at 1024 and 2048 tokens
+    with random query and key segments and a fully masked batch row), timed
+    with CUDA events beside the plain version, the library call that
+    computes the same function (SDPA for the attention kernels: forward for
+    A, B, D, E, G, with the same bool mask; SDPA's backward, (forward +
+    backward) - forward, for F) and the card's bound; each kernel and its
+    library call also by device time alone (torch.profiler: the CUDA-event
+    time of calls back to back is paced by the host where a call costs it
+    more than the card), A and E with the pack pass's own share;
+    F's gradients are also held to a relative norm, which planted faults
+    (c = 0, c or the log-sum-exp of the neighbouring row) must break;
  3. the flagship EIM forward at full width (260x346, 16 bins, K=1024,
     9 LightGlue layers of 4x64, bfloat16, B=8) on bursty events, once for
     each attention setting of `build_flagship`: "auto" (A=18, B=9, C=2
     launches a forward), "flash" (G=36, C=2) and "auto" with block_q=64
-    (E=36, C=2), launch counts read around one forward, then timed one
-    forward at a time (latency) and back to back (throughput, pairs/s);
+    (E=36, C=2), launch counts read around one forward (and the pack
+    passes of A and E: 18 under "auto", 18 q-blocked, 0 "flash"), then
+    timed one forward at a time (latency) and back to back (throughput,
+    pairs/s);
     the flash forward is then chained with the pose tail as the JAX
     package's bench.py chains them (pairs/s with pose, the pose tail's ms
     per batch, its host syncs);
@@ -57,6 +65,8 @@ import copy
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -120,9 +130,86 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def device_ms(fn, iters: int = 20) -> dict:
+    """{kernel name: device ms per call} of the kernels one call of `fn`
+    launches, traced by torch.profiler over `iters` calls after a warm-up
+    (what the card spends, without the host's pace)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.device_time if hasattr(e, "device_time") else e.cuda_time
+            out[e.name] = out.get(e.name, 0.0) + us / 1e3 / iters
+    return out
+
+
+def _sum_ms(times: dict, fragment: str = "") -> float:
+    return sum(ms for name, ms in times.items() if fragment in name)
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+# the Hopper loop of A and E (csrc/flash_sm90.cuh) and its pack pass
+HOPPER_LIBS = ("self_attention", "qblock_attention")
+HOPPER_KERNELS = ("sm90_kernel", "attention_pack_kernel")
+
+
+def check_hopper_build(logs: dict) -> dict:
+    """Print ptxas's lines for the Hopper kernels (registers, spills, stack;
+    their dynamic shared memory from the library; any C75xx remark such as
+    C7508, setmaxnreg ignored) and require no spill and no C7508; where
+    the toolkit has cuobjdump, count HGMMA (wgmma) and UTMALDG (TMA load)
+    instructions in the two libraries' SASS and require both. Returns
+    {library: {"HGMMA": n, "UTMALDG": n}}."""
+    from ei_nexus_tpu_torch.ops import cuda_build
+    for name in HOPPER_LIBS:
+        log = logs.get(name)
+        if log is None:
+            print(f"[kernels] {name}: built before this run, no ptxas log")
+            continue
+        fn = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                fn = m.group(1)
+                continue
+            if "C75" in line and any(k in line for k in HOPPER_KERNELS):
+                print(f"[kernels] {name}: {line.strip()}")
+                require("C7508" not in line, f"setmaxnreg ignored: {line}")
+            if fn and any(k in fn for k in HOPPER_KERNELS) and (
+                    "spill" in line or "registers" in line):
+                print(f"[kernels] {name} {fn}: {line.strip()}")
+                m = re.search(r"(\d+) bytes spill stores", line)
+                require(m is None or int(m.group(1)) == 0,
+                        f"{fn} spills: {line.strip()}")
+        lib = cuda_build.library(name)
+        print(f"[kernels] {name}: loop's dynamic shared memory "
+              f"{lib.ei_sm90_smem_bytes(1)} bytes a block (64 rows), "
+              f"{lib.ei_sm90_smem_bytes(2)} (128 rows)")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    if not os.path.isfile(tool):
+        print("[kernels] no cuobjdump in the toolkit: SASS not counted")
+        return counts
+    for name in HOPPER_LIBS:
+        sass = subprocess.run(
+            [tool, "-sass", str(cuda_build.library_path(name))],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+        counts[name] = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+        print(f"[kernels] {name} SASS: {counts[name]}")
+        require(all(counts[name].values()),
+                f"{name}: no wgmma or no TMA load in the SASS")
+    return counts
+
 
 
 def _heads(x: torch.Tensor, h: int) -> torch.Tensor:
@@ -362,20 +449,24 @@ def flash_bound_ms(q: torch.Tensor, k: torch.Tensor) -> tuple:
     return _bound(4.0 * B * h * N * M * d, PEAK_BF16_FLOPS, nbytes)
 
 
-def sdpa_segment_ms(x) -> float:
+def sdpa_segment_ms(x) -> tuple:
     """SDPA on the same operands with the same mask as a (B, 1, N, M) bool
-    tensor, the yardstick of kernel G."""
+    tensor, the yardstick of kernel G: (CUDA-event ms, device ms)."""
     q, k, v, q_seg, kv_seg = x
     am = q_seg[:, None, :, None] == kv_seg[:, None, None, :]
     qc, kc, vc = (t.contiguous() for t in (q, k, v))
-    return cuda_ms(lambda: F.scaled_dot_product_attention(
-        qc, kc, vc, attn_mask=am, scale=MAIN_D ** -0.5))
+
+    def call():
+        return F.scaled_dot_product_attention(qc, kc, vc, attn_mask=am,
+                                              scale=MAIN_D ** -0.5)
+    return cuda_ms(call), _sum_ms(device_ms(call))
 
 
-def phase_kernels():
+def phase_kernels(logs: dict):
     from ei_nexus_tpu_torch.ops import attention_kernels as ak
     from ei_nexus_tpu_torch.ops import nms_kernel as nk
 
+    sass = check_hopper_build(logs)
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
     fused_errs, qblock_errs, flash_errs = {}, {}, {}
@@ -417,6 +508,17 @@ def phase_kernels():
     am1 = x["mask1"][:, None, None, :]
     t_a_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
         qr, kr, vc, attn_mask=am0))
+    # device time alone (the calls above are paced by the host when its
+    # share of a call is the larger): A's loop and pack pass, SDPA's kernels
+    dev_a = device_ms(lambda: ak.self_attention(
+        x["q"], x["k"], x["v"], x["mask0"], rot=x["rot"]))
+    dev_a_lib = device_ms(lambda: F.scaled_dot_product_attention(
+        qr, kr, vc, attn_mask=am0))
+    print(f"[kernels] self_attention_rot device ms a call: loop "
+          f"{_sum_ms(dev_a, 'sm90_kernel'):.4f}, pack "
+          f"{_sum_ms(dev_a, 'attention_pack'):.4f}, all "
+          f"{_sum_ms(dev_a):.4f}; SDPA {_sum_ms(dev_a_lib):.4f} "
+          + json.dumps({n[:48]: round(v, 4) for n, v in dev_a_lib.items()}))
     t_b = cuda_ms(lambda: ak.cross_attention_bidir(
         x["qk0"], x["qk1"], x["v0"], x["v1"], x["mask0"], x["mask1"]))
     t_b_plain = cuda_ms(lambda: ak.cross_attention_bidir_plain(
@@ -429,6 +531,9 @@ def phase_kernels():
         F.scaled_dot_product_attention(x["qk1"], x["qk0"], x["v0"],
                                        attn_mask=am0, scale=1.0)
     t_b_lib = cuda_ms(sdpa_bidir)
+    dev_b = _sum_ms(device_ms(lambda: ak.cross_attention_bidir(
+        x["qk0"], x["qk1"], x["v0"], x["v1"], x["mask0"], x["mask1"])))
+    dev_b_lib = _sum_ms(device_ms(sdpa_bidir))
 
     # D and F on the bf16 self-attention case
     q, k, v, mask, scale, bias, out, lse, do = fused_errs[torch.bfloat16][2]
@@ -453,6 +558,12 @@ def phase_kernels():
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), dog)
     t_f_lib = cuda_ms(sdpa_fwd_bwd) - cuda_ms(sdpa_fwd)
+    dev_d = _sum_ms(device_ms(lambda: ak.attention_fwd(q, k, v, bias, scale)))
+    dev_f = _sum_ms(device_ms(lambda: ak.attention_bwd(q, k, v, out, do, bias,
+                                                       lse, scale)))
+    with torch.no_grad():
+        dev_d_lib = _sum_ms(device_ms(sdpa_fwd))
+    dev_f_lib = _sum_ms(device_ms(sdpa_fwd_bwd)) - _sum_ms(device_ms(sdpa_fwd))
 
     score = torch.rand(*NMS_SHAPE, generator=gen, device="cuda")
     score = torch.where(score > 0.3, score, torch.zeros_like(score))
@@ -470,6 +581,8 @@ def phase_kernels():
     t_c = cuda_ms(lambda: nk.nms_rounds(score, NMS_RADIUS, NMS_ROUNDS))
     t_c_plain = cuda_ms(lambda: nk.nms_rounds_plain(score, NMS_RADIUS,
                                                     NMS_ROUNDS))
+    dev_c = _sum_ms(device_ms(lambda: nk.nms_rounds(score, NMS_RADIUS,
+                                                    NMS_ROUNDS)))
 
     # E as the q-blocked forward runs it (block_q 64; rot in the self
     # layers, rot-free in the cross directions), and at block_q 128
@@ -480,6 +593,17 @@ def phase_kernels():
             t_e[case, block_q] = cuda_ms(
                 lambda: ak.qblock_attention(q, k, v, bias, scale, block_q,
                                             rot))
+    dev_e = {}
+    for block_q in QBLOCKS:
+        for case, (q, k, v, bias, scale, rot) in cases.items():
+            dev_e[case, block_q] = device_ms(
+                lambda: ak.qblock_attention(q, k, v, bias, scale, block_q,
+                                            rot))
+            print(f"[kernels] qblock_attention ({case}, block_q {block_q}): "
+                  f"{t_e[case, block_q]:.4f} ms a call (CUDA events), "
+                  f"device: loop "
+                  f"{_sum_ms(dev_e[case, block_q], 'sm90_kernel'):.4f}, "
+                  f"pack {_sum_ms(dev_e[case, block_q], 'pack_kernel'):.4f}")
     q, k, v, bias, scale, rot = cases["rot"]
     t_e_plain = cuda_ms(lambda: ak.qblock_attention_plain(
         q, k, v, bias, scale, rot), iters=5)
@@ -487,13 +611,15 @@ def phase_kernels():
 
     # G at the flagship's tokens and at 2048
     from ei_nexus_tpu_torch.ops import flash_kernel as fk
-    t_g, t_g_plain, t_g_lib, b_g = {}, {}, {}, {}
+    t_g, t_g_plain, t_g_lib, b_g, dev_g, dev_g_lib = {}, {}, {}, {}, {}, {}
     n0, n1 = FLASH_TOKENS
     for n, xg in flash_errs[torch.bfloat16][1].items():
         t_g[n] = cuda_ms(lambda: fk.flash_attention(*xg, MAIN_D ** -0.5))
         t_g_plain[n] = cuda_ms(lambda: fk.flash_attention_plain(
             *xg, MAIN_D ** -0.5), iters=5)
-        t_g_lib[n] = sdpa_segment_ms(xg)
+        t_g_lib[n], dev_g_lib[n] = sdpa_segment_ms(xg)
+        dev_g[n] = _sum_ms(device_ms(
+            lambda: fk.flash_attention(*xg, MAIN_D ** -0.5)))
         b_g[n] = flash_bound_ms(xg[0], xg[1])
 
     b_a, by_a = attention_bound_ms("self", x["q"], x["k"])
@@ -508,27 +634,36 @@ def phase_kernels():
              max_abs_err=errs[torch.bfloat16][0],
              max_abs_err_f32=errs[torch.float32][0],
              ms=t_a, plain_ms=t_a_plain, bound_ms=b_a, bound_by=by_a,
-             library_ms=t_a_lib),
+             library_ms=t_a_lib,
+             design="bf16: pack pass (rotary, de-interleave, once a token) "
+                    "then a TMA + wgmma warp-specialised flash loop, 128 "
+                    "rows a block in two consumer warpgroups; f32: "
+                    "CUDA-core flash loop",
+             pack_ms=_sum_ms(dev_a, "attention_pack"),
+             device_ms=_sum_ms(dev_a), library_device_ms=_sum_ms(dev_a_lib),
+             sass=sass.get("self_attention")),
         dict(name="cross_attention_bidir", route="cuda",
              source="ei_nexus_tpu_torch/csrc/cross_attention.cu",
              replaces="ei_nexus_tpu/ops/pallas_attention.py:187",
              max_abs_err=errs[torch.bfloat16][1],
              max_abs_err_f32=errs[torch.float32][1],
              ms=t_b, plain_ms=t_b_plain, bound_ms=b_b, bound_by=by_b,
-             library_ms=t_b_lib),
+             library_ms=t_b_lib, device_ms=dev_b,
+             library_device_ms=dev_b_lib),
         dict(name="nms_rounds", route="cuda",
              source="ei_nexus_tpu_torch/csrc/nms.cu",
              replaces="ei_nexus_tpu/ops/pallas_nms.py:57",
              max_abs_err=0.0, max_abs_err_f32=0.0,
              ms=t_c, plain_ms=t_c_plain, bound_ms=b_c, bound_by=by_c,
-             library_ms=None),
+             library_ms=None, device_ms=dev_c, library_device_ms=None),
         dict(name="attention_fwd", route="cuda",
              source="ei_nexus_tpu_torch/csrc/attention_fwd.cu",
              replaces="ei_nexus_tpu/ops/pallas_attention.py:274",
              max_abs_err=fused_errs[torch.bfloat16][0],
              max_abs_err_f32=fused_errs[torch.float32][0],
              ms=t_d, plain_ms=t_d_plain, bound_ms=b_d, bound_by=by_d,
-             library_ms=t_d_lib),
+             library_ms=t_d_lib, device_ms=dev_d,
+             library_device_ms=dev_d_lib),
         dict(name="attention_bwd", route="cuda",
              source="ei_nexus_tpu_torch/csrc/attention_bwd.cu",
              replaces="ei_nexus_tpu/ops/pallas_attention.py:349",
@@ -537,7 +672,8 @@ def phase_kernels():
              rel_err=fused_errs[torch.bfloat16][3],
              rel_err_f32=fused_errs[torch.float32][3],
              ms=t_f, plain_ms=t_f_plain, bound_ms=b_f, bound_by=by_f,
-             library_ms=t_f_lib),
+             library_ms=t_f_lib, device_ms=dev_f,
+             library_device_ms=dev_f_lib),
         # ms: the rot call at block_q 64, as the self layers run it
         dict(name="qblock_attention", route="cuda",
              source="ei_nexus_tpu_torch/csrc/qblock_attention.cu",
@@ -549,7 +685,18 @@ def phase_kernels():
              ms_block_q128=t_e["rot", 128],
              ms_block_q128_rot_free=t_e["rot-free", 128],
              plain_ms=t_e_plain, bound_ms=b_e, bound_by=by_e,
-             library_ms=t_a_lib),
+             library_ms=t_a_lib,
+             design="bf16: the Hopper loop of A with block_q 64 (one "
+                    "consumer warpgroup) or 128 (two); the rotary calls "
+                    "packed first, rot-free head views read by TMA in "
+                    "place; f32: CUDA-core flash loop",
+             pack_ms=_sum_ms(dev_e["rot", 64], "attention_pack"),
+             device_ms=_sum_ms(dev_e["rot", 64]),
+             device_ms_rot_free=_sum_ms(dev_e["rot-free", 64]),
+             device_ms_block_q128=_sum_ms(dev_e["rot", 128]),
+             device_ms_block_q128_rot_free=_sum_ms(dev_e["rot-free", 128]),
+             library_device_ms=_sum_ms(dev_a_lib),
+             sass=sass.get("qblock_attention")),
         # ms: (8, 4, 1024, 64), the flagship; *_2048: 2048 tokens
         dict(name="flash_attention", route="cuda",
              source="ei_nexus_tpu_torch/csrc/flash_segment.cu",
@@ -559,13 +706,15 @@ def phase_kernels():
              max_abs_err_f32=flash_errs[torch.float32][0],
              ms=t_g[n0], plain_ms=t_g_plain[n0], bound_ms=b_g[n0][0],
              bound_by=b_g[n0][1], library_ms=t_g_lib[n0],
+             device_ms=dev_g[n0], library_device_ms=dev_g_lib[n0],
              ms_2048=t_g[n1], plain_ms_2048=t_g_plain[n1],
              bound_ms_2048=b_g[n1][0], library_ms_2048=t_g_lib[n1]),
     ]
     for r in rows:
         print(f"[kernels] {r['name']}: {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.4f}, library {r['library_ms']}, bound "
-              f"{r['bound_ms']:.4f} by {r['bound_by']})")
+              f"{r['bound_ms']:.4f} by {r['bound_by']}); device "
+              f"{r['device_ms']:.4f} ms (library {r['library_device_ms']})")
     return rows
 
 
@@ -586,14 +735,16 @@ def flagship_inputs(B: int = 8, max_events: int = 1 << 17):
             torch.as_tensor(image).cuda())
 
 
-def phase_forward(tag: str, want: dict, attention_impl: str = "auto",
-                  block_q: int = 0):
+def phase_forward(tag: str, want: dict, want_packs: int,
+                  attention_impl: str = "auto", block_q: int = 0):
     """The flagship EIM forward at full width with LightGlue's attention
     taken as `attention_impl` / `block_q` (`build_flagship`'s options):
-    launch counts read around one forward and held to `want`, output
-    checks, then latency (one forward at a time) and back-to-back rate.
-    Returns (launches, ms per forward back to back, B, the forward)."""
+    launch counts (and the pack passes of A and E) read around one forward
+    and held to `want` and `want_packs`, output checks, then latency (one
+    forward at a time) and back-to-back rate. Returns (launches, ms per
+    forward back to back, B, the forward)."""
     from ei_nexus_tpu_torch.flagship import build_flagship
+    from ei_nexus_tpu_torch.ops.attention_kernels import hopper_attention
     from ei_nexus_tpu_torch.train.steps import batch_representation
 
     model, (H, W, bins) = build_flagship(
@@ -610,12 +761,16 @@ def phase_forward(tag: str, want: dict, attention_impl: str = "auto",
     with torch.inference_mode():
         for c in counters.values():
             c.launches = 0
+        hopper_attention.packs = 0
         f0, f1, m = forward()
         torch.cuda.synchronize()
         launches = {n: c.launches for n, c in counters.items()}
-        print(f"[{tag}] launches in one forward: {launches}")
+        packs = hopper_attention.packs
+        print(f"[{tag}] launches in one forward: {launches}; pack passes "
+              f"of A and E: {packs}")
         want = {n: want.get(n, 0) for n in counters}
         require(launches == want, f"launch counts {launches} != {want}")
+        require(packs == want_packs, f"{packs} pack passes != {want_packs}")
         K = 1024
         for f in (f0, f1):
             require(f["sparse_positions"].shape == (B, K, 3)
@@ -1144,6 +1299,8 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[setup] {name}: {line.strip()}")
+            if "warning" in line:
+                print(f"[setup] {name}: {line.strip()}")
     smi = nvidia_smi_line()
     print(f"[setup] {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
@@ -1157,20 +1314,20 @@ def main() -> int:
         print(f"[wall] {name}: {walls[name]:.1f} s")
         return out
 
-    rows = timed("kernels", phase_kernels)
+    rows = timed("kernels", phase_kernels, logs)
     launches, fwd_ms, B, _ = timed(
         "forward (auto)", phase_forward, "main",
         {"self_attention_rot": 18, "cross_attention_bidir": 9,
-         "nms_rounds": 2})
+         "nms_rounds": 2}, 18)
     flash_launches, flash_ms, _, flash_fwd = timed(
         "forward (flash)", phase_forward, "flash",
-        {"flash_attention": 36, "nms_rounds": 2}, attention_impl="flash")
+        {"flash_attention": 36, "nms_rounds": 2}, 0, attention_impl="flash")
     serve_ms, pose_ms, syncs = timed("serving with pose", phase_serving_pose,
                                      flash_fwd, B)
     del flash_fwd
     qblock_launches, qblock_ms, _, _ = timed(
         "forward (q-blocked)", phase_forward, "qblock",
-        {"qblock_attention": 36, "nms_rounds": 2}, block_q=64)
+        {"qblock_attention": 36, "nms_rounds": 2}, 18, block_q=64)
     timed("pose check", phase_pose_check)
     train_launches, step_ms = timed("stage-2 step", phase_stage2)
     path_of = {"attention_fwd": train_launches, "attention_bwd":

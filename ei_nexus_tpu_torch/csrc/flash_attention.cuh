@@ -32,6 +32,9 @@
 // hd, 3) split of SelfBlock's Wqkv output, the (B, N, h, d) head split of
 // CrossBlock's projections) need no copy; the output is written through
 // strides as well.
+//
+// The bfloat16 instances of A and E run the TMA + wgmma loop of
+// flash_sm90.cuh instead; B, D, F and G run flash_block_mma.
 #pragma once
 
 #include <float.h>

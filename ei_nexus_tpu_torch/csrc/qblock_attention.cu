@@ -16,17 +16,22 @@
 // inputs and outputs, so it is compute-bound (~8.7 us at 989 TFLOP/s).
 //
 // Design: a Hopper block already owns a query tile, so the TPU's q block
-// becomes the flash loop of flash_attention.cuh with its query tile set to
-// block_q, not a copy of the whole-row VMEM block: the block's block_q
-// rows stay on chip while 64-key tiles of K and V stream through shared
-// memory with an online float32 softmax. The grid is (N / block_q, h, B),
-// E's (B, h, N / bq) in the card's order. Two tile sizes are compiled,
-// block_q = 64 (bf16: 4 warps of 16 rows) and 128 (8 warps); the float32
-// instance (comparisons) keeps its 64-row body and covers 128 rows as two
-// row groups. Rows and keys past the ends are masked, so N and M need not
-// be multiples of block_q. A smaller block_q means twice the blocks and
-// twice the K/V reads from L2 for the same work; wgmma and TMA come later.
+// becomes a flash loop with its query tile set to block_q, not a copy of
+// the whole-row VMEM block: the block's block_q rows stay on chip while
+// 64-key tiles of K and V stream through shared memory with an online
+// float32 softmax. The grid is (N / block_q, h, B), E's (B, h, N / bq) in
+// the card's order; rows and keys past the ends are masked, so N and M
+// need not be multiples of block_q.
+//  - bfloat16 (the main path): the Hopper loop of flash_sm90.cuh, one
+//    consumer warpgroup on wgmma per 64 rows (block_q 64: one, 128: two),
+//    K and V tiles brought by TMA from a producer warp. Operands TMA can
+//    read (the rot-free cross directions' head views) are read in place;
+//    the rotary calls' q and k, and stride-3 views, are packed first into
+//    contiguous scratch, once per token.
+//  - float32 (the comparisons): flash_attention.cuh's CUDA-core loop, 64
+//    rows a row group, two groups for block_q 128.
 #include "flash_attention.cuh"
+#include "flash_sm90.cuh"
 
 namespace ei {
 
@@ -37,10 +42,10 @@ __global__ void __launch_bounds__(kThreads)
   flash_block<T, ROT, BQ>(p, blockIdx.z, blockIdx.y, blockIdx.x * BQ, smem4);
 }
 
-template <typename T, bool ROT, int BQ>
+template <bool ROT, int BQ>
 static int launch(const Problem& p, int B, cudaStream_t stream) {
-  using Tl = Tiles<T, BQ>;
-  auto kernel = qblock_attention_kernel<T, ROT, BQ>;
+  using Tl = Tiles<float, BQ>;
+  auto kernel = qblock_attention_kernel<float, ROT, BQ>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tl::smem);
   if (err != cudaSuccess) return (int)err;
@@ -49,27 +54,29 @@ static int launch(const Problem& p, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int BQ>
+template <int BQ>
 static int launch_rot(const Problem& p, bool rot, int B, cudaStream_t s) {
-  return rot ? launch<T, true, BQ>(p, B, s) : launch<T, false, BQ>(p, B, s);
+  return rot ? launch<true, BQ>(p, B, s) : launch<false, BQ>(p, B, s);
 }
 
-template <typename T>
-static int launch_bq(const Problem& p, int block_q, bool rot, int B,
-                     cudaStream_t s) {
-  if (block_q == 64) return launch_rot<T, 64>(p, rot, B, s);
-  if (block_q == 128) return launch_rot<T, 128>(p, rot, B, s);
-  return (int)cudaErrorInvalidValue;
+template <int NWG>
+__global__ void __launch_bounds__(sm90::Config<NWG>::threads,
+                                  sm90::Config<NWG>::min_blocks)
+    qblock_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 const sm90::Args a) {
+  sm90::attention_block<NWG>(tq, tk, tv, a);
 }
 
 }  // namespace ei
 
-// q: (B, H, N, 64); k, v: (B, H, M, 64), through `qkv_strides` (12 element
-// strides: q, k, v, each (b, h, n, d)); cos, sin: (B, N, 64) contiguous in
-// the operands' type, read only when `rot` is 1 (then N == M); bias: (B, M)
+// float32: q: (B, H, N, 64); k, v: (B, H, M, 64), through `qkv_strides`
+// (12 element strides: q, k, v, each (b, h, n, d)); cos, sin: (B, N, 64)
+// contiguous, read only when `rot` is 1 (then N == M); bias: (B, M)
 // float32 contiguous; out: (B, H, N, 64) through `out_strides` (4);
 // block_q: 64 or 128. Returns the CUDA error code of the launch (0 on
-// success).
+// success); bfloat16 takes ei_qblock_attention_sm90.
 extern "C" int ei_qblock_attention(int dtype, int block_q, int rot,
                                    const void* q, const void* k,
                                    const void* v,
@@ -91,11 +98,36 @@ extern "C" int ei_qblock_attention(int dtype, int block_q, int rot,
   p.nk = M;
   p.scale = scale;
   p.heads = H;
+  if (dtype != ei::kFloat32 || (rot && N != M))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (block_q == 64) return ei::launch_rot<64>(p, rot != 0, B, s);
+  if (block_q == 128) return ei::launch_rot<128>(p, rot != 0, B, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// bfloat16: the pack pass (where the operand plan asks for it) and the
+// Hopper loop. ops: q, k, v as 3 x 8 long longs (ei::sm90::read_operand);
+// cos, sin: (B, N, 64) bf16 contiguous, read only when `rot` is 1 (then
+// N == M); bias: (B, M) float32 contiguous; out: (B, H, N, 64) bf16
+// through `out_strides` (b, h, n; d unit); block_q: 64 or 128. Returns 0,
+// a CUDA error code or one of ei::sm90's kErr* codes.
+extern "C" int ei_qblock_attention_sm90(int block_q, int rot,
+                                        const long long* ops,
+                                        const void* cos, const void* sin,
+                                        const float* bias, void* out,
+                                        const long long* out_strides, int B,
+                                        int H, int N, int M, float scale,
+                                        void* stream) {
   if (rot && N != M) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ei::kFloat32)
-    return ei::launch_bq<float>(p, block_q, rot != 0, B, s);
-  if (dtype == ei::kBFloat16)
-    return ei::launch_bq<__nv_bfloat16>(p, block_q, rot != 0, B, s);
+  if (block_q == 64)
+    return ei::sm90::attention<1>(ei::qblock_attention_sm90_kernel<1>, ops,
+                                  rot != 0, cos, sin, bias, out, out_strides,
+                                  B, H, N, M, scale, s);
+  if (block_q == 128)
+    return ei::sm90::attention<2>(ei::qblock_attention_sm90_kernel<2>, ops,
+                                  rot != 0, cos, sin, bias, out, out_strides,
+                                  B, H, N, M, scale, s);
   return (int)cudaErrorInvalidValue;
 }

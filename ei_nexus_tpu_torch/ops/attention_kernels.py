@@ -31,7 +31,12 @@ own block_q query rows instead of 128), so the plain versions are shared.
 
 The kernels read q/k/v through strides (no copy of the strided views the
 LightGlue blocks produce) and write their outputs as (B, h, N, d) views of
-(B, N, h, d) buffers, so the caller's merge of the heads is free.
+(B, N, h, d) buffers, so the caller's merge of the heads is free. The
+bfloat16 instances of A and E (`hopper_attention`) read their operands by
+TMA, which needs a unit d stride and 16-byte alignment: `operand_plan`
+decides for each operand whether the loop reads it in place or a pack pass
+first writes it (rotated where the rotary applies) as contiguous scratch,
+and refuses what neither takes.
 
 The backward's plain version reproduces the TPU kernel's rounding points:
 dO in the operand dtype, dS = P o (dP - c) and P^T rounded to it before
@@ -43,7 +48,8 @@ gradient.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -181,6 +187,13 @@ def _heads_out(B: int, h: int, n: int, d: int, like: torch.Tensor):
                        device=like.device).permute(0, 2, 1, 3)
 
 
+def _on_device(device: torch.device):
+    """The device's context, or nothing where it is already current."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def _rot_tables(name: str, rot, q: torch.Tensor):
     """(cos, sin) contiguous, checked to be (B, N, d) in q's dtype and
     device."""
@@ -192,6 +205,108 @@ def _rot_tables(name: str, rot, q: torch.Tensor):
             raise ValueError(f"{name}: rot tables must be (B, N, d) in the "
                              f"operands' dtype and device")
     return cos, sin
+
+
+class OperandPlan(NamedTuple):
+    """How the Hopper loop of A and E takes one (B, h, rows, 64) operand."""
+    mode: str        # "direct": TMA reads it in place; "pack": packed first
+    ptr: int         # its data pointer (direct) or its 16-byte slab (pack)
+    strides: Tuple[int, int, int]   # element strides (b, h, n) of its rows
+    sd: int          # d stride: 1, or 3 in a (.., d, 3) Wqkv slab
+    phase: int       # where d = 0 sits in the slab (elements, 0..2)
+
+
+def operand_plan(t: torch.Tensor, rotate: bool = False) -> OperandPlan:
+    """The Hopper loop's plan for operand `t` (B, h, rows, 64) of 2-byte
+    elements, rotated by the rotary when `rotate`.
+
+    Direct: unit d stride, 16-byte-aligned data and row strides, no
+    rotary. Pack: d stride 1 or 3 (the (B, N, h, d, 3) split of a Wqkv
+    output), its row's 64*sd-element slab starting 16-byte aligned and
+    inside the tensor's storage; the pack pass reads the slab with 16-byte
+    loads. Anything else raises ValueError."""
+    if t.ndim != 4 or t.shape[-1] != _HEAD_DIM or t.element_size() != 2:
+        raise ValueError(f"operand_plan: expected a (B, h, rows, "
+                         f"{_HEAD_DIM}) operand of 2-byte elements, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    # a dimension of size 1 is never stepped: any aligned stride will do
+    st, size = t.stride(), t.shape
+    sb = st[0] if size[0] > 1 else 8
+    sh = st[1] if size[1] > 1 else 8
+    sn = st[2] if size[2] > 1 else 8
+    sd = st[3]
+    if min(sb, sh, sn, sd) < 1:
+        raise ValueError(f"operand_plan: strides {t.stride()} overlap or "
+                         f"run backwards")
+    ptr = t.data_ptr()
+    rows_aligned = sb % 8 == 0 and sh % 8 == 0 and sn % 8 == 0
+    if not rotate and sd == 1 and ptr % 16 == 0 and rows_aligned:
+        return OperandPlan("direct", ptr, (sb, sh, sn), 1, 0)
+    phase = (ptr % 16) // 2
+    if sd not in (1, 3) or phase >= sd or not rows_aligned:
+        raise ValueError(
+            f"operand_plan: strides {t.stride()} at byte offset {ptr % 16} "
+            f"from 16: neither TMA (unit d stride, 16-byte rows) nor the "
+            f"pack pass (d stride 1 or 3, 16-byte slabs) reads it")
+    slab = ptr - 2 * phase
+    storage = t.untyped_storage()
+    last = (size[0] - 1) * sb + (size[1] - 1) * sh + (size[2] - 1) * sn
+    if slab < storage.data_ptr() or slab + 2 * (last + _HEAD_DIM * sd) \
+            > storage.data_ptr() + storage.nbytes():
+        raise ValueError("operand_plan: the operand's 16-byte slabs reach "
+                         "outside its storage")
+    return OperandPlan("pack", slab, (sb, sh, sn), sd, phase)
+
+
+def hopper_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor, scale: float, block_q: int,
+                     rot: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                     kernel: str = "qblock_attention") -> torch.Tensor:
+    """The bfloat16 Hopper loop of kernels A (`kernel="self_attention"`,
+    block_q 128, rot required) and E (`"qblock_attention"`, block_q 64 or
+    128): q (B, h, N, 64) over k, v (B, h, M, 64) on the card with the
+    (B, M) float32 key bias (contiguous), the pack pass first where
+    `operand_plan` asks for it. Counts pack launches in
+    `hopper_attention.packs`; the callers count their kernel's launches."""
+    B, h, N, d = q.shape
+    M = k.shape[2]
+    plans = [operand_plan(t, rot is not None and i < 2)
+             for i, t in enumerate((q, k, v))]
+    cos = sin = None
+    if rot is not None:
+        cos, sin = _rot_tables(kernel, rot, q)
+        if cos.data_ptr() % 16 or sin.data_ptr() % 16:
+            raise ValueError(f"{kernel}: rot tables must be 16-byte aligned")
+    # one scratch buffer for the packed operands, (B, h, rows, 64) each
+    sizes = [t.numel() if p.mode == "pack" else 0
+             for t, p in zip((q, k, v), plans)]
+    scratch = torch.empty(sum(sizes), dtype=q.dtype, device=q.device) \
+        if any(sizes) else None
+    ops, at = [], 0 if scratch is None else scratch.data_ptr()
+    for plan, size in zip(plans, sizes):
+        ops += [plan.ptr, *plan.strides, plan.sd, int(size > 0), plan.phase,
+                at if size else 0]
+        at += 2 * size
+    out = _heads_out(B, h, N, d, q)
+    ost = out.stride()[:3]
+    tables = (None if cos is None else cos.data_ptr(),
+              None if sin is None else sin.data_ptr())
+    lib = library(kernel)
+    with _on_device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if kernel == "self_attention":
+            err = lib.ei_self_attention_sm90(
+                int64_array(ops), *tables, bias.data_ptr(), out.data_ptr(),
+                int64_array(ost), B, h, N, float(scale), stream)
+        else:
+            err = lib.ei_qblock_attention_sm90(
+                block_q, int(rot is not None), int64_array(ops), *tables,
+                bias.data_ptr(), out.data_ptr(), int64_array(ost), B, h, N,
+                M, float(scale), stream)
+    check(err, kernel)
+    if scratch is not None:
+        hopper_attention.packs += 1
+    return out
 
 
 def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -218,9 +333,14 @@ def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rot is None:
         return attention_fwd(q, k, v, bias, d ** -0.5)[0]
     code = _check_cuda("self_attention", q, k, v)
-    cos, sin = _rot_tables("self_attention", rot, q)
     if bias.shape != (B, N):
         raise ValueError("self_attention: kv_mask must be (B, N)")
+    if q.dtype == torch.bfloat16:
+        out = hopper_attention(q, k, v, bias, d ** -0.5, 128, rot,
+                               kernel="self_attention")
+        self_attention.launches += 1
+        return out
+    cos, sin = _rot_tables("self_attention", rot, q)
     out = _heads_out(B, h, N, d, q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -257,10 +377,14 @@ def qblock_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[:2] != (B, h) or v.shape != k.shape:
         raise ValueError("qblock_attention: mismatched shapes")
     bias = _check_rows("qblock_attention bias", bias, (B, M))
+    if rot is not None and M != N:
+        raise ValueError("qblock_attention: rot needs N == M")
+    if q.dtype == torch.bfloat16:
+        out = hopper_attention(q, k, v, bias, scale, block_q, rot)
+        qblock_attention.launches += 1
+        return out
     cos = sin = None
     if rot is not None:
-        if M != N:
-            raise ValueError("qblock_attention: rot needs N == M")
         cos, sin = _rot_tables("qblock_attention", rot, q)
     out = _heads_out(B, h, N, d, q)
     with torch.cuda.device(q.device):
@@ -441,6 +565,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 self_attention.launches = 0
+hopper_attention.packs = 0
 cross_attention_bidir.launches = 0
 qblock_attention.launches = 0
 attention_fwd.launches = 0

@@ -43,6 +43,9 @@ SIGNATURES = {
         "ei_self_attention_rot": (
             [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
              ctypes.c_float, _P], _I),
+        "ei_self_attention_sm90": (
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P], _I),
+        "ei_sm90_smem_bytes": ([_I], ctypes.c_longlong),
     },
     "cross_attention": {
         "ei_cross_attention_bidir": (
@@ -67,6 +70,10 @@ SIGNATURES = {
         "ei_qblock_attention": (
             [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
              ctypes.c_float, _P], _I),
+        "ei_qblock_attention_sm90": (
+            [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
+             _P], _I),
+        "ei_sm90_smem_bytes": ([_I], ctypes.c_longlong),
     },
     "flash_segment": {
         "ei_flash_segment": (
@@ -163,7 +170,17 @@ def int64_array(values) -> ctypes.Array:
     return (ctypes.c_longlong * len(values))(*values)
 
 
+# the entry points' own codes besides CUDA's (csrc/flash_sm90.cuh kErr*)
+_OWN_ERRORS = {
+    -1: "the CUDA driver refused a TMA tensor map",
+    -2: "the build's register count would leave setmaxnreg waiting",
+    -3: "the CUDA driver has no cuTensorMapEncodeTiled",
+}
+
+
 def check(err: int, what: str) -> None:
-    """Raise if a kernel entry point returned a CUDA error code."""
+    """Raise if a kernel entry point returned an error code."""
+    if err in _OWN_ERRORS:
+        raise RuntimeError(f"{what}: {_OWN_ERRORS[err]} (error {err})")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")

@@ -8,7 +8,8 @@ Run on the card: python -m pytest tests/test_torch_cuda.py -q -m cuda
 Tolerances: float32 atol 1e-4 (the kernels' float32 sums run in another
 order and their softmax is online); bfloat16 atol 2e-2 (the kernels round
 the unnormalised probabilities to bfloat16, the plain version the
-normalised ones), times max(1, max|ref|) for E and G; NMS bit-exact. The
+normalised ones), times max(1, max|ref|) for E and G and the Hopper loop
+of A and E (bf16: `hopper_attention`, with its pack pass); NMS bit-exact. The
 pose tail on the card is held to the CPU in float64 (R, t to 1e-4). The backward (kernel F) is held to
 1e-4 * max(1, max|ref|) in float32 and 2e-2 * max(1, max|ref|) in bfloat16:
 its c = rowsum(dO o O) reads the output rounded to the operand type where
@@ -292,6 +293,132 @@ def test_flash_segment_kernel(cuda, dtype, tol, N, M):
     want = fk.flash_attention_plain(q, k, v, sm_scale=1.0)
     bound = tol * max(1.0, float(want.float().abs().max()))
     assert (got.float() - want.float()).abs().max() <= bound
+
+
+def _rot_tables(gen, B, n, d, dtype):
+    ang = torch.rand(B, n, d // 2, generator=gen, device="cuda") * 6.28
+    return tuple(torch.repeat_interleave(f(ang), 2, -1).to(dtype)
+                 for f in (torch.cos, torch.sin))
+
+
+def _wqkv_heads(gen, B, n, h, d, shared):
+    """q, k, v as SelfBlock splits its Wqkv output: stride-3 views at
+    phases 0, 1, 2 of one (B, n, h, d, 3) buffer, or of three."""
+    if shared:
+        x = torch.randn(B, n, h * d * 3, generator=gen, device="cuda")
+        qkv = x.to(torch.bfloat16).unflatten(-1, (h, d, 3)).transpose(1, 2)
+        return qkv[..., 0], qkv[..., 1], qkv[..., 2]
+    return tuple(_strided_heads(gen, B, n, h, d, torch.bfloat16, i)
+                 for i in range(3))
+
+
+def _close(got, want, tol=2e-2):
+    bound = tol * max(1.0, float(want.float().abs().max()))
+    return float((got.float() - want.float()).abs().max()) <= bound
+
+
+@pytest.mark.parametrize("kernel", ["A", "E64", "E128"])
+@pytest.mark.parametrize("N", [200, 1000, 1024])
+@pytest.mark.parametrize("shared", [False, True])
+def test_hopper_loop_rotary(cuda, kernel, N, shared):
+    """The bf16 Hopper loop of A and E (block_q 64, 128) with the rotary,
+    on the Wqkv views (packed first: one pack launch a call), against the
+    plain version, at ragged and whole tiles."""
+    B, h, d = 2, 3, 64
+    q, k, v = _wqkv_heads(cuda, B, N, h, d, shared)
+    rot = _rot_tables(cuda, B, N, d, torch.bfloat16)
+    mask = torch.rand(B, N, generator=cuda, device="cuda") > 0.2
+    bias = ak.key_bias(mask, B, N, "cuda")
+    packs = ak.hopper_attention.packs
+    if kernel == "A":
+        before = ak.self_attention.launches
+        got = ak.self_attention(q, k, v, mask, rot=rot)
+        assert ak.self_attention.launches == before + 1
+    else:
+        before = ak.qblock_attention.launches
+        got = ak.qblock_attention(q, k, v, bias, d ** -0.5, int(kernel[1:]),
+                                  rot)
+        assert ak.qblock_attention.launches == before + 1
+    assert ak.hopper_attention.packs == packs + 1
+    want = ak.qblock_attention_plain(q, k, v, bias, d ** -0.5, rot)
+    assert _close(got, want)
+
+
+@pytest.mark.parametrize("block_q", [64, 128])
+def test_hopper_loop_reads_head_views_in_place(cuda, block_q):
+    """E rot-free at N != M on CrossBlock's unit-stride head views (pre-
+    scaled, scale 1): read by TMA in place, no pack launch."""
+    B, h, d, N, M = 2, 3, 64, 200, 136
+
+    def heads(n):
+        x = torch.randn(B, n, h * d, generator=cuda, device="cuda")
+        return x.to(torch.bfloat16).unflatten(-1, (h, d)).transpose(1, 2)
+    q, k, v = heads(N) * d ** -0.25, heads(M) * d ** -0.25, heads(M)
+    assert {ak.operand_plan(t).mode for t in (q, k, v)} == {"direct"}
+    mask = torch.rand(B, M, generator=cuda, device="cuda") > 0.2
+    bias = ak.key_bias(mask, B, M, "cuda")
+    packs = ak.hopper_attention.packs
+    got = ak.qblock_attention(q, k, v, bias, 1.0, block_q)
+    assert ak.hopper_attention.packs == packs
+    assert _close(got, ak.qblock_attention_plain(q, k, v, bias, 1.0))
+
+
+@pytest.mark.parametrize("kernel", ["A", "E64"])
+def test_hopper_loop_masked_row_and_repeat(cuda, kernel):
+    """A batch row whose keys are all masked gives the plain version's
+    finite, uniform average of V; two calls give the same bits."""
+    B, h, d, N = 2, 2, 64, 300
+    q, k, v = _wqkv_heads(cuda, B, N, h, d, True)
+    rot = _rot_tables(cuda, B, N, d, torch.bfloat16)
+    mask = torch.rand(B, N, generator=cuda, device="cuda") > 0.2
+    mask[1] = False
+    bias = ak.key_bias(mask, B, N, "cuda")
+
+    def run():
+        if kernel == "A":
+            return ak.self_attention(q, k, v, mask, rot=rot)
+        return ak.qblock_attention(q, k, v, bias, d ** -0.5, 64, rot)
+    got = run()
+    assert torch.isfinite(got.float()).all()
+    want = ak.qblock_attention_plain(q, k, v, bias, d ** -0.5, rot)
+    assert _close(got, want)
+    mean = v[1].float().mean(dim=1, keepdim=True).expand(-1, N, -1)
+    assert _close(got[1], mean)
+    assert torch.equal(run(), got)
+
+
+def test_hopper_loop_packs_one_view_twice(cuda):
+    """q and k the same Wqkv view (one slab, one phase, two operands): the
+    pack pass writes both, and the result is the plain version's."""
+    B, h, d, N = 2, 2, 64, 136
+    q, _, v = _wqkv_heads(cuda, B, N, h, d, True)
+    rot = _rot_tables(cuda, B, N, d, torch.bfloat16)
+    bias = ak.key_bias(None, B, N, "cuda")
+    got = ak.qblock_attention(q, q, v, bias, d ** -0.5, 128, rot)
+    assert _close(got, ak.qblock_attention_plain(q, q, v, bias, d ** -0.5,
+                                                 rot))
+
+
+def test_hopper_loop_refuses_what_the_plan_refuses(cuda):
+    """A d stride of 2 is neither TMA's nor the pack pass's: the wrappers
+    raise before any launch, and take no other path."""
+    B, h, d, N = 1, 2, 64, 128
+    x = torch.randn(B, h, N, 2 * d, generator=cuda, device="cuda").to(
+        torch.bfloat16)
+    q = x[..., ::2]
+    k = v = x[..., :d].contiguous()
+    rot = _rot_tables(cuda, B, N, d, torch.bfloat16)
+    bias = ak.key_bias(None, B, N, "cuda")
+    counts = (ak.self_attention.launches, ak.qblock_attention.launches,
+              ak.attention_fwd.launches, ak.hopper_attention.packs)
+    with pytest.raises(ValueError):
+        ak.self_attention(q, k, v, rot=rot)
+    with pytest.raises(ValueError):
+        ak.qblock_attention(q, k, v, bias, 0.125, 64)
+    with pytest.raises(ValueError):
+        ak.qblock_attention(k, q, v, bias, 0.125, 128, rot)
+    assert (ak.self_attention.launches, ak.qblock_attention.launches,
+            ak.attention_fwd.launches, ak.hopper_attention.packs) == counts
 
 
 def test_pose_on_the_card_matches_the_cpu(cuda):

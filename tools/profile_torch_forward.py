@@ -17,8 +17,9 @@ matches) is traced as well. `--path stage2` runs the stage-2 training step
 (both extractors frozen, LightGlue trained with AdamW; the same batch and
 random slot fill every step). After a warm-up it traces --iters runs with
 torch.profiler and prints the device time by kernel group (the port's
-kernels A-G, the pose tail's QR, SVD and sampling, convolutions, matrix
-products, norms, voxel scatter, sorting, the optimizer, everything else),
+kernels A-G and the pack pass of A and E, the pose tail's QR, SVD and
+sampling, convolutions, matrix products, norms, voxel scatter, sorting,
+the optimizer, everything else),
 the device's busy and idle share of the traced wall time, and the 25
 heaviest kernels; unless --no-trace, writes the chrome trace to
 chiprun_out/profile_torch_<what>.json. Needs a CUDA device.
@@ -41,6 +42,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 # kernel-name fragment -> group, first match wins
 GROUPS = (
+    ("attention_pack_kernel", "A/E pack"),
+    ("self_attention_sm90_kernel", "A self_attention_rot"),
+    ("qblock_attention_sm90_kernel", "E qblock_attention"),
     ("self_attention_kernel", "A self_attention_rot"),
     ("cross_attention_kernel", "B cross_attention_bidir"),
     ("nms_kernel", "C nms_rounds"),
