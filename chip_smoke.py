@@ -8,28 +8,31 @@ Phases, each of which raises on failure:
     `ei_nexus_tpu_torch/csrc` (one nvcc per source, all at once); TF32 is
     switched off for matmuls and convolutions so float32 comparisons are
     float32; the card's name and power limit are printed;
- 2. the build of the Hopper loop of A and E (csrc/flash_sm90.cuh): its
-    kernels' ptxas lines (no spill, no C7508 "setmaxnreg ignored"), shared
-    memory, and HGMMA and UTMALDG instructions in the SASS where the
-    toolkit has cuobjdump; then every kernel (A-G) against its plain
-    PyTorch version at the paths' shapes, in float32 and bfloat16 (E at
-    block_q 64 and 128, with and without rot; G at 1024 and 2048 tokens
-    with random query and key segments and a fully masked batch row), timed
-    with CUDA events beside the plain version, the library call that
-    computes the same function (SDPA for the attention kernels: forward for
-    A, B, D, E, G, with the same bool mask; SDPA's backward, (forward +
-    backward) - forward, for F) and the card's bound; each kernel and its
-    library call also by device time alone (torch.profiler: the CUDA-event
-    time of calls back to back is paced by the host where a call costs it
-    more than the card), A and E with the pack pass's own share;
-    F's gradients are also held to a relative norm, which planted faults
-    (c = 0, c or the log-sum-exp of the neighbouring row) must break;
+ 2. the build of the Hopper loops of A, B, E and F (csrc/flash_sm90.cuh,
+    csrc/attention_bwd.cu): their kernels' ptxas lines (no spill, no C7508
+    "setmaxnreg ignored"), shared memory, and HGMMA and UTMALDG
+    instructions in the SASS of each library where the toolkit has
+    cuobjdump; then every kernel (A-G) against its plain PyTorch version at
+    the paths' shapes, in float32 and bfloat16 (E at block_q 64 and 128,
+    with and without rot; G at 1024 and 2048 tokens with random query and
+    key segments and a fully masked batch row; D and F with a fully masked
+    batch row, held alone too), timed with CUDA events beside the plain
+    version, the library call that computes the same function (SDPA for
+    the attention kernels: forward for A, B, D, E, G, with the same bool
+    mask; SDPA's backward, (forward + backward) - forward, for F) and the
+    card's bound; each kernel and its library call also by device time
+    alone (torch.profiler: the CUDA-event time of calls back to back is
+    paced by the host where a call costs it more than the card), A, E and F
+    with the pack pass's own share, F split into its c pass, pack pass and
+    its two block kinds (each run alone); F's gradients are also held to a
+    relative norm, which planted faults (c = 0, c or the row statistics of
+    the neighbouring row) must break;
  3. the flagship EIM forward at full width (260x346, 16 bins, K=1024,
     9 LightGlue layers of 4x64, bfloat16, B=8) on bursty events, once for
     each attention setting of `build_flagship`: "auto" (A=18, B=9, C=2
     launches a forward), "flash" (G=36, C=2) and "auto" with block_q=64
-    (E=36, C=2), launch counts read around one forward (and the pack
-    passes of A and E: 18 under "auto", 18 q-blocked, 0 "flash"), then
+    (E=36, C=2), launch counts read around one forward (and the Hopper
+    loops' pack passes: 18 under "auto", 18 q-blocked, 0 "flash"), then
     timed one forward at a time (latency) and back to back (throughput,
     pairs/s);
     the flash forward is then chained with the pose tail as the JAX
@@ -37,7 +40,8 @@ Phases, each of which raises on failure:
     per batch, its host syncs);
  4. the stage-2 training step at full width (the same model with both
     extractors frozen and LightGlue trained, AdamW, B=8): launch counts
-    read around one step (D and F 36 each, C 2, A, B, E, G none), finite
+    read around one step (D and F 36 each, C 2, A, B, E, G none; 18 pack
+    passes, F's self-attention v), finite
     loss, grad_norm > 0, frozen parameters and BatchNorm statistics
     bit-unchanged, matcher parameters changed, the loss lower after 10
     steps on the same batch and fill, then steps/s over 24 steps back to
@@ -158,8 +162,10 @@ def _sum_ms(times: dict, fragment: str = "") -> float:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-# the Hopper loop of A and E (csrc/flash_sm90.cuh) and its pack pass
-HOPPER_LIBS = ("self_attention", "qblock_attention")
+# the Hopper loops of A, B, E and F (csrc/flash_sm90.cuh; F's in
+# csrc/attention_bwd.cu) and their pack pass
+HOPPER_LIBS = ("self_attention", "qblock_attention", "cross_attention",
+               "attention_bwd")
 HOPPER_KERNELS = ("sm90_kernel", "attention_pack_kernel")
 
 
@@ -168,7 +174,7 @@ def check_hopper_build(logs: dict) -> dict:
     their dynamic shared memory from the library; any C75xx remark such as
     C7508, setmaxnreg ignored) and require no spill and no C7508; where
     the toolkit has cuobjdump, count HGMMA (wgmma) and UTMALDG (TMA load)
-    instructions in the two libraries' SASS and require both. Returns
+    instructions in each library's SASS and require both. Returns
     {library: {"HGMMA": n, "UTMALDG": n}}."""
     from ei_nexus_tpu_torch.ops import cuda_build
     for name in HOPPER_LIBS:
@@ -192,9 +198,14 @@ def check_hopper_build(logs: dict) -> dict:
                 require(m is None or int(m.group(1)) == 0,
                         f"{fn} spills: {line.strip()}")
         lib = cuda_build.library(name)
-        print(f"[kernels] {name}: loop's dynamic shared memory "
-              f"{lib.ei_sm90_smem_bytes(1)} bytes a block (64 rows), "
-              f"{lib.ei_sm90_smem_bytes(2)} (128 rows)")
+        if name == "attention_bwd":
+            print(f"[kernels] {name}: loop's dynamic shared memory "
+                  f"{lib.ei_bwd_sm90_smem_bytes()} bytes a block (64 keys "
+                  f"or 64 queries)")
+        else:
+            print(f"[kernels] {name}: loop's dynamic shared memory "
+                  f"{lib.ei_sm90_smem_bytes(1)} bytes a block (64 rows), "
+                  f"{lib.ei_sm90_smem_bytes(2)} (128 rows)")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     counts = {}
     if not os.path.isfile(tool):
@@ -280,19 +291,19 @@ def fused_bound_ms(kind: str, q: torch.Tensor, k: torch.Tensor) -> tuple:
     """Bound of one bf16 call of kernel D ("fwd") or F ("bwd") on
     (B, h, N, d) queries and (B, h, M, d) keys. D: QK^T and PV (4BhNMd
     operations); reads q, k, v and the float32 bias, writes the output and
-    the float32 log-sum-exp. F: the five products of the TPU backward
-    (10BhNMd); reads q, k, v, the output, dO, the bias and the log-sum-exp,
-    writes dq, dk, dv."""
+    the float32 row statistics (max and sum). F: the five products of the
+    TPU backward (10BhNMd); reads q, k, v, the output, dO, the bias and the
+    row statistics, writes dq, dk, dv."""
     B, h, N, d = q.shape
     M = k.shape[2]
     es = q.element_size()
     if kind == "fwd":
         flops = 4.0 * B * h * N * M * d
-        nbytes = (2 * N + 2 * M) * B * h * d * es + B * M * 4 + B * h * N * 4
+        nbytes = (2 * N + 2 * M) * B * h * d * es + B * M * 4 + B * h * N * 8
     else:
         flops = 10.0 * B * h * N * M * d
         nbytes = ((4 * N + 4 * M) * B * h * d * es + B * M * 4
-                  + B * h * N * 4)
+                  + B * h * N * 8)
     return _bound(flops, PEAK_BF16_FLOPS, nbytes)
 
 
@@ -311,18 +322,21 @@ def fused_cases(x):
 
 
 def check_fused(x, dtype, tol, gen):
-    """Kernels D and F against their plain versions on both cases, and
-    planted faults of F (c = 0, c or the log-sum-exp of the neighbouring
-    row) that F's relative-norm check must catch; returns the largest
-    errors (D, F), the self case's tensors for timing and F's largest
-    relative norm."""
+    """Kernels D and F against their plain versions on both cases, with the
+    last batch row's keys all masked (held alone too: a uniform softmax),
+    and planted faults of F (c = 0, c or the row statistics of the
+    neighbouring row) that F's relative-norm check must catch; returns the
+    largest errors (D, F), the self case's tensors for timing and F's
+    largest relative norm."""
     from ei_nexus_tpu_torch.ops import attention_kernels as ak
     err_d = err_f = rel_f = 0.0
     caught = float("inf")
     for case, (q, k, v, mask, scale) in fused_cases(x).items():
         B, h, N, d = q.shape
+        mask = mask.clone()
+        mask[-1] = False
         bias = ak.key_bias(mask, B, k.shape[2], "cuda")
-        out, lse = ak.attention_fwd(q, k, v, bias, scale)
+        out, stats = ak.attention_fwd(q, k, v, bias, scale)
         want = ak.fused_attention_plain(q, k, v, mask, scale)
         torch.cuda.synchronize()
         e = max_err(out, want)
@@ -332,27 +346,31 @@ def check_fused(x, dtype, tol, gen):
         # dO as autograd hands it: a (B, h, N, d) view of (B, N, h, d)
         do = torch.randn(B, N, h, d, generator=gen, device="cuda").to(
             dtype).permute(0, 2, 1, 3)
-        got = ak.attention_bwd(q, k, v, out, do, bias, lse, scale)
+        got = ak.attention_bwd(q, k, v, out, do, bias, stats, scale)
         want = ak.fused_attention_bwd_plain(q, k, v, bias, do, scale)
         torch.cuda.synchronize()
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
-            e, r = max_err(a, b), rel_err(a, b)
-            bound = tol * max(1.0, float(b.float().abs().max()))
-            require(e <= bound, f"attention_bwd {name} ({case}) disagrees "
-                                f"in {dtype}: {e:.3e} > {bound:.3e}")
-            require(r <= BWD_REL[dtype],
-                    f"attention_bwd {name} ({case}) disagrees in {dtype}: "
-                    f"relative norm {r:.3e} > {BWD_REL[dtype]:g}")
-            err_f, rel_f = max(err_f, e), max(rel_f, r)
+            # all rows, then the fully masked batch row alone
+            for rows, which in ((slice(None), ""), (-1, ", masked row")):
+                e, r = max_err(a[rows], b[rows]), rel_err(a[rows], b[rows])
+                bound = tol * max(1.0, float(b[rows].float().abs().max()))
+                require(e <= bound, f"attention_bwd {name} ({case}{which}) "
+                                    f"disagrees in {dtype}: {e:.3e} > "
+                                    f"{bound:.3e}")
+                require(r <= BWD_REL[dtype],
+                        f"attention_bwd {name} ({case}{which}) disagrees in "
+                        f"{dtype}: relative norm {r:.3e} > "
+                        f"{BWD_REL[dtype]:g}")
+                err_f, rel_f = max(err_f, e), max(rel_f, r)
         # F reads c = rowsum(dO o O) from the output: a zero output plants
         # c = 0, a rolled one the neighbouring row's c
-        for o, l in ((torch.zeros_like(out), lse), (out.roll(1, 2), lse),
-                     (out, lse.roll(1, 2))):
-            bad = ak.attention_bwd(q, k, v, o, do, bias, l, scale)
+        for o, st in ((torch.zeros_like(out), stats), (out.roll(1, 2), stats),
+                      (out, stats.roll(1, -1))):
+            bad = ak.attention_bwd(q, k, v, o, do, bias, st, scale)
             caught = min(caught, max(rel_err(a, b)
                                      for a, b in zip(bad, want)))
         if case == "self":
-            kept = (q, k, v, mask, scale, bias, out, lse, do)
+            kept = (q, k, v, mask, scale, bias, out, stats, do)
     torch.cuda.synchronize()
     require(caught > 5 * BWD_REL[dtype],
             f"a planted fault of attention_bwd moves the relative norm only "
@@ -361,7 +379,7 @@ def check_fused(x, dtype, tol, gen):
           f"attention_bwd max|err| {err_f:.3e} (tol {tol:g} x max(1, "
           f"max|ref|)), relative norm {rel_f:.3e} (tol {BWD_REL[dtype]:g}; "
           f"planted faults: {caught:.3e} or more), self and cross, key-side "
-          f"masks")
+          f"masks, the last batch row fully masked (held alone too)")
     return err_d, err_f, kept, rel_f
 
 
@@ -531,22 +549,28 @@ def phase_kernels(logs: dict):
         F.scaled_dot_product_attention(x["qk1"], x["qk0"], x["v0"],
                                        attn_mask=am0, scale=1.0)
     t_b_lib = cuda_ms(sdpa_bidir)
-    dev_b = _sum_ms(device_ms(lambda: ak.cross_attention_bidir(
-        x["qk0"], x["qk1"], x["v0"], x["v1"], x["mask0"], x["mask1"])))
-    dev_b_lib = _sum_ms(device_ms(sdpa_bidir))
+    dev_b_all = device_ms(lambda: ak.cross_attention_bidir(
+        x["qk0"], x["qk1"], x["v0"], x["v1"], x["mask0"], x["mask1"]))
+    dev_b, dev_b_lib = _sum_ms(dev_b_all), _sum_ms(device_ms(sdpa_bidir))
+    print(f"[kernels] cross_attention_bidir device ms a call: loop "
+          f"{_sum_ms(dev_b_all, 'sm90_kernel'):.4f}, all {dev_b:.4f}; SDPA "
+          f"(two calls) {dev_b_lib:.4f}")
 
-    # D and F on the bf16 self-attention case
-    q, k, v, mask, scale, bias, out, lse, do = fused_errs[torch.bfloat16][2]
+    # D and F on the bf16 self-attention case (its last batch row fully
+    # masked; SDPA's yardsticks take the unmasked rows of x["mask0"], as a
+    # fully masked bool row is NaN there)
+    q, k, v, mask, scale, bias, out, stats, do = \
+        fused_errs[torch.bfloat16][2]
     t_d = cuda_ms(lambda: ak.attention_fwd(q, k, v, bias, scale))
     t_d_plain = cuda_ms(lambda: ak.fused_attention_plain(q, k, v, mask,
                                                          scale), iters=5)
-    t_f = cuda_ms(lambda: ak.attention_bwd(q, k, v, out, do, bias, lse,
+    t_f = cuda_ms(lambda: ak.attention_bwd(q, k, v, out, do, bias, stats,
                                            scale))
     t_f_plain = cuda_ms(lambda: ak.fused_attention_bwd_plain(
         q, k, v, bias, do, scale), iters=5)
     qg, kg, vg = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
     dog = do.contiguous()
-    am = mask[:, None, None, :]
+    am = x["mask0"][:, None, None, :]
     with torch.no_grad():
         t_d_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
             qg, kg, vg, attn_mask=am, scale=scale))
@@ -559,11 +583,24 @@ def phase_kernels(logs: dict):
         torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), dog)
     t_f_lib = cuda_ms(sdpa_fwd_bwd) - cuda_ms(sdpa_fwd)
     dev_d = _sum_ms(device_ms(lambda: ak.attention_fwd(q, k, v, bias, scale)))
-    dev_f = _sum_ms(device_ms(lambda: ak.attention_bwd(q, k, v, out, do, bias,
-                                                       lse, scale)))
+    dev_f_all = device_ms(lambda: ak.attention_bwd(q, k, v, out, do, bias,
+                                                   stats, scale))
+    dev_f = _sum_ms(dev_f_all)
+    # F's split: the c pass and the pack pass from the whole call; each
+    # block kind from a call that runs it alone
+    f_split = {"c pass": _sum_ms(dev_f_all, "row_dot_kernel"),
+               "pack": _sum_ms(dev_f_all, "attention_pack_kernel"),
+               "loop": _sum_ms(dev_f_all, "sm90_kernel")}
+    for blocks, kind in ((1, "dK/dV blocks alone"), (2, "dQ blocks alone")):
+        f_split[kind] = _sum_ms(device_ms(lambda: ak.attention_bwd(
+            q, k, v, out, do, bias, stats, scale, blocks=blocks)),
+            "sm90_kernel")
     with torch.no_grad():
         dev_d_lib = _sum_ms(device_ms(sdpa_fwd))
     dev_f_lib = _sum_ms(device_ms(sdpa_fwd_bwd)) - _sum_ms(device_ms(sdpa_fwd))
+    print(f"[kernels] attention_bwd device ms a call: all {dev_f:.4f}; "
+          + ", ".join(f"{k} {v:.4f}" for k, v in f_split.items())
+          + f"; SDPA's backward {dev_f_lib:.4f}")
 
     score = torch.rand(*NMS_SHAPE, generator=gen, device="cuda")
     score = torch.where(score > 0.3, score, torch.zeros_like(score))
@@ -648,8 +685,14 @@ def phase_kernels(logs: dict):
              max_abs_err=errs[torch.bfloat16][1],
              max_abs_err_f32=errs[torch.float32][1],
              ms=t_b, plain_ms=t_b_plain, bound_ms=b_b, bound_by=by_b,
-             library_ms=t_b_lib, device_ms=dev_b,
-             library_device_ms=dev_b_lib),
+             library_ms=t_b_lib,
+             design="bf16: one launch of the TMA + wgmma warp-specialised "
+                    "flash loop for both directions, 64 rows a block in one "
+                    "consumer warpgroup, four tensor maps picked per "
+                    "direction, head views read in place; f32: CUDA-core "
+                    "flash loop",
+             device_ms=dev_b, library_device_ms=dev_b_lib,
+             sass=sass.get("cross_attention")),
         dict(name="nms_rounds", route="cuda",
              source="ei_nexus_tpu_torch/csrc/nms.cu",
              replaces="ei_nexus_tpu/ops/pallas_nms.py:57",
@@ -662,8 +705,11 @@ def phase_kernels(logs: dict):
              max_abs_err=fused_errs[torch.bfloat16][0],
              max_abs_err_f32=fused_errs[torch.float32][0],
              ms=t_d, plain_ms=t_d_plain, bound_ms=b_d, bound_by=by_d,
-             library_ms=t_d_lib, device_ms=dev_d,
-             library_device_ms=dev_d_lib),
+             library_ms=t_d_lib,
+             design="bf16: mma.sync flash loop, 128 rows a block, writing "
+                    "each row's max and sum of exp(s - max) for F; f32: "
+                    "CUDA-core flash loop",
+             device_ms=dev_d, library_device_ms=dev_d_lib),
         dict(name="attention_bwd", route="cuda",
              source="ei_nexus_tpu_torch/csrc/attention_bwd.cu",
              replaces="ei_nexus_tpu/ops/pallas_attention.py:349",
@@ -672,8 +718,18 @@ def phase_kernels(logs: dict):
              rel_err=fused_errs[torch.bfloat16][3],
              rel_err_f32=fused_errs[torch.float32][3],
              ms=t_f, plain_ms=t_f_plain, bound_ms=b_f, bound_by=by_f,
-             library_ms=t_f_lib, device_ms=dev_f,
-             library_device_ms=dev_f_lib),
+             library_ms=t_f_lib,
+             design="bf16: c pass, pack pass (the stride-3 v), then one "
+                    "TMA + wgmma warp-specialised launch of dK/dV blocks "
+                    "(64 keys, K and V resident, Q and dO streamed) and dQ "
+                    "blocks (64 queries, K and V streamed), no atomics, P "
+                    "from D's row max and sum; f32: one warp a row",
+             device_ms=dev_f, library_device_ms=dev_f_lib,
+             c_pass_ms=f_split["c pass"], pack_ms=f_split["pack"],
+             loop_ms=f_split["loop"],
+             dkdv_blocks_ms=f_split["dK/dV blocks alone"],
+             dq_blocks_ms=f_split["dQ blocks alone"],
+             sass=sass.get("attention_bwd")),
         # ms: the rot call at block_q 64, as the self layers run it
         dict(name="qblock_attention", route="cuda",
              source="ei_nexus_tpu_torch/csrc/qblock_attention.cu",
@@ -739,7 +795,7 @@ def phase_forward(tag: str, want: dict, want_packs: int,
                   attention_impl: str = "auto", block_q: int = 0):
     """The flagship EIM forward at full width with LightGlue's attention
     taken as `attention_impl` / `block_q` (`build_flagship`'s options):
-    launch counts (and the pack passes of A and E) read around one forward
+    launch counts (and the Hopper loops' pack passes) read around one forward
     and held to `want` and `want_packs`, output checks, then latency (one
     forward at a time) and back-to-back rate. Returns (launches, ms per
     forward back to back, B, the forward)."""
@@ -767,7 +823,7 @@ def phase_forward(tag: str, want: dict, want_packs: int,
         launches = {n: c.launches for n, c in counters.items()}
         packs = hopper_attention.packs
         print(f"[{tag}] launches in one forward: {launches}; pack passes "
-              f"of A and E: {packs}")
+              f"of the Hopper loops (A, B, E): {packs}")
         want = {n: want.get(n, 0) for n in counters}
         require(launches == want, f"launch counts {launches} != {want}")
         require(packs == want_packs, f"{packs} pack passes != {want_packs}")
@@ -858,6 +914,7 @@ def phase_stage2():
     from ei_nexus_tpu_torch.data.synth import stage2_batch
     from ei_nexus_tpu_torch.flagship import (build_stage2_flagship,
                                              stage2_train_state)
+    from ei_nexus_tpu_torch.ops.attention_kernels import hopper_attention
     from ei_nexus_tpu_torch.train.steps import make_stage2_train_step
 
     B, max_events = 8, 1 << 17
@@ -874,14 +931,20 @@ def phase_stage2():
     counters = kernel_counters()
     for c in counters.values():
         c.launches = 0
+    hopper_attention.packs = 0
     fill.manual_seed(1)
     info = step(state, batch, fill)
     torch.cuda.synchronize()
     launches = {n: c.launches for n, c in counters.items()}
-    print(f"[stage2] launches in one step: {launches}")
+    packs = hopper_attention.packs
+    print(f"[stage2] launches in one step: {launches}; pack passes of F: "
+          f"{packs}")
     want = {n: 0 for n in counters}
     want.update(nms_rounds=2, attention_fwd=36, attention_bwd=36)
     require(launches == want, f"launch counts {launches} != {want}")
+    # F packs the self-attention's stride-3 v (18 calls); the rotated q, k,
+    # the cross-attention's head views and dO are read in place
+    require(packs == 18, f"{packs} pack passes in one step != 18")
     loss1, gnorm = float(info["loss"]), float(info["grad_norm"])
     require(np.isfinite(loss1) and np.isfinite(gnorm) and gnorm > 0,
             f"loss {loss1}, grad_norm {gnorm}")

@@ -18,30 +18,45 @@
 // to the next, and the TPU kernel's per-problem sums become two kinds of
 // block in one launch, each owning its outputs (no atomics, so the sums
 // are the same from run to run):
-//  - dK/dV blocks own 128 keys (8 warps x 16) and loop over 64-query tiles:
-//    S^T = K Q^T and dP^T = V dO^T on the tensor cores, P^T = exp(S^T -
-//    lse) from the forward's row log-sum-exp (the TPU's pass-1 row
-//    statistics, not a softmax of S^T), dV += P^T dO, dK += dS^T Q;
-//  - dQ blocks own 128 queries and loop over 64-key tiles: S, P, dP, dS as
+//  - dK/dV blocks own 64 keys and loop over 64-query tiles: S^T = K Q^T
+//    and dP^T = V dO^T, P^T = exp(S^T - m) / l from the forward's row
+//    statistics (the TPU's pass-1 m and Z, not a softmax of S^T),
+//    dV += P^T dO, dK += dS^T Q;
+//  - dQ blocks own 64 queries and loop over 64-key tiles: S, P, dP, dS as
 //    above, dQ += dS K.
 // So S and dP are computed twice (seven products instead of five), the
 // price of independent blocks. c is rowsum(dO o O) (FlashAttention-2),
 // equal to rowsum(dP o P) up to the rounding of O to the operand type; a
-// small first launch computes it once per row. The bf16 instance runs its
-// products with mma.sync m16n8k16 (bf16 operands from shared memory,
-// float32 accumulators), reusing kernel A's fragments; the float32 instance
-// (comparisons) is one warp per output row on the CUDA cores.
+// small first launch computes it once per row. P is rebuilt from the row
+// max m and the row sum l that kernel D saves, with s - m formed before
+// anything else, so a fully masked row (every score -1e9) gets P = 1/M as
+// the plain version does.
+//  - bfloat16 (the main path): the Hopper machinery of flash_sm90.cuh. A
+//    block is one consumer warpgroup on wgmma and a producer warpgroup
+//    that gives its registers back; the producer loads the block's two
+//    resident tiles once (K, V or Q, dO) and streams the other two by TMA
+//    in a 3-stage ring, writing each tile's per-row floats beside it: the
+//    streamed queries' m, 1/l and c (past the last query m = +inf, 1/l =
+//    0, so P = 0), or the streamed keys' bias (-inf past the last key).
+//    S^T, dP^T, S and dP are wgmma_ss products (both operands K-major from
+//    shared memory); P^T and dS^T (or dS) are formed in the accumulators,
+//    rounded to bf16 where the plain version rounds them, and enter
+//    dV += P^T dO, dK += dS^T Q and dQ += dS K as the register A operand,
+//    the streamed tile serving as the transposed (MN-major) B operand, as V
+//    does in the forward loop. Operands the TMA cannot read in place (the
+//    stride-3 v of SelfBlock's Wqkv split) are packed first; the rotated q
+//    and k, dO and the output (read by the c pass) are read in place.
+//  - float32 (comparisons): one warp per output row on the CUDA cores.
 #include "flash_attention.cuh"
+#include "flash_sm90.cuh"
 
 namespace ei {
-
-constexpr int kBwdQT = 64;  // bf16: query tile of the dK/dV loop
-constexpr int kBwdKT = 64;  // bf16: key tile of the dQ loop
 
 struct BwdProblem {
   Operand q, k, v, o, dout;  // (B, h, N|M, d) through strides
   const float* bias;         // (B, nk) additive key-side bias
-  const float* lse;          // (B, heads, nq) forward row log-sum-exp
+  const float* m;            // (B, heads, nq) forward row max
+  const float* l;            // (B, heads, nq) forward row sum of exp(s - m)
   float* c;                  // (B, heads, nq) scratch: rowsum(dO o O)
   Output dq, dk, dv;
   int heads, nq, nk;
@@ -84,13 +99,20 @@ __global__ void __launch_bounds__(256) row_dot_kernel(const BwdProblem p,
   if (lane == 0) p.c[w] = s;
 }
 
+template <typename T>
+static int launch_row_dot(const BwdProblem& p, int B, cudaStream_t stream) {
+  const long long rows = (long long)B * p.heads * p.nq;
+  row_dot_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p, rows);
+  return (int)cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // float32 instance: one warp per output row, lane l holding d = l, l + 32
 // ---------------------------------------------------------------------------
 
-template <typename T>
 __global__ void __launch_bounds__(256) bwd_rows_kernel(const BwdProblem p,
                                                        int B) {
+  using T = float;
   long long w = (long long)blockIdx.x * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int d0 = lane, d1 = lane + 32;
@@ -103,27 +125,27 @@ __global__ void __launch_bounds__(256) bwd_rows_kernel(const BwdProblem p,
     const int b = (int)(w / ((long long)p.nq * p.heads));
     const T* q = row_ptr<T>(p.q, b, h, i);
     const T* g = row_ptr<T>(p.dout, b, h, i);
-    const float q0 = to_f(q[d0 * p.q.sd]), q1 = to_f(q[d1 * p.q.sd]);
-    const float g0 = to_f(g[d0 * p.dout.sd]), g1 = to_f(g[d1 * p.dout.sd]);
+    const float q0 = q[d0 * p.q.sd], q1 = q[d1 * p.q.sd];
+    const float g0 = g[d0 * p.dout.sd], g1 = g[d1 * p.dout.sd];
     const long long r = ((long long)b * p.heads + h) * p.nq + i;
-    const float lse = p.lse[r], c = p.c[r];
+    const float m = p.m[r], l = p.l[r], c = p.c[r];
     float a0 = 0.f, a1 = 0.f;
     for (int j = 0; j < p.nk; ++j) {
       const T* k = row_ptr<T>(p.k, b, h, j);
       const T* v = row_ptr<T>(p.v, b, h, j);
-      const float k0 = to_f(k[d0 * p.k.sd]), k1 = to_f(k[d1 * p.k.sd]);
+      const float k0 = k[d0 * p.k.sd], k1 = k[d1 * p.k.sd];
       const float s = warp_sum(q0 * k0 + q1 * k1);
-      const float dp = warp_sum(g0 * to_f(v[d0 * p.v.sd]) +
-                                g1 * to_f(v[d1 * p.v.sd]));
-      const float pr = expf(__fadd_rn(__fmul_rn(s, p.scale),
-                                      p.bias[(long long)b * p.nk + j]) - lse);
-      const float ds = round_t<T>(__fmul_rn(pr, __fsub_rn(dp, c)));
+      const float dp = warp_sum(g0 * v[d0 * p.v.sd] + g1 * v[d1 * p.v.sd]);
+      const float x = __fadd_rn(__fmul_rn(s, p.scale),
+                                p.bias[(long long)b * p.nk + j]);
+      const float pr = __fdiv_rn(expf(__fsub_rn(x, m)), l);
+      const float ds = __fmul_rn(pr, __fsub_rn(dp, c));
       a0 = fmaf(ds, k0, a0);
       a1 = fmaf(ds, k1, a1);
     }
     T* out = out_row<T>(p.dq, b, h, i);
-    out[d0 * p.dq.sd] = from_f<T>(a0 * p.scale);
-    out[d1 * p.dq.sd] = from_f<T>(a1 * p.scale);
+    out[d0 * p.dq.sd] = a0 * p.scale;
+    out[d1 * p.dq.sd] = a1 * p.scale;
     return;
   }
   w -= q_rows;
@@ -134,300 +156,306 @@ __global__ void __launch_bounds__(256) bwd_rows_kernel(const BwdProblem p,
   const int b = (int)(w / ((long long)p.nk * p.heads));
   const T* k = row_ptr<T>(p.k, b, h, j);
   const T* v = row_ptr<T>(p.v, b, h, j);
-  const float k0 = to_f(k[d0 * p.k.sd]), k1 = to_f(k[d1 * p.k.sd]);
-  const float v0 = to_f(v[d0 * p.v.sd]), v1 = to_f(v[d1 * p.v.sd]);
+  const float k0 = k[d0 * p.k.sd], k1 = k[d1 * p.k.sd];
+  const float v0 = v[d0 * p.v.sd], v1 = v[d1 * p.v.sd];
   const float bias = p.bias[(long long)b * p.nk + j];
-  const float* lse = p.lse + ((long long)b * p.heads + h) * p.nq;
-  const float* cr = p.c + ((long long)b * p.heads + h) * p.nq;
+  const long long r0 = ((long long)b * p.heads + h) * p.nq;
   float dv0 = 0.f, dv1 = 0.f, dk0 = 0.f, dk1 = 0.f;
   for (int i = 0; i < p.nq; ++i) {
     const T* q = row_ptr<T>(p.q, b, h, i);
     const T* g = row_ptr<T>(p.dout, b, h, i);
-    const float q0 = to_f(q[d0 * p.q.sd]), q1 = to_f(q[d1 * p.q.sd]);
-    const float g0 = to_f(g[d0 * p.dout.sd]), g1 = to_f(g[d1 * p.dout.sd]);
+    const float q0 = q[d0 * p.q.sd], q1 = q[d1 * p.q.sd];
+    const float g0 = g[d0 * p.dout.sd], g1 = g[d1 * p.dout.sd];
     const float s = warp_sum(k0 * q0 + k1 * q1);
     const float dp = warp_sum(v0 * g0 + v1 * g1);
-    const float pr =
-        expf(__fadd_rn(__fmul_rn(s, p.scale), bias) - lse[i]);
-    const float pt = round_t<T>(pr);
-    dv0 = fmaf(pt, g0, dv0);
-    dv1 = fmaf(pt, g1, dv1);
-    const float ds = round_t<T>(__fmul_rn(pr, __fsub_rn(dp, cr[i])));
+    const float x = __fadd_rn(__fmul_rn(s, p.scale), bias);
+    const float pr = __fdiv_rn(expf(__fsub_rn(x, p.m[r0 + i])), p.l[r0 + i]);
+    dv0 = fmaf(pr, g0, dv0);
+    dv1 = fmaf(pr, g1, dv1);
+    const float ds = __fmul_rn(pr, __fsub_rn(dp, p.c[r0 + i]));
     dk0 = fmaf(ds, q0, dk0);
     dk1 = fmaf(ds, q1, dk1);
   }
   T* dvo = out_row<T>(p.dv, b, h, j);
   T* dko = out_row<T>(p.dk, b, h, j);
-  dvo[d0 * p.dv.sd] = from_f<T>(dv0);
-  dvo[d1 * p.dv.sd] = from_f<T>(dv1);
-  dko[d0 * p.dk.sd] = from_f<T>(dk0 * p.scale);
-  dko[d1 * p.dk.sd] = from_f<T>(dk1 * p.scale);
+  dvo[d0 * p.dv.sd] = dv0;
+  dvo[d1 * p.dv.sd] = dv1;
+  dko[d0 * p.dk.sd] = dk0 * p.scale;
+  dko[d1 * p.dk.sd] = dk1 * p.scale;
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 instance: tensor cores
+// bfloat16 instance: the Hopper loop
 // ---------------------------------------------------------------------------
 
-constexpr size_t kBwdSmem =
-    (2 * kMmaRows + 2 * kBwdQT) * kLd * sizeof(__nv_bfloat16) +
-    2 * kBwdQT * sizeof(float);
+namespace sm90 {
 
-__device__ __forceinline__ void load_rows(const Operand& a, int b, int h,
-                                          int r0, int n_rows, int rows,
-                                          __nv_bfloat16* dst) {
-  load_rows_bf16<false>(Problem{}, a, b, h, r0, n_rows, rows, dst);
-}
+// One consumer warpgroup a block, two blocks an SM: 128 entry registers a
+// thread (__launch_bounds__), and the consumers take 232 = 2 x 128 - 24
+// after the producer warpgroup gives its own back, room for dK and dV
+// (64 floats) beside a whole 64-query tile's S^T and dP^T (64 floats).
+struct BwdConfig {
+  static constexpr int nwg = 1, threads = 256, min_blocks = 2,
+                       consumer_regs = 232;
+};
 
-// A fragments of the warp's 16 rows of a row-major bf16 tile, one per
-// 16-wide d chunk (as kernel A loads Q).
-__device__ __forceinline__ void a_frags(const __nv_bfloat16* tile, int w0,
-                                        uint32_t (&a)[4][4]) {
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const __nv_bfloat16* r = &tile[(w0 + g) * kLd + kk * 16 + 2 * t];
-    a[kk][0] = lds_pair(r);
-    a[kk][1] = lds_pair(r + 8 * kLd);
-    a[kk][2] = lds_pair(r + 8);
-    a[kk][3] = lds_pair(r + 8 * kLd + 8);
-  }
-}
+struct BwdShared {
+  __nv_bfloat16 res[2][64 * kD];       // resident: K, V or Q, dO (1024-
+  __nv_bfloat16 a[kStages][64 * kD];   // byte aligned tiles); streamed:
+  __nv_bfloat16 b[kStages][64 * kD];   // Q, dO (dK/dV) or K, V (dQ)
+  // dK/dV: the streamed queries' m, 1/l and c; dQ: the keys' bias in [0]
+  float row[kStages][3][64];
+  uint64_t full[kStages], empty[kStages], resbar;
+};
+constexpr size_t kBwdSmem = sizeof(BwdShared) + 1024;
 
-// acc[j] += A (16 x 64) B^T for the 64 rows of `tile` as 8 n-tiles of 8
-// (rows = n, d = k), as kernel A computes S = Q K^T.
-__device__ __forceinline__ void mma_nt(float (&acc)[8][4],
-                                       const uint32_t (&a)[4][4],
-                                       const __nv_bfloat16* tile) {
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const __nv_bfloat16* r = &tile[(j * 8 + g) * kLd + kk * 16 + 2 * t];
-      mma_bf16(acc[j], a[kk], lds_pair(r), lds_pair(r + 8));
-    }
-  }
-}
+struct BwdArgs {
+  const float* bias;  // (B, nk) float32
+  const float* m;     // (B, H, nq) float32 row max
+  const float* l;     // (B, H, nq) float32 row sum of exp(s - m)
+  const float* c;     // (B, H, nq) float32 rowsum(dO o O)
+  __nv_bfloat16* out[3];  // dq (B, H, nq, 64), dk, dv (B, H, nk, 64)
+  long long os[3][3];     // their (b, h, n) element strides; d unit
+  int H, nq, nk, nkb;     // nkb: the dK/dV blocks of a (b, h) problem
+  int x0;                 // block x0 + blockIdx.x is the block's index
+  float scale;
+};
 
-// acc (16 x 64 d) += X (16 x 64, float32 accumulators rounded to bf16 as
-// the A operand) times the row-major tile (64 rows = k, 64 d = n).
-__device__ __forceinline__ void mma_acc_tile(float (&acc)[8][4],
-                                             const float (&x)[8][4],
-                                             const __nv_bfloat16* tile) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const uint32_t xa[4] = {
-        pack_bf16(x[2 * c][0], x[2 * c][1]),
-        pack_bf16(x[2 * c][2], x[2 * c][3]),
-        pack_bf16(x[2 * c + 1][0], x[2 * c + 1][1]),
-        pack_bf16(x[2 * c + 1][2], x[2 * c + 1][3])};
-#pragma unroll
-    for (int jd = 0; jd < 8; ++jd) {
-      uint32_t b0, b1;
-      ldsm_x2_trans(tile, c * 16, jd * 8, b0, b1);
-      mma_bf16(acc[jd], xa, b0, b1);
-    }
-  }
-}
-
-// Write the warp's 16 rows x 64 d of `acc` * mul to rows r0.. of `o`.
-__device__ __forceinline__ void store_rows(const Output& o, int b, int h,
-                                           int r0, int n_rows,
-                                           const float (&acc)[8][4],
-                                           float mul) {
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
+// dK/dV block: the warpgroup owns keys k0 .. k0 + 63 (K, V resident) and
+// loops over the ntiles streamed 64-query tiles of Q and dO.
+__device__ __forceinline__ void bwd_keys(BwdShared& S, const BwdArgs& a,
+                                         int k0, int h, int b, int ntiles) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  float bias[2];  // of the thread's keys, rows g and g + 8 of the warp
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int n = r0 + g + 8 * hr;
-    if (n >= n_rows) continue;
-    __nv_bfloat16* out = out_row<__nv_bfloat16>(o, b, h, n);
-#pragma unroll
-    for (int jd = 0; jd < 8; ++jd)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        out[(jd * 8 + 2 * t + e) * o.sd] =
-            __float2bfloat16_rn(acc[jd][2 * hr + e] * mul);
+    const int key = k0 + 16 * warp + g + 8 * hr;
+    bias[hr] = key < a.nk ? a.bias[(long long)b * a.nk + key] : -INFINITY;
   }
-}
-
-__device__ void dkdv_block(const BwdProblem& p, int b, int h, int k0,
-                           __nv_bfloat16* smem) {
-  using T = __nv_bfloat16;
-  T* Ks = smem;                   // [kMmaRows][kLd]
-  T* Vs = Ks + kMmaRows * kLd;    // [kMmaRows][kLd]
-  T* Qs = Vs + kMmaRows * kLd;    // [kBwdQT][kLd]
-  T* Gs = Qs + kBwdQT * kLd;      // [kBwdQT][kLd]  dO
-  float* lse_s = reinterpret_cast<float*>(Gs + kBwdQT * kLd);
-  float* c_s = lse_s + kBwdQT;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int w0 = (threadIdx.x / 32) * 16;
-
-  load_rows(p.k, b, h, k0, p.nk, kMmaRows, Ks);
-  load_rows(p.v, b, h, k0, p.nk, kMmaRows, Vs);
-  __syncthreads();
-  uint32_t ka[4][4], va[4][4];
-  a_frags(Ks, w0, ka);
-  a_frags(Vs, w0, va);
-  float bias[2];
+  const uint64_t dk_t = smem_desc(S.res[0]), dv_t = smem_desc(S.res[1]);
+  float dk[32], dv[32];
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int key = k0 + w0 + g + 8 * hr;
-    bias[hr] = key < p.nk ? p.bias[(long long)b * p.nk + key] : 0.f;
-  }
-  const long long row0 = ((long long)b * p.heads + h) * p.nq;
-  float dv[8][4], dk[8][4];
-#pragma unroll
-  for (int jd = 0; jd < 8; ++jd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dv[jd][e] = dk[jd][e] = 0.f;
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(&S.resbar, 0);
 
-  for (int q0 = 0; q0 < p.nq; q0 += kBwdQT) {
-    __syncthreads();  // every warp is done with the previous Q and dO
-    load_rows(p.q, b, h, q0, p.nq, kBwdQT, Qs);
-    load_rows(p.dout, b, h, q0, p.nq, kBwdQT, Gs);
-    if (threadIdx.x < kBwdQT) {
-      const int n = q0 + threadIdx.x;
-      // queries past nq: P = exp(-inf) = 0, and their dO rows are zeros
-      lse_s[threadIdx.x] = n < p.nq ? p.lse[row0 + n] : INFINITY;
-      c_s[threadIdx.x] = n < p.nq ? p.c[row0 + n] : 0.f;
-    }
-    __syncthreads();
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % kStages;
+    mbar_wait(&S.full[st], (it / kStages) & 1);
+    const uint64_t dq_t = smem_desc(S.a[st]), ddo_t = smem_desc(S.b[st]);
+    float s[32], dp[32];  // S^T = K Q^T, dP^T = V dO^T: keys x queries
+    wgmma_fence();
+    product_ss(s, dk_t, dq_t);
+    product_ss(dp, dv_t, ddo_t);
+    wgmma_commit();
+    wgmma_wait();
+    fence_acc(s);
+    fence_acc(dp);
 
-    float s[8][4], dp[8][4];  // S^T, dP^T: the warp's 16 keys x 64 queries
-    mma_nt(s, ka, Qs);
-    mma_nt(dp, va, Gs);
+    // s[4j + e]: key row g + 8 (e >> 1), query 8j + 2t + (e & 1)
+    const float* m = S.row[st][0];
+    const float* il = S.row[st][1];
+    const float* cr = S.row[st][2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      const float2 mm = *reinterpret_cast<const float2*>(m + col);
+      const float2 ll = *reinterpret_cast<const float2*>(il + col);
+      const float2 cc = *reinterpret_cast<const float2*>(cr + col);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + 2 * t + (e & 1);
-        const float pr = expf(__fadd_rn(__fmul_rn(s[j][e], p.scale),
-                                        bias[e >> 1]) - lse_s[col]);
-        s[j][e] = pr;                                        // P^T
-        dp[j][e] = __fmul_rn(pr, __fsub_rn(dp[j][e], c_s[col]));  // dS^T
+        const float x = __fadd_rn(__fmul_rn(s[4 * j + e], a.scale),
+                                  bias[e >> 1]);
+        const float p = __fmul_rn(exp_diff(x, (e & 1) ? mm.y : mm.x),
+                                  (e & 1) ? ll.y : ll.x);
+        s[4 * j + e] = p;  // P^T
+        dp[4 * j + e] =
+            __fmul_rn(p, __fsub_rn(dp[4 * j + e], (e & 1) ? cc.y : cc.x));
       }
-    mma_acc_tile(dv, s, Gs);   // dV += P^T dO
-    mma_acc_tile(dk, dp, Qs);  // dK += dS^T Q
+    }
+    uint32_t pa[4][4], da[4][4];  // P^T and dS^T in bf16
+    a_operand(s, pa);
+    a_operand(dp, da);
+
+    fence_acc(dv);
+    fence_acc(dk);
+    wgmma_fence();
+    product_rs(dv, pa, ddo_t);  // dV += P^T dO
+    product_rs(dk, da, dq_t);   // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait();
+    fence_acc(dv);
+    fence_acc(dk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&S.empty[st]);
   }
-  store_rows(p.dv, b, h, k0 + w0, p.nk, dv, 1.f);
-  store_rows(p.dk, b, h, k0 + w0, p.nk, dk, p.scale);
+  store_tile(dv, {1.f, 1.f}, a.out[2], a.os[2], b, h, k0, a.nk);
+  store_tile(dk, {a.scale, a.scale}, a.out[1], a.os[1], b, h, k0, a.nk);
 }
 
-__device__ void dq_block(const BwdProblem& p, int b, int h, int q0,
-                         __nv_bfloat16* smem) {
-  using T = __nv_bfloat16;
-  T* Qs = smem;                   // [kMmaRows][kLd]
-  T* Gs = Qs + kMmaRows * kLd;    // [kMmaRows][kLd]  dO
-  T* Ks = Gs + kMmaRows * kLd;    // [kBwdKT][kLd]
-  T* Vs = Ks + kBwdKT * kLd;      // [kBwdKT][kLd]
-  float* bias_s = reinterpret_cast<float*>(Vs + kBwdKT * kLd);
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int w0 = (threadIdx.x / 32) * 16;
-
-  load_rows(p.q, b, h, q0, p.nq, kMmaRows, Qs);
-  load_rows(p.dout, b, h, q0, p.nq, kMmaRows, Gs);
-  __syncthreads();
-  uint32_t qa[4][4], ga[4][4];
-  a_frags(Qs, w0, qa);
-  a_frags(Gs, w0, ga);
-  const long long row0 = ((long long)b * p.heads + h) * p.nq;
-  float lse[2], c[2];
+// dQ block: the warpgroup owns queries q0 .. q0 + 63 (Q, dO resident) and
+// loops over the ntiles streamed 64-key tiles of K and V.
+__device__ __forceinline__ void bwd_queries(BwdShared& S, const BwdArgs& a,
+                                            int q0, int h, int b,
+                                            int ntiles) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  // the statistics of the thread's queries, rows g and g + 8 of the warp;
+  // past the last query P = 0
+  float m[2], il[2], c[2];
+  const long long row0 = ((long long)b * a.H + h) * a.nq;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int n = q0 + w0 + g + 8 * hr;
-    lse[hr] = n < p.nq ? p.lse[row0 + n] : INFINITY;
-    c[hr] = n < p.nq ? p.c[row0 + n] : 0.f;
+    const int n = q0 + 16 * warp + g + 8 * hr;
+    const bool in = n < a.nq;
+    m[hr] = in ? a.m[row0 + n] : INFINITY;
+    il[hr] = in ? 1.f / a.l[row0 + n] : 0.f;
+    c[hr] = in ? a.c[row0 + n] : 0.f;
   }
-  float dq[8][4];
+  const uint64_t dq_t = smem_desc(S.res[0]), ddo_t = smem_desc(S.res[1]);
+  float dq[32];
 #pragma unroll
-  for (int jd = 0; jd < 8; ++jd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[jd][e] = 0.f;
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  mbar_wait(&S.resbar, 0);
 
-  for (int k0 = 0; k0 < p.nk; k0 += kBwdKT) {
-    __syncthreads();  // every warp is done with the previous K and V
-    load_rows(p.k, b, h, k0, p.nk, kBwdKT, Ks);
-    load_rows(p.v, b, h, k0, p.nk, kBwdKT, Vs);
-    if (threadIdx.x < kBwdKT) {
-      const int key = k0 + threadIdx.x;
-      // keys past nk: P = 0, and their V rows are zeros
-      bias_s[threadIdx.x] =
-          key < p.nk ? p.bias[(long long)b * p.nk + key] : -INFINITY;
-    }
-    __syncthreads();
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % kStages;
+    mbar_wait(&S.full[st], (it / kStages) & 1);
+    const uint64_t dk_t = smem_desc(S.a[st]), dv_t = smem_desc(S.b[st]);
+    float s[32], dp[32];  // S = Q K^T, dP = dO V^T: queries x keys
+    wgmma_fence();
+    product_ss(s, dq_t, dk_t);
+    product_ss(dp, ddo_t, dv_t);
+    wgmma_commit();
+    wgmma_wait();
+    fence_acc(s);
+    fence_acc(dp);
 
-    float s[8][4], dp[8][4];  // S, dP: the warp's 16 queries x 64 keys
-    mma_nt(s, qa, Ks);
-    mma_nt(dp, ga, Vs);
+    // s[4j + e]: query row g + 8 (e >> 1), key 8j + 2t + (e & 1)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < 8; ++j) {
+      const float2 bb =
+          *reinterpret_cast<const float2*>(&S.row[st][0][8 * j + 2 * t]);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + 2 * t + (e & 1);
-        const float pr = expf(__fadd_rn(__fmul_rn(s[j][e], p.scale),
-                                        bias_s[col]) - lse[e >> 1]);
-        s[j][e] = __fmul_rn(pr, __fsub_rn(dp[j][e], c[e >> 1]));  // dS
+        const int hr = e >> 1;
+        const float x = __fadd_rn(__fmul_rn(s[4 * j + e], a.scale),
+                                  (e & 1) ? bb.y : bb.x);
+        const float p = __fmul_rn(exp_diff(x, m[hr]), il[hr]);
+        s[4 * j + e] = __fmul_rn(p, __fsub_rn(dp[4 * j + e], c[hr]));  // dS
       }
-    mma_acc_tile(dq, s, Ks);  // dQ += dS K
+    }
+    uint32_t da[4][4];
+    a_operand(s, da);
+
+    fence_acc(dq);
+    wgmma_fence();
+    product_rs(dq, da, dk_t);  // dQ += dS K
+    wgmma_commit();
+    wgmma_wait();
+    fence_acc(dq);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&S.empty[st]);
   }
-  store_rows(p.dq, b, h, q0 + w0, p.nq, dq, p.scale);
+  store_tile(dq, {a.scale, a.scale}, a.out[0], a.os[0], b, h, q0, a.nq);
 }
 
-// blockIdx.x < n_kblocks: a dK/dV block; otherwise a dQ block.
-__global__ void __launch_bounds__(kMmaThreads)
-    bwd_mma_kernel(const BwdProblem p, int n_kblocks) {
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem4);
-  if ((int)blockIdx.x < n_kblocks)
-    dkdv_block(p, blockIdx.z, blockIdx.y, blockIdx.x * kMmaRows, smem);
-  else
-    dq_block(p, blockIdx.z, blockIdx.y, (blockIdx.x - n_kblocks) * kMmaRows,
-             smem);
-}
+// Block x = a.x0 + blockIdx.x: a dK/dV block if x < a.nkb, otherwise a dQ
+// block, of problem (blockIdx.z, blockIdx.y). tq, tdo: (64, nq, H, B)
+// maps; tk, tv: (64, nk, H, B).
+__global__ void __launch_bounds__(BwdConfig::threads, BwdConfig::min_blocks)
+    attention_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const BwdArgs a) {
+  auto& S = shared_as<BwdShared>();
+  const int x = a.x0 + (int)blockIdx.x;
+  const bool keys = x < a.nkb;
+  const int r0 = 64 * (keys ? x : x - a.nkb);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int ntiles = ((keys ? a.nq : a.nk) + 63) / 64;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-template <typename T>
-static int launch(const BwdProblem& p, int B, cudaStream_t stream) {
-  const long long rows = (long long)B * p.heads * p.nq;
-  row_dot_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p, rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if constexpr (std::is_same<T, float>::value) {
-    const long long all = (long long)B * p.heads * (p.nq + p.nk);
-    bwd_rows_kernel<T><<<(unsigned)((all + 7) / 8), 256, 0, stream>>>(p, B);
-    return (int)cudaGetLastError();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&S.full[s], 32);  // the producer warp's lanes
+      mbar_init(&S.empty[s], 4);  // one lane of each consumer warp
+    }
+    mbar_init(&S.resbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  err = cudaFuncSetAttribute(bwd_mma_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kBwdSmem);
-  if (err != cudaSuccess) return (int)err;
-  const int nkb = (p.nk + kMmaRows - 1) / kMmaRows;
-  const int nqb = (p.nq + kMmaRows - 1) / kMmaRows;
-  const dim3 grid(nkb + nqb, p.heads, B);
-  bwd_mma_kernel<<<grid, kMmaThreads, kBwdSmem, stream>>>(p, nkb);
-  return (int)cudaGetLastError();
+  __syncthreads();
+
+  if (warp >= 4) {
+    // ---- producer: the resident tiles once, then the ring of streamed
+    // tiles with their per-row floats; the warpgroup gives its registers
+    // back, and its first warp works
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (warp != 4) return;
+    const CUtensorMap& res0 = keys ? tk : tq;
+    const CUtensorMap& res1 = keys ? tv : tdo;
+    const CUtensorMap& str0 = keys ? tq : tk;
+    const CUtensorMap& str1 = keys ? tdo : tv;
+    if (lane == 0) {
+      mbar_arrive_tx(&S.resbar, 2 * kTileBytes);
+      tma_load(S.res[0], res0, r0, h, b, &S.resbar);
+      tma_load(S.res[1], res1, r0, h, b, &S.resbar);
+    }
+    const long long row0 = ((long long)b * a.H + h) * a.nq;
+    const float* bias = a.bias + (long long)b * a.nk;
+    for (int it = 0; it < ntiles; ++it) {
+      const int st = it % kStages;
+      mbar_wait(&S.empty[st], ((it / kStages) & 1) ^ 1);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 2 * lane + e, n = it * 64 + i;
+        if (keys) {
+          const bool in = n < a.nq;
+          S.row[st][0][i] = in ? a.m[row0 + n] : INFINITY;
+          S.row[st][1][i] = in ? 1.f / a.l[row0 + n] : 0.f;
+          S.row[st][2][i] = in ? a.c[row0 + n] : 0.f;
+        } else {
+          S.row[st][0][i] = n < a.nk ? bias[n] : -INFINITY;
+        }
+      }
+      if (lane == 0) {
+        mbar_arrive_tx(&S.full[st], 2 * kTileBytes);
+        tma_load(S.a[st], str0, it * 64, h, b, &S.full[st]);
+        tma_load(S.b[st], str1, it * 64, h, b, &S.full[st]);
+      } else {
+        mbar_arrive(&S.full[st]);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        BwdConfig::consumer_regs));
+    if (keys)
+      bwd_keys(S, a, r0, h, b, ntiles);
+    else
+      bwd_queries(S, a, r0, h, b, ntiles);
+  }
 }
 
+}  // namespace sm90
 }  // namespace ei
 
-// q, o, dout: (B, H, N, 64); k, v: (B, H, M, 64), through `in_strides` (20
-// element strides: q, k, v, o, dout, each (b, h, n, d)); bias: (B, M)
-// float32 contiguous; lse, c: (B, H, N) float32 contiguous (c is scratch);
-// dq: (B, H, N, 64), dk, dv: (B, H, M, 64) through `out_strides` (12: dq,
-// dk, dv). Returns the CUDA error code of the launches (0 on success).
+// float32: q, o, dout: (B, H, N, 64); k, v: (B, H, M, 64), through
+// `in_strides` (20 element strides: q, k, v, o, dout, each (b, h, n, d));
+// bias: (B, M) float32 contiguous; stats: (2, B, H, N) float32 contiguous,
+// kernel D's row max then row sum; c: (B, H, N) float32 scratch; dq:
+// (B, H, N, 64), dk, dv: (B, H, M, 64) through `out_strides` (12: dq, dk,
+// dv). Returns the CUDA error code of the launches (0 on success); bfloat16
+// takes ei_attention_bwd_sm90.
 extern "C" int ei_attention_bwd(int dtype, const void* q, const void* k,
                                 const void* v, const void* o,
                                 const void* dout, const long long* in_strides,
-                                const float* bias, const float* lse, float* c,
-                                void* dq, void* dk, void* dv,
+                                const float* bias, const float* stats,
+                                float* c, void* dq, void* dk, void* dv,
                                 const long long* out_strides, int B, int H,
                                 int N, int M, float scale, void* stream) {
+  if (dtype != ei::kFloat32) return (int)cudaErrorInvalidValue;
   ei::BwdProblem p;
   p.q = ei::make_operand(q, in_strides);
   p.k = ei::make_operand(k, in_strides + 4);
@@ -435,7 +463,8 @@ extern "C" int ei_attention_bwd(int dtype, const void* q, const void* k,
   p.o = ei::make_operand(o, in_strides + 12);
   p.dout = ei::make_operand(dout, in_strides + 16);
   p.bias = bias;
-  p.lse = lse;
+  p.m = stats;
+  p.l = stats + (long long)B * H * N;
   p.c = c;
   p.dq = ei::make_output(dq, out_strides);
   p.dk = ei::make_output(dk, out_strides + 4);
@@ -445,7 +474,82 @@ extern "C" int ei_attention_bwd(int dtype, const void* q, const void* k,
   p.nk = M;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ei::kFloat32) return ei::launch<float>(p, B, s);
-  if (dtype == ei::kBFloat16) return ei::launch<__nv_bfloat16>(p, B, s);
-  return (int)cudaErrorInvalidValue;
+  const int err = ei::launch_row_dot<float>(p, B, s);
+  if (err != 0) return err;
+  const long long all = (long long)B * H * (N + M);
+  ei::bwd_rows_kernel<<<(unsigned)((all + 7) / 8), 256, 0, s>>>(p, B);
+  return (int)cudaGetLastError();
+}
+
+// bfloat16: the c pass, the pack pass (where the operand plan asks for it)
+// and the Hopper loop. ops: q, k, v, dO as 4 x 8 long longs
+// (ei::sm90::read_operand); o, dout: the output and dO for the c pass,
+// through `c_strides` (8: o, dout, each (b, h, n, d)); bias: (B, M) float32
+// contiguous; stats: (2, B, H, N) float32 contiguous (row max, row sum);
+// c: (B, H, N) float32 scratch; dq: (B, H, N, 64), dk, dv: (B, H, M, 64)
+// bf16 through `out_strides` (9: dq, dk, dv, each (b, h, n); d unit);
+// blocks: the block kinds to run (bit 0 the dK/dV blocks, bit 1 the dQ
+// blocks; 3 for the gradients, one alone to time it). Returns 0, a CUDA
+// error code or one of ei::sm90's kErr* codes.
+extern "C" int ei_attention_bwd_sm90(const long long* ops, const void* o,
+                                     const void* dout,
+                                     const long long* c_strides,
+                                     const float* bias, const float* stats,
+                                     float* c, void* dq, void* dk, void* dv,
+                                     const long long* out_strides, int B,
+                                     int H, int N, int M, float scale,
+                                     int blocks, void* stream) {
+  using namespace ei::sm90;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  ei::BwdProblem p{};
+  p.o = ei::make_operand(o, c_strides);
+  p.dout = ei::make_operand(dout, c_strides + 4);
+  p.c = c;
+  p.heads = H;
+  p.nq = N;
+  p.nk = M;
+  int err = ei::launch_row_dot<__nv_bfloat16>(p, B, s);
+  if (err != 0) return err;
+
+  Operand90 op[4];
+  const int rows[4] = {N, M, M, N};
+  err = pack_operands(op, ops, rows, 4, 0, nullptr, nullptr, B, H, s);
+  if (err != 0) return err;
+  CUtensorMap maps[4];
+  for (int i = 0; i < 4; ++i) {
+    err = operand_map(&maps[i], op[i], rows[i], H, B);
+    if (err != 0) return err;
+  }
+  err = configure<BwdConfig>(
+      reinterpret_cast<const void*>(attention_bwd_sm90_kernel), kBwdSmem);
+  if (err != 0) return err;
+  BwdArgs a{};
+  a.bias = bias;
+  a.m = stats;
+  a.l = stats + (long long)B * H * N;
+  a.c = c;
+  void* outs[3] = {dq, dk, dv};
+  for (int i = 0; i < 3; ++i) {
+    a.out[i] = static_cast<__nv_bfloat16*>(outs[i]);
+    for (int j = 0; j < 3; ++j) a.os[i][j] = out_strides[3 * i + j];
+  }
+  a.H = H;
+  a.nq = N;
+  a.nk = M;
+  a.nkb = (M + 63) / 64;
+  a.x0 = (blocks & 1) ? 0 : a.nkb;
+  a.scale = scale;
+  const int nx =
+      ((blocks & 1) ? a.nkb : 0) + ((blocks & 2) ? (N + 63) / 64 : 0);
+  if (nx == 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid(nx, H, B);
+  attention_bwd_sm90_kernel<<<grid, BwdConfig::threads, kBwdSmem, s>>>(
+      maps[0], maps[1], maps[2], maps[3], a);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of one block of the bf16 backward, for the build
+// report.
+extern "C" long long ei_bwd_sm90_smem_bytes() {
+  return (long long)ei::sm90::kBwdSmem;
 }

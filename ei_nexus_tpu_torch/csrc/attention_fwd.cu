@@ -18,9 +18,12 @@
 // (flash_attention.cuh): 128 (bf16, tensor cores, mma.sync) or 64 (float32,
 // CUDA cores) query rows per block, 64-key tiles streamed, online float32
 // softmax, the scale a runtime argument, q/k/v read through strides. For
-// the backward it also writes each row's float32 log-sum-exp m + log(l),
-// so kernel F recomputes P = exp(S - lse) without the TPU backward's first
-// pass over the keys for m and Z.
+// the backward it also writes each row's float32 statistics, the row max m
+// and the row sum l of exp(s - m), so kernel F rebuilds P = exp(s - m) / l
+// as the plain version does, without the TPU backward's first pass over the
+// keys for m and Z. (A log-sum-exp m + log(l) would not do: a fully masked
+// row's scores and m are all -1e9, where a float32 ulp is 64, so log(l)
+// rounds away and exp(s - lse) gives P = 1 for every key, not 1/M.)
 #include "flash_attention.cuh"
 
 namespace ei {
@@ -49,12 +52,13 @@ static int launch(const Problem& p, int B, cudaStream_t stream) {
 
 // q: (B, H, N, 64); k, v: (B, H, M, 64), through `qkv_strides` (12 element
 // strides: q, k, v, each (b, h, n, d)); bias: (B, M) float32 contiguous;
-// out: (B, H, N, 64) through `out_strides` (4); lse: (B, H, N) float32
-// contiguous. Returns the CUDA error code of the launch (0 on success).
+// out: (B, H, N, 64) through `out_strides` (4); stats: (2, B, H, N)
+// float32 contiguous, the row max m then the row sum l. Returns the CUDA
+// error code of the launch (0 on success).
 extern "C" int ei_attention_fwd(int dtype, const void* q, const void* k,
                                 const void* v, const long long* qkv_strides,
                                 const float* bias, void* out,
-                                const long long* out_strides, float* lse,
+                                const long long* out_strides, float* stats,
                                 int B, int H, int N, int M, float scale,
                                 void* stream) {
   ei::Problem p;
@@ -68,7 +72,8 @@ extern "C" int ei_attention_fwd(int dtype, const void* q, const void* k,
   p.nq = N;
   p.nk = M;
   p.scale = scale;
-  p.lse = lse;
+  p.row_max = stats;
+  p.row_sum = stats + (long long)B * H * N;
   p.heads = H;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ei::kFloat32) return ei::launch<float>(p, B, s);

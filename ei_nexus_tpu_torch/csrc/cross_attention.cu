@@ -14,14 +14,20 @@
 // TFLOP/s).
 //
 // Design: ONE launch serves both directions. The grid's z axis runs over
-// (batch, direction); each block is the flash loop of flash_attention.cuh
-// for one direction, which recomputes its similarity tile from the small
-// operands as the TPU kernel recomputes the transposed similarity, instead
-// of sharing one (N, M) tile between directions, which would not fit
-// shared memory. In bf16 the products run on the tensor cores (mma.sync).
-// Sharing the QK^T product between the two directions is left to a later
-// kernel; so are wgmma and TMA.
+// (batch, direction), and each block runs one direction's flash loop over
+// 64 query rows, recomputing its similarity tile from the small operands as
+// the TPU kernel recomputes the transposed similarity (`_cross_kernel`'s
+// second product): sharing one QK^T tile between the directions would need
+// a column softmax across blocks. The shorter side's surplus blocks exit
+// whole, before any barrier is set up.
+//  - bfloat16 (the main path): the Hopper loop of flash_sm90.cuh with one
+//    consumer warpgroup (the fastest tile of kernel E), K and V tiles by
+//    TMA from four tensor maps picked per direction, (qk0 -> qk1, v1,
+//    bias1) and (qk1 -> qk0, v0, bias0); CrossBlock's head views are read
+//    in place, anything the operand plan refuses TMA is packed first.
+//  - float32 (comparisons): the CUDA-core loop of flash_attention.cuh.
 #include "flash_attention.cuh"
+#include "flash_sm90.cuh"
 
 namespace ei {
 
@@ -29,37 +35,58 @@ struct CrossProblem {
   Problem dir[2];
 };
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
     cross_attention_kernel(const CrossProblem cp) {
   extern __shared__ float4 smem4[];
   const int d = blockIdx.z & 1;
   const Problem& p = d ? cp.dir[1] : cp.dir[0];
-  const int q0 = blockIdx.x * Tiles<T>::rows;
+  const int q0 = blockIdx.x * Tiles<float>::rows;
   if (q0 >= p.nq) return;  // the shorter side's surplus blocks
-  flash_block<T, false>(p, blockIdx.z >> 1, blockIdx.y, q0, smem4);
+  flash_block<float, false>(p, blockIdx.z >> 1, blockIdx.y, q0, smem4);
 }
 
-template <typename T>
 static int launch(const CrossProblem& cp, int B, int H, cudaStream_t stream) {
-  auto kernel = cross_attention_kernel<T>;
+  using Tl = Tiles<float>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)Tiles<T>::smem);
+      cross_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Tl::smem);
   if (err != cudaSuccess) return (int)err;
   const int rows = cp.dir[0].nq > cp.dir[1].nq ? cp.dir[0].nq : cp.dir[1].nq;
-  const dim3 grid((rows + Tiles<T>::rows - 1) / Tiles<T>::rows, H, 2 * B);
-  kernel<<<grid, Tiles<T>::threads, Tiles<T>::smem, stream>>>(cp);
+  const dim3 grid((rows + Tl::rows - 1) / Tl::rows, H, 2 * B);
+  cross_attention_kernel<<<grid, Tl::threads, Tl::smem, stream>>>(cp);
   return (int)cudaGetLastError();
 }
 
+namespace sm90 {
+
+struct CrossArgs {
+  Args dir[2];  // direction 0: side-0 queries; 1: side-1 queries
+};
+
+// Block (x, y, z): query rows 64x.. of direction z & 1, head y, batch z / 2.
+__global__ void __launch_bounds__(Config<1>::threads, Config<1>::min_blocks)
+    cross_attention_sm90_kernel(const __grid_constant__ CUtensorMap tqk0,
+                                const __grid_constant__ CUtensorMap tqk1,
+                                const __grid_constant__ CUtensorMap tv0,
+                                const __grid_constant__ CUtensorMap tv1,
+                                const CrossArgs ca) {
+  const bool d1 = blockIdx.z & 1;
+  const Args a = d1 ? ca.dir[1] : ca.dir[0];
+  const int q0 = blockIdx.x * 64;
+  if (q0 >= a.nq) return;  // the shorter side's surplus blocks
+  attention_block<1>(d1 ? tqk1 : tqk0, d1 ? tqk0 : tqk1, d1 ? tv0 : tv1, a,
+                     q0, blockIdx.y, blockIdx.z >> 1);
+}
+
+}  // namespace sm90
 }  // namespace ei
 
-// qk0, v0: (B, H, N, 64); qk1, v1: (B, H, M, 64), through `in_strides` (16
-// element strides: qk0, qk1, v0, v1, each (b, h, n, d)); bias0: (B, N) and
-// bias1: (B, M) float32 contiguous; out0: (B, H, N, 64) and out1:
-// (B, H, M, 64) through `out_strides` (8). Returns the CUDA error code of
-// the launch (0 on success).
+// float32: qk0, v0: (B, H, N, 64); qk1, v1: (B, H, M, 64), through
+// `in_strides` (16 element strides: qk0, qk1, v0, v1, each (b, h, n, d));
+// bias0: (B, N) and bias1: (B, M) float32 contiguous; out0: (B, H, N, 64)
+// and out1: (B, H, M, 64) through `out_strides` (8). Returns the CUDA error
+// code of the launch (0 on success); bfloat16 takes
+// ei_cross_attention_sm90.
 extern "C" int ei_cross_attention_bidir(int dtype, const void* qk0,
                                         const void* qk1, const void* v0,
                                         const void* v1,
@@ -69,6 +96,7 @@ extern "C" int ei_cross_attention_bidir(int dtype, const void* qk0,
                                         void* out1,
                                         const long long* out_strides, int B,
                                         int H, int N, int M, void* stream) {
+  if (dtype != ei::kFloat32) return (int)cudaErrorInvalidValue;
   ei::CrossProblem cp;
   // direction 0: side-0 queries attend side-1 keys
   cp.dir[0].q = ei::make_operand(qk0, in_strides);
@@ -91,8 +119,43 @@ extern "C" int ei_cross_attention_bidir(int dtype, const void* qk0,
     cp.dir[d].sin = nullptr;
     cp.dir[d].scale = 1.0f;
   }
+  return ei::launch(cp, B, H, static_cast<cudaStream_t>(stream));
+}
+
+// bfloat16: the pack pass (where the operand plan asks for it) and one
+// launch of the Hopper loop for both directions. ops: qk0, qk1, v0, v1 as
+// 4 x 8 long longs (ei::sm90::read_operand); bias0: (B, N), bias1: (B, M)
+// float32 contiguous; out0: (B, H, N, 64), out1: (B, H, M, 64) bf16
+// through `out_strides` (6: out0, out1, each (b, h, n); d unit). Returns
+// 0, a CUDA error code or one of ei::sm90's kErr* codes.
+extern "C" int ei_cross_attention_sm90(const long long* ops,
+                                       const float* bias0,
+                                       const float* bias1, void* out0,
+                                       void* out1,
+                                       const long long* out_strides, int B,
+                                       int H, int N, int M, void* stream) {
+  using namespace ei::sm90;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ei::kFloat32) return ei::launch<float>(cp, B, H, s);
-  if (dtype == ei::kBFloat16) return ei::launch<__nv_bfloat16>(cp, B, H, s);
-  return (int)cudaErrorInvalidValue;
+  Operand90 op[4];
+  const int rows[4] = {N, M, N, M};
+  int err = pack_operands(op, ops, rows, 4, 0, nullptr, nullptr, B, H, s);
+  if (err != 0) return err;
+  CUtensorMap maps[4];
+  for (int i = 0; i < 4; ++i) {
+    err = operand_map(&maps[i], op[i], rows[i], H, B);
+    if (err != 0) return err;
+  }
+  err = configure<Config<1>>(
+      reinterpret_cast<const void*>(cross_attention_sm90_kernel),
+      smem_bytes<1>());
+  if (err != 0) return err;
+  const long long* os = out_strides;
+  const CrossArgs ca{{Args{bias1, static_cast<__nv_bfloat16*>(out0),
+                           {os[0], os[1], os[2]}, N, M, 1.f},
+                      Args{bias0, static_cast<__nv_bfloat16*>(out1),
+                           {os[3], os[4], os[5]}, M, N, 1.f}}};
+  const dim3 grid(((N > M ? N : M) + 63) / 64, H, 2 * B);
+  cross_attention_sm90_kernel<<<grid, Config<1>::threads, smem_bytes<1>(),
+                                s>>>(maps[0], maps[1], maps[2], maps[3], ca);
+  return (int)cudaGetLastError();
 }

@@ -3,8 +3,8 @@
 // (kernel B, csrc/cross_attention.cu), differentiable attention forward
 // (kernel D, csrc/attention_fwd.cu), q-blocked attention (kernel E,
 // csrc/qblock_attention.cu) and segment-masked flash attention (kernel G,
-// csrc/flash_segment.cu) kernels; the backward (kernel F,
-// csrc/attention_bwd.cu) reuses its tensor-core fragments.
+// csrc/flash_segment.cu) kernels; the float32 backward (kernel F,
+// csrc/attention_bwd.cu) reads its operands through the same strides.
 //
 // One block computes ROWS query rows of one (batch, head) problem. The
 // query tile stays on chip; key/value tiles of BK rows stream through
@@ -33,8 +33,8 @@
 // CrossBlock's projections) need no copy; the output is written through
 // strides as well.
 //
-// The bfloat16 instances of A and E run the TMA + wgmma loop of
-// flash_sm90.cuh instead; B, D, F and G run flash_block_mma.
+// The bfloat16 instances of A, B and E run the TMA + wgmma loop of
+// flash_sm90.cuh instead; D and G run flash_block_mma.
 #pragma once
 
 #include <float.h>
@@ -105,8 +105,13 @@ struct Problem {
   Output o;
   int nq, nk;
   float scale;         // applied to the float32 product, before the bias
-  float* lse = nullptr;  // optional (B, heads, nq) float32 row log-sum-exp
-                         // m + log(l) of the scaled, biased scores
+  // optional (B, heads, nq) float32 row statistics of the scaled, biased
+  // scores s for the backward: the row max m and the row sum l of
+  // exp(s - m), so that P = exp(s - m) / l forms s - m before any large
+  // constant is added (a fully masked row's s and m are both -1e9, where
+  // m + log(l) loses log(l) to rounding)
+  float* row_max = nullptr;
+  float* row_sum = nullptr;
   int heads = 0;
   const int* q_seg = nullptr;   // SEG only: (B, nq) and (B, nk) int32
   const int* kv_seg = nullptr;  // segment ids, contiguous
@@ -348,8 +353,11 @@ __device__ void flash_block_fma(const Problem& p, int b, int h, int q0,
   for (int i = 0; i < 4; ++i) {
     const int n = q0 + ty * 4 + i;
     if (n >= p.nq) continue;
-    if (p.lse != nullptr && tx == 0)
-      p.lse[((long long)b * p.heads + h) * p.nq + n] = m[i] + logf(l[i]);
+    if (p.row_max != nullptr && tx == 0) {
+      const long long r = ((long long)b * p.heads + h) * p.nq + n;
+      p.row_max[r] = m[i];
+      p.row_sum[r] = l[i];
+    }
     const float inv = inv_safe(l[i]);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
@@ -487,8 +495,11 @@ __device__ void flash_block_mma(const Problem& p, int b, int h, int q0,
   for (int hr = 0; hr < 2; ++hr) {
     const int n = q0 + w0 + g + 8 * hr;
     if (n >= p.nq) continue;
-    if (p.lse != nullptr && t == 0)
-      p.lse[((long long)b * p.heads + h) * p.nq + n] = m[hr] + logf(l[hr]);
+    if (p.row_max != nullptr && t == 0) {
+      const long long r = ((long long)b * p.heads + h) * p.nq + n;
+      p.row_max[r] = m[hr];
+      p.row_sum[r] = l[hr];
+    }
     const float inv = inv_safe(l[hr]);
 #pragma unroll
     for (int jd = 0; jd < 8; ++jd)

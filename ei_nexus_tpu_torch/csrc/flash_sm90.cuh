@@ -1,7 +1,10 @@
 // Hopper (sm_90a) flash loop of the bf16 row-softmax attention with a
-// key-side bias: the bf16 instances of kernel A (csrc/self_attention.cu)
-// and kernel E (csrc/qblock_attention.cu). Their float32 instances, and
-// kernels B, D, F and G, keep the loops of flash_attention.cuh.
+// key-side bias: the bf16 instances of kernel A (csrc/self_attention.cu),
+// kernel B (csrc/cross_attention.cu, both directions in one launch) and
+// kernel E (csrc/qblock_attention.cu); kernel F's bf16 backward
+// (csrc/attention_bwd.cu) is built from the same pieces (TMA ring,
+// producer warpgroup, wgmma forms, pack pass, guard). Their float32
+// instances, and kernels D and G, keep the loops of flash_attention.cuh.
 //
 // What it computes is what `qblock_attention_plain` defines
 // (ops/attention_kernels.py): rotated q and k rounded to bf16 as
@@ -68,12 +71,12 @@ constexpr int kProducerRegs = 24;
 // tile in two steps of 32 keys (S in 16 floats).
 template <int NWG> struct Config;
 template <> struct Config<1> {
-  static constexpr int threads = 256, min_blocks = 3, consumer_regs = 128,
-                       ksplit = 1;
+  static constexpr int nwg = 1, threads = 256, min_blocks = 3,
+                       consumer_regs = 128, ksplit = 1;
 };
 template <> struct Config<2> {
-  static constexpr int threads = 384, min_blocks = 2, consumer_regs = 104,
-                       ksplit = 2;
+  static constexpr int nwg = 2, threads = 384, min_blocks = 2,
+                       consumer_regs = 104, ksplit = 2;
 };
 
 template <int NWG> struct Shared {
@@ -90,8 +93,8 @@ template <int NWG> constexpr size_t smem_bytes() {
 
 struct Args {
   const float* bias;   // (B, nk) float32, contiguous
-  __nv_bfloat16* out;  // (B, h, nq, 64) through osb, osh, osn; d unit
-  long long osb, osh, osn;
+  __nv_bfloat16* out;  // (B, h, nq, 64) through os (b, h, n); d unit
+  long long os[3];
   int nq, nk;
   float scale;
 };
@@ -246,17 +249,88 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// D (64 x N) = A B^T over d = 64 in four k16 steps (32 bytes along the
+// row): A (64 rows) and B (N rows) K-major tiles in shared memory.
+template <int N>
+__device__ __forceinline__ void product_ss(float (&d)[N], uint64_t da,
+                                           uint64_t db) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_ss(d, da + 2 * kk, db + 2 * kk, kk);
+}
+
+// D (64 x 64) += A B over 16 C rows of B: A from registers (a_operand), B
+// the tile's rows taken as its K dimension (MN-major), 16 rows of 128 bytes
+// a step.
+template <int C>
+__device__ __forceinline__ void product_rs(float (&d)[32],
+                                           const uint32_t (&a)[C][4],
+                                           uint64_t db) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) wgmma_rs(d, a[c], db + c * (2048 >> 4));
+}
+
+// The register A operand of an accumulator x (64 x N/2 per warpgroup: x[4j
+// + e] holds row g + 8 (e >> 1) of the warp's 16, column 8j + 2t + (e & 1))
+// rounded to bf16: columns 16c .. 16c + 15 are n-blocks 2c and 2c + 1.
+template <int N>
+__device__ __forceinline__ void a_operand(const float (&x)[N],
+                                          uint32_t (&pa)[N / 8][4]) {
+#pragma unroll
+  for (int c = 0; c < N / 8; ++c) {
+    pa[c][0] = pack2(x[8 * c + 0], x[8 * c + 1]);
+    pa[c][1] = pack2(x[8 * c + 2], x[8 * c + 3]);
+    pa[c][2] = pack2(x[8 * c + 4], x[8 * c + 5]);
+    pa[c][3] = pack2(x[8 * c + 6], x[8 * c + 7]);
+  }
+}
+
+// exp(x - m) as exp2, the difference taken first: a fully masked row's
+// scores are all -1e9, where x * log2(e) - m * log2(e) would lose the
+// difference to rounding.
+__device__ __forceinline__ float exp_diff(float x, float m) {
+  return exp2f(__fmul_rn(x - m, 1.4426950408889634f));
+}
+
+// A 64 x 64 accumulator times mul[row g (0) or g + 8 (1)] to bf16 at rows
+// r0 + 16 w + g (+ 8) of `out` for the block's w-th consumer warp (rows
+// past n_rows not written); `out` through element strides os (b, h, n), d
+// unit.
+__device__ __forceinline__ void store_tile(const float (&x)[32],
+                                           const float (&mul)[2],
+                                           __nv_bfloat16* out,
+                                           const long long (&os)[3], int b,
+                                           int h, int r0, int n_rows) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int n = r0 + 16 * warp + g + 8 * hr;
+    if (n >= n_rows) continue;
+    __nv_bfloat16* row = out + b * os[0] + h * os[1] + n * os[2];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t) =
+          pack2(x[4 * j + 2 * hr] * mul[hr], x[4 * j + 2 * hr + 1] * mul[hr]);
+  }
+}
+
+// The block's dynamic shared memory as T, aligned to 1024 bytes (the
+// 128-byte swizzle's period).
+template <typename T> __device__ __forceinline__ T& shared_as() {
+  extern __shared__ uint8_t smem_raw[];
+  return *reinterpret_cast<T*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+}
+
 // The loop over the query rows [q0, q0 + 64 NWG) of problem (b, h): tq, tk,
 // tv are 4-D (64, rows, h, B) bf16 tensor maps with 64x64 boxes.
 template <int NWG>
 __device__ __forceinline__ void attention_block(const CUtensorMap& tq,
                                                 const CUtensorMap& tk,
                                                 const CUtensorMap& tv,
-                                                const Args& a) {
-  extern __shared__ uint8_t smem_raw[];
-  auto& S = *reinterpret_cast<Shared<NWG>*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const int q0 = blockIdx.x * 64 * NWG, h = blockIdx.y, b = blockIdx.z;
+                                                const Args& a, int q0, int h,
+                                                int b) {
+  auto& S = shared_as<Shared<NWG>>();
   const int ntiles = (a.nk + kBK - 1) / kBK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -299,16 +373,14 @@ __device__ __forceinline__ void attention_block(const CUtensorMap& tq,
       }
     }
   } else {
-    // ---- consumers: warpgroup wg owns rows q0 + 64 wg .. + 63
+    // ---- consumers: warpgroup warp / 4 owns 64 rows from q0 + 64 (warp / 4)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
         Config<NWG>::consumer_regs));
-    const int wg = warp / 4, wi = warp % 4;
-    const int g = lane / 4, t = lane % 4;
-    const uint64_t dq = smem_desc(S.q[wg]);
+    const int t = lane % 4;
+    const uint64_t dq = smem_desc(S.q[warp / 4]);
     float o[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[i] = 0.f;
-    constexpr float kLog2e = 1.4426950408889634f;
     mbar_wait(&S.qbar, 0);
 
     // a tile's keys in Config<NWG>::ksplit steps of KW: 32 keys a step
@@ -319,13 +391,10 @@ __device__ __forceinline__ void attention_block(const CUtensorMap& tq,
       mbar_wait(&S.full[st], (it / kStages) & 1);
 #pragma unroll
       for (int k0 = 0; k0 < kBK; k0 += KW) {
-        // S = Q K^T over d in four k16 steps (32 bytes along the row)
+        // S = Q K^T
         float s[4 * NB];
-        const uint64_t dk = smem_desc(S.k[st] + k0 * kD);
         wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss(s, dq + 2 * kk, dk + 2 * kk, kk);
+        product_ss(s, dq, smem_desc(S.k[st] + k0 * kD));
         wgmma_commit();
         wgmma_wait();
         fence_acc(s);
@@ -353,17 +422,13 @@ __device__ __forceinline__ void attention_block(const CUtensorMap& tq,
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
           const float m_new = fmaxf(m[hr], mx);
-          // exp(x - m) as exp2, the difference taken first: a fully masked
-          // row's scores are all -1e9, where x * log2(e) - m * log2(e)
-          // would lose the difference to rounding
-          alpha[hr] = exp2f(__fmul_rn(m[hr] - m_new, kLog2e));  // 0 at first
+          alpha[hr] = exp_diff(m[hr], m_new);  // 0 at first
           float rs = 0.f;
 #pragma unroll
           for (int j = 0; j < NB; ++j)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-              const float p =
-                  exp2f(__fmul_rn(s[4 * j + 2 * hr + e] - m_new, kLog2e));
+              const float p = exp_diff(s[4 * j + 2 * hr + e], m_new);
               s[4 * j + 2 * hr + e] = p;
               rs += p;
             }
@@ -373,26 +438,16 @@ __device__ __forceinline__ void attention_block(const CUtensorMap& tq,
           m[hr] = m_new;
         }
 
-        // P in bf16 as the A operand: keys 16c..16c+15 are n-blocks 2c,
-        // 2c+1
+        // P in bf16 as the A operand
         uint32_t pa[NB / 2][4];
-#pragma unroll
-        for (int c = 0; c < NB / 2; ++c) {
-          pa[c][0] = pack2(s[8 * c + 0], s[8 * c + 1]);
-          pa[c][1] = pack2(s[8 * c + 2], s[8 * c + 3]);
-          pa[c][2] = pack2(s[8 * c + 4], s[8 * c + 5]);
-          pa[c][3] = pack2(s[8 * c + 6], s[8 * c + 7]);
-        }
+        a_operand(s, pa);
 #pragma unroll
         for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
 
-        // O += P V: 16 keys a step, 16 rows of 128 bytes of V further on
-        const uint64_t dv = smem_desc(S.v[st] + k0 * kD);
+        // O += P V
         fence_acc(o);
         wgmma_fence();
-#pragma unroll
-        for (int c = 0; c < NB / 2; ++c)
-          wgmma_rs(o, pa[c], dv + c * (2048 >> 4));
+        product_rs(o, pa, smem_desc(S.v[st] + k0 * kD));
         wgmma_commit();
         wgmma_wait();
         fence_acc(o);
@@ -401,17 +456,9 @@ __device__ __forceinline__ void attention_block(const CUtensorMap& tq,
       if (lane == 0) mbar_arrive(&S.empty[st]);
     }
 
-    __nv_bfloat16* out = a.out + b * a.osb + h * a.osh;
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int n = q0 + 64 * wg + 16 * wi + g + 8 * hr;
-      if (n >= a.nq) continue;
-      const float inv = l[hr] == 0.f ? 1.f : 1.f / l[hr];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<uint32_t*>(out + n * a.osn + 8 * j + 2 * t) =
-            pack2(o[4 * j + 2 * hr] * inv, o[4 * j + 2 * hr + 1] * inv);
-    }
+    const float inv[2] = {l[0] == 0.f ? 1.f : 1.f / l[0],
+                          l[1] == 0.f ? 1.f : 1.f / l[1]};
+    store_tile(o, inv, a.out, a.os, b, h, q0, a.nq);
   }
 }
 
@@ -433,8 +480,10 @@ struct PackJob {
   __nv_bfloat16* dst[3];
 };
 
+constexpr int kMaxOperands = 4;  // F's q, k, v, dO
+
 struct PackArgs {
-  PackJob job[3];
+  PackJob job[kMaxOperands];
   int B, H;
   const __nv_bfloat16* cos;  // (B, rows, 64) contiguous, 16-byte aligned
   const __nv_bfloat16* sin;
@@ -568,88 +617,103 @@ inline int encode_map(CUtensorMap* map, const void* ptr, int rows, int H,
 // Once per kernel: its dynamic shared memory limit, and a check that
 // setmaxnreg.inc will find the registers it asks for (it waits until the
 // block's pool holds them): refuse a build whose entry register count
-// would leave it waiting for ever. The result is kept.
-template <int NWG>
-int configure(const void* kernel) {
+// would leave it waiting for ever. Cfg gives the block's threads, its
+// consumer warpgroups (nwg; the rest of the block is the producer
+// warpgroup) and the consumers' count. The result is kept.
+template <typename Cfg>
+int configure(const void* kernel, size_t smem) {
   static const void* seen = nullptr;
   static int status = 0;
   if (seen == kernel) return status;
   cudaFuncAttributes fa;
   cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return (int)err;
-  if (fa.numRegs > Config<NWG>::consumer_regs ||
-      (Config<NWG>::threads - 128 * NWG) * (fa.numRegs - kProducerRegs) <
-          NWG * 128 * (Config<NWG>::consumer_regs - fa.numRegs)) {
+  if (fa.numRegs > Cfg::consumer_regs ||
+      (Cfg::threads - 128 * Cfg::nwg) * (fa.numRegs - kProducerRegs) <
+          Cfg::nwg * 128 * (Cfg::consumer_regs - fa.numRegs)) {
     status = kErrRegisters;
   } else {
     status = (int)cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes<NWG>());
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   }
   seen = kernel;
   return status;
 }
 
-// The pack pass, then the loop: q (B, H, N, 64), k and v (B, H, M, 64) as
-// `ops` (3 x 8, read_operand) describes them; rot packs q and k through
-// the (B, N, 64) tables.
-template <int NWG, typename Kernel>
-int attention(Kernel kernel, const long long* ops, bool rot,
-              const void* cos, const void* sin, const float* bias, void* out,
-              const long long* out_strides, int B, int H, int N, int M,
-              float scale, cudaStream_t stream) {
-  Operand90 op[3];
+// The pack pass over the n operands (`ops`, 8 long longs each as
+// read_operand reads them) that ask for it, in one launch: one job per
+// slab, the operands of one slab at free phases sharing it. rows[i] is
+// operand i's row count; bit i of rot applies the rotary (the (B, rows, 64)
+// tables cos, sin) to operand i. Fills op[0..n).
+inline int pack_operands(Operand90* op, const long long* ops,
+                         const int* rows, int n, int rot, const void* cos,
+                         const void* sin, int B, int H, cudaStream_t stream) {
   PackArgs pk{};
   int njobs = 0, max_rows = 0;
-  for (int i = 0; i < 3; ++i) {
+  for (int i = 0; i < n; ++i) {
     op[i] = read_operand(ops + 8 * i);
     const Operand90& o = op[i];
-    const int rows = i == 0 ? N : M;
     if (!o.pack) continue;
     // the job of the same slab, if one has this phase free, else a new one
     int jb = 0;
     while (jb < njobs &&
            !(pk.job[jb].slab == o.ptr && pk.job[jb].sb == o.sb &&
              pk.job[jb].sh == o.sh && pk.job[jb].sn == o.sn &&
-             pk.job[jb].sd == o.sd && pk.job[jb].rows == rows &&
+             pk.job[jb].sd == o.sd && pk.job[jb].rows == rows[i] &&
              !((pk.job[jb].phases >> o.phase) & 1)))
       ++jb;
     if (jb == njobs)
-      pk.job[njobs++] = PackJob{o.ptr, o.sb, o.sh, o.sn, o.sd, rows, 0, 0,
+      pk.job[njobs++] = PackJob{o.ptr, o.sb, o.sh, o.sn, o.sd, rows[i], 0, 0,
                                 {nullptr, nullptr, nullptr}};
     pk.job[jb].phases |= 1 << o.phase;
-    pk.job[jb].rot |= (rot && i < 2) << o.phase;
+    pk.job[jb].rot |= ((rot >> i) & 1) << o.phase;
     pk.job[jb].dst[o.phase] = o.scratch;
-    max_rows = rows > max_rows ? rows : max_rows;
+    max_rows = rows[i] > max_rows ? rows[i] : max_rows;
   }
-  if (njobs > 0) {
-    pk.B = B;
-    pk.H = H;
-    pk.cos = static_cast<const __nv_bfloat16*>(cos);
-    pk.sin = static_cast<const __nv_bfloat16*>(sin);
-    const long long threads = (long long)B * H * max_rows * 8;
-    const dim3 grid((unsigned)((threads + kPackThreads - 1) / kPackThreads),
-                    njobs);
-    attention_pack_kernel<<<grid, kPackThreads, 0, stream>>>(pk);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
+  if (njobs == 0) return 0;
+  pk.B = B;
+  pk.H = H;
+  pk.cos = static_cast<const __nv_bfloat16*>(cos);
+  pk.sin = static_cast<const __nv_bfloat16*>(sin);
+  const long long threads = (long long)B * H * max_rows * 8;
+  const dim3 grid((unsigned)((threads + kPackThreads - 1) / kPackThreads),
+                  njobs);
+  attention_pack_kernel<<<grid, kPackThreads, 0, stream>>>(pk);
+  return (int)cudaGetLastError();
+}
 
+// Operand o's tensor map: its packed (B, H, rows, 64) scratch, or the
+// operand read in place through its strides.
+inline int operand_map(CUtensorMap* map, const Operand90& o, int rows, int H,
+                       int B) {
+  const long long rs = (long long)rows * kD;
+  return o.pack ? encode_map(map, o.scratch, rows, H, B, kD, rs, H * rs)
+                : encode_map(map, o.ptr, rows, H, B, o.sn, o.sh, o.sb);
+}
+
+// The pack pass, then the loop: q (B, H, N, 64), k and v (B, H, M, 64) as
+// `ops` (3 x 8, read_operand) describes them; rot packs q and k through
+// the (B, N, 64) tables. The kernel's grid is (N / 64 NWG, H, B).
+template <int NWG, typename Kernel>
+int attention(Kernel kernel, const long long* ops, bool rot,
+              const void* cos, const void* sin, const float* bias, void* out,
+              const long long* out_strides, int B, int H, int N, int M,
+              float scale, cudaStream_t stream) {
+  Operand90 op[3];
+  const int rows[3] = {N, M, M};
+  int err = pack_operands(op, ops, rows, 3, rot ? 3 : 0, cos, sin, B, H,
+                          stream);
+  if (err != 0) return err;
   CUtensorMap maps[3];
   for (int i = 0; i < 3; ++i) {
-    const int rows = i == 0 ? N : M;
-    const long long rs = (long long)rows * kD;
-    const int err =
-        op[i].pack ? encode_map(&maps[i], op[i].scratch, rows, H, B, kD, rs,
-                                H * rs)
-                   : encode_map(&maps[i], op[i].ptr, rows, H, B, op[i].sn,
-                                op[i].sh, op[i].sb);
+    err = operand_map(&maps[i], op[i], rows[i], H, B);
     if (err != 0) return err;
   }
-  const int err = configure<NWG>(reinterpret_cast<const void*>(kernel));
+  err = configure<Config<NWG>>(reinterpret_cast<const void*>(kernel),
+                               smem_bytes<NWG>());
   if (err != 0) return err;
-  Args a{bias, static_cast<__nv_bfloat16*>(out), out_strides[0],
-         out_strides[1], out_strides[2], N, M, scale};
+  Args a{bias, static_cast<__nv_bfloat16*>(out),
+         {out_strides[0], out_strides[1], out_strides[2]}, N, M, scale};
   const dim3 grid((N + 64 * NWG - 1) / (64 * NWG), H, B);
   kernel<<<grid, Config<NWG>::threads, smem_bytes<NWG>(), stream>>>(
       maps[0], maps[1], maps[2], a);

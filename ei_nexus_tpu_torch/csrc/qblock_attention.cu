@@ -66,7 +66,8 @@ __global__ void __launch_bounds__(sm90::Config<NWG>::threads,
                                  const __grid_constant__ CUtensorMap tk,
                                  const __grid_constant__ CUtensorMap tv,
                                  const sm90::Args a) {
-  sm90::attention_block<NWG>(tq, tk, tv, a);
+  sm90::attention_block<NWG>(tq, tk, tv, a, blockIdx.x * 64 * NWG,
+                             blockIdx.y, blockIdx.z);
 }
 
 }  // namespace ei

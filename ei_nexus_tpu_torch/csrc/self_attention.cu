@@ -55,7 +55,8 @@ __global__ void __launch_bounds__(sm90::Config<2>::threads,
                                const __grid_constant__ CUtensorMap tk,
                                const __grid_constant__ CUtensorMap tv,
                                const sm90::Args a) {
-  sm90::attention_block<2>(tq, tk, tv, a);
+  sm90::attention_block<2>(tq, tk, tv, a, blockIdx.x * 128, blockIdx.y,
+                           blockIdx.z);
 }
 
 }  // namespace ei

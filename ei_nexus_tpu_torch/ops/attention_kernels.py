@@ -32,18 +32,22 @@ own block_q query rows instead of 128), so the plain versions are shared.
 The kernels read q/k/v through strides (no copy of the strided views the
 LightGlue blocks produce) and write their outputs as (B, h, N, d) views of
 (B, N, h, d) buffers, so the caller's merge of the heads is free. The
-bfloat16 instances of A and E (`hopper_attention`) read their operands by
-TMA, which needs a unit d stride and 16-byte alignment: `operand_plan`
-decides for each operand whether the loop reads it in place or a pack pass
-first writes it (rotated where the rotary applies) as contiguous scratch,
-and refuses what neither takes.
+bfloat16 instances of A, B, E and F (`hopper_attention`,
+`cross_attention_bidir`, `attention_bwd`) read their operands by TMA,
+which needs a unit d stride and 16-byte alignment: `operand_plan` decides
+for each operand whether the loop reads it in place or a pack pass first
+writes it (rotated where the rotary applies) as contiguous scratch, and
+refuses what neither takes (`hopper_operands` builds the kernels' operand
+array from the plans).
 
 The backward's plain version reproduces the TPU kernel's rounding points:
 dO in the operand dtype, dS = P o (dP - c) and P^T rounded to it before
 their products, c = rowsum(dP o P), P^T from the forward's row statistics.
 Kernel F takes c = rowsum(dO o O) instead (equal up to the rounding of O)
-and P = exp(S - lse) from the log-sum-exp kernel D saves; the mask gets no
-gradient.
+and P = exp(s - m) / l from the row max m and row sum l kernel D saves
+(`attention_fwd`'s `stats`), as the plain version forms it: s - m before
+anything else, so a fully masked row (every s = -1e9) gets P = 1/M. The
+mask gets no gradient.
 """
 
 from __future__ import annotations
@@ -174,7 +178,7 @@ def _check_cuda(name: str, *tensors: torch.Tensor,
 
 
 def _check_rows(name: str, t: torch.Tensor, shape) -> torch.Tensor:
-    """A float32 per-row tensor of the kernels (bias, lse), contiguous."""
+    """A float32 per-row tensor of the kernels (bias, stats), contiguous."""
     if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32:
         raise ValueError(f"{name}: expected a float32 {tuple(shape)} tensor, "
                          f"got {t.dtype} {tuple(t.shape)}")
@@ -208,7 +212,8 @@ def _rot_tables(name: str, rot, q: torch.Tensor):
 
 
 class OperandPlan(NamedTuple):
-    """How the Hopper loop of A and E takes one (B, h, rows, 64) operand."""
+    """How the Hopper loops (A, B, E, F) take one (B, h, rows, 64)
+    operand."""
     mode: str        # "direct": TMA reads it in place; "pack": packed first
     ptr: int         # its data pointer (direct) or its 16-byte slab (pack)
     strides: Tuple[int, int, int]   # element strides (b, h, n) of its rows
@@ -217,7 +222,7 @@ class OperandPlan(NamedTuple):
 
 
 def operand_plan(t: torch.Tensor, rotate: bool = False) -> OperandPlan:
-    """The Hopper loop's plan for operand `t` (B, h, rows, 64) of 2-byte
+    """The Hopper loops' plan for operand `t` (B, h, rows, 64) of 2-byte
     elements, rotated by the rotary when `rotate`.
 
     Direct: unit d stride, 16-byte-aligned data and row strides, no
@@ -258,6 +263,29 @@ def operand_plan(t: torch.Tensor, rotate: bool = False) -> OperandPlan:
     return OperandPlan("pack", slab, (sb, sh, sn), sd, phase)
 
 
+def hopper_operands(tensors, rotate: int = 0):
+    """(operand array, scratch) of the Hopper loops for the (B, h, rows, 64)
+    operands `tensors` (bit i of `rotate`: operand i takes the rotary): 8
+    integers an operand as `read_operand` (csrc/flash_sm90.cuh) reads them
+    (pointer or slab, strides b, h, n, d stride, pack, phase, scratch
+    pointer), from each one's `operand_plan`, and one scratch buffer for
+    the packed ones, (B, h, rows, 64) each (None when none is packed: no
+    pack launch). Raises ValueError before anything is allocated for an
+    operand neither TMA nor the pack pass reads."""
+    plans = [operand_plan(t, bool(rotate >> i & 1))
+             for i, t in enumerate(tensors)]
+    sizes = [t.numel() if p.mode == "pack" else 0
+             for t, p in zip(tensors, plans)]
+    scratch = torch.empty(sum(sizes), dtype=tensors[0].dtype,
+                          device=tensors[0].device) if any(sizes) else None
+    ops, at = [], 0 if scratch is None else scratch.data_ptr()
+    for plan, size in zip(plans, sizes):
+        ops += [plan.ptr, *plan.strides, plan.sd, int(size > 0), plan.phase,
+                at if size else 0]
+        at += 2 * size
+    return int64_array(ops), scratch
+
+
 def hopper_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: torch.Tensor, scale: float, block_q: int,
                      rot: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -266,27 +294,16 @@ def hopper_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     block_q 128, rot required) and E (`"qblock_attention"`, block_q 64 or
     128): q (B, h, N, 64) over k, v (B, h, M, 64) on the card with the
     (B, M) float32 key bias (contiguous), the pack pass first where
-    `operand_plan` asks for it. Counts pack launches in
-    `hopper_attention.packs`; the callers count their kernel's launches."""
+    `operand_plan` asks for it. `hopper_attention.packs` counts the pack
+    launches of every Hopper loop (A, B, E, F); the callers count their
+    kernel's launches."""
     B, h, N, d = q.shape
-    M = k.shape[2]
-    plans = [operand_plan(t, rot is not None and i < 2)
-             for i, t in enumerate((q, k, v))]
     cos = sin = None
     if rot is not None:
         cos, sin = _rot_tables(kernel, rot, q)
         if cos.data_ptr() % 16 or sin.data_ptr() % 16:
             raise ValueError(f"{kernel}: rot tables must be 16-byte aligned")
-    # one scratch buffer for the packed operands, (B, h, rows, 64) each
-    sizes = [t.numel() if p.mode == "pack" else 0
-             for t, p in zip((q, k, v), plans)]
-    scratch = torch.empty(sum(sizes), dtype=q.dtype, device=q.device) \
-        if any(sizes) else None
-    ops, at = [], 0 if scratch is None else scratch.data_ptr()
-    for plan, size in zip(plans, sizes):
-        ops += [plan.ptr, *plan.strides, plan.sd, int(size > 0), plan.phase,
-                at if size else 0]
-        at += 2 * size
+    ops, scratch = hopper_operands((q, k, v), 0 if rot is None else 3)
     out = _heads_out(B, h, N, d, q)
     ost = out.stride()[:3]
     tables = (None if cos is None else cos.data_ptr(),
@@ -296,16 +313,15 @@ def hopper_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         if kernel == "self_attention":
             err = lib.ei_self_attention_sm90(
-                int64_array(ops), *tables, bias.data_ptr(), out.data_ptr(),
+                ops, *tables, bias.data_ptr(), out.data_ptr(),
                 int64_array(ost), B, h, N, float(scale), stream)
         else:
             err = lib.ei_qblock_attention_sm90(
-                block_q, int(rot is not None), int64_array(ops), *tables,
+                block_q, int(rot is not None), ops, *tables,
                 bias.data_ptr(), out.data_ptr(), int64_array(ost), B, h, N,
-                M, float(scale), stream)
+                k.shape[2], float(scale), stream)
     check(err, kernel)
-    if scratch is not None:
-        hopper_attention.packs += 1
+    hopper_attention.packs += scratch is not None
     return out
 
 
@@ -414,7 +430,8 @@ def cross_attention_bidir(qk0: torch.Tensor, qk1: torch.Tensor,
     CPU tensors: the plain version. CUDA tensors (d must be 64): two
     launches of kernel E at scale 1, (qk0 -> qk1, v1) and (qk1 -> qk0, v0),
     when block_q > 0 divides N and M (the TPU's q-blocked cross path),
-    else kernel B (one launch for both directions); or an exception."""
+    else kernel B (one launch for both directions; bfloat16 on the Hopper
+    loop, its operands as `operand_plan` takes them); or an exception."""
     if qk0.device.type == "cpu":
         return cross_attention_bidir_plain(qk0, qk1, v0, v1, mask0, mask1)
     if qk0.device.type != "cuda":
@@ -434,19 +451,31 @@ def cross_attention_bidir(qk0: torch.Tensor, qk1: torch.Tensor,
     if block_q and N % block_q == 0 and M % block_q == 0:
         return (qblock_attention(qk0, qk1, v1, bias1, 1.0, block_q),
                 qblock_attention(qk1, qk0, v0, bias0, 1.0, block_q))
+    scratch = None
+    if qk0.dtype == torch.bfloat16:
+        ops, scratch = hopper_operands((qk0, qk1, v0, v1))
     out0 = _heads_out(B, h, N, d, qk0)
     out1 = _heads_out(B, h, M, d, qk0)
-    with torch.cuda.device(qk0.device):
+    lib = library("cross_attention")
+    with _on_device(qk0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = library("cross_attention").ei_cross_attention_bidir(
-            code, qk0.data_ptr(), qk1.data_ptr(), v0.data_ptr(),
-            v1.data_ptr(),
-            int64_array(qk0.stride() + qk1.stride() + v0.stride()
-                        + v1.stride()),
-            bias0.data_ptr(), bias1.data_ptr(), out0.data_ptr(),
-            out1.data_ptr(), int64_array(out0.stride() + out1.stride()),
-            B, h, N, M, stream)
+        if qk0.dtype == torch.bfloat16:
+            err = lib.ei_cross_attention_sm90(
+                ops, bias0.data_ptr(), bias1.data_ptr(), out0.data_ptr(),
+                out1.data_ptr(),
+                int64_array(out0.stride()[:3] + out1.stride()[:3]),
+                B, h, N, M, stream)
+        else:
+            err = lib.ei_cross_attention_bidir(
+                code, qk0.data_ptr(), qk1.data_ptr(), v0.data_ptr(),
+                v1.data_ptr(),
+                int64_array(qk0.stride() + qk1.stride() + v0.stride()
+                            + v1.stride()),
+                bias0.data_ptr(), bias1.data_ptr(), out0.data_ptr(),
+                out1.data_ptr(), int64_array(out0.stride() + out1.stride()),
+                B, h, N, M, stream)
     check(err, "cross_attention_bidir")
+    hopper_attention.packs += scratch is not None
     cross_attention_bidir.launches += 1
     return out0, out1
 
@@ -454,18 +483,20 @@ def cross_attention_bidir(qk0: torch.Tensor, qk1: torch.Tensor,
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   bias: torch.Tensor, scale: float
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel D: (out (B, h, N, d), lse (B, h, N) float32) of row-softmax
-    attention of q (B, h, N, d) over k, v (B, h, M, d) with the (B, M)
-    float32 key bias; lse is each row's log-sum-exp of the scaled, biased
-    scores, which kernel F reads.
+    """Kernel D: (out (B, h, N, d), stats (2, B, h, N) float32) of
+    row-softmax attention of q (B, h, N, d) over k, v (B, h, M, d) with the
+    (B, M) float32 key bias; stats[0] is each row's max m of the scaled,
+    biased scores s and stats[1] its sum l of exp(s - m), from which kernel
+    F rebuilds P = exp(s - m) / l.
 
     CPU tensors: the plain version. CUDA tensors: the CUDA kernel, or an
     exception (d must be 64)."""
     if q.device.type == "cpu":
         s = torch.matmul(q.float(), k.float().mT) * scale \
             + bias[:, None, None]
-        return (_row_attention(q, k, v, bias, scale),
-                torch.logsumexp(s, dim=-1))
+        m = s.amax(dim=-1)
+        l = torch.exp(s - m[..., None]).sum(dim=-1)
+        return _row_attention(q, k, v, bias, scale), torch.stack([m, l])
     if q.device.type != "cuda":
         raise ValueError(f"attention_fwd: unsupported device {q.device}")
     code = _check_cuda("attention_fwd", q, k, v, differentiable=True)
@@ -475,29 +506,35 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("attention_fwd: mismatched shapes")
     bias = _check_rows("attention_fwd bias", bias, (B, M))
     out = _heads_out(B, h, N, d, q)
-    lse = torch.empty(B, h, N, dtype=torch.float32, device=q.device)
+    stats = torch.empty(2, B, h, N, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = library("attention_fwd").ei_attention_fwd(
             code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             int64_array(q.stride() + k.stride() + v.stride()),
             bias.data_ptr(), out.data_ptr(), int64_array(out.stride()),
-            lse.data_ptr(), B, h, N, M, float(scale), stream)
+            stats.data_ptr(), B, h, N, M, float(scale), stream)
     check(err, "attention_fwd")
     attention_fwd.launches += 1
-    return out, lse
+    return out, stats
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   out: torch.Tensor, do: torch.Tensor, bias: torch.Tensor,
-                  lse: torch.Tensor, scale: float
+                  stats: torch.Tensor, scale: float, blocks: int = 3
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel F: (dq, dk, dv) of kernel D, given its output `out` and
-    log-sum-exp `lse` and the output gradient `do` (cast to q's dtype).
+    """Kernel F: (dq, dk, dv) of kernel D, given its output `out` and row
+    statistics `stats` (2, B, h, N) and the output gradient `do` (cast to
+    q's dtype).
 
     CPU tensors: the plain version (which recomputes the row statistics
     and c = rowsum(dP o P) as the TPU kernel does). CUDA tensors: the CUDA
-    kernel, or an exception."""
+    kernel (bfloat16: the Hopper loop, q, k, v and dO as `operand_plan`
+    takes them; dO as autograd hands it may be any layout, and one the plan
+    refuses is copied contiguous first), or an exception. `blocks` (bf16 on
+    the card only) runs one of the loop's block kinds alone to time it: 1
+    the dK/dV blocks, 2 the dQ blocks; the other gradients are then left
+    unwritten."""
     do = do.to(q.dtype)
     if q.device.type == "cpu":
         return fused_attention_bwd_plain(q, k, v, bias, do, scale)
@@ -511,42 +548,64 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or do.shape != q.shape:
         raise ValueError("attention_bwd: mismatched shapes")
     bias = _check_rows("attention_bwd bias", bias, (B, M))
-    lse = _check_rows("attention_bwd lse", lse, (B, h, N))
+    stats = _check_rows("attention_bwd stats", stats, (2, B, h, N))
+    if blocks != 3 and (q.dtype != torch.bfloat16 or blocks not in (1, 2)):
+        raise ValueError(f"attention_bwd: blocks={blocks}; 1 or 2 time the "
+                         f"bfloat16 loop's block kinds, 3 runs both")
+    scratch = None
+    if q.dtype == torch.bfloat16:
+        try:
+            operand_plan(do)
+        except ValueError:
+            do = do.contiguous()
+        ops, scratch = hopper_operands((q, k, v, do))
     dq = _heads_out(B, h, N, d, q)
     dk = _heads_out(B, h, M, d, q)
     dv = _heads_out(B, h, M, d, q)
     c = torch.empty(B, h, N, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
+    lib = library("attention_bwd")
+    with _on_device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = library("attention_bwd").ei_attention_bwd(
-            code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            do.data_ptr(),
-            int64_array(q.stride() + k.stride() + v.stride() + out.stride()
-                        + do.stride()),
-            bias.data_ptr(), lse.data_ptr(), c.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(),
-            int64_array(dq.stride() + dk.stride() + dv.stride()),
-            B, h, N, M, float(scale), stream)
+        if q.dtype == torch.bfloat16:
+            err = lib.ei_attention_bwd_sm90(
+                ops, out.data_ptr(), do.data_ptr(),
+                int64_array(out.stride() + do.stride()), bias.data_ptr(),
+                stats.data_ptr(), c.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(),
+                int64_array(dq.stride()[:3] + dk.stride()[:3]
+                            + dv.stride()[:3]),
+                B, h, N, M, float(scale), blocks, stream)
+        else:
+            err = lib.ei_attention_bwd(
+                code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), do.data_ptr(),
+                int64_array(q.stride() + k.stride() + v.stride()
+                            + out.stride() + do.stride()),
+                bias.data_ptr(), stats.data_ptr(), c.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                int64_array(dq.stride() + dk.stride() + dv.stride()),
+                B, h, N, M, float(scale), stream)
     check(err, "attention_bwd")
+    hopper_attention.packs += scratch is not None
     attention_bwd.launches += 1
     return dq, dk, dv
 
 
 class _FusedAttention(torch.autograd.Function):
-    """Forward: kernel D (saving q, k, v, the bias, the output and the
-    log-sum-exp); backward: kernel F. The bias gets no gradient."""
+    """Forward: kernel D (saving q, k, v, the bias, the output and the row
+    statistics); backward: kernel F. The bias gets no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale):
-        out, lse = attention_fwd(q, k, v, bias, scale)
-        ctx.save_for_backward(q, k, v, bias, out, lse)
+        out, stats = attention_fwd(q, k, v, bias, scale)
+        ctx.save_for_backward(q, k, v, bias, out, stats)
         ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, bias, out, lse = ctx.saved_tensors
-        dq, dk, dv = attention_bwd(q, k, v, out, do, bias, lse, ctx.scale)
+        q, k, v, bias, out, stats = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, out, do, bias, stats, ctx.scale)
         return dq, dk, dv, None, None
 
 

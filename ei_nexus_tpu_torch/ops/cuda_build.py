@@ -51,6 +51,9 @@ SIGNATURES = {
         "ei_cross_attention_bidir": (
             [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
             _I),
+        "ei_cross_attention_sm90": (
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "ei_sm90_smem_bytes": ([_I], ctypes.c_longlong),
     },
     "nms": {
         "ei_nms_rounds": ([_I, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
@@ -65,6 +68,10 @@ SIGNATURES = {
         "ei_attention_bwd": (
             [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
              _I, _I, _I, _I, ctypes.c_float, _P], _I),
+        "ei_attention_bwd_sm90": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+             _I, _I, _I, _I, ctypes.c_float, _I, _P], _I),
+        "ei_bwd_sm90_smem_bytes": ([], ctypes.c_longlong),
     },
     "qblock_attention": {
         "ei_qblock_attention": (

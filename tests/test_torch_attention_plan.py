@@ -1,8 +1,9 @@
-"""The operand plan of the Hopper loop of kernels A and E
+"""The operand plan of the Hopper loops of kernels A, B, E and F
 (`ops/attention_kernels.py:operand_plan`) on CPU tensors: which operands
 TMA reads in place, which the pack pass writes first (with the slab and
-phase it reads them from), and which neither takes. The plan looks only at
-shapes, strides and addresses, so CPU tensors stand for the card's."""
+phase it reads them from), and which neither takes; and the operands the
+LightGlue blocks hand F (training) and B (inference). The plan looks only
+at shapes, strides and addresses, so CPU tensors stand for the card's."""
 
 import pytest
 import torch
@@ -102,3 +103,99 @@ def test_a_slab_outside_the_storage_raises():
     whole = torch.zeros(slabs * D * 3, dtype=torch.bfloat16)
     assert operand_plan(torch.as_strided(whole, t.shape, t.stride()),
                         rotate=True).mode == "pack"
+
+
+# ---------------------------------------------------------------------------
+# what the LightGlue blocks hand kernels F and B, at the flagship's width
+# ---------------------------------------------------------------------------
+
+EMBED, HEADS = 256, 4     # 4 heads of 64
+
+
+def _rotary(b, n, gen):
+    ang = torch.rand(b, 1, n, D // 2, generator=gen) * 6.28
+    return tuple(torch.repeat_interleave(f(ang), 2, -1).to(torch.bfloat16)
+                 for f in (torch.cos, torch.sin))
+
+
+def _capture_bwd(monkeypatch):
+    """Record the operands `_FusedAttention.backward` hands kernel F."""
+    from ei_nexus_tpu_torch.ops import attention_kernels as ak
+    seen, real = [], ak.attention_bwd
+
+    def spy(q, k, v, out, do, *rest, **kw):
+        seen.append(dict(q=q, k=k, v=v, out=out, do=do))
+        return real(q, k, v, out, do, *rest, **kw)
+    monkeypatch.setattr(ak, "attention_bwd", spy)
+    return seen
+
+
+def test_selfblock_hands_f_its_v_packed_the_rest_in_place(monkeypatch):
+    """SelfBlock in training (kernels D/F): the rotated q and k, the output
+    and dO are read in place; v, the stride-3 view of the Wqkv output, is
+    packed from its slab at phase 2."""
+    from ei_nexus_tpu_torch.models.lightglue import SelfBlock
+    gen = torch.Generator().manual_seed(0)
+    b, n = 2, 24
+    block = SelfBlock(EMBED, HEADS, dtype=torch.bfloat16, attn_impl="pallas")
+    x = torch.randn(b, n, EMBED, generator=gen).to(torch.bfloat16)
+    mask = torch.rand(b, n, generator=gen) > 0.2
+    seen = _capture_bwd(monkeypatch)
+    block(x, _rotary(b, n, gen), mask, training=True).float().sum().backward()
+    assert len(seen) == 1
+    ops = seen[0]
+    for name in ("q", "k", "out", "do"):
+        assert operand_plan(ops[name]).mode == "direct", name
+    plan = operand_plan(ops["v"])
+    assert plan.mode == "pack" and (plan.sd, plan.phase) == (3, 2)
+    assert plan.ptr == ops["v"].data_ptr() - 4      # its 384-byte slab
+    assert plan.strides == (n * EMBED * 3, D * 3, EMBED * 3)
+
+
+def test_crossblock_hands_f_its_operands_in_place(monkeypatch):
+    """CrossBlock in training: both directions' q, k, v (pre-scaled head
+    views), output and dO are read in place."""
+    from ei_nexus_tpu_torch.models.lightglue import CrossBlock
+    gen = torch.Generator().manual_seed(1)
+    b, n, m = 2, 24, 40
+    block = CrossBlock(EMBED, HEADS, dtype=torch.bfloat16,
+                       attn_impl="pallas")
+    x0 = torch.randn(b, n, EMBED, generator=gen).to(torch.bfloat16)
+    x1 = torch.randn(b, m, EMBED, generator=gen).to(torch.bfloat16)
+    masks = (torch.rand(b, n, generator=gen) > 0.2,
+             torch.rand(b, m, generator=gen) > 0.2)
+    seen = _capture_bwd(monkeypatch)
+    y0, y1 = block(x0, x1, *masks, training=True)
+    (y0.float().sum() + y1.float().sum()).backward()
+    assert len(seen) == 2
+    for ops in seen:
+        for name, t in ops.items():
+            assert operand_plan(t).mode == "direct", name
+
+
+def test_crossblock_hands_b_its_operands_in_place(monkeypatch):
+    """CrossBlock at inference (kernel B): qk0, qk1, v0, v1 are head views
+    TMA reads in place; no pack pass."""
+    from ei_nexus_tpu_torch.models import lightglue
+    gen = torch.Generator().manual_seed(2)
+    b, n, m = 2, 24, 40
+    block = lightglue.CrossBlock(EMBED, HEADS, dtype=torch.bfloat16,
+                                 attn_impl="pallas").eval()
+    seen, real = [], lightglue.cross_attention_bidir
+
+    def spy(qk0, qk1, v0, v1, *rest, **kw):
+        seen.append((qk0, qk1, v0, v1))
+        return real(qk0, qk1, v0, v1, *rest, **kw)
+    monkeypatch.setattr(lightglue, "cross_attention_bidir", spy)
+    x0 = torch.randn(b, n, EMBED, generator=gen).to(torch.bfloat16)
+    x1 = torch.randn(b, m, EMBED, generator=gen).to(torch.bfloat16)
+    with torch.no_grad():
+        block(x0, x1, torch.rand(b, n, generator=gen) > 0.2,
+              torch.rand(b, m, generator=gen) > 0.2)
+    assert len(seen) == 1
+    shapes = [(b, HEADS, r, D) for r in (n, m, n, m)]
+    for t, shape in zip(seen[0], shapes):
+        assert tuple(t.shape) == shape
+        plan = operand_plan(t)
+        assert plan.mode == "direct" and plan.ptr == t.data_ptr()
+        assert plan.strides[1:] == (D, EMBED)     # (B, N, h, d) head views

@@ -13,12 +13,14 @@ of A and E (bf16: `hopper_attention`, with its pack pass); NMS bit-exact. The
 pose tail on the card is held to the CPU in float64 (R, t to 1e-4). The backward (kernel F) is held to
 1e-4 * max(1, max|ref|) in float32 and 2e-2 * max(1, max|ref|) in bfloat16:
 its c = rowsum(dO o O) reads the output rounded to the operand type where
-the plain version sums dP o P, and its P = exp(S - lse) uses the forward's
-log-sum-exp; no atomics, so it repeats exactly from run to run. A typical
-gradient entry is far below 1, so each gradient is also held to a relative
-norm, ||got - want|| / ||want|| <= 1e-4 (float32) or 1e-2 (bfloat16, whose
-rounding of the outputs alone gives ~2e-3); planted faults (c = 0, c or the
-log-sum-exp read from the neighbouring row) move it by 6e-2 or more.
+the plain version sums dP o P, and its P = exp(s - m) / l uses the
+forward's row max and row sum; no atomics, so it repeats exactly from run
+to run. A typical gradient entry is far below 1, so each gradient is also
+held to a relative norm, ||got - want|| / ||want|| <= 1e-4 (float32) or
+1e-2 (bfloat16, whose rounding of the outputs alone gives ~2e-3); planted
+faults (c = 0, c or the row statistics read from the neighbouring row)
+move it by 6e-2 or more. A batch row whose keys are all masked is in the
+D, F and B cases: its softmax is uniform, 1/M a key.
 """
 
 import pytest
@@ -114,38 +116,50 @@ def test_attention_fwd_kernel(cuda, dtype, tol, N, M, scale):
     mask = torch.rand(B, M, generator=cuda, device="cuda") > 0.2
     bias = ak.key_bias(mask, B, M, "cuda")
     before = ak.attention_fwd.launches
-    out, lse = ak.attention_fwd(q, k, v, bias, scale)
+    out, stats = ak.attention_fwd(q, k, v, bias, scale)
     assert ak.attention_fwd.launches == before + 1
     want = ak.fused_attention_plain(q, k, v, mask, scale)
     s = torch.matmul(q.float(), k.float().mT) * scale + bias[:, None, None]
     assert (out.float() - want.float()).abs().max() <= tol
-    assert (lse - torch.logsumexp(s, -1)).abs().max() <= 1e-4 * max(
-        1.0, float(lse.abs().max()))
+    # the row max and the row sum of exp(s - m), up to the product's order
+    m = s.amax(-1)
+    assert (stats[0] - m).abs().max() <= 1e-4 * max(1.0,
+                                                    float(m.abs().max()))
+    l = torch.exp(s - m[..., None]).sum(-1)
+    assert ((stats[1] - l).abs() <= 1e-4 * l).all()
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("N,M,scale", [(200, 136, 0.125), (128, 256, 1.0)])
 def test_attention_bwd_kernel(cuda, dtype, tol, N, M, scale):
-    B, h, d = 2, 2, 64
+    """F at ragged N != M on stride-3 operands (packed first in bfloat16),
+    the last batch row's keys all masked; each gradient against the plain
+    version, and per batch row (the masked row's alone too)."""
+    B, h, d = 3, 2, 64
     q = _strided_heads(cuda, B, N, h, d, dtype)
     k = _strided_heads(cuda, B, M, h, d, dtype, 1)
     v = _strided_heads(cuda, B, M, h, d, dtype, 2)
     mask = torch.rand(B, M, generator=cuda, device="cuda") > 0.2
+    mask[-1] = False
     bias = ak.key_bias(mask, B, M, "cuda")
-    out, lse = ak.attention_fwd(q, k, v, bias, scale)
+    out, stats = ak.attention_fwd(q, k, v, bias, scale)
     do = torch.randn(B, h, N, d, generator=cuda, device="cuda").to(dtype)
     before = ak.attention_bwd.launches
-    got = ak.attention_bwd(q, k, v, out, do, bias, lse, scale)
+    packs = ak.hopper_attention.packs
+    got = ak.attention_bwd(q, k, v, out, do, bias, stats, scale)
     assert ak.attention_bwd.launches == before + 1
+    assert ak.hopper_attention.packs == packs + (dtype == torch.bfloat16)
     want = ak.fused_attention_bwd_plain(q, k, v, bias, do, scale)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.shape == b.shape and a.dtype == b.dtype, name
-        bound = tol * max(1.0, float(b.float().abs().max()))
-        assert (a.float() - b.float()).abs().max() <= bound, name
-        assert _rel(a, b) <= BWD_REL[dtype], name
+        for rows in (slice(None), slice(-1, None)):
+            a_, b_ = a[rows], b[rows]
+            bound = tol * max(1.0, float(b_.float().abs().max()))
+            assert (a_.float() - b_.float()).abs().max() <= bound, name
+            assert _rel(a_, b_) <= BWD_REL[dtype], name
     # the same inputs give the same bits: no atomics in the sums
-    again = ak.attention_bwd(q, k, v, out, do, bias, lse, scale)
+    again = ak.attention_bwd(q, k, v, out, do, bias, stats, scale)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
@@ -153,21 +167,21 @@ def test_attention_bwd_kernel(cuda, dtype, tol, N, M, scale):
 def test_attention_bwd_check_catches_planted_faults(cuda, dtype):
     """The relative-norm check of test_attention_bwd_kernel fails when F
     drops c (a zero output zeroes c = rowsum(dO o O)), or reads c or the
-    log-sum-exp of the neighbouring row, at the flagship's self-attention
-    statistics (scale d^-0.5, ~80% of 1024 keys live)."""
+    row statistics (max and sum) of the neighbouring row, at the flagship's
+    self-attention statistics (scale d^-0.5, ~80% of 1024 keys live)."""
     B, h, N, M, d = 1, 2, 1024, 1024, 64
     q = _strided_heads(cuda, B, N, h, d, dtype)
     k = _strided_heads(cuda, B, M, h, d, dtype, 1)
     v = _strided_heads(cuda, B, M, h, d, dtype, 2)
     mask = torch.rand(B, M, generator=cuda, device="cuda") > 0.2
     bias = ak.key_bias(mask, B, M, "cuda")
-    out, lse = ak.attention_fwd(q, k, v, bias, d ** -0.5)
+    out, stats = ak.attention_fwd(q, k, v, bias, d ** -0.5)
     do = torch.randn(B, h, N, d, generator=cuda, device="cuda").to(dtype)
     want = ak.fused_attention_bwd_plain(q, k, v, bias, do, d ** -0.5)
-    for fault, o, l in (("c = 0", torch.zeros_like(out), lse),
-                        ("c of the next row", out.roll(1, 2), lse),
-                        ("lse of the next row", out, lse.roll(1, 2))):
-        got = ak.attention_bwd(q, k, v, o, do, bias, l, d ** -0.5)
+    for fault, o, st in (("c = 0", torch.zeros_like(out), stats),
+                         ("c of the next row", out.roll(1, 2), stats),
+                         ("stats of the next row", out, stats.roll(1, -1))):
+        got = ak.attention_bwd(q, k, v, o, do, bias, st, d ** -0.5)
         worst = max(_rel(a, b) for a, b in zip(got, want))
         assert worst > 5 * BWD_REL[dtype], fault
 
@@ -201,6 +215,82 @@ def test_fused_attention_shared_qk_gradient(cuda):
         before[0] + 2, before[1] + 2)
     for a, b in zip(got, grads("cpu")):
         assert (a - b).abs().max() <= 1e-4 * max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_fused_attention_masked_row_matches_cpu(cuda, dtype, tol):
+    """D then F through autograd (`fused_attention`) with one batch row's
+    keys all masked, on the card against the CPU's plain versions, the
+    SelfBlock training layout (q, k head views, v the stride-3 view): the
+    masked row's gradients are those of a uniform softmax (1/M a key), not
+    M times them."""
+    B, h, N, d = 2, 2, 200, 64
+    g = torch.Generator().manual_seed(3)
+    qkv = torch.randn(B, N, h * d * 3, generator=g).to(dtype)
+    mask = torch.rand(B, N, generator=g) > 0.2
+    mask[1] = False
+    co = torch.randn(B, h, N, d, generator=g)
+
+    def grads(dev):
+        x = qkv.to(dev).requires_grad_()
+        t = x.unflatten(-1, (h, d, 3)).transpose(1, 2)
+        q, k = (t[..., i].transpose(1, 2).contiguous().transpose(1, 2)
+                for i in range(2))
+        out = ak.fused_attention(q, k, t[..., 2], mask.to(dev))
+        (gx,) = torch.autograd.grad((out.float() * co.to(dev)).sum(), x)
+        return gx.cpu().float()
+
+    before = ak.attention_bwd.launches
+    got = grads("cuda")
+    assert ak.attention_bwd.launches == before + 1
+    want = grads("cpu")
+    for rows in (slice(None), slice(1, 2)):
+        bound = tol * max(1.0, float(want[rows].abs().max()))
+        assert (got[rows] - want[rows]).abs().max() <= bound
+        assert _rel(got[rows], want[rows]) <= BWD_REL[dtype]
+
+
+@pytest.mark.parametrize("N,M", [(200, 136), (64, 320)])
+@pytest.mark.parametrize("masked", [0, 1])
+def test_cross_attention_hopper_loop(cuda, N, M, masked):
+    """The bf16 B on the Hopper loop, both directions in one launch, at
+    N != M on CrossBlock's head views (read in place: no pack launch), one
+    side's keys all masked in batch row 1; the same bits on a second call.
+    Stride-3 views are packed first (one pack launch)."""
+    B, h, d = 2, 3, 64
+
+    def heads(n):
+        x = torch.randn(B, n, h * d, generator=cuda, device="cuda")
+        return x.to(torch.bfloat16).unflatten(-1, (h, d)).transpose(1, 2)
+    qk0, qk1 = heads(N) * d ** -0.25, heads(M) * d ** -0.25
+    v0, v1 = heads(N), heads(M)
+    m0 = torch.rand(B, N, generator=cuda, device="cuda") > 0.2
+    m1 = torch.rand(B, M, generator=cuda, device="cuda") > 0.2
+    (m0, m1)[masked][1] = False
+    before, packs = ak.cross_attention_bidir.launches, ak.hopper_attention.packs
+    got = ak.cross_attention_bidir(qk0, qk1, v0, v1, m0, m1)
+    assert ak.cross_attention_bidir.launches == before + 1
+    assert ak.hopper_attention.packs == packs
+    want = ak.cross_attention_bidir_plain(qk0, qk1, v0, v1, m0, m1)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a.float()).all()
+        assert _close(a, b)
+    # the fully masked side's keys give the other side's queries a uniform
+    # average of its values
+    mean = (v0, v1)[masked][1].float().mean(dim=1, keepdim=True)
+    other = got[1 - masked][1]
+    assert _close(other, mean.expand_as(other))
+    again = ak.cross_attention_bidir(qk0, qk1, v0, v1, m0, m1)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # stride-3 views of one buffer per side: packed, then the same results
+    s0 = _strided_heads(cuda, B, N, h, d, torch.bfloat16)
+    s1 = _strided_heads(cuda, B, M, h, d, torch.bfloat16, 1)
+    packs = ak.hopper_attention.packs
+    got = ak.cross_attention_bidir(s0, s1, v0, v1, m0, m1)
+    assert ak.hopper_attention.packs == packs + 1
+    want = ak.cross_attention_bidir_plain(s0, s1, v0, v1, m0, m1)
+    assert all(_close(a, b) for a, b in zip(got, want))
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):

@@ -105,6 +105,70 @@ def test_fused_attention_plain_matches_pallas_vjp(rng, scale, atol):
     assert ak.attention_fwd.launches == 0 and ak.attention_bwd.launches == 0
 
 
+def test_fused_attention_masked_row_matches_pallas_vjp(rng):
+    """A batch row whose keys are all masked: its softmax is uniform (the
+    TPU backward recomputes m and Z in the kernel), and the port's
+    gradients are that softmax's, as `jax.grad` of the interpreted Pallas
+    kernels gives them."""
+    B, h, N, M, d = 2, 2, 64, 128, 64
+    q, co = (rng.normal(size=(B, h, N, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.normal(size=(B, h, M, d)).astype(np.float32)
+            for _ in range(2))
+    mask = rng.uniform(size=(B, M)) > 0.2
+    mask[1] = False
+
+    def jloss(q, k, v):
+        out = fused_attention_vjp(q, k, v, jnp.asarray(mask), interpret=True)
+        return jnp.sum(out * co)
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
+    out = ak.fused_attention(tq, tk, tv, _t(mask))
+    tgrads = torch.autograd.grad((out * _t(co)).sum(), (tq, tk, tv))
+    for name, a, b in zip(("dq", "dk", "dv"), tgrads, jgrads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5,
+                                   err_msg=name)
+    # the masked row's dV is the mean of its dO over the queries
+    np.testing.assert_allclose(tgrads[2][1].numpy(),
+                               np.broadcast_to(co[1].sum(1, keepdims=True)
+                                               / M, (h, M, d)), atol=1e-5)
+
+
+def _rebuilds_softmax(p: torch.Tensor, s: torch.Tensor) -> bool:
+    """p is the row softmax of the scores s, to float32 rounding."""
+    return bool(torch.allclose(p, torch.softmax(s, dim=-1), rtol=1e-5,
+                               atol=1e-7))
+
+
+def test_fwd_statistics_rebuild_the_softmax_of_a_masked_row(rng):
+    """The row statistics `attention_fwd` returns on the CPU (row max m, row
+    sum l of exp(s - m)) rebuild the plain softmax exp(s - m) / l, for a
+    batch row whose keys are all masked too (1/M a key), as kernel F
+    rebuilds P from kernel D's. A log-sum-exp would not: every masked score
+    and m are -1e9, where a float32 ulp is 64, so m + log(l) rounds to m and
+    exp(s - lse) is 1 for every key, M times the softmax."""
+    B, h, N, M, d = 2, 2, 16, 1024, 64
+    q = _t(rng.normal(size=(B, h, N, d)).astype(np.float32))
+    k, v = (_t(rng.normal(size=(B, h, M, d)).astype(np.float32))
+            for _ in range(2))
+    mask = _t(rng.uniform(size=(B, M)) > 0.2)
+    mask[1] = False
+    bias = ak.key_bias(mask, B, M, "cpu")
+    out, stats = ak.attention_fwd(q, k, v, bias, d ** -0.5)
+    assert stats.shape == (2, B, h, N) and stats.dtype == torch.float32
+    s = torch.matmul(q, k.mT) * d ** -0.5 + bias[:, None, None]
+    m, l = stats[0][..., None], stats[1][..., None]
+    p = torch.exp(s - m) / l
+    assert _rebuilds_softmax(p, s)
+    assert torch.allclose(p[1], torch.full_like(p[1], 1.0 / M))
+    lse = m + torch.log(l)
+    assert not _rebuilds_softmax(torch.exp(s - lse), s)
+    assert torch.equal(torch.exp(s - lse)[1].sum(-1),
+                       torch.full((h, N), float(M)))
+
+
 # ---------------------------------------------------------------------------
 # geometry, loss, schedule
 # ---------------------------------------------------------------------------

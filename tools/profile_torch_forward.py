@@ -17,7 +17,7 @@ matches) is traced as well. `--path stage2` runs the stage-2 training step
 (both extractors frozen, LightGlue trained with AdamW; the same batch and
 random slot fill every step). After a warm-up it traces --iters runs with
 torch.profiler and prints the device time by kernel group (the port's
-kernels A-G and the pack pass of A and E, the pose tail's QR, SVD and
+kernels A-G and the Hopper loops' pack pass, the pose tail's QR, SVD and
 sampling, convolutions, matrix products, norms, voxel scatter, sorting,
 the optimizer, everything else),
 the device's busy and idle share of the traced wall time, and the 25
@@ -42,16 +42,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 # kernel-name fragment -> group, first match wins
 GROUPS = (
-    ("attention_pack_kernel", "A/E pack"),
+    ("attention_pack_kernel", "pack pass (A, B, E, F)"),
     ("self_attention_sm90_kernel", "A self_attention_rot"),
     ("qblock_attention_sm90_kernel", "E qblock_attention"),
+    ("cross_attention_sm90_kernel", "B cross_attention_bidir"),
+    ("attention_bwd_sm90_kernel", "F attention_bwd"),
     ("self_attention_kernel", "A self_attention_rot"),
     ("cross_attention_kernel", "B cross_attention_bidir"),
     ("nms_kernel", "C nms_rounds"),
     ("attention_fwd_kernel", "D attention_fwd"),
     ("qblock_attention_kernel", "E qblock_attention"),
     ("flash_segment_kernel", "G flash_attention"),
-    ("bwd_mma_kernel", "F attention_bwd"),
     ("bwd_rows_kernel", "F attention_bwd"),
     ("row_dot_kernel", "F attention_bwd"),
     ("multi_tensor_apply", "optimizer (AdamW, foreach)"),
