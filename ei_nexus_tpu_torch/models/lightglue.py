@@ -11,7 +11,10 @@ confidence heads (on detached descriptors) feed the deep-supervision loss.
 
 `attention_impl`: "auto" and "pallas" take the fused kernels of
 ops/attention_kernels.py (the CUDA kernels on a CUDA tensor, their plain
-versions on a CPU tensor; key-side masks): kernels A and B at inference,
+versions on a CPU tensor; key-side masks) where the token counts lie on
+the JAX package's `_pallas_supported` grid (N % 128 == 0, heads of 64,
+N*M <= 1024^2; the cross-attention also M % 128 == 0), and the einsum
+path elsewhere, as the JAX package does: kernels A and B at inference,
 or kernel E (q-blocked; rotary fused for self-attention, two rotary-free
 launches at scale 1 for the cross-attention) when `block_q` > 0 divides
 the token counts, the counterpart of the JAX package's
@@ -110,6 +113,15 @@ def _flash_supported(n: int, d: int) -> bool:
     return n % 128 == 0 and n >= 128 and d % 8 == 0
 
 
+def _pallas_supported(n: int, d: int, m: Optional[int] = None) -> bool:
+    """Token counts the "auto"/"pallas" kernels (A, B, D, E, F) take in
+    LightGlue: the JAX package's `_pallas_supported` (tiles of 128, heads
+    of 64, at most 1024^2 scores a head) without its backend term; the
+    cross-attention also needs M % 128 == 0 there. Elsewhere the blocks
+    take the einsum path, as the JAX package does."""
+    return n % 128 == 0 and d % 64 == 0 and n * (m or n) <= 1024 ** 2
+
+
 def _flash(q, k, v, kv_mask, sm_scale: float) -> torch.Tensor:
     """Kernel G with the key mask as segment ids (queries 1, valid keys 1,
     invalid keys 2), as the JAX package's `_flash_attention`."""
@@ -155,12 +167,13 @@ class SelfBlock(nn.Module):
         # (B, N, h, hd, 3): q, k, v interleaved at stride 3
         qkv = self.Wqkv(x).unflatten(-1, (h, D // h, 3)).transpose(1, 2)
         q, k, v = qkv[..., 0], qkv[..., 1], qkv[..., 2]
-        if self.attn_impl == "pallas" and training:
+        kernels = self.attn_impl == "pallas" and _pallas_supported(N, D // h)
+        if kernels and training:
             # kernels D/F: rotary outside, scale d^-0.5 on the product
             q = apply_rotary(encoding, q)
             k = apply_rotary(encoding, k)
             ctx = fused_attention(q, k, v, kv_mask).to(q.dtype)
-        elif self.attn_impl == "pallas":
+        elif kernels:
             # kernel A (or E) reads the strided views in place and rotates
             # q, k
             rot = (encoding[0][:, 0], encoding[1][:, 0])   # (B, N, hd)
@@ -212,12 +225,14 @@ class CrossBlock(nn.Module):
         v0 = split(self.to_v(x0))
         v1 = split(self.to_v(x1))
 
-        if self.attn_impl == "pallas" and training:
+        kernels = self.attn_impl == "pallas" \
+            and _pallas_supported(N, hd, M) and M % 128 == 0
+        if kernels and training:
             # kernels D/F, one call a direction at scale 1 (pre-scaled qk);
             # autograd sums the q-role and k-role gradients of the shared qk
             m0 = fused_attention(qk0, qk1, v1, mask1, 1.0).to(v1.dtype)
             m1 = fused_attention(qk1, qk0, v0, mask0, 1.0).to(v0.dtype)
-        elif self.attn_impl == "pallas":
+        elif kernels:
             m0, m1 = cross_attention_bidir(qk0, qk1, v0, v1, mask0, mask1,
                                            block_q=self.block_q)
             m0, m1 = m0.to(v1.dtype), m1.to(v0.dtype)

@@ -110,46 +110,57 @@ def test_superpoint_matches_jax(rng):
     _compare_feats(got, want, keys=got.keys())
 
 
-def _tokens(rng, B=2, N=24, D=64):
+def _tokens(rng, B=2, N=24, D=64, hd=16):
     x = rng.normal(size=(B, N, D)).astype(np.float32)
     mask = rng.uniform(size=(B, N)) > 0.3
-    ang = rng.uniform(0, 2 * np.pi, (B, 1, N, 8)).astype(np.float32)
+    ang = rng.uniform(0, 2 * np.pi, (B, 1, N, hd // 2)).astype(np.float32)
     enc = (np.repeat(np.cos(ang), 2, -1), np.repeat(np.sin(ang), 2, -1))
     return x, mask, enc
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
-def test_self_block_matches_jax(rng, impl):
-    """SelfBlock (4 heads of 16): the port's einsum path and its kernel
-    path (the plain version on the CPU) against JAX's einsum path on every
-    row, since self-attention masks keys only."""
-    x, mask, enc = _tokens(rng)
-    jm = jlg.SelfBlock(64, 4)
+# (impl, embed width, heads, N, M): 4 heads of 16 at 24/20 tokens (off the
+# kernels' grid: both impls take the einsum path), and 2 heads of 64 at 128
+# tokens, where "pallas" takes the kernels (their plain versions here)
+BLOCK_CASES = pytest.mark.parametrize(
+    "impl,D,heads,N,M", [("xla", 64, 4, 24, 20), ("pallas", 64, 4, 24, 20),
+                         ("pallas", 128, 2, 128, 128)],
+    ids=["xla", "pallas", "pallas-heads64"])
+
+
+@BLOCK_CASES
+def test_self_block_matches_jax(rng, impl, D, heads, N, M):
+    """SelfBlock: the port's einsum path and its kernel path (the plain
+    version on the CPU) against JAX's einsum path on every row, since
+    self-attention masks keys only."""
+    x, mask, enc = _tokens(rng, N=N, D=D, hd=D // heads)
+    jm = jlg.SelfBlock(D, heads)
     jenc = tuple(jnp.asarray(e) for e in enc)
     variables = _perturb(jm.init(jax.random.PRNGKey(2), jnp.asarray(x),
                                  jenc, jnp.asarray(mask)))
     want = jm.apply(variables, jnp.asarray(x), jenc, jnp.asarray(mask))
-    tm = _load(tlg.SelfBlock(64, 4, attn_impl=impl), variables)
+    tm = _load(tlg.SelfBlock(D, heads, attn_impl=impl), variables)
     with torch.no_grad():
         got = tm(_t(x), tuple(_t(e) for e in enc), _t(mask))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
-def test_cross_block_matches_jax(rng, impl):
+@BLOCK_CASES
+def test_cross_block_matches_jax(rng, impl, D, heads, N, M):
     """CrossBlock: the einsum path on every row; the kernel path (key-side
-    masks) on valid rows, where the two masking rules agree."""
-    x0, m0, _ = _tokens(rng, N=24)
-    x1, m1, _ = _tokens(rng, N=20)
-    jm = jlg.CrossBlock(64, 4)
+    masks, on the kernels' grid) on valid rows, where the two masking
+    rules agree."""
+    x0, m0, _ = _tokens(rng, N=N, D=D)
+    x1, m1, _ = _tokens(rng, N=M, D=D)
+    jm = jlg.CrossBlock(D, heads)
     args = tuple(jnp.asarray(a) for a in (x0, x1, m0, m1))
     variables = _perturb(jm.init(jax.random.PRNGKey(3), *args))
     w0, w1 = jm.apply(variables, *args)
-    tm = _load(tlg.CrossBlock(64, 4, attn_impl=impl), variables)
+    tm = _load(tlg.CrossBlock(D, heads, attn_impl=impl), variables)
     with torch.no_grad():
         g0, g1 = tm(*(_t(a) for a in (x0, x1, m0, m1)))
-    rows0 = m0[..., None] if impl == "pallas" else True
-    rows1 = m1[..., None] if impl == "pallas" else True
+    kernels = impl == "pallas" and tlg._pallas_supported(N, D // heads, M)
+    rows0 = m0[..., None] if kernels else True
+    rows1 = m1[..., None] if kernels else True
     np.testing.assert_allclose(np.where(rows0, g0.numpy(), 0),
                                np.where(rows0, np.asarray(w0), 0), **TOL)
     np.testing.assert_allclose(np.where(rows1, g1.numpy(), 0),

@@ -284,8 +284,9 @@ def test_lightglue_training_matches_jax(rng):
     """The Matcher in training with pad_mode="random": JAX's output carries
     the filled slots (input_feats0/1), which the port is handed; every
     slot is then valid, so the JAX package's XLA training attention and
-    the port's kernel path ("pallas": plain D/F on the CPU) compute the
-    same function. Outputs, the loss and every parameter's gradient."""
+    the port's "pallas" setting compute the same function (at 24 slots and
+    heads of 16, off the kernels' shape grid, both take the einsum path).
+    Outputs, the loss and every parameter's gradient."""
     lg = dict(input_dim=32, descriptor_dim=64, n_layers=2, num_heads=4)
     jcfg = jeim.MatcherConfig(type="LightGlue", freeze=False,
                               max_points_num=24,
