@@ -8,23 +8,25 @@ Phases, each of which raises on failure:
     `ei_nexus_tpu_torch/csrc` (one nvcc per source, all at once); TF32 is
     switched off for matmuls and convolutions so float32 comparisons are
     float32; the card's name and power limit are printed;
- 2. the build of the Hopper loops of A, B, E and F (csrc/flash_sm90.cuh,
-    csrc/attention_bwd.cu): their kernels' ptxas lines (no spill, no C7508
-    "setmaxnreg ignored"), shared memory, and HGMMA and UTMALDG
-    instructions in the SASS of each library where the toolkit has
-    cuobjdump; then every kernel (A-G) against its plain PyTorch version at
-    the paths' shapes, in float32 and bfloat16 (E at block_q 64 and 128,
-    with and without rot; G at 1024 and 2048 tokens with random query and
-    key segments and a fully masked batch row; D and F with a fully masked
-    batch row, held alone too), timed with CUDA events beside the plain
+ 2. the build of the Hopper loops of A, B, D, E, F and G
+    (csrc/flash_sm90.cuh, csrc/attention_bwd.cu): their kernels' ptxas
+    lines (no spill, no C7508 "setmaxnreg ignored"), shared memory, and
+    HGMMA and UTMALDG instructions in the SASS of each library where the
+    toolkit has cuobjdump; then every kernel (A-G) against its plain
+    PyTorch version at the paths' shapes, in float32 and bfloat16 (E at
+    block_q 64 and 128, with and without rot; G at 1024 and 2048 tokens
+    with random query and key segments and a fully masked batch row; D and
+    F with a fully masked batch row, held alone too, F reading the v D
+    packed), timed with CUDA events beside the plain
     version, the library call that computes the same function (SDPA for
     the attention kernels: forward for A, B, D, E, G, with the same bool
     mask; SDPA's backward, (forward + backward) - forward, for F) and the
     card's bound; each kernel and its library call also by device time
     alone (torch.profiler: the CUDA-event time of calls back to back is
-    paced by the host where a call costs it more than the card), A, E and F
-    with the pack pass's own share, F split into its c pass, pack pass and
-    its two block kinds (each run alone); F's gradients are also held to a
+    paced by the host where a call costs it more than the card), A, D, E
+    and G with the pack pass's own share (D also on the cross layout, read
+    in place), F split into its c pass, pack pass and its two block kinds
+    (each run alone); F's gradients are also held to a
     relative norm, which planted faults (c = 0, c or the row statistics of
     the neighbouring row) must break;
  3. the flagship EIM forward at full width (260x346, 16 bins, K=1024,
@@ -32,7 +34,7 @@ Phases, each of which raises on failure:
     each attention setting of `build_flagship`: "auto" (A=18, B=9, C=2
     launches a forward), "flash" (G=36, C=2) and "auto" with block_q=64
     (E=36, C=2), launch counts read around one forward (and the Hopper
-    loops' pack passes: 18 under "auto", 18 q-blocked, 0 "flash"), then
+    loops' pack passes: 18 under "auto", 18 q-blocked, 18 "flash"), then
     timed one forward at a time (latency) and back to back (throughput,
     pairs/s);
     the flash forward is then chained with the pose tail as the JAX
@@ -41,7 +43,7 @@ Phases, each of which raises on failure:
  4. the stage-2 training step at full width (the same model with both
     extractors frozen and LightGlue trained, AdamW, B=8): launch counts
     read around one step (D and F 36 each, C 2, A, B, E, G none; 18 pack
-    passes, F's self-attention v), finite
+    passes, D's self-attention v, which F reads in place), finite
     loss, grad_norm > 0, frozen parameters and BatchNorm statistics
     bit-unchanged, matcher parameters changed, the loss lower after 10
     steps on the same batch and fill, then steps/s over 24 steps back to
@@ -162,10 +164,10 @@ def _sum_ms(times: dict, fragment: str = "") -> float:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-# the Hopper loops of A, B, E and F (csrc/flash_sm90.cuh; F's in
+# the Hopper loops of A, B, D, E, F and G (csrc/flash_sm90.cuh; F's in
 # csrc/attention_bwd.cu) and their pack pass
 HOPPER_LIBS = ("self_attention", "qblock_attention", "cross_attention",
-               "attention_bwd")
+               "attention_fwd", "attention_bwd", "flash_segment")
 HOPPER_KERNELS = ("sm90_kernel", "attention_pack_kernel")
 
 
@@ -323,20 +325,22 @@ def fused_cases(x):
 
 def check_fused(x, dtype, tol, gen):
     """Kernels D and F against their plain versions on both cases, with the
-    last batch row's keys all masked (held alone too: a uniform softmax),
-    and planted faults of F (c = 0, c or the row statistics of the
-    neighbouring row) that F's relative-norm check must catch; returns the
-    largest errors (D, F), the self case's tensors for timing and F's
-    largest relative norm."""
+    last batch row's keys all masked (held alone too: a uniform softmax), F
+    reading the v D read (its packed copy where D packed it, as
+    `fused_attention` hands it on), and planted faults of F (c = 0, c or
+    the row statistics of the neighbouring row) that F's relative-norm
+    check must catch; returns the largest errors (D, F), each case's
+    tensors for timing and F's largest relative norm."""
     from ei_nexus_tpu_torch.ops import attention_kernels as ak
     err_d = err_f = rel_f = 0.0
     caught = float("inf")
+    kept = {}
     for case, (q, k, v, mask, scale) in fused_cases(x).items():
         B, h, N, d = q.shape
         mask = mask.clone()
         mask[-1] = False
         bias = ak.key_bias(mask, B, k.shape[2], "cuda")
-        out, stats = ak.attention_fwd(q, k, v, bias, scale)
+        out, stats, v_read = ak.attention_fwd(q, k, v, bias, scale)
         want = ak.fused_attention_plain(q, k, v, mask, scale)
         torch.cuda.synchronize()
         e = max_err(out, want)
@@ -346,7 +350,7 @@ def check_fused(x, dtype, tol, gen):
         # dO as autograd hands it: a (B, h, N, d) view of (B, N, h, d)
         do = torch.randn(B, N, h, d, generator=gen, device="cuda").to(
             dtype).permute(0, 2, 1, 3)
-        got = ak.attention_bwd(q, k, v, out, do, bias, stats, scale)
+        got = ak.attention_bwd(q, k, v_read, out, do, bias, stats, scale)
         want = ak.fused_attention_bwd_plain(q, k, v, bias, do, scale)
         torch.cuda.synchronize()
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
@@ -366,11 +370,10 @@ def check_fused(x, dtype, tol, gen):
         # c = 0, a rolled one the neighbouring row's c
         for o, st in ((torch.zeros_like(out), stats), (out.roll(1, 2), stats),
                       (out, stats.roll(1, -1))):
-            bad = ak.attention_bwd(q, k, v, o, do, bias, st, scale)
+            bad = ak.attention_bwd(q, k, v_read, o, do, bias, st, scale)
             caught = min(caught, max(rel_err(a, b)
                                      for a, b in zip(bad, want)))
-        if case == "self":
-            kept = (q, k, v, mask, scale, bias, out, stats, do)
+        kept[case] = (q, k, v, mask, scale, bias, out, stats, do, v_read)
     torch.cuda.synchronize()
     require(caught > 5 * BWD_REL[dtype],
             f"a planted fault of attention_bwd moves the relative norm only "
@@ -558,14 +561,15 @@ def phase_kernels(logs: dict):
 
     # D and F on the bf16 self-attention case (its last batch row fully
     # masked; SDPA's yardsticks take the unmasked rows of x["mask0"], as a
-    # fully masked bool row is NaN there)
-    q, k, v, mask, scale, bias, out, stats, do = \
-        fused_errs[torch.bfloat16][2]
+    # fully masked bool row is NaN there); F reads the v D packed, as in
+    # the training step. D also on the cross layout (read in place)
+    q, k, v, mask, scale, bias, out, stats, do, v_read = \
+        fused_errs[torch.bfloat16][2]["self"]
     t_d = cuda_ms(lambda: ak.attention_fwd(q, k, v, bias, scale))
     t_d_plain = cuda_ms(lambda: ak.fused_attention_plain(q, k, v, mask,
                                                          scale), iters=5)
-    t_f = cuda_ms(lambda: ak.attention_bwd(q, k, v, out, do, bias, stats,
-                                           scale))
+    t_f = cuda_ms(lambda: ak.attention_bwd(q, k, v_read, out, do, bias,
+                                           stats, scale))
     t_f_plain = cuda_ms(lambda: ak.fused_attention_bwd_plain(
         q, k, v, bias, do, scale), iters=5)
     qg, kg, vg = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
@@ -582,9 +586,18 @@ def phase_kernels(logs: dict):
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), dog)
     t_f_lib = cuda_ms(sdpa_fwd_bwd) - cuda_ms(sdpa_fwd)
-    dev_d = _sum_ms(device_ms(lambda: ak.attention_fwd(q, k, v, bias, scale)))
-    dev_f_all = device_ms(lambda: ak.attention_bwd(q, k, v, out, do, bias,
-                                                   stats, scale))
+    dev_d_all = device_ms(lambda: ak.attention_fwd(q, k, v, bias, scale))
+    dev_d = _sum_ms(dev_d_all)
+    xq, xk, xv, _, xscale, xbias = fused_errs[torch.bfloat16][2]["cross"][:6]
+    t_d_cross = cuda_ms(lambda: ak.attention_fwd(xq, xk, xv, xbias, xscale))
+    dev_d_cross = _sum_ms(device_ms(
+        lambda: ak.attention_fwd(xq, xk, xv, xbias, xscale)))
+    print(f"[kernels] attention_fwd device ms a call: self loop "
+          f"{_sum_ms(dev_d_all, 'sm90_kernel'):.4f}, pack "
+          f"{_sum_ms(dev_d_all, 'attention_pack'):.4f}, all {dev_d:.4f}; "
+          f"cross (in place) {dev_d_cross:.4f}")
+    dev_f_all = device_ms(lambda: ak.attention_bwd(q, k, v_read, out, do,
+                                                   bias, stats, scale))
     dev_f = _sum_ms(dev_f_all)
     # F's split: the c pass and the pack pass from the whole call; each
     # block kind from a call that runs it alone
@@ -593,7 +606,7 @@ def phase_kernels(logs: dict):
                "loop": _sum_ms(dev_f_all, "sm90_kernel")}
     for blocks, kind in ((1, "dK/dV blocks alone"), (2, "dQ blocks alone")):
         f_split[kind] = _sum_ms(device_ms(lambda: ak.attention_bwd(
-            q, k, v, out, do, bias, stats, scale, blocks=blocks)),
+            q, k, v_read, out, do, bias, stats, scale, blocks=blocks)),
             "sm90_kernel")
     with torch.no_grad():
         dev_d_lib = _sum_ms(device_ms(sdpa_fwd))
@@ -649,15 +662,22 @@ def phase_kernels(logs: dict):
     # G at the flagship's tokens and at 2048
     from ei_nexus_tpu_torch.ops import flash_kernel as fk
     t_g, t_g_plain, t_g_lib, b_g, dev_g, dev_g_lib = {}, {}, {}, {}, {}, {}
+    g_split = {}
     n0, n1 = FLASH_TOKENS
     for n, xg in flash_errs[torch.bfloat16][1].items():
         t_g[n] = cuda_ms(lambda: fk.flash_attention(*xg, MAIN_D ** -0.5))
         t_g_plain[n] = cuda_ms(lambda: fk.flash_attention_plain(
             *xg, MAIN_D ** -0.5), iters=5)
         t_g_lib[n], dev_g_lib[n] = sdpa_segment_ms(xg)
-        dev_g[n] = _sum_ms(device_ms(
-            lambda: fk.flash_attention(*xg, MAIN_D ** -0.5)))
+        dev_g_all = device_ms(lambda: fk.flash_attention(*xg,
+                                                         MAIN_D ** -0.5))
+        dev_g[n] = _sum_ms(dev_g_all)
+        g_split[n] = (_sum_ms(dev_g_all, "sm90_kernel"),
+                      _sum_ms(dev_g_all, "attention_pack"))
         b_g[n] = flash_bound_ms(xg[0], xg[1])
+        print(f"[kernels] flash_attention ({n} tokens) device ms a call: "
+              f"loop {g_split[n][0]:.4f}, pack {g_split[n][1]:.4f}, all "
+              f"{dev_g[n]:.4f}; SDPA {dev_g_lib[n]:.4f}")
 
     b_a, by_a = attention_bound_ms("self", x["q"], x["k"])
     b_b, by_b = attention_bound_ms("cross", x["qk0"], x["qk1"])
@@ -706,10 +726,17 @@ def phase_kernels(logs: dict):
              max_abs_err_f32=fused_errs[torch.float32][0],
              ms=t_d, plain_ms=t_d_plain, bound_ms=b_d, bound_by=by_d,
              library_ms=t_d_lib,
-             design="bf16: mma.sync flash loop, 128 rows a block, writing "
-                    "each row's max and sum of exp(s - max) for F; f32: "
-                    "CUDA-core flash loop",
-             device_ms=dev_d, library_device_ms=dev_d_lib),
+             design="bf16: pack pass (the self-attention's stride-3 v, "
+                    "handed on to F) then the TMA + wgmma warp-specialised "
+                    "flash loop of A, 128 rows a block in two consumer "
+                    "warpgroups, with an epilogue writing each row's max "
+                    "and sum of exp(s - max) for F; f32: CUDA-core flash "
+                    "loop",
+             loop_ms=_sum_ms(dev_d_all, "sm90_kernel"),
+             pack_ms=_sum_ms(dev_d_all, "attention_pack"),
+             ms_cross=t_d_cross, device_ms_cross=dev_d_cross,
+             device_ms=dev_d, library_device_ms=dev_d_lib,
+             sass=sass.get("attention_fwd")),
         dict(name="attention_bwd", route="cuda",
              source="ei_nexus_tpu_torch/csrc/attention_bwd.cu",
              replaces="ei_nexus_tpu/ops/pallas_attention.py:349",
@@ -719,8 +746,10 @@ def phase_kernels(logs: dict):
              rel_err_f32=fused_errs[torch.float32][3],
              ms=t_f, plain_ms=t_f_plain, bound_ms=b_f, bound_by=by_f,
              library_ms=t_f_lib,
-             design="bf16: c pass, pack pass (the stride-3 v), then one "
-                    "TMA + wgmma warp-specialised launch of dK/dV blocks "
+             design="bf16: c pass, pack pass (what the plan packs; none "
+                    "on the main path, where F reads the v D packed), then "
+                    "one TMA + wgmma warp-specialised launch of dK/dV "
+                    "blocks "
                     "(64 keys, K and V resident, Q and dO streamed) and dQ "
                     "blocks (64 queries, K and V streamed), no atomics, P "
                     "from D's row max and sum; f32: one warp a row",
@@ -762,9 +791,18 @@ def phase_kernels(logs: dict):
              max_abs_err_f32=flash_errs[torch.float32][0],
              ms=t_g[n0], plain_ms=t_g_plain[n0], bound_ms=b_g[n0][0],
              bound_by=b_g[n0][1], library_ms=t_g_lib[n0],
+             design="bf16: pack pass (the self-attention's stride-3 v) then "
+                    "the TMA + wgmma warp-specialised flash loop of A in "
+                    "its segment mode, 128 rows a block, the key ids "
+                    "written beside each K/V tile by the producer, the "
+                    "query ids in registers; f32: CUDA-core flash loop",
+             loop_ms=g_split[n0][0], pack_ms=g_split[n0][1],
              device_ms=dev_g[n0], library_device_ms=dev_g_lib[n0],
              ms_2048=t_g[n1], plain_ms_2048=t_g_plain[n1],
-             bound_ms_2048=b_g[n1][0], library_ms_2048=t_g_lib[n1]),
+             bound_ms_2048=b_g[n1][0], library_ms_2048=t_g_lib[n1],
+             device_ms_2048=dev_g[n1], loop_ms_2048=g_split[n1][0],
+             library_device_ms_2048=dev_g_lib[n1],
+             sass=sass.get("flash_segment")),
     ]
     for r in rows:
         print(f"[kernels] {r['name']}: {r['ms']:.4f} ms (plain "
@@ -823,7 +861,7 @@ def phase_forward(tag: str, want: dict, want_packs: int,
         launches = {n: c.launches for n, c in counters.items()}
         packs = hopper_attention.packs
         print(f"[{tag}] launches in one forward: {launches}; pack passes "
-              f"of the Hopper loops (A, B, E): {packs}")
+              f"of the Hopper loops (A, B, E, G): {packs}")
         want = {n: want.get(n, 0) for n in counters}
         require(launches == want, f"launch counts {launches} != {want}")
         require(packs == want_packs, f"{packs} pack passes != {want_packs}")
@@ -937,13 +975,14 @@ def phase_stage2():
     torch.cuda.synchronize()
     launches = {n: c.launches for n, c in counters.items()}
     packs = hopper_attention.packs
-    print(f"[stage2] launches in one step: {launches}; pack passes of F: "
-          f"{packs}")
+    print(f"[stage2] launches in one step: {launches}; pack passes of D "
+          f"and F: {packs}")
     want = {n: 0 for n in counters}
     want.update(nms_rounds=2, attention_fwd=36, attention_bwd=36)
     require(launches == want, f"launch counts {launches} != {want}")
-    # F packs the self-attention's stride-3 v (18 calls); the rotated q, k,
-    # the cross-attention's head views and dO are read in place
+    # D packs the self-attention's stride-3 v (18 calls) and hands the copy
+    # to F; the rotated q, k, the cross-attention's head views and dO are
+    # read in place, so F packs nothing
     require(packs == 18, f"{packs} pack passes in one step != 18")
     loss1, gnorm = float(info["loss"]), float(info["grad_norm"])
     require(np.isfinite(loss1) and np.isfinite(gnorm) and gnorm > 0,
@@ -1384,7 +1423,7 @@ def main() -> int:
          "nms_rounds": 2}, 18)
     flash_launches, flash_ms, _, flash_fwd = timed(
         "forward (flash)", phase_forward, "flash",
-        {"flash_attention": 36, "nms_rounds": 2}, 0, attention_impl="flash")
+        {"flash_attention": 36, "nms_rounds": 2}, 18, attention_impl="flash")
     serve_ms, pose_ms, syncs = timed("serving with pose", phase_serving_pose,
                                      flash_fwd, B)
     del flash_fwd

@@ -6,10 +6,16 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <float.h>
 
 namespace ei {
 
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+
+// jax's TPU flash attention's DEFAULT_MASK_VALUE, rounded to float32 as a
+// Python float is: finite, so a fully masked row stays finite (uniform).
+// Kernel G adds it after the scale where the segment ids differ.
+constexpr float kMaskValue = -0.7 * (double)FLT_MAX;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {

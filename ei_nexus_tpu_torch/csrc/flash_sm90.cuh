@@ -1,17 +1,22 @@
 // Hopper (sm_90a) flash loop of the bf16 row-softmax attention with a
-// key-side bias: the bf16 instances of kernel A (csrc/self_attention.cu),
-// kernel B (csrc/cross_attention.cu, both directions in one launch) and
-// kernel E (csrc/qblock_attention.cu); kernel F's bf16 backward
+// key-side mask: the bf16 instances of kernel A (csrc/self_attention.cu),
+// kernel B (csrc/cross_attention.cu, both directions in one launch),
+// kernel D (csrc/attention_fwd.cu, with each row's statistics for F),
+// kernel E (csrc/qblock_attention.cu) and kernel G (csrc/flash_segment.cu,
+// segment ids in place of the bias); kernel F's bf16 backward
 // (csrc/attention_bwd.cu) is built from the same pieces (TMA ring,
 // producer warpgroup, wgmma forms, pack pass, guard). Their float32
-// instances, and kernels D and G, keep the loops of flash_attention.cuh.
+// instances keep the CUDA-core loops of flash_attention.cuh.
 //
 // What it computes is what `qblock_attention_plain` defines
 // (ops/attention_kernels.py): rotated q and k rounded to bf16 as
 // round(round(t*cos) + round(rotate_half(t)*sin)); S = Q K^T in float32,
 // then x scale, then + the float32 key bias (no contraction); an online
 // float32 softmax; P rounded to bf16 before the PV product; O in float32,
-// written to bf16.
+// written to bf16. The loop's argument type picks two compile-time
+// additions: StatsArgs (D) also writes each row's max m and sum l of
+// exp(s - m); SegArgs (G) adds jax's segment rule, kMaskValue where the
+// query's and the key's int32 ids differ, in place of the bias.
 //
 // What bounds it: at the flagship shapes (B=8, h=4, N=M=1024, d=64) one
 // call does 8.6 GFLOP of products against ~19 MB of inputs and outputs, so
@@ -30,21 +35,24 @@
 //    a warpgroup that gives its registers back) keeps TMA loads
 //    (cp.async.bulk.tensor, 128-byte swizzle, completion on an mbarrier)
 //    of the 64-key K and V tiles kStages tiles ahead of the consumers and
-//    writes each tile's 64 key-bias floats beside them (-inf past the last
-//    key); each consumer warpgroup owns 64 query rows, computes S = Q K^T
+//    writes each tile's 64 key-bias floats (or G's key ids) beside them
+//    (-inf past the last key); each consumer warpgroup owns 64 query rows, computes S = Q K^T
 //    with wgmma m64n64k16 or m64n32k16 (Q and K from shared memory, both
 //    K-major; see Config), the online softmax in registers, and O += P V
 //    with P taken from the S accumulators as the register A operand and V
 //    as the transposed (MN-major) B operand. setmaxnreg moves registers from the
 //    producer to the consumers. Q is loaded once per block.
 //  - Query rows and keys past the ends are zero-filled by TMA; keys past
-//    nk get -inf through the bias tile, rows past nq are not written.
+//    nk get -inf through the bias tile (G: by their index), rows past nq
+//    are not written.
 #pragma once
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <float.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -97,6 +105,22 @@ struct Args {
   long long os[3];
   int nq, nk;
   float scale;
+};
+
+// Kernel D: also each query row's statistics of the scaled, biased scores
+// s for kernel F, the row max m and the row sum l of exp(s - m), rows past
+// nq not written.
+struct StatsArgs : Args {
+  float* row_max;  // (B, heads, nq) float32, contiguous
+  float* row_sum;
+  int heads;
+};
+
+// Kernel G: jax's segment rule in place of the bias (Args::bias unused):
+// kMaskValue added after the scale wherever the ids differ.
+struct SegArgs : Args {
+  const int* q_seg;   // (B, nq) int32, contiguous
+  const int* kv_seg;  // (B, nk) int32, contiguous
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -323,13 +347,16 @@ template <typename T> __device__ __forceinline__ T& shared_as() {
 }
 
 // The loop over the query rows [q0, q0 + 64 NWG) of problem (b, h): tq, tk,
-// tv are 4-D (64, rows, h, B) bf16 tensor maps with 64x64 boxes.
-template <int NWG>
+// tv are 4-D (64, rows, h, B) bf16 tensor maps with 64x64 boxes; A is Args,
+// StatsArgs or SegArgs.
+template <int NWG, typename A>
 __device__ __forceinline__ void attention_block(const CUtensorMap& tq,
                                                 const CUtensorMap& tk,
                                                 const CUtensorMap& tv,
-                                                const Args& a, int q0, int h,
+                                                const A& a, int q0, int h,
                                                 int b) {
+  constexpr bool kStats = std::is_same<A, StatsArgs>::value;
+  constexpr bool kSeg = std::is_same<A, SegArgs>::value;
   auto& S = shared_as<Shared<NWG>>();
   const int ntiles = (a.nk + kBK - 1) / kBK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -345,8 +372,9 @@ __device__ __forceinline__ void attention_block(const CUtensorMap& tq,
   __syncthreads();
 
   if (warp >= 4 * NWG) {
-    // ---- producer: TMA loads of K and V, the key-bias row beside them;
-    // the warpgroup gives its registers back, and its first warp works
+    // ---- producer: TMA loads of K and V, the key-bias row (or the key
+    // ids) beside them; the warpgroup gives its registers back, and its
+    // first warp works
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
         kProducerRegs));
     if (warp != 4 * NWG) return;
@@ -362,8 +390,17 @@ __device__ __forceinline__ void attention_block(const CUtensorMap& tq,
       const int st = it % kStages;
       mbar_wait(&S.empty[st], ((it / kStages) & 1) ^ 1);
       const int c = it * kBK + 2 * lane;
-      S.bias[st][2 * lane] = c < a.nk ? bias[c] : -INFINITY;
-      S.bias[st][2 * lane + 1] = c + 1 < a.nk ? bias[c + 1] : -INFINITY;
+      if constexpr (kSeg) {
+        // the key ids as float bit patterns; the consumers mask keys past
+        // nk by their index, so any id value stays usable
+        const int* ids = a.kv_seg + (long long)b * a.nk;
+        S.bias[st][2 * lane] = __int_as_float(c < a.nk ? ids[c] : 0);
+        S.bias[st][2 * lane + 1] =
+            __int_as_float(c + 1 < a.nk ? ids[c + 1] : 0);
+      } else {
+        S.bias[st][2 * lane] = c < a.nk ? bias[c] : -INFINITY;
+        S.bias[st][2 * lane + 1] = c + 1 < a.nk ? bias[c + 1] : -INFINITY;
+      }
       if (lane == 0) {
         mbar_arrive_tx(&S.full[st], 2 * kTileBytes);
         tma_load(S.k[st], tk, it * kBK, h, b, &S.full[st]);
@@ -376,11 +413,21 @@ __device__ __forceinline__ void attention_block(const CUtensorMap& tq,
     // ---- consumers: warpgroup warp / 4 owns 64 rows from q0 + 64 (warp / 4)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
         Config<NWG>::consumer_regs));
+    [[maybe_unused]] const int g = lane / 4;
     const int t = lane % 4;
     const uint64_t dq = smem_desc(S.q[warp / 4]);
     float o[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    // G: the ids of the warp's rows g and g + 8 (0 past nq, never stored)
+    [[maybe_unused]] int qid[2] = {0, 0};
+    if constexpr (kSeg) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int n = q0 + 16 * warp + g + 8 * hr;
+        if (n < a.nq) qid[hr] = a.q_seg[(long long)b * a.nq + n];
+      }
+    }
     mbar_wait(&S.qbar, 0);
 
     // a tile's keys in Config<NWG>::ksplit steps of KW: 32 keys a step
@@ -405,9 +452,24 @@ __device__ __forceinline__ void attention_block(const CUtensorMap& tq,
           const float2 bb = *reinterpret_cast<const float2*>(
               &S.bias[st][k0 + 8 * j + 2 * t]);
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            s[4 * j + e] = __fadd_rn(__fmul_rn(s[4 * j + e], a.scale),
-                                     (e & 1) ? bb.y : bb.x);
+          for (int e = 0; e < 4; ++e) {
+            float add = (e & 1) ? bb.y : bb.x;
+            if constexpr (kSeg)
+              add = __float_as_int(add) == qid[e >> 1] ? 0.f : kMaskValue;
+            s[4 * j + e] = __fadd_rn(__fmul_rn(s[4 * j + e], a.scale), add);
+          }
+        }
+        if constexpr (kSeg) {
+          // keys past nk (in the last tile only): -inf
+          const int valid = a.nk - it * kBK - k0;
+          if (valid < KW) {
+#pragma unroll
+            for (int j = 0; j < NB; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (8 * j + 2 * t + (e & 1) >= valid)
+                  s[4 * j + e] = -INFINITY;
+          }
         }
 
         // online softmax of rows g (hr 0) and g + 8 (hr 1); a row's keys
@@ -459,6 +521,19 @@ __device__ __forceinline__ void attention_block(const CUtensorMap& tq,
     const float inv[2] = {l[0] == 0.f ? 1.f : 1.f / l[0],
                           l[1] == 0.f ? 1.f : 1.f / l[1]};
     store_tile(o, inv, a.out, a.os, b, h, q0, a.nq);
+    if constexpr (kStats) {
+      // m and l are whole-row values in every lane of the row's quad
+      if (t == 0) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int n = q0 + 16 * warp + g + 8 * hr;
+          if (n >= a.nq) continue;
+          const long long r = ((long long)b * a.heads + h) * a.nq + n;
+          a.row_max[r] = m[hr];
+          a.row_sum[r] = l[hr];
+        }
+      }
+    }
   }
 }
 
@@ -691,14 +766,16 @@ inline int operand_map(CUtensorMap* map, const Operand90& o, int rows, int H,
                 : encode_map(map, o.ptr, rows, H, B, o.sn, o.sh, o.sb);
 }
 
-// The pack pass, then the loop: q (B, H, N, 64), k and v (B, H, M, 64) as
-// `ops` (3 x 8, read_operand) describes them; rot packs q and k through
-// the (B, N, 64) tables. The kernel's grid is (N / 64 NWG, H, B).
-template <int NWG, typename Kernel>
+// The pack pass, then the loop: q (B, H, a.nq, 64), k and v
+// (B, H, a.nk, 64) as `ops` (3 x 8, read_operand) describes them; rot
+// packs q and k through the (B, a.nq, 64) tables. The kernel's grid is
+// (a.nq / 64 NWG, H, B); it takes the three maps and `a` (Args, StatsArgs
+// or SegArgs).
+template <int NWG, typename Kernel, typename A>
 int attention(Kernel kernel, const long long* ops, bool rot,
-              const void* cos, const void* sin, const float* bias, void* out,
-              const long long* out_strides, int B, int H, int N, int M,
-              float scale, cudaStream_t stream) {
+              const void* cos, const void* sin, const A& a, int B, int H,
+              cudaStream_t stream) {
+  const int N = a.nq, M = a.nk;
   Operand90 op[3];
   const int rows[3] = {N, M, M};
   int err = pack_operands(op, ops, rows, 3, rot ? 3 : 0, cos, sin, B, H,
@@ -712,12 +789,20 @@ int attention(Kernel kernel, const long long* ops, bool rot,
   err = configure<Config<NWG>>(reinterpret_cast<const void*>(kernel),
                                smem_bytes<NWG>());
   if (err != 0) return err;
-  Args a{bias, static_cast<__nv_bfloat16*>(out),
-         {out_strides[0], out_strides[1], out_strides[2]}, N, M, scale};
   const dim3 grid((N + 64 * NWG - 1) / (64 * NWG), H, B);
   kernel<<<grid, Config<NWG>::threads, smem_bytes<NWG>(), stream>>>(
       maps[0], maps[1], maps[2], a);
   return (int)cudaGetLastError();
+}
+
+// The loop's arguments of the bias kernels (A, E): the (B, M) float32 key
+// bias, the bf16 output through `out_strides` (b, h, n; d unit).
+inline Args bias_args(const float* bias, void* out,
+                      const long long* out_strides, int N, int M,
+                      float scale) {
+  return Args{bias, static_cast<__nv_bfloat16*>(out),
+              {out_strides[0], out_strides[1], out_strides[2]}, N, M,
+              scale};
 }
 
 }  // namespace sm90

@@ -122,13 +122,13 @@ extern "C" int ei_qblock_attention_sm90(int block_q, int rot,
                                         void* stream) {
   if (rot && N != M) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ei::sm90::Args a =
+      ei::sm90::bias_args(bias, out, out_strides, N, M, scale);
   if (block_q == 64)
     return ei::sm90::attention<1>(ei::qblock_attention_sm90_kernel<1>, ops,
-                                  rot != 0, cos, sin, bias, out, out_strides,
-                                  B, H, N, M, scale, s);
+                                  rot != 0, cos, sin, a, B, H, s);
   if (block_q == 128)
     return ei::sm90::attention<2>(ei::qblock_attention_sm90_kernel<2>, ops,
-                                  rot != 0, cos, sin, bias, out, out_strides,
-                                  B, H, N, M, scale, s);
+                                  rot != 0, cos, sin, a, B, H, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -100,7 +100,8 @@ extern "C" int ei_self_attention_sm90(const long long* ops, const void* cos,
                                       const long long* out_strides, int B,
                                       int H, int N, float scale,
                                       void* stream) {
-  return ei::sm90::attention<2>(ei::self_attention_sm90_kernel, ops, true,
-                                cos, sin, bias, out, out_strides, B, H, N, N,
-                                scale, static_cast<cudaStream_t>(stream));
+  return ei::sm90::attention<2>(
+      ei::self_attention_sm90_kernel, ops, true, cos, sin,
+      ei::sm90::bias_args(bias, out, out_strides, N, N, scale), B, H,
+      static_cast<cudaStream_t>(stream));
 }

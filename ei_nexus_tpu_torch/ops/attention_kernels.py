@@ -32,13 +32,16 @@ own block_q query rows instead of 128), so the plain versions are shared.
 The kernels read q/k/v through strides (no copy of the strided views the
 LightGlue blocks produce) and write their outputs as (B, h, N, d) views of
 (B, N, h, d) buffers, so the caller's merge of the heads is free. The
-bfloat16 instances of A, B, E and F (`hopper_attention`,
-`cross_attention_bidir`, `attention_bwd`) read their operands by TMA,
-which needs a unit d stride and 16-byte alignment: `operand_plan` decides
-for each operand whether the loop reads it in place or a pack pass first
-writes it (rotated where the rotary applies) as contiguous scratch, and
-refuses what neither takes (`hopper_operands` builds the kernels' operand
-array from the plans).
+bfloat16 instances of A, B, D, E, F and G (`hopper_attention`,
+`cross_attention_bidir`, `attention_fwd`, `attention_bwd`,
+`flash_kernel.flash_attention`) read their operands by TMA, which needs a
+unit d stride and 16-byte alignment: `operand_plan` decides for each
+operand whether the loop reads it in place or a pack pass first writes it
+(rotated where the rotary applies) as contiguous scratch, and refuses what
+neither takes (`hopper_operands` builds the kernels' operand array from the
+plans). In training one packing serves D and F: D hands the v it packed
+(the self-attention's stride-3 view) to F through `_FusedAttention`, and F
+reads it in place.
 
 The backward's plain version reproduces the TPU kernel's rounding points:
 dO in the operand dtype, dS = P o (dP - c) and P^T rounded to it before
@@ -212,7 +215,7 @@ def _rot_tables(name: str, rot, q: torch.Tensor):
 
 
 class OperandPlan(NamedTuple):
-    """How the Hopper loops (A, B, E, F) take one (B, h, rows, 64)
+    """How the Hopper loops (A, B, D, E, F, G) take one (B, h, rows, 64)
     operand."""
     mode: str        # "direct": TMA reads it in place; "pack": packed first
     ptr: int         # its data pointer (direct) or its 16-byte slab (pack)
@@ -264,26 +267,29 @@ def operand_plan(t: torch.Tensor, rotate: bool = False) -> OperandPlan:
 
 
 def hopper_operands(tensors, rotate: int = 0):
-    """(operand array, scratch) of the Hopper loops for the (B, h, rows, 64)
-    operands `tensors` (bit i of `rotate`: operand i takes the rotary): 8
-    integers an operand as `read_operand` (csrc/flash_sm90.cuh) reads them
-    (pointer or slab, strides b, h, n, d stride, pack, phase, scratch
-    pointer), from each one's `operand_plan`, and one scratch buffer for
-    the packed ones, (B, h, rows, 64) each (None when none is packed: no
-    pack launch). Raises ValueError before anything is allocated for an
-    operand neither TMA nor the pack pass reads."""
+    """(operand array, scratch, packed) of the Hopper loops for the
+    (B, h, rows, 64) operands `tensors` (bit i of `rotate`: operand i takes
+    the rotary): 8 integers an operand as `read_operand`
+    (csrc/flash_sm90.cuh) reads them (pointer or slab, strides b, h, n, d
+    stride, pack, phase, scratch pointer), from each one's `operand_plan`;
+    one scratch buffer for the packed ones (None when none is packed: no
+    pack launch); and for each operand its contiguous (B, h, rows, 64) view
+    of the scratch, which the pack pass fills, or None where it is read in
+    place. Raises ValueError before anything is allocated for an operand
+    neither TMA nor the pack pass reads."""
     plans = [operand_plan(t, bool(rotate >> i & 1))
              for i, t in enumerate(tensors)]
     sizes = [t.numel() if p.mode == "pack" else 0
              for t, p in zip(tensors, plans)]
     scratch = torch.empty(sum(sizes), dtype=tensors[0].dtype,
                           device=tensors[0].device) if any(sizes) else None
-    ops, at = [], 0 if scratch is None else scratch.data_ptr()
-    for plan, size in zip(plans, sizes):
+    ops, packed, at = [], [], 0
+    for t, plan, size in zip(tensors, plans, sizes):
         ops += [plan.ptr, *plan.strides, plan.sd, int(size > 0), plan.phase,
-                at if size else 0]
-        at += 2 * size
-    return int64_array(ops), scratch
+                scratch.data_ptr() + 2 * at if size else 0]
+        packed.append(scratch[at:at + size].view(t.shape) if size else None)
+        at += size
+    return int64_array(ops), scratch, packed
 
 
 def hopper_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -295,15 +301,15 @@ def hopper_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     128): q (B, h, N, 64) over k, v (B, h, M, 64) on the card with the
     (B, M) float32 key bias (contiguous), the pack pass first where
     `operand_plan` asks for it. `hopper_attention.packs` counts the pack
-    launches of every Hopper loop (A, B, E, F); the callers count their
-    kernel's launches."""
+    launches of every Hopper loop (A, B, D, E, F, G); the callers count
+    their kernel's launches."""
     B, h, N, d = q.shape
     cos = sin = None
     if rot is not None:
         cos, sin = _rot_tables(kernel, rot, q)
         if cos.data_ptr() % 16 or sin.data_ptr() % 16:
             raise ValueError(f"{kernel}: rot tables must be 16-byte aligned")
-    ops, scratch = hopper_operands((q, k, v), 0 if rot is None else 3)
+    ops, scratch, _ = hopper_operands((q, k, v), 0 if rot is None else 3)
     out = _heads_out(B, h, N, d, q)
     ost = out.stride()[:3]
     tables = (None if cos is None else cos.data_ptr(),
@@ -453,7 +459,7 @@ def cross_attention_bidir(qk0: torch.Tensor, qk1: torch.Tensor,
                 qblock_attention(qk1, qk0, v0, bias0, 1.0, block_q))
     scratch = None
     if qk0.dtype == torch.bfloat16:
-        ops, scratch = hopper_operands((qk0, qk1, v0, v1))
+        ops, scratch, _ = hopper_operands((qk0, qk1, v0, v1))
     out0 = _heads_out(B, h, N, d, qk0)
     out1 = _heads_out(B, h, M, d, qk0)
     lib = library("cross_attention")
@@ -482,21 +488,24 @@ def cross_attention_bidir(qk0: torch.Tensor, qk1: torch.Tensor,
 
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   bias: torch.Tensor, scale: float
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel D: (out (B, h, N, d), stats (2, B, h, N) float32) of
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel D: (out (B, h, N, d), stats (2, B, h, N) float32, v_read) of
     row-softmax attention of q (B, h, N, d) over k, v (B, h, M, d) with the
     (B, M) float32 key bias; stats[0] is each row's max m of the scaled,
     biased scores s and stats[1] its sum l of exp(s - m), from which kernel
-    F rebuilds P = exp(s - m) / l.
+    F rebuilds P = exp(s - m) / l; v_read is the v the kernel read: the
+    contiguous copy its pack pass wrote where it packed v (bfloat16 on the
+    card; F then reads it in place), else v itself.
 
-    CPU tensors: the plain version. CUDA tensors: the CUDA kernel, or an
-    exception (d must be 64)."""
+    CPU tensors: the plain version. CUDA tensors: the CUDA kernel
+    (bfloat16: the Hopper loop, its operands as `operand_plan` takes them),
+    or an exception (d must be 64)."""
     if q.device.type == "cpu":
         s = torch.matmul(q.float(), k.float().mT) * scale \
             + bias[:, None, None]
         m = s.amax(dim=-1)
         l = torch.exp(s - m[..., None]).sum(dim=-1)
-        return _row_attention(q, k, v, bias, scale), torch.stack([m, l])
+        return _row_attention(q, k, v, bias, scale), torch.stack([m, l]), v
     if q.device.type != "cuda":
         raise ValueError(f"attention_fwd: unsupported device {q.device}")
     code = _check_cuda("attention_fwd", q, k, v, differentiable=True)
@@ -505,18 +514,31 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[:2] != (B, h) or v.shape != k.shape:
         raise ValueError("attention_fwd: mismatched shapes")
     bias = _check_rows("attention_fwd bias", bias, (B, M))
+    v_read, scratch = v, None
+    if q.dtype == torch.bfloat16:
+        ops, scratch, packed = hopper_operands((q, k, v))
+        if packed[2] is not None:
+            v_read = packed[2]
     out = _heads_out(B, h, N, d, q)
     stats = torch.empty(2, B, h, N, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
+    lib = library("attention_fwd")
+    with _on_device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = library("attention_fwd").ei_attention_fwd(
-            code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            int64_array(q.stride() + k.stride() + v.stride()),
-            bias.data_ptr(), out.data_ptr(), int64_array(out.stride()),
-            stats.data_ptr(), B, h, N, M, float(scale), stream)
+        if q.dtype == torch.bfloat16:
+            err = lib.ei_attention_fwd_sm90(
+                ops, bias.data_ptr(), out.data_ptr(),
+                int64_array(out.stride()[:3]), stats.data_ptr(), B, h, N, M,
+                float(scale), stream)
+        else:
+            err = lib.ei_attention_fwd(
+                code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                int64_array(q.stride() + k.stride() + v.stride()),
+                bias.data_ptr(), out.data_ptr(), int64_array(out.stride()),
+                stats.data_ptr(), B, h, N, M, float(scale), stream)
     check(err, "attention_fwd")
+    hopper_attention.packs += scratch is not None
     attention_fwd.launches += 1
-    return out, stats
+    return out, stats, v_read
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -558,7 +580,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             operand_plan(do)
         except ValueError:
             do = do.contiguous()
-        ops, scratch = hopper_operands((q, k, v, do))
+        ops, scratch, _ = hopper_operands((q, k, v, do))
     dq = _heads_out(B, h, N, d, q)
     dk = _heads_out(B, h, M, d, q)
     dv = _heads_out(B, h, M, d, q)
@@ -592,13 +614,14 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class _FusedAttention(torch.autograd.Function):
-    """Forward: kernel D (saving q, k, v, the bias, the output and the row
-    statistics); backward: kernel F. The bias gets no gradient."""
+    """Forward: kernel D (saving q, k, the v it read, the bias, the output
+    and the row statistics); backward: kernel F, which reads D's packed v
+    in place. The bias gets no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale):
-        out, stats = attention_fwd(q, k, v, bias, scale)
-        ctx.save_for_backward(q, k, v, bias, out, stats)
+        out, stats, v_read = attention_fwd(q, k, v, bias, scale)
+        ctx.save_for_backward(q, k, v_read, bias, out, stats)
         ctx.scale = scale
         return out
 

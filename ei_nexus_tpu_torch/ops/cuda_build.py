@@ -63,6 +63,9 @@ SIGNATURES = {
         "ei_attention_fwd": (
             [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
              ctypes.c_float, _P], _I),
+        "ei_attention_fwd_sm90": (
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P], _I),
+        "ei_sm90_smem_bytes": ([_I], ctypes.c_longlong),
     },
     "attention_bwd": {
         "ei_attention_bwd": (
@@ -86,6 +89,9 @@ SIGNATURES = {
         "ei_flash_segment": (
             [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
              ctypes.c_float, _P], _I),
+        "ei_flash_segment_sm90": (
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P], _I),
+        "ei_sm90_smem_bytes": ([_I], ctypes.c_longlong),
     },
 }
 

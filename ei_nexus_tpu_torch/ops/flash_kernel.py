@@ -20,7 +20,11 @@ The plain version repeats the library's arithmetic step for step (one key
 block when M <= 128, where the library normalises P before the cast). The
 kernel keeps its accumulator unnormalised over 64-key tiles and divides at
 the end: equal up to float32 rounding. No N*M limit; ragged N and M are
-masked in the kernel. d must be 64 on the card.
+masked in the kernel. d must be 64 on the card. The bfloat16 instance is
+the Hopper loop of kernels A and D in its segment mode, its operands as
+`attention_kernels.operand_plan` takes them (the "flash" self-attention's
+stride-3 v packed first, counted in `hopper_attention.packs`; the rotated
+q, k and the cross-attention's head views read in place).
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .attention_kernels import _check_cuda, _heads_out
+from .attention_kernels import (_check_cuda, _heads_out, _on_device,
+                                hopper_attention, hopper_operands)
 from .cuda_build import check, int64_array, library
 
 # jax's DEFAULT_MASK_VALUE (a Python float; float32 where it meets a score)
@@ -118,8 +123,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     flash-attention semantics; q_segment_ids (B, N) and kv_segment_ids
     (B, M) int32, both or neither (no mask).
 
-    CPU tensors: the plain version. CUDA tensors: the CUDA kernel, or an
-    exception (d must be 64)."""
+    CPU tensors: the plain version. CUDA tensors: the CUDA kernel
+    (bfloat16: the Hopper loop; an operand `operand_plan` refuses raises
+    ValueError), or an exception (d must be 64)."""
     if (q_segment_ids is None) != (kv_segment_ids is None):
         raise ValueError("flash_attention: give both segment ids or neither")
     if q.device.type == "cpu":
@@ -139,15 +145,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      device=q.device)
     q_seg = _check_ids("flash_attention", q_segment_ids, (B, N), q.device)
     kv_seg = _check_ids("flash_attention", kv_segment_ids, (B, M), q.device)
+    scratch = None
+    if q.dtype == torch.bfloat16:
+        ops, scratch, _ = hopper_operands((q, k, v))
     out = _heads_out(B, h, N, d, q)
-    with torch.cuda.device(q.device):
+    lib = library("flash_segment")
+    with _on_device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = library("flash_segment").ei_flash_segment(
-            code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            int64_array(q.stride() + k.stride() + v.stride()),
-            q_seg.data_ptr(), kv_seg.data_ptr(), out.data_ptr(),
-            int64_array(out.stride()), B, h, N, M, float(sm_scale), stream)
+        if q.dtype == torch.bfloat16:
+            err = lib.ei_flash_segment_sm90(
+                ops, q_seg.data_ptr(), kv_seg.data_ptr(), out.data_ptr(),
+                int64_array(out.stride()[:3]), B, h, N, M, float(sm_scale),
+                stream)
+        else:
+            err = lib.ei_flash_segment(
+                code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                int64_array(q.stride() + k.stride() + v.stride()),
+                q_seg.data_ptr(), kv_seg.data_ptr(), out.data_ptr(),
+                int64_array(out.stride()), B, h, N, M, float(sm_scale),
+                stream)
     check(err, "flash_attention")
+    hopper_attention.packs += scratch is not None
     flash_attention.launches += 1
     return out
 

@@ -116,7 +116,7 @@ def test_attention_fwd_kernel(cuda, dtype, tol, N, M, scale):
     mask = torch.rand(B, M, generator=cuda, device="cuda") > 0.2
     bias = ak.key_bias(mask, B, M, "cuda")
     before = ak.attention_fwd.launches
-    out, stats = ak.attention_fwd(q, k, v, bias, scale)
+    out, stats, _ = ak.attention_fwd(q, k, v, bias, scale)
     assert ak.attention_fwd.launches == before + 1
     want = ak.fused_attention_plain(q, k, v, mask, scale)
     s = torch.matmul(q.float(), k.float().mT) * scale + bias[:, None, None]
@@ -143,7 +143,7 @@ def test_attention_bwd_kernel(cuda, dtype, tol, N, M, scale):
     mask = torch.rand(B, M, generator=cuda, device="cuda") > 0.2
     mask[-1] = False
     bias = ak.key_bias(mask, B, M, "cuda")
-    out, stats = ak.attention_fwd(q, k, v, bias, scale)
+    out, stats, _ = ak.attention_fwd(q, k, v, bias, scale)
     do = torch.randn(B, h, N, d, generator=cuda, device="cuda").to(dtype)
     before = ak.attention_bwd.launches
     packs = ak.hopper_attention.packs
@@ -175,7 +175,7 @@ def test_attention_bwd_check_catches_planted_faults(cuda, dtype):
     v = _strided_heads(cuda, B, M, h, d, dtype, 2)
     mask = torch.rand(B, M, generator=cuda, device="cuda") > 0.2
     bias = ak.key_bias(mask, B, M, "cuda")
-    out, stats = ak.attention_fwd(q, k, v, bias, d ** -0.5)
+    out, stats, _ = ak.attention_fwd(q, k, v, bias, d ** -0.5)
     do = torch.randn(B, h, N, d, generator=cuda, device="cuda").to(dtype)
     want = ak.fused_attention_bwd_plain(q, k, v, bias, do, d ** -0.5)
     for fault, o, st in (("c = 0", torch.zeros_like(out), stats),
@@ -509,6 +509,176 @@ def test_hopper_loop_refuses_what_the_plan_refuses(cuda):
         ak.qblock_attention(k, q, v, bias, 0.125, 128, rot)
     assert (ak.self_attention.launches, ak.qblock_attention.launches,
             ak.attention_fwd.launches, ak.hopper_attention.packs) == counts
+
+
+# ---------------------------------------------------------------------------
+# kernels D and G on the Hopper loop (bf16)
+# ---------------------------------------------------------------------------
+
+
+def _d_operands(gen, B, h, N, M, d, layout):
+    """D's bf16 operands as the training blocks hand them: "self" the
+    rotated q, k (contiguous (B, N, h, d) buffers seen as head views) and v
+    the stride-3 view of a Wqkv output; "cross" pre-scaled head views."""
+    if layout == "self":
+        q = _strided_heads(gen, B, N, h, d, torch.bfloat16)
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+        k = _strided_heads(gen, B, M, h, d, torch.bfloat16, 1)
+        k = k.transpose(1, 2).contiguous().transpose(1, 2)
+        return q, k, _strided_heads(gen, B, M, h, d, torch.bfloat16, 2)
+
+    def heads(n, s):
+        x = torch.randn(B, n, h * d, generator=gen, device="cuda")
+        return x.to(torch.bfloat16).unflatten(-1, (h, d)).transpose(1, 2) * s
+    return heads(N, d ** -0.25), heads(M, d ** -0.25), heads(M, 1.0)
+
+
+@pytest.mark.parametrize("N,M", [(1024, 1024), (200, 136), (64, 1000)])
+@pytest.mark.parametrize("layout", ["self", "cross"])
+def test_attention_fwd_hopper_loop(cuda, N, M, layout):
+    """D's bf16 instance (the Hopper loop with its statistics epilogue)
+    against the plain version: scale d^-0.5 on the self layout (v the
+    stride-3 view, packed: one pack launch, handed back contiguous), 1 on
+    the cross layout (read in place); m and l to relative 1e-5 (m against
+    max(1, |m|)); the last batch row's keys all masked, where m = -1e9 and
+    l = M exactly (a uniform softmax)."""
+    B, h, d = 2, 3, 64
+    q, k, v = _d_operands(cuda, B, h, N, M, d, layout)
+    scale = d ** -0.5 if layout == "self" else 1.0
+    mask = torch.rand(B, M, generator=cuda, device="cuda") > 0.2
+    mask[-1] = False
+    bias = ak.key_bias(mask, B, M, "cuda")
+    before, packs = ak.attention_fwd.launches, ak.hopper_attention.packs
+    out, stats, v_read = ak.attention_fwd(q, k, v, bias, scale)
+    assert ak.attention_fwd.launches == before + 1
+    packed = layout == "self"
+    assert ak.hopper_attention.packs == packs + packed
+    if packed:
+        assert v_read.is_contiguous() and torch.equal(v_read, v)
+    else:
+        assert v_read is v
+    assert _close(out, ak.fused_attention_plain(q, k, v, mask, scale))
+    s = torch.matmul(q.float(), k.float().mT) * scale + bias[:, None, None]
+    m = s.amax(-1)
+    l = torch.exp(s - m[..., None]).sum(-1)
+    assert ((stats[0] - m).abs() <= 1e-5 * m.abs().clamp(min=1.0)).all()
+    assert ((stats[1] - l).abs() <= 1e-5 * l).all()
+    assert (stats[0][-1] == -1e9).all() and (stats[1][-1] == M).all()
+
+
+def test_attention_fwd_hands_f_its_packed_v(cuda):
+    """D then F with the v D packed: F reads it in place (no pack launch)
+    and its gradients keep the relative-norm bound, which the three planted
+    faults (c = 0, c or the row statistics of the neighbouring row) still
+    break; the last batch row's keys all masked."""
+    B, h, N, d = 2, 2, 1024, 64
+    q, k, v = _d_operands(cuda, B, h, N, N, d, "self")
+    mask = torch.rand(B, N, generator=cuda, device="cuda") > 0.2
+    mask[-1] = False
+    bias = ak.key_bias(mask, B, N, "cuda")
+    scale = d ** -0.5
+    out, stats, v_read = ak.attention_fwd(q, k, v, bias, scale)
+    do = torch.randn(B, N, h, d, generator=cuda, device="cuda").to(
+        torch.bfloat16).permute(0, 2, 1, 3)
+    want = ak.fused_attention_bwd_plain(q, k, v, bias, do, scale)
+    packs = ak.hopper_attention.packs
+    got = ak.attention_bwd(q, k, v_read, out, do, bias, stats, scale)
+    assert ak.hopper_attention.packs == packs
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        for rows in (slice(None), slice(-1, None)):
+            assert _close(a[rows], b[rows]), name
+            assert _rel(a[rows], b[rows]) <= BWD_REL[torch.bfloat16], name
+    for fault, o, st in (("c = 0", torch.zeros_like(out), stats),
+                         ("c of the next row", out.roll(1, 2), stats),
+                         ("stats of the next row", out, stats.roll(1, -1))):
+        bad = ak.attention_bwd(q, k, v_read, o, do, bias, st, scale)
+        worst = max(_rel(a, b) for a, b in zip(bad, want))
+        assert worst > 5 * BWD_REL[torch.bfloat16], fault
+
+
+def test_selfblock_training_packs_once_a_call(cuda):
+    """SelfBlock in training on the card (128 tokens, 4 heads of 64, bf16):
+    one pack launch in the forward (D's v) and none in the backward (F
+    reads D's packed v), one launch of D and one of F."""
+    from ei_nexus_tpu_torch.models.lightglue import SelfBlock
+    B, N, E, h = 2, 128, 256, 4
+    g = torch.Generator().manual_seed(5)
+    block = SelfBlock(E, h, dtype=torch.bfloat16, attn_impl="pallas").cuda()
+    x = torch.randn(B, N, E, generator=g).to(torch.bfloat16).cuda()
+    ang = torch.rand(B, 1, N, 32, generator=g) * 6.28
+    enc = tuple(torch.repeat_interleave(f(ang), 2, -1).to(
+        torch.bfloat16).cuda() for f in (torch.cos, torch.sin))
+    mask = (torch.rand(B, N, generator=g) > 0.2).cuda()
+    counts = lambda: (ak.hopper_attention.packs, ak.attention_fwd.launches,
+                      ak.attention_bwd.launches)
+    c0 = counts()
+    y = block(x, enc, mask, training=True)
+    c1 = counts()
+    y.float().sum().backward()
+    c2 = counts()
+    assert tuple(b - a for a, b in zip(c0, c1)) == (1, 1, 0)
+    assert tuple(b - a for a, b in zip(c1, c2)) == (0, 0, 1)
+    assert all(torch.isfinite(p.grad.float()).all()
+               for p in block.parameters())
+
+
+def _g_operands(gen, B, h, N, M, d):
+    """G's bf16 operands as the "flash" self-attention hands them: the
+    rotated q, k contiguous head views, v the stride-3 view (packed)."""
+    return _d_operands(gen, B, h, N, M, d, "self")
+
+
+@pytest.mark.parametrize("N,M", [(1024, 1024), (2048, 2048), (200, 136)])
+def test_flash_segment_hopper_loop(cuda, N, M):
+    """G's bf16 instance (the Hopper loop in its segment mode) against the
+    plain version: query ids that vary per row, key ids of three segments,
+    batch row 1's keys in a segment no query has (every query row there
+    gives the mean of V); without ids, no mask. One pack launch a call
+    (the stride-3 v)."""
+    from ei_nexus_tpu_torch.ops import flash_kernel as fk
+    B, h, d = 2, 2, 64
+    q, k, v = _g_operands(cuda, B, h, N, M, d)
+    q_seg = torch.randint(0, 3, (B, N), generator=cuda, device="cuda",
+                          dtype=torch.int32)
+    kv_seg = torch.randint(0, 3, (B, M), generator=cuda, device="cuda",
+                           dtype=torch.int32)
+    kv_seg[1] = -5
+    before, packs = fk.flash_attention.launches, ak.hopper_attention.packs
+    got = fk.flash_attention(q, k, v, q_seg, kv_seg, d ** -0.5)
+    assert fk.flash_attention.launches == before + 1
+    assert ak.hopper_attention.packs == packs + 1
+    assert torch.isfinite(got.float()).all()
+    assert _close(got, fk.flash_attention_plain(q, k, v, q_seg, kv_seg,
+                                                d ** -0.5))
+    mean = v[1].float().mean(dim=1, keepdim=True).expand(-1, N, -1)
+    assert _close(got[1], mean)
+    assert torch.equal(fk.flash_attention(q, k, v, q_seg, kv_seg,
+                                          d ** -0.5), got)
+    got = fk.flash_attention(q, k, v, sm_scale=1.0)
+    assert _close(got, fk.flash_attention_plain(q, k, v, sm_scale=1.0))
+
+
+def test_d_and_g_refuse_what_the_plan_refuses(cuda):
+    """A d stride of 2 is neither TMA's nor the pack pass's: D's and G's
+    bf16 wrappers raise ValueError before any launch and take no other
+    path."""
+    from ei_nexus_tpu_torch.ops import flash_kernel as fk
+    B, h, d, N = 1, 2, 64, 128
+    x = torch.randn(B, h, N, 2 * d, generator=cuda, device="cuda").to(
+        torch.bfloat16)
+    q = x[..., ::2]
+    k = v = x[..., :d].contiguous()
+    bias = ak.key_bias(None, B, N, "cuda")
+    counts = lambda: (ak.attention_fwd.launches, fk.flash_attention.launches,
+                      ak.hopper_attention.packs)
+    c0 = counts()
+    with pytest.raises(ValueError):
+        ak.attention_fwd(q, k, v, bias, 0.125)
+    with pytest.raises(ValueError):
+        ak.attention_fwd(k, k, q, bias, 0.125)
+    with pytest.raises(ValueError):
+        fk.flash_attention(q, k, v, sm_scale=0.125)
+    assert counts() == c0
 
 
 def test_pose_on_the_card_matches_the_cpu(cuda):

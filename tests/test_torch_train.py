@@ -156,7 +156,8 @@ def test_fwd_statistics_rebuild_the_softmax_of_a_masked_row(rng):
     mask = _t(rng.uniform(size=(B, M)) > 0.2)
     mask[1] = False
     bias = ak.key_bias(mask, B, M, "cpu")
-    out, stats = ak.attention_fwd(q, k, v, bias, d ** -0.5)
+    out, stats, v_read = ak.attention_fwd(q, k, v, bias, d ** -0.5)
+    assert v_read is v                  # the plain version packs nothing
     assert stats.shape == (2, B, h, N) and stats.dtype == torch.float32
     s = torch.matmul(q, k.mT) * d ** -0.5 + bias[:, None, None]
     m, l = stats[0][..., None], stats[1][..., None]
@@ -287,23 +288,45 @@ def test_lightglue_training_matches_jax(rng):
     the port's "pallas" setting compute the same function (at 24 slots and
     heads of 16, off the kernels' shape grid, both take the einsum path).
     Outputs, the loss and every parameter's gradient."""
-    lg = dict(input_dim=32, descriptor_dim=64, n_layers=2, num_heads=4)
+    _training_parity(rng, dict(input_dim=32, descriptor_dim=64, n_layers=2,
+                               num_heads=4), 24, 20, 24)
+
+
+def test_lightglue_training_on_grid_matches_jax(rng, monkeypatch):
+    """As above at 128 slots and heads of 64, on the kernels' shape grid:
+    the port trains through kernels D/F (their plain versions here: four
+    calls a layer), the JAX package through its XLA attention."""
+    from ei_nexus_tpu_torch.models import lightglue as tlg
+    calls, real = [], tlg.fused_attention
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+    monkeypatch.setattr(tlg, "fused_attention", counted)
+    _training_parity(rng, dict(input_dim=32, descriptor_dim=128,
+                               n_layers=2, num_heads=2), 128, 100, 128)
+    assert len(calls) == 4 * 2
+
+
+def _training_parity(rng, lg, slots, n0, n1):
+    """The Matcher's training forward and backward, JAX against the port,
+    with `slots` keypoint slots and n0, n1 valid keypoints."""
     jcfg = jeim.MatcherConfig(type="LightGlue", freeze=False,
-                              max_points_num=24,
+                              max_points_num=slots,
                               lightglue=jeim.LightGlueConfig(**lg))
     tcfg = teim.MatcherConfig(type="LightGlue", freeze=False,
-                              max_points_num=24,
+                              max_points_num=slots,
                               lightglue=teim.LightGlueConfig(
                                   attention_impl="pallas", **lg))
-    f0, f1 = _feats(rng, 2, 20, 32), _feats(rng, 2, 24, 32)
+    f0, f1 = _feats(rng, 2, n0, 32), _feats(rng, 2, n1, 32)
     jf0 = {k: jnp.asarray(v) for k, v in f0.items()}
     jf1 = {k: jnp.asarray(v) for k, v in f1.items()}
     jm = jeim.Matcher(config=jcfg)
     keys = {"params": jax.random.PRNGKey(0), "pad": jax.random.PRNGKey(1)}
     variables = _perturb(jm.init(keys, jf0, jf1, training=True))
-    gt = {"matches0": rng.integers(-2, 24, (2, 24)).astype(np.int32),
-          "matches1": rng.integers(-2, 24, (2, 24)).astype(np.int32),
-          "assignment": rng.uniform(size=(2, 24, 24)) > 0.9}
+    gt = {"matches0": rng.integers(-2, slots, (2, slots)).astype(np.int32),
+          "matches1": rng.integers(-2, slots, (2, slots)).astype(np.int32),
+          "assignment": rng.uniform(size=(2, slots, slots)) > 0.9}
     jgt = {k: jnp.asarray(v) for k, v in gt.items()}
 
     def jloss(params):

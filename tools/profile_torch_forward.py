@@ -42,8 +42,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 # kernel-name fragment -> group, first match wins
 GROUPS = (
-    ("attention_pack_kernel", "pack pass (A, B, E, F)"),
+    ("attention_pack_kernel", "pack pass (A, B, D, E, F, G)"),
     ("self_attention_sm90_kernel", "A self_attention_rot"),
+    ("attention_fwd_sm90_kernel", "D attention_fwd"),
+    ("flash_segment_sm90_kernel", "G flash_attention"),
     ("qblock_attention_sm90_kernel", "E qblock_attention"),
     ("cross_attention_sm90_kernel", "B cross_attention_bidir"),
     ("attention_bwd_sm90_kernel", "F attention_bwd"),
