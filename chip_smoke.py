@@ -28,7 +28,14 @@ Phases, each of which raises on failure:
     in place), F split into its c pass, pack pass and its two block kinds
     (each run alone); F's gradients are also held to a
     relative norm, which planted faults (c = 0, c or the row statistics of
-    the neighbouring row) must break;
+    the neighbouring row) must break; kernel C (fixed-round NMS, one
+    launch of independent thread-block clusters, each map held in one
+    cluster's distributed shared memory for all rounds): its ptxas line
+    (no spill), its plan at the flagship's (8, 264, 352) (clusters of 8
+    blocks, rows a block, strips) and the clusters that fit at once,
+    bit-exact there in float32 and bfloat16 and at (1, 1024, 1280), which
+    the plan cuts into strips with ghost rows, and its device time in
+    clusters of 8 and of 16 blocks;
  3. the flagship EIM forward at full width (260x346, 16 bins, K=1024,
     9 LightGlue layers of 4x64, bfloat16, B=8) on bursty events, once for
     each attention setting of `build_flagship`: "auto" (A=18, B=9, C=2
@@ -94,6 +101,7 @@ MAIN_B, MAIN_H, MAIN_N, MAIN_D = 8, 4, 1024, 64   # LightGlue attention
 # rounding of the outputs alone gives ~2e-3, a dropped or misread c ~6e-2
 BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 NMS_SHAPE, NMS_RADIUS, NMS_ROUNDS = (8, 264, 352), 4, 4
+NMS_STRIP_SHAPE = (1, 1024, 1280)   # more rows than one cluster holds
 QBLOCKS = (64, 128)          # kernel E's compiled tiles
 FLASH_TOKENS = (1024, 2048)  # kernel G: the flagship, and what "flash" is for
 
@@ -483,11 +491,103 @@ def sdpa_segment_ms(x) -> tuple:
     return cuda_ms(call), _sum_ms(device_ms(call))
 
 
+def check_nms_build(logs: dict) -> None:
+    """Print ptxas's lines for kernel C at the flagship's radius (registers,
+    spills) and require no spill in any of its instances."""
+    log = logs.get("nms")
+    if log is None:
+        print("[kernels] nms: built before this run, no ptxas log")
+        return
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            continue
+        if fn and "nms_kernel" in fn and ("spill" in line
+                                          or "registers" in line):
+            if f"Li{NMS_RADIUS}E" in fn:
+                print(f"[kernels] nms {fn}: {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores", line)
+            require(m is None or int(m.group(1)) == 0,
+                    f"{fn} spills: {line.strip()}")
+
+
+def check_nms(gen) -> dict:
+    """Kernel C at the flagship's (8, 264, 352): its plan and the clusters
+    that fit at once, bit-exact in float32 and bfloat16 and at a map cut
+    into strips, timed in clusters of 8 and of 16 blocks. Returns its row
+    of the kernels' JSON line (without launches)."""
+    from ei_nexus_tpu_torch.ops import cuda_build
+    from ei_nexus_tpu_torch.ops import nms_kernel as nk
+    score = torch.rand(*NMS_SHAPE, generator=gen, device="cuda")
+    score = torch.where(score > 0.3, score, torch.zeros_like(score))
+    plan = nk.nms_plan(*NMS_SHAPE, NMS_RADIUS, NMS_ROUNDS,
+                       score.element_size())
+    lib = cuda_build.library("nms")
+    active = {c: lib.ei_nms_active_clusters(0, NMS_RADIUS, c)
+              for c in (nk.CLUSTER, 16)}
+    print(f"[kernels] nms_rounds plan at {NMS_SHAPE} float32: clusters of "
+          f"{plan.cluster} blocks, {plan.rows} rows a block, strips "
+          f"{plan.strips} (own0, own1, load0, load1), {plan.smem_bytes} "
+          f"bytes of shared memory a block; clusters that fit at once: "
+          + ", ".join(f"{n} of {c} blocks" for c, n in active.items()))
+    require(active[nk.CLUSTER] > 0, "no cluster of kernel C fits the card")
+    require(len(plan.strips) == 1, "the flagship's map is not one cluster")
+    for dtype in (torch.float32, torch.bfloat16):
+        x = score.to(dtype)
+        got = nk.nms_rounds(x, NMS_RADIUS, NMS_ROUNDS)
+        want = nk.nms_rounds_plain(x, NMS_RADIUS, NMS_ROUNDS)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want),
+                f"NMS kernel is not bit-exact in {dtype}: "
+                f"{int((got != want).sum())} pixels differ")
+    # a map one cluster cannot hold: strips with ghost rows
+    tall = torch.rand(*NMS_STRIP_SHAPE, generator=gen, device="cuda")
+    tall = torch.where(tall > 0.3, tall, torch.zeros_like(tall))
+    tall_plan = nk.nms_plan(*NMS_STRIP_SHAPE, NMS_RADIUS, NMS_ROUNDS, 4)
+    require(len(tall_plan.strips) > 1, f"{NMS_STRIP_SHAPE} is one strip")
+    require(torch.equal(nk.nms_rounds(tall, NMS_RADIUS, NMS_ROUNDS),
+                        nk.nms_rounds_plain(tall, NMS_RADIUS, NMS_ROUNDS)),
+            f"NMS kernel is not bit-exact at {NMS_STRIP_SHAPE}")
+    print(f"[kernels] nms_rounds: bit-exact in float32 and bfloat16 at "
+          f"{NMS_SHAPE}, and at {NMS_STRIP_SHAPE} in "
+          f"{len(tall_plan.strips)} strips of {tall_plan.ghost} ghost rows")
+    t_c = cuda_ms(lambda: nk.nms_rounds(score, NMS_RADIUS, NMS_ROUNDS))
+    t_c_plain = cuda_ms(lambda: nk.nms_rounds_plain(score, NMS_RADIUS,
+                                                    NMS_ROUNDS))
+    dev_c = _sum_ms(device_ms(lambda: nk.nms_rounds(score, NMS_RADIUS,
+                                                    NMS_ROUNDS)))
+    dev_c16 = _sum_ms(device_ms(lambda: nk.nms_rounds(
+        score, NMS_RADIUS, NMS_ROUNDS, cluster=16)))
+    dev_c_tall = _sum_ms(device_ms(lambda: nk.nms_rounds(
+        tall, NMS_RADIUS, NMS_ROUNDS)))
+    print(f"[kernels] nms_rounds device ms a call: {dev_c:.4f} (clusters of "
+          f"{nk.CLUSTER}), {dev_c16:.4f} (of 16); {NMS_STRIP_SHAPE}: "
+          f"{dev_c_tall:.4f}")
+    b_c, by_c = nms_bound_ms(score)
+    return dict(name="nms_rounds", route="cuda",
+                source="ei_nexus_tpu_torch/csrc/nms.cu",
+                replaces="ei_nexus_tpu/ops/pallas_nms.py:57",
+                max_abs_err=0.0, max_abs_err_f32=0.0,
+                ms=t_c, plain_ms=t_c_plain, bound_ms=b_c, bound_by=by_c,
+                library_ms=None,
+                design=f"one launch of independent clusters of "
+                       f"{plan.cluster} blocks, each map held in a "
+                       f"cluster's distributed shared memory for all "
+                       f"rounds ({plan.rows} rows a block), halo rows read "
+                       f"from the peers, two cluster barriers a round; "
+                       f"is_max dilated as bits",
+                device_ms=dev_c, library_device_ms=None,
+                device_ms_cluster16=dev_c16, device_ms_strips=dev_c_tall,
+                strips_shape=list(NMS_STRIP_SHAPE))
+
+
 def phase_kernels(logs: dict):
     from ei_nexus_tpu_torch.ops import attention_kernels as ak
-    from ei_nexus_tpu_torch.ops import nms_kernel as nk
 
     sass = check_hopper_build(logs)
+    check_nms_build(logs)
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
     fused_errs, qblock_errs, flash_errs = {}, {}, {}
@@ -615,24 +715,7 @@ def phase_kernels(logs: dict):
           + ", ".join(f"{k} {v:.4f}" for k, v in f_split.items())
           + f"; SDPA's backward {dev_f_lib:.4f}")
 
-    score = torch.rand(*NMS_SHAPE, generator=gen, device="cuda")
-    score = torch.where(score > 0.3, score, torch.zeros_like(score))
-    got = nk.nms_rounds(score, NMS_RADIUS, NMS_ROUNDS)
-    want = nk.nms_rounds_plain(score, NMS_RADIUS, NMS_ROUNDS)
-    torch.cuda.synchronize()
-    require(torch.equal(got, want),
-            f"NMS kernel is not bit-exact: {int((got != want).sum())} "
-            f"pixels differ")
-    sb = score.to(torch.bfloat16)
-    require(torch.equal(nk.nms_rounds(sb, NMS_RADIUS, NMS_ROUNDS),
-                        nk.nms_rounds_plain(sb, NMS_RADIUS, NMS_ROUNDS)),
-            "NMS kernel is not bit-exact in bfloat16")
-    print("[kernels] nms_rounds: bit-exact in float32 and bfloat16")
-    t_c = cuda_ms(lambda: nk.nms_rounds(score, NMS_RADIUS, NMS_ROUNDS))
-    t_c_plain = cuda_ms(lambda: nk.nms_rounds_plain(score, NMS_RADIUS,
-                                                    NMS_ROUNDS))
-    dev_c = _sum_ms(device_ms(lambda: nk.nms_rounds(score, NMS_RADIUS,
-                                                    NMS_ROUNDS)))
+    row_c = check_nms(gen)
 
     # E as the q-blocked forward runs it (block_q 64; rot in the self
     # layers, rot-free in the cross directions), and at block_q 128
@@ -681,7 +764,6 @@ def phase_kernels(logs: dict):
 
     b_a, by_a = attention_bound_ms("self", x["q"], x["k"])
     b_b, by_b = attention_bound_ms("cross", x["qk0"], x["qk1"])
-    b_c, by_c = nms_bound_ms(score)
     b_d, by_d = fused_bound_ms("fwd", q, k)
     b_f, by_f = fused_bound_ms("bwd", q, k)
     rows = [
@@ -713,12 +795,7 @@ def phase_kernels(logs: dict):
                     "flash loop",
              device_ms=dev_b, library_device_ms=dev_b_lib,
              sass=sass.get("cross_attention")),
-        dict(name="nms_rounds", route="cuda",
-             source="ei_nexus_tpu_torch/csrc/nms.cu",
-             replaces="ei_nexus_tpu/ops/pallas_nms.py:57",
-             max_abs_err=0.0, max_abs_err_f32=0.0,
-             ms=t_c, plain_ms=t_c_plain, bound_ms=b_c, bound_by=by_c,
-             library_ms=None, device_ms=dev_c, library_device_ms=None),
+        row_c,
         dict(name="attention_fwd", route="cuda",
              source="ei_nexus_tpu_torch/csrc/attention_fwd.cu",
              replaces="ei_nexus_tpu/ops/pallas_attention.py:274",

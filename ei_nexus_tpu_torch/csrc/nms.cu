@@ -11,20 +11,44 @@
 //
 // What bounds it on an H100: one read and one write of the maps, 5.95 MB
 // for the flagship's (8, 264, 352) float32 call, ~1.8 us at 3.35 TB/s; the
-// window arithmetic is a few tens of operations per pixel and round.
+// window arithmetic is a few tens of operations per pixel and round, all
+// of it on chip.
 //
-// Design: a padded 264x352 float32 map is 372 KB, above the 227 KB of
-// shared memory a block can use, so the TPU's one-map-per-core design does
-// not carry over. A round is two passes over 32x32 tiles, each a separable
-// window max of radius r over the tile plus an r-pixel halo in shared
-// memory: pass 1 reads the map and writes the is_max bytes, pass 2 reads
-// them, dilates them and writes the suppressed map. Every pass needs its
-// neighbours' results from the pass before, so ONE cooperative launch runs
-// all 2*n_iter passes with a grid-wide barrier between them; all blocks are
-// resident at once (the launch refuses a grid that could not be) and walk
-// the tiles in a grid-stride loop. The halo costs (32+2r)^2 / 32^2 = 1.56x
-// the tile's loads at r=4; the state between passes (the map in `out`, the
-// is_max bytes in a scratch buffer the wrapper allocates) stays in L2.
+// Design: the TPU's one-map-in-fast-memory design, on a thread-block
+// cluster. A padded 264x352 float32 map (372 KB) is more than one SM's
+// 227 KB, but a cluster of 8 blocks holds it in distributed shared memory,
+// 33 whole rows a block. Each block loads its band once (16 bytes a load)
+// and keeps it for every round; a row window needs only the block's own
+// rows, and the r rows above and below that a column window needs are
+// copied from the ranks that hold them (`map_shared_rank`) into the
+// block's own halo rows, after a cluster barrier, not a grid-wide one.
+// Clusters are independent: one per map, or per strip of a map too tall
+// for one cluster (the plan, ops/nms_kernel.py `nms_plan`). A strip loads
+// 2*n_iter*r ghost rows on each side (a value after n rounds depends only
+// on inputs that many rows away), runs every round on what it loaded, with
+// the map-edge fill at its loaded edges, and writes only its own rows,
+// which are exact.
+//
+// The map stays as loaded: the zeros of the rounds so far are kept as
+// bits, 32 pixels to a word (`sup`), applied wherever x is read and once
+// more on the way out. One round:
+//   1. row pass: each thread takes a run of pixels of one row into
+//      registers and forms their (2r+1) window maxima by doubling, into
+//      `rmax`; cluster barrier; the halo rows of `rmax` copied from the
+//      peers;
+//   2. column pass: the same down a column of `rmax`, compared with x; a
+//      warp ballot packs is_max 32 pixels to a word (`ism`), one word a
+//      row kept by the lane of that row;
+//   3. the row dilation of the is_max words (shifts and ORs with the
+//      neighbouring words), into `dil`; cluster barrier; the halo rows of
+//      `dil` copied from the peers;
+//   4. sup |= (2r+1 `dil` words down each column) & ~is_max.
+// A peer reads a block's own rows of `rmax` only between the two barriers
+// of a round and of `dil` only after the second, and the block writes them
+// again only after the next barrier, so no buffer is overwritten while a
+// peer may read it; a last cluster barrier keeps a block from leaving while
+// a peer may still read it. Global traffic: one read and one write of each
+// map (plus the ghost rows of a strip), no scratch tensor.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -33,165 +57,379 @@ namespace ei {
 
 namespace cg = cooperative_groups;
 
-constexpr int kTile = 32;          // output tile side; one thread per column
-constexpr int kTileRows = 8;       // thread rows: a block is 32 x 8 threads
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+// Row pass: pixels a thread takes along a row (odd, so a warp's runs hit
+// distinct banks); column pass: the most rows a thread takes down a column.
+// Fewer above radius 4, to keep the windows in 64 registers.
+template <int R> constexpr int kRun = R <= 4 ? 21 : 7;
+template <int R> constexpr int kChunk = R <= 4 ? 17 : 8;
+constexpr int kMaxRadius = 8;  // radii compiled: 1..kMaxRadius
+constexpr int kMaxStrips = 128;
+constexpr int kMaxCluster = 16;
+constexpr int kErrNoCluster = -4;  // no cluster of this size fits the card
 
-__host__ __device__ inline int nms_side(int radius) {
-  return kTile + 2 * radius;
+// A map's strips, from the plan: own rows [x, y), loaded rows [z, w).
+struct Strips {
+  int n;
+  int4 s[kMaxStrips];
+};
+
+__host__ __device__ inline int nms_words(int W) { return (W + 31) / 32; }
+
+// Dynamic shared memory of a block holding `rows` rows of width W at radius
+// r: the map and its row pass (with r halo rows each side) in the storage
+// type, rounded up to 16 bytes; then the zero and is_max words for its rows
+// and the dilated words with r halo rows each side.
+__host__ __device__ inline size_t nms_pixel_bytes(int rows, int W, int esize,
+                                                  int radius) {
+  return ((size_t)esize * W * (2 * rows + 2 * radius) + 15) / 16 * 16;
+}
+__host__ inline size_t nms_smem_bytes(int rows, int W, int esize,
+                                      int radius) {
+  return nms_pixel_bytes(rows, W, esize, radius) +
+         sizeof(unsigned) * nms_words(W) * (3 * (size_t)rows + 2 * radius);
 }
 
-// The loaded region (side x side) and the row pass (side x kTile), floats.
-__host__ inline size_t nms_smem_bytes(int radius) {
-  return (size_t)nms_side(radius) * (nms_side(radius) + kTile) *
-         sizeof(float);
+// The (2r+1) window maxima of values in registers, by doubling: after
+// `pair_max<R, N>(v)`, the window of 2R + 1 values starting at v[i] has
+// the maximum fmaxf(v[i], v[i + kTail<R>]) for each i < N (the maxima of
+// two overlapping spans of 1 << kLevels<R> values).
+template <int R> constexpr int kLevels = 2 * R + 1 >= 16 ? 4
+                                       : 2 * R + 1 >= 8  ? 3
+                                       : 2 * R + 1 >= 4  ? 2 : 1;
+template <int R> constexpr int kTail = 2 * R + 1 - (1 << kLevels<R>);
+
+template <int S, int R, int N>
+__device__ __forceinline__ void pair_level(float (&v)[N + 2 * R]) {
+#pragma unroll
+  for (int i = 0; i + 2 * S - 1 < N + 2 * R; ++i)
+    v[i] = fmaxf(v[i], v[i + S]);  // v[i]: the max of 2S values
 }
 
-// Window max of radius r for every pixel of the tile at (y0, x0): `load(y,
-// x)` reads image pixel (y, x), `fill` stands outside the image, and
-// `emit(y, x, m, v)` gets each in-image pixel's window max m and its own
-// value v. Ends with a barrier, so the next tile may reuse the buffers.
-template <typename Load, typename Emit>
-__device__ __forceinline__ void tile_window_max(int y0, int x0, int H, int W,
-                                                int r, float fill,
-                                                float* region, float* rows,
-                                                Load load, Emit emit) {
-  const int S = nms_side(r);
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  for (int ry = ty; ry < S; ry += kTileRows)
-    for (int rx = tx; rx < S; rx += kTile) {
-      const int y = y0 - r + ry, x = x0 - r + rx;
-      region[ry * S + rx] =
-          (y >= 0 && y < H && x >= 0 && x < W) ? load(y, x) : fill;
+template <int R, int N>
+__device__ __forceinline__ void pair_max(float (&v)[N + 2 * R]) {
+  pair_level<1, R, N>(v);
+  if constexpr (kLevels<R> > 1) pair_level<2, R, N>(v);
+  if constexpr (kLevels<R> > 2) pair_level<4, R, N>(v);
+  if constexpr (kLevels<R> > 3) pair_level<8, R, N>(v);
+}
+
+// `buf` keeps R halo rows above and below a block's own rows, so row y of
+// the cluster's L loaded rows is row y - k * rows + R of rank k's buffer.
+// Copy into this block's halo rows (those above its nr rows from r0, and
+// below) the rows that its peers hold; the rows outside the loaded ones
+// keep their fill.
+template <typename U>
+__device__ __forceinline__ void pull_halo(cg::cluster_group& cluster, U* buf,
+                                          int pitch, int R, int r0, int nr,
+                                          int rows, int L) {
+  for (int i = threadIdx.x; i < 2 * R * pitch; i += kThreads) {
+    const int h = i / pitch, c = i - h * pitch;
+    const int e = h < R ? h : nr + h, y = r0 - R + e;
+    if (y >= 0 && y < L) {
+      const int k = y / rows;
+      buf[e * pitch + c] =
+          *cluster.map_shared_rank(buf + (y - k * rows + R) * pitch + c, k);
     }
-  __syncthreads();
-  // along x: every region row, the tile's columns
-  for (int ry = ty; ry < S; ry += kTileRows) {
-    const float* row = &region[ry * S + r + tx];
-    float m = row[0];
-    for (int d = 1; d <= r; ++d) m = fmaxf(m, fmaxf(row[-d], row[d]));
-    rows[ry * kTile + tx] = m;
   }
-  __syncthreads();
-  // along y: the tile's pixels
-  for (int cy = ty; cy < kTile; cy += kTileRows) {
-    const float* col = &rows[(cy + r) * kTile + tx];
-    float m = col[0];
-    for (int d = 1; d <= r; ++d)
-      m = fmaxf(m, fmaxf(col[-d * kTile], col[d * kTile]));
-    const int y = y0 + cy, x = x0 + tx;
-    if (y < H && x < W) emit(y, x, m, region[(cy + r) * S + r + tx]);
-  }
-  __syncthreads();
 }
 
-// `in` is read in the first round only; from then on the map lives in
-// `out`, and values another block wrote are read with __ldcg (from L2, not
-// a stale L1 line).
-template <typename T>
-__global__ void __launch_bounds__(kTile * kTileRows)
-    nms_kernel(const T* in, T* out, unsigned char* is_max, int B, int H,
-               int W, int radius, int n_iter) {
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads, 1)
+    nms_kernel(const T* __restrict__ in, T* __restrict__ out, int H, int W,
+               int rows, int n_iter,
+               const __grid_constant__ Strips strips) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int cid = blockIdx.x / (int)cluster.num_blocks();
+  const int b = cid / strips.n;
+  const int4 st = strips.s[cid - b * strips.n];
+  const int L = st.w - st.z;              // rows the cluster loaded
+  const int r0 = rank * rows;             // this block's first loaded row
+  const int nr = max(0, min(rows, L - r0));
+  const int nw = nms_words(W);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
   extern __shared__ float4 smem4[];
-  float* region = reinterpret_cast<float*>(smem4);
-  float* rows = region + nms_side(radius) * nms_side(radius);
-  cg::grid_group grid = cg::this_grid();
-  const int tiles_x = (W + kTile - 1) / kTile;
-  const int per_map = tiles_x * ((H + kTile - 1) / kTile);
-  const int n_tiles = B * per_map;
+  T* xs = reinterpret_cast<T*>(smem4);                 // rows x W
+  T* rmax = xs + rows * W;                             // (rows + 2R) x W
+  unsigned* sup = reinterpret_cast<unsigned*>(
+      reinterpret_cast<char*>(smem4) +
+      nms_pixel_bytes(rows, W, sizeof(T), R));         // rows x nw
+  unsigned* ism = sup + rows * nw;                     // rows x nw
+  unsigned* dil = ism + rows * nw;                     // (rows + 2R) x nw
+  // x with the rounds' zeros so far
+  auto x_at = [&](int y, int c) {
+    return (sup[y * nw + (c >> 5)] >> (c & 31) & 1u) ? 0.f
+                                                     : to_f(xs[y * W + c]);
+  };
 
-  for (int it = 0; it < n_iter; ++it) {
-    // pass 1: is_max = (x == window max of x) & (x > 0)
-    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-      const size_t base = (size_t)(t / per_map) * H * W;
-      const int y0 = (t % per_map) / tiles_x * kTile;
-      const int x0 = (t % per_map) % tiles_x * kTile;
-      const T* x_in = (it == 0 ? in : out) + base;
-      unsigned char* mk = is_max + base;
-      tile_window_max(
-          y0, x0, H, W, radius, -INFINITY, region, rows,
-          [&](int y, int x) {
-            const T* p = x_in + (size_t)y * W + x;
-            return to_f(it == 0 ? *p : __ldcg(p));
-          },
-          [&](int y, int x, float m, float v) {
-            mk[(size_t)y * W + x] = (v == m) && (v > 0.f);
-          });
-    }
-    grid.sync();
-    // pass 2: zero every non-max that has a max within r
-    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-      const size_t base = (size_t)(t / per_map) * H * W;
-      const int y0 = (t % per_map) / tiles_x * kTile;
-      const int x0 = (t % per_map) % tiles_x * kTile;
-      const T* x_in = (it == 0 ? in : out) + base;
-      T* x_out = out + base;
-      const unsigned char* mk = is_max + base;
-      tile_window_max(
-          y0, x0, H, W, radius, 0.f, region, rows,
-          [&](int y, int x) {
-            return (float)__ldcg(mk + (size_t)y * W + x);
-          },
-          [&](int y, int x, float m, float v) {
-            const size_t i = (size_t)y * W + x;
-            const T xv = it == 0 ? x_in[i] : __ldcg(x_in + i);
-            x_out[i] = (m > 0.f && v == 0.f) ? from_f<T>(0.f) : xv;
-          });
-    }
-    if (it + 1 < n_iter) grid.sync();
+  // the band, 16 bytes a load where the rows allow it
+  constexpr int V = 16 / sizeof(T);
+  const bool wide = W % V == 0 && ((reinterpret_cast<size_t>(in) |
+                                    reinterpret_cast<size_t>(out)) & 15) == 0;
+  const size_t band = ((size_t)b * H + st.z + r0) * W;
+  if (wide) {
+    const uint4* src = reinterpret_cast<const uint4*>(in + band);
+    for (int i = threadIdx.x; i < nr * W / V; i += kThreads)
+      reinterpret_cast<uint4*>(xs)[i] = src[i];
+  } else {
+    for (int i = threadIdx.x; i < nr * W; i += kThreads) xs[i] = in[band + i];
   }
+  for (int i = threadIdx.x; i < nr * nw; i += kThreads) sup[i] = 0u;
+  // halo rows outside the loaded rows hold the fill for good; the others
+  // are copied from the ranks that own them, every round
+  for (int i = threadIdx.x; nr && i < 2 * R * W; i += kThreads) {
+    const int h = i / W, e = h < R ? h : nr + h;
+    if (r0 - R + e < 0 || r0 - R + e >= L)
+      rmax[e * W + i - h * W] = from_f<T>(-INFINITY);
+  }
+  for (int i = threadIdx.x; nr && i < 2 * R * nw; i += kThreads) {
+    const int h = i / nw, e = h < R ? h : nr + h;
+    if (r0 - R + e < 0 || r0 - R + e >= L) dil[e * nw + i - h * nw] = 0u;
+  }
+  __syncthreads();
+
+  constexpr int run = kRun<R>, chunk = kChunk<R>;
+  const int runs = (W + run - 1) / run;
+  const int chunks = (nr + chunk - 1) / chunk;
+  const int q = chunks ? (nr + chunks - 1) / chunks : 0;
+  for (int it = 0; it < n_iter; ++it) {
+    // 1. window max along each row, -inf outside the map
+    for (int g = threadIdx.x; g < nr * runs; g += kThreads) {
+      const int y = g / runs, c0 = (g - y * runs) * run;
+      // the zero bits of columns c0 - R ..: at most two words
+      const int c1 = c0 - R, w1 = c1 >> 5;
+      const unsigned* srow = sup + y * nw;
+      const unsigned long long bits =
+          ((unsigned long long)(w1 + 1 < nw ? srow[w1 + 1] : 0u) << 32 |
+           (w1 >= 0 ? srow[w1] : 0u)) >> (c1 & 31);
+      const T* row = xs + y * W;
+      float v[run + 2 * R];
+#pragma unroll
+      for (int j = 0; j < run + 2 * R; ++j) {
+        const int c = c1 + j;
+        v[j] = (c < 0 || c >= W) ? -INFINITY
+               : (bits >> j & 1u) ? 0.f : to_f(row[c]);
+      }
+      pair_max<R, run>(v);
+      T* dst = rmax + (R + y) * W;
+#pragma unroll
+      for (int i = 0; i < run; ++i)
+        if (c0 + i < W) dst[c0 + i] = from_f<T>(fmaxf(v[i], v[i + kTail<R>]));
+    }
+    cluster.sync();
+    if (nr) pull_halo(cluster, rmax, W, R, r0, nr, rows, L);
+    __syncthreads();
+    // 2. window max down each column; is_max packed by a warp ballot
+    for (int item = warp; item < chunks * nw; item += kWarps) {
+      const int wd = item % nw, y0 = item / nw * q;
+      const int c = wd * 32 + lane;
+      const int n = min(q, nr - y0) + 2 * R;  // rows of rmax to read
+      const T* col = rmax + y0 * W + min(c, W - 1);  // window of row y0
+      float v[chunk + 2 * R];
+#pragma unroll
+      for (int j = 0; j < chunk + 2 * R; ++j)
+        v[j] = j < n ? to_f(col[j * W]) : -INFINITY;
+      pair_max<R, chunk>(v);
+      unsigned mine = 0u;  // lane i: the is_max word of row y0 + i
+#pragma unroll
+      for (int i = 0; i < chunk; ++i) {
+        if (i < q && y0 + i < nr) {  // uniform across the warp
+          const float m = fmaxf(v[i], v[i + kTail<R>]);
+          const float x = c < W ? x_at(y0 + i, c) : 0.f;
+          const unsigned bits = __ballot_sync(~0u, x == m && x > 0.f);
+          if (lane == i) mine = bits;
+        }
+      }
+      if (lane < min(q, nr - y0)) ism[(y0 + lane) * nw + wd] = mine;
+    }
+    __syncthreads();
+    // 3. is_max dilated along each row: bit k of word w is column 32w + k
+    for (int i = threadIdx.x; i < nr * nw; i += kThreads) {
+      const int wd = i % nw;
+      const unsigned cur = ism[i];
+      const unsigned prev = wd > 0 ? ism[i - 1] : 0u;
+      const unsigned next = wd + 1 < nw ? ism[i + 1] : 0u;
+      unsigned m = cur;
+#pragma unroll
+      for (int d = 1; d <= R; ++d)
+        m |= (cur << d) | (prev >> (32 - d)) | (cur >> d) |
+             (next << (32 - d));
+      dil[R * nw + i] = m;
+    }
+    cluster.sync();
+    if (nr) pull_halo(cluster, dil, nw, R, r0, nr, rows, L);
+    __syncthreads();
+    // 4. zero every non-max with a max within r: dilated down each column
+    for (int i = threadIdx.x; i < nr * nw; i += kThreads) {
+      unsigned near = 0u;
+#pragma unroll
+      for (int e = 0; e <= 2 * R; ++e) near |= dil[e * nw + i];
+      sup[i] |= near & ~ism[i];
+    }
+    __syncthreads();
+  }
+
+  // this block's rows among the strip's own rows
+  const int lo = max(r0, st.x - st.z), hi = min(r0 + nr, st.y - st.z);
+  const size_t dst = ((size_t)b * H + st.z + lo) * W;
+  if (wide) {
+    // V pixels a store, their zero bits in one word (V divides W and 32)
+    for (int i = threadIdx.x; i < (hi - lo) * W / V; i += kThreads) {
+      const int p = i * V, y = p / W, c = p - y * W;
+      const unsigned z = sup[(lo - r0 + y) * nw + (c >> 5)] >> (c & 31);
+      uint4 val = *reinterpret_cast<const uint4*>(xs + (lo - r0) * W + p);
+      auto keep = [&](unsigned w, int j) {  // 32-bit word j of the pixels
+        if (sizeof(T) == 4) return (z >> j & 1u) ? 0u : w;
+        return w & ((z >> 2 * j & 1u) ? 0xffff0000u : ~0u) &
+               ((z >> (2 * j + 1) & 1u) ? 0x0000ffffu : ~0u);
+      };
+      val = make_uint4(keep(val.x, 0), keep(val.y, 1), keep(val.z, 2),
+                       keep(val.w, 3));
+      *reinterpret_cast<uint4*>(out + dst + p) = val;
+    }
+  } else {
+    for (int i = threadIdx.x; i < (hi - lo) * W; i += kThreads) {
+      const int y = lo - r0 + i / W, c = i % W;
+      out[dst + i] = (sup[y * nw + (c >> 5)] >> (c & 31) & 1u)
+                         ? from_f<T>(0.f) : xs[y * W + c];
+    }
+  }
+  cluster.sync();  // no block leaves while a peer may read its rows
 }
 
 template <typename T>
-static int launch(const void* in, void* out, void* is_max, int B, int H,
-                  int W, int radius, int n_iter, cudaStream_t stream) {
-  auto kernel = nms_kernel<T>;
-  const size_t smem = nms_smem_bytes(radius);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  // a cooperative grid must fit on the device at once
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return (int)cudaErrorNotSupported;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, kTile * kTileRows, smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles = (long long)B * ((W + kTile - 1) / kTile) *
-                          ((H + kTile - 1) / kTile);
-  const long long resident = (long long)per_sm * sms;
-  const int blocks = (int)(tiles < resident ? tiles : resident);
-  if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
-  const T* in_t = static_cast<const T*>(in);
-  T* out_t = static_cast<T*>(out);
-  unsigned char* mk = static_cast<unsigned char*>(is_max);
-  void* args[] = {&in_t, &out_t, &mk, &B, &H, &W, &radius, &n_iter};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
-                                    dim3(kTile, kTileRows),
-                                    args, smem, stream);
+using NmsKernel = void (*)(const T*, T*, int, int, int, int, Strips);
+
+template <typename T>
+static NmsKernel<T> kernel_for(int radius) {
+  switch (radius) {
+    case 1: return nms_kernel<T, 1>;
+    case 2: return nms_kernel<T, 2>;
+    case 3: return nms_kernel<T, 3>;
+    case 4: return nms_kernel<T, 4>;
+    case 5: return nms_kernel<T, 5>;
+    case 6: return nms_kernel<T, 6>;
+    case 7: return nms_kernel<T, 7>;
+    case 8: return nms_kernel<T, 8>;
+  }
+  return nullptr;
+}
+
+// The launch configuration of `blocks` blocks in clusters of `cluster`.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int blocks, int cluster, size_t smem, cudaStream_t s) {
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use
+
+// Once per kernel and process: the shared-memory and cluster-size
+// attributes, then the number of clusters of `cluster` blocks that fit on
+// the card at once at the most shared memory a block may ask for. Returns
+// that number (0: none), or a negative CUDA error.
+template <typename T>
+static int active_clusters(int radius, int cluster) {
+  static int cache[kMaxRadius + 1][kMaxCluster + 1];  // count + 1; 0: unset
+  int& n = cache[radius][cluster];
+  if (n) return n - 1;
+  NmsKernel<T> kernel = kernel_for<T>(radius);
+  static bool configured[kMaxRadius + 1];
+  if (!configured[radius]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return -(int)err;
+    configured[radius] = true;
+  }
+  ClusterLaunch probe(cluster, cluster, kMaxSmem, 0);
+  int count = 0;
+  cudaError_t err = cudaOccupancyMaxActiveClusters(
+      &count, (const void*)kernel, &probe.cfg);
+  if (err != cudaSuccess) return -(int)err;
+  n = count + 1;
+  return count;
+}
+
+template <typename T>
+static int launch(const void* in, void* out, int B, int H, int W, int radius,
+                  int n_iter, int cluster, int rows, int n_strips,
+                  const int* strips, cudaStream_t stream) {
+  if (radius < 1 || radius > kMaxRadius || n_iter < 1 || cluster < 1 ||
+      cluster > kMaxCluster || n_strips < 1 || n_strips > kMaxStrips ||
+      rows < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = nms_smem_bytes(rows, W, sizeof(T), radius);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int active = active_clusters<T>(radius, cluster);
+  if (active < 0) return -active;
+  if (active == 0) return kErrNoCluster;
+  Strips st;
+  st.n = n_strips;
+  for (int i = 0; i < n_strips; ++i)
+    st.s[i] = make_int4(strips[4 * i], strips[4 * i + 1], strips[4 * i + 2],
+                        strips[4 * i + 3]);
+  const long long blocks = (long long)B * n_strips * cluster;
+  if (blocks < 1 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  ClusterLaunch lc((int)blocks, cluster, smem, stream);
+  cudaError_t err = cudaLaunchKernelEx(
+      &lc.cfg, kernel_for<T>(radius), static_cast<const T*>(in),
+      static_cast<T*>(out), H, W, rows, n_iter, st);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace ei
 
-// Shared memory one block needs for `radius`, so the caller can refuse what
-// does not fit before launching.
-extern "C" long long ei_nms_smem_bytes(int radius) {
-  return (long long)ei::nms_smem_bytes(radius);
+// Shared memory one block of the plan needs (rows of width W, element size
+// `esize`, radius r), for the caller to hold against its plan.
+extern "C" long long ei_nms_smem_bytes(int rows, int W, int esize,
+                                       int radius) {
+  return (long long)ei::nms_smem_bytes(rows, W, esize, radius);
 }
 
-// score, out: (B, H, W) contiguous; is_max: (B, H, W) bytes of scratch.
-// Returns the CUDA error code of the launch (0 on success).
-extern "C" int ei_nms_rounds(int dtype, const void* score, void* out,
-                             void* is_max, int B, int H, int W, int radius,
-                             int n_iter, void* stream) {
+// Clusters of `cluster` blocks of the radius-`radius` kernel that fit on the
+// card at once at the most shared memory a block may use; 0 if none, a
+// negative CUDA error if the query failed.
+extern "C" int ei_nms_active_clusters(int dtype, int radius, int cluster) {
+  if (radius < 1 || radius > ei::kMaxRadius || cluster < 1 ||
+      cluster > ei::kMaxCluster)
+    return -(int)cudaErrorInvalidValue;
+  return dtype == ei::kBFloat16
+             ? ei::active_clusters<__nv_bfloat16>(radius, cluster)
+             : ei::active_clusters<float>(radius, cluster);
+}
+
+// score, out: (B, H, W) contiguous; strips: n_strips x (own0, own1, load0,
+// load1) rows, the plan's; rows: rows a block holds. One launch of B *
+// n_strips clusters of `cluster` blocks. Returns the CUDA error code of the
+// launch (0 on success), or -4 if no cluster of that size fits the card.
+extern "C" int ei_nms_rounds(int dtype, const void* score, void* out, int B,
+                             int H, int W, int radius, int n_iter,
+                             int cluster, int rows, int n_strips,
+                             const int* strips, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ei::kFloat32)
-    return ei::launch<float>(score, out, is_max, B, H, W, radius, n_iter, s);
+    return ei::launch<float>(score, out, B, H, W, radius, n_iter, cluster,
+                             rows, n_strips, strips, s);
   if (dtype == ei::kBFloat16)
-    return ei::launch<__nv_bfloat16>(score, out, is_max, B, H, W, radius,
-                                     n_iter, s);
+    return ei::launch<__nv_bfloat16>(score, out, B, H, W, radius, n_iter,
+                                     cluster, rows, n_strips, strips, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -56,8 +56,10 @@ SIGNATURES = {
         "ei_sm90_smem_bytes": ([_I], ctypes.c_longlong),
     },
     "nms": {
-        "ei_nms_rounds": ([_I, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
-        "ei_nms_smem_bytes": ([_I], ctypes.c_longlong),
+        "ei_nms_rounds": ([_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           ctypes.POINTER(_I), _P], _I),
+        "ei_nms_smem_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),
+        "ei_nms_active_clusters": ([_I, _I, _I], _I),
     },
     "attention_fwd": {
         "ei_attention_fwd": (
@@ -183,11 +185,13 @@ def int64_array(values) -> ctypes.Array:
     return (ctypes.c_longlong * len(values))(*values)
 
 
-# the entry points' own codes besides CUDA's (csrc/flash_sm90.cuh kErr*)
+# the entry points' own codes besides CUDA's (csrc/flash_sm90.cuh and
+# csrc/nms.cu kErr*)
 _OWN_ERRORS = {
     -1: "the CUDA driver refused a TMA tensor map",
     -2: "the build's register count would leave setmaxnreg waiting",
     -3: "the CUDA driver has no cuTensorMapEncodeTiled",
+    -4: "no thread-block cluster of this size fits on the card",
 }
 
 

@@ -7,9 +7,19 @@ PyTorch version `nms_rounds_plain` on a CPU tensor. Semantics of both:
 (2r+1)^2 window max with -inf outside the map, marks
 `is_max = (x == pooled) & (x > 0)` and zeroes every non-max within r of a
 max. Only max, compare and select, so the two agree bit for bit.
+
+The kernel runs each map in one thread-block cluster, the map held in the
+cluster's shared memory for all rounds; `nms_plan` (pure Python) decides
+the cluster's rows, and cuts a map too tall for one cluster into strips of
+whole rows with ghost rows on each side.
 """
 
 from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -18,6 +28,12 @@ from .cuda_build import check, dtype_code, library
 
 # the most dynamic shared memory one block may use on Hopper
 _MAX_SMEM = 232448
+# what csrc/nms.cu compiles: radii 1..8, tables of up to 128 strips,
+# clusters of up to 16 blocks (above 8 only as non-portable sizes)
+MAX_RADIUS = 8
+MAX_STRIPS = 128
+MAX_CLUSTER = 16
+CLUSTER = 8  # blocks a cluster: the portable maximum
 
 
 def window_max(x: torch.Tensor, radius: int) -> torch.Tensor:
@@ -38,13 +54,102 @@ def nms_rounds_plain(score: torch.Tensor, radius: int,
     return x
 
 
-def nms_rounds(score: torch.Tensor, radius: int,
-               n_iter: int = 4) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class NmsPlan:
+    """How kernel C runs a (B, H, W) call: clusters of `cluster` blocks,
+    each block holding `rows` consecutive rows of a strip's loaded rows (the
+    last blocks of a strip may hold fewer, or none); `strips` holds each
+    strip's (own0, own1, load0, load1): it writes rows [own0, own1) of the
+    map and loads rows [load0, load1), `ghost` rows beyond its own on each
+    side, clipped at the map's edges. `smem_bytes`: a block's shared
+    memory."""
+    cluster: int
+    rows: int
+    ghost: int
+    strips: Tuple[Tuple[int, int, int, int], ...]
+    smem_bytes: int
+
+
+def smem_bytes(rows: int, W: int, element_size: int, radius: int) -> int:
+    """Shared memory of a block holding `rows` rows of width W at `radius`
+    (as csrc/nms.cu `nms_smem_bytes`): the map and its row pass, with
+    `radius` halo rows on each side, in the storage type, rounded up to 16
+    bytes; then the zero and is_max bits, 32 pixels to a word, for its rows
+    and the dilated bits with the halo rows."""
+    pixels = -(-element_size * W * (2 * rows + 2 * radius) // 16) * 16
+    return pixels + 4 * ((W + 31) // 32) * (3 * rows + 2 * radius)
+
+
+@functools.lru_cache(maxsize=64)
+def nms_plan(B: int, H: int, W: int, radius: int, n_iter: int,
+             element_size: int, smem: int = _MAX_SMEM,
+             cluster: int = CLUSTER) -> NmsPlan:
+    """Kernel C's plan for a (B, H, W) map of `element_size`-byte elements,
+    `smem` bytes of shared memory a block.
+
+    A map whose rows fit in one cluster is one strip with no ghost rows.
+    A taller one is cut into strips that each load 2 * n_iter * radius
+    ghost rows above and below their own (a value after n rounds depends
+    only on inputs that many rows away), clipped at the map's edges. A
+    block's column window reads its halo rows from whichever rank holds
+    them, so fewer rows a block than the radius walks further ranks.
+    Raises ValueError where the kernel cannot run the call: a radius it
+    does not compile, a row that does not fit in a block, a strip that
+    cannot hold its ghost rows, or more strips than its table holds."""
+    if not 1 <= radius <= MAX_RADIUS:
+        raise ValueError(f"nms_plan: kernel C is compiled for radius 1.."
+                         f"{MAX_RADIUS}, not {radius}")
+    if n_iter < 1 or B < 1 or H < 1 or W < 1:
+        raise ValueError(f"nms_plan: n_iter {n_iter} on a ({B}, {H}, {W}) "
+                         f"map")
+    if not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"nms_plan: clusters of 1..{MAX_CLUSTER} blocks, "
+                         f"not {cluster}")
+    per_block = 0
+    while smem_bytes(per_block + 1, W, element_size, radius) <= smem:
+        per_block += 1
+    if per_block < 1:
+        raise ValueError(f"nms_plan: a block holding one row of {W} pixels "
+                         f"needs {smem_bytes(1, W, element_size, radius)} "
+                         f"bytes of shared memory, it has {smem}")
+    capacity = cluster * per_block
+    if H <= capacity:
+        strips, ghost = ((0, H, 0, H),), 0
+    else:
+        ghost = 2 * n_iter * radius
+        strips, own0 = [], 0
+        while own0 < H:
+            load0 = max(0, own0 - ghost)
+            own1 = min(H, load0 + capacity - ghost)
+            if own1 <= own0:
+                raise ValueError(
+                    f"nms_plan: a cluster holds {capacity} rows of {W}, too "
+                    f"few for {ghost} ghost rows on each side of a strip")
+            strips.append((own0, own1, load0, min(H, own1 + ghost)))
+            own0 = own1
+        strips = tuple(strips)
+    if len(strips) > MAX_STRIPS:
+        raise ValueError(f"nms_plan: {len(strips)} strips, the kernel's "
+                         f"table holds {MAX_STRIPS}")
+    rows = -(-max(l1 - l0 for _, _, l0, l1 in strips) // cluster)
+    return NmsPlan(cluster, rows, ghost, strips,
+                   smem_bytes(rows, W, element_size, radius))
+
+
+@functools.lru_cache(maxsize=64)
+def _strip_table(plan: NmsPlan) -> ctypes.Array:
+    """The plan's strips as the C int array the entry point takes."""
+    flat = [v for strip in plan.strips for v in strip]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def nms_rounds(score: torch.Tensor, radius: int, n_iter: int = 4,
+               cluster: int = CLUSTER) -> torch.Tensor:
     """(B, H, W) score map -> suppressed map after `n_iter` rounds.
 
     CPU tensor: the plain version. CUDA tensor: the CUDA kernel, one
-    cooperative launch for all rounds, or an exception; never the plain
-    version."""
+    launch of clusters of `cluster` blocks for all rounds (`nms_plan`), or
+    an exception; never the plain version."""
     if score.device.type == "cpu":
         return nms_rounds_plain(score, radius, n_iter)
     if score.device.type != "cuda":
@@ -57,20 +162,17 @@ def nms_rounds(score: torch.Tensor, radius: int,
     if score.requires_grad and torch.is_grad_enabled():
         raise NotImplementedError("nms_rounds has no backward")
     code = dtype_code(score.dtype)
+    B, H, W = score.shape
+    plan = nms_plan(B, H, W, radius, n_iter, score.element_size(),
+                    cluster=cluster)
     score = score.contiguous()
     lib = library("nms")
-    if lib.ei_nms_smem_bytes(radius) > _MAX_SMEM:
-        raise ValueError(f"nms_rounds: radius={radius} needs more shared "
-                         f"memory than a block has")
-    B, H, W = score.shape
     out = torch.empty_like(score)
-    # the kernel's scratch: each round's is_max map, one byte a pixel
-    is_max = torch.empty(B, H, W, dtype=torch.uint8, device=score.device)
     with torch.cuda.device(score.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ei_nms_rounds(code, score.data_ptr(), out.data_ptr(),
-                                is_max.data_ptr(), B, H, W, radius, n_iter,
-                                stream)
+        err = lib.ei_nms_rounds(code, score.data_ptr(), out.data_ptr(), B,
+                                H, W, radius, n_iter, plan.cluster, plan.rows,
+                                len(plan.strips), _strip_table(plan), stream)
     check(err, "nms_rounds")
     nms_rounds.launches += 1
     return out

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from ei_nexus_tpu_torch.ops import attention_kernels as ak
+from ei_nexus_tpu_torch.ops import cuda_build
 from ei_nexus_tpu_torch.ops import nms_kernel as nk
 
 pytestmark = pytest.mark.cuda
@@ -88,14 +89,59 @@ def test_cross_attention_kernel(cuda, dtype, tol):
 @pytest.mark.parametrize("shape,radius,n_iter", [((2, 70, 90), 4, 4),
                                                  ((1, 264, 352), 4, 4),
                                                  ((3, 33, 47), 2, 3),
-                                                 ((24, 264, 352), 4, 4)])
+                                                 ((24, 264, 352), 4, 4),
+                                                 ((2, 7, 9), 4, 4)])
 def test_nms_kernel_bit_exact(cuda, shape, radius, n_iter):
-    """Bit-exact against the plain version; the last shape has more tiles
-    than blocks fit on the card at once, so blocks take several tiles."""
+    """Bit-exact against the plain version; (24, 264, 352) is more clusters
+    than fit on the card at once; (2, 7, 9) holds one row a block, fewer
+    than the radius, so the column windows read further ranks."""
     s = torch.rand(*shape, generator=cuda, device="cuda")
     s = torch.where(s > 0.4, s, torch.zeros_like(s))
+    before = nk.nms_rounds.launches
     assert torch.equal(nk.nms_rounds(s, radius, n_iter),
                        nk.nms_rounds_plain(s, radius, n_iter))
+    assert nk.nms_rounds.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_nms_kernel_plateau_ties(cuda, dtype, cluster):
+    """Scores rounded to multiples of 1/8, so neighbouring positive peaks
+    tie, at the flagship's shape, in clusters of 8 and of 16 blocks."""
+    s = torch.rand(8, 264, 352, generator=cuda, device="cuda")
+    s = torch.round(s * 8) / 8
+    s = torch.where(s >= 0.3, s, torch.zeros_like(s)).to(dtype)
+    assert torch.equal(nk.nms_rounds(s, 4, 4, cluster=cluster),
+                       nk.nms_rounds_plain(s, 4, 4))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nms_kernel_strips(cuda, dtype):
+    """A map one cluster cannot hold: the plan cuts it into strips that
+    load 2 * n_iter * r ghost rows each side; bit-exact all the same."""
+    shape = (1, 1024, 1280)
+    es = torch.empty((), dtype=dtype).element_size()
+    plan = nk.nms_plan(*shape, 4, 4, es)
+    assert len(plan.strips) > 1
+    # the plan's shared memory is the kernel's
+    lib = cuda_build.library("nms")
+    assert lib.ei_nms_smem_bytes(plan.rows, 1280, es, 4) == plan.smem_bytes
+    s = torch.rand(*shape, generator=cuda, device="cuda")
+    s = torch.where(s > 0.4, s, torch.zeros_like(s)).to(dtype)
+    assert torch.equal(nk.nms_rounds(s, 4, 4), nk.nms_rounds_plain(s, 4, 4))
+
+
+def test_nms_plan_refuses_before_launch(cuda):
+    """What the plan refuses raises ValueError on the card, and nothing is
+    launched: a radius the kernel is not compiled for, a row wider than a
+    block's shared memory."""
+    before = nk.nms_rounds.launches
+    s = torch.rand(1, 64, 64, generator=cuda, device="cuda")
+    with pytest.raises(ValueError):
+        nk.nms_rounds(s, nk.MAX_RADIUS + 1)
+    with pytest.raises(ValueError):
+        nk.nms_rounds(torch.zeros(1, 4, 30000, device="cuda"), 4)
+    assert nk.nms_rounds.launches == before
 
 
 def _strided_heads(gen, B, n, h, d, dtype, which=0):

@@ -84,12 +84,22 @@ def test_nms_converged_matches_jax(rng, radius, keep):
     np.testing.assert_array_equal(tdet.nms(_t(s), radius).numpy(), want)
 
 
-@pytest.mark.parametrize("radius,n_iter,keep", [(4, 4, 0.6), (3, 4, 0.01),
-                                                (4, 2, 0.0), (1, 3, 0.5)])
-def test_nms_fixed_rounds_bit_exact_vs_pallas(rng, radius, n_iter, keep):
+@pytest.mark.parametrize("radius,n_iter,keep,plateau", [
+    pytest.param(4, 4, 0.6, False, id="4-4-0.6"),
+    pytest.param(3, 4, 0.01, False, id="3-4-0.01"),
+    pytest.param(4, 2, 0.0, False, id="4-2-0.0"),
+    pytest.param(1, 3, 0.5, False, id="1-3-0.5"),
+    pytest.param(4, 4, 0.3, True, id="4-4-0.3-plateau"),
+])
+def test_nms_fixed_rounds_bit_exact_vs_pallas(rng, radius, n_iter, keep,
+                                              plateau):
     """Kernel C's plain version against the Pallas kernel in interpret
-    mode: bit-exact (max, compare and select only)."""
+    mode: bit-exact (max, compare and select only). The plateau map's
+    scores are multiples of 1/8, so neighbouring positive peaks tie."""
     s = _score_map(rng, (2, 40, 48), keep)
+    if plateau:
+        s = np.round(s * 8) / 8
+        s[s < keep] = 0
     want = np.asarray(nms_pallas(jnp.asarray(s), radius, n_iter=n_iter,
                                  interpret=True))
     got = nms_rounds_plain(_t(s), radius, n_iter)
