@@ -29,13 +29,14 @@ Phases, each of which raises on failure:
     (each run alone); F's gradients are also held to a
     relative norm, which planted faults (c = 0, c or the row statistics of
     the neighbouring row) must break; kernel C (fixed-round NMS, one
-    launch of independent thread-block clusters, each map held in one
-    cluster's distributed shared memory for all rounds): its ptxas line
-    (no spill), its plan at the flagship's (8, 264, 352) (clusters of 8
-    blocks, rows a block, strips) and the clusters that fit at once,
-    bit-exact there in float32 and bfloat16 and at (1, 1024, 1280), which
-    the plan cuts into strips with ghost rows, and its device time in
-    clusters of 8 and of 16 blocks;
+    launch of independent thread-block clusters of 8 blocks, each map or
+    tile of a map held in one cluster's distributed shared memory for all
+    rounds): its ptxas line at radius 4 and, for all 16 instances, the
+    library's resource usage (no stack frame, no local memory), its plan
+    at the flagship's (8, 264, 352) (rows a block, tiles) and the clusters
+    that fit at once, bit-exact there in float32 and bfloat16 and at
+    (1, 1080, 3840), which the plan cuts into row and column strips with
+    ghost rows and columns, and its device time at both;
  3. the flagship EIM forward at full width (260x346, 16 bins, K=1024,
     9 LightGlue layers of 4x64, bfloat16, B=8) on bursty events, once for
     each attention setting of `build_flagship`: "auto" (A=18, B=9, C=2
@@ -101,7 +102,7 @@ MAIN_B, MAIN_H, MAIN_N, MAIN_D = 8, 4, 1024, 64   # LightGlue attention
 # rounding of the outputs alone gives ~2e-3, a dropped or misread c ~6e-2
 BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 NMS_SHAPE, NMS_RADIUS, NMS_ROUNDS = (8, 264, 352), 4, 4
-NMS_STRIP_SHAPE = (1, 1024, 1280)   # more rows than one cluster holds
+NMS_STRIP_SHAPE = (1, 1080, 3840)   # a 4K frame: tiles of rows and columns
 QBLOCKS = (64, 128)          # kernel E's compiled tiles
 FLASH_TOKENS = (1024, 2048)  # kernel G: the flagship, and what "flash" is for
 
@@ -492,48 +493,73 @@ def sdpa_segment_ms(x) -> tuple:
 
 
 def check_nms_build(logs: dict) -> None:
-    """Print ptxas's lines for kernel C at the flagship's radius (registers,
-    spills) and require no spill in any of its instances."""
+    """Kernel C's build: ptxas's lines for its instances at the flagship's
+    radius where this run built the library (registers, stack frame,
+    spills), and for every instance the library's resource usage from
+    cuobjdump: no stack frame and no local memory. A window array that
+    falls out of registers shows as a stack frame, not as a spill."""
+    from ei_nexus_tpu_torch.ops import cuda_build
     log = logs.get("nms")
     if log is None:
         print("[kernels] nms: built before this run, no ptxas log")
+    else:
+        fn = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                fn = m.group(1)
+                continue
+            if fn and "nms_kernel" in fn and ("spill" in line
+                                              or "registers" in line):
+                if f"Li{NMS_RADIUS}E" in fn:
+                    print(f"[kernels] nms {fn}: {line.strip()}")
+                for what in ("stack frame", "spill stores"):
+                    m = re.search(rf"(\d+) bytes {what}", line)
+                    require(m is None or int(m.group(1)) == 0,
+                            f"{fn}: {line.strip()}")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        require(log is not None, "kernel C: no ptxas log and no cuobjdump "
+                                 "to read its stack frame")
+        print("[kernels] nms: no cuobjdump in the toolkit, resource usage "
+              "not read")
         return
-    fn = None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            fn = m.group(1)
-            continue
-        if fn and "nms_kernel" in fn and ("spill" in line
-                                          or "registers" in line):
-            if f"Li{NMS_RADIUS}E" in fn:
-                print(f"[kernels] nms {fn}: {line.strip()}")
-            m = re.search(r"(\d+) bytes spill stores", line)
-            require(m is None or int(m.group(1)) == 0,
-                    f"{fn} spills: {line.strip()}")
+    usage = subprocess.run(
+        [tool, "-res-usage", str(cuda_build.library_path("nms"))],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    found = re.findall(r"Function (\S*nms_kernel\S*?):\s*\n\s*(REG:.*)",
+                       usage)
+    require(len(found) == 16, f"kernel C: {len(found)} instances in the "
+                              f"library's resource usage, 16 expected")
+    for fn, line in found:
+        if f"Li{NMS_RADIUS}E" in fn:
+            print(f"[kernels] nms {fn} resource usage: {line.strip()}")
+        for what in ("STACK", "LOCAL"):
+            m = re.search(rf"\b{what}:(\d+)", line)
+            require(m is not None and int(m.group(1)) == 0,
+                    f"{fn}: {line.strip()}")
 
 
 def check_nms(gen) -> dict:
     """Kernel C at the flagship's (8, 264, 352): its plan and the clusters
     that fit at once, bit-exact in float32 and bfloat16 and at a map cut
-    into strips, timed in clusters of 8 and of 16 blocks. Returns its row
-    of the kernels' JSON line (without launches)."""
+    into tiles of rows and columns, timed at both. Returns its row of the
+    kernels' JSON line (without launches)."""
     from ei_nexus_tpu_torch.ops import cuda_build
     from ei_nexus_tpu_torch.ops import nms_kernel as nk
     score = torch.rand(*NMS_SHAPE, generator=gen, device="cuda")
     score = torch.where(score > 0.3, score, torch.zeros_like(score))
     plan = nk.nms_plan(*NMS_SHAPE, NMS_RADIUS, NMS_ROUNDS,
                        score.element_size())
-    lib = cuda_build.library("nms")
-    active = {c: lib.ei_nms_active_clusters(0, NMS_RADIUS, c)
-              for c in (nk.CLUSTER, 16)}
+    active = cuda_build.library("nms").ei_nms_active_clusters(0, NMS_RADIUS)
     print(f"[kernels] nms_rounds plan at {NMS_SHAPE} float32: clusters of "
-          f"{plan.cluster} blocks, {plan.rows} rows a block, strips "
-          f"{plan.strips} (own0, own1, load0, load1), {plan.smem_bytes} "
-          f"bytes of shared memory a block; clusters that fit at once: "
-          + ", ".join(f"{n} of {c} blocks" for c, n in active.items()))
-    require(active[nk.CLUSTER] > 0, "no cluster of kernel C fits the card")
-    require(len(plan.strips) == 1, "the flagship's map is not one cluster")
+          f"{plan.cluster} blocks, {plan.rows} rows of {plan.width} a block, "
+          f"row strips {plan.row_strips}, column strips {plan.col_strips} "
+          f"(own0, own1, load0, load1), {plan.smem_bytes} bytes of shared "
+          f"memory a block; clusters that fit at once: {active}")
+    require(active > 0, f"no cluster of kernel C fits the card ({active})")
+    require(len(plan.row_strips) == len(plan.col_strips) == 1,
+            "the flagship's map is not one cluster")
     for dtype in (torch.float32, torch.bfloat16):
         x = score.to(dtype)
         got = nk.nms_rounds(x, NMS_RADIUS, NMS_ROUNDS)
@@ -542,29 +568,28 @@ def check_nms(gen) -> dict:
         require(torch.equal(got, want),
                 f"NMS kernel is not bit-exact in {dtype}: "
                 f"{int((got != want).sum())} pixels differ")
-    # a map one cluster cannot hold: strips with ghost rows
-    tall = torch.rand(*NMS_STRIP_SHAPE, generator=gen, device="cuda")
-    tall = torch.where(tall > 0.3, tall, torch.zeros_like(tall))
-    tall_plan = nk.nms_plan(*NMS_STRIP_SHAPE, NMS_RADIUS, NMS_ROUNDS, 4)
-    require(len(tall_plan.strips) > 1, f"{NMS_STRIP_SHAPE} is one strip")
-    require(torch.equal(nk.nms_rounds(tall, NMS_RADIUS, NMS_ROUNDS),
-                        nk.nms_rounds_plain(tall, NMS_RADIUS, NMS_ROUNDS)),
+    # a map one cluster cannot hold: tiles with ghost rows and columns
+    big = torch.rand(*NMS_STRIP_SHAPE, generator=gen, device="cuda")
+    big = torch.where(big > 0.3, big, torch.zeros_like(big))
+    big_plan = nk.nms_plan(*NMS_STRIP_SHAPE, NMS_RADIUS, NMS_ROUNDS, 4)
+    require(len(big_plan.row_strips) > 1 and len(big_plan.col_strips) > 1,
+            f"{NMS_STRIP_SHAPE} is not cut into rows and columns")
+    require(torch.equal(nk.nms_rounds(big, NMS_RADIUS, NMS_ROUNDS),
+                        nk.nms_rounds_plain(big, NMS_RADIUS, NMS_ROUNDS)),
             f"NMS kernel is not bit-exact at {NMS_STRIP_SHAPE}")
     print(f"[kernels] nms_rounds: bit-exact in float32 and bfloat16 at "
           f"{NMS_SHAPE}, and at {NMS_STRIP_SHAPE} in "
-          f"{len(tall_plan.strips)} strips of {tall_plan.ghost} ghost rows")
+          f"{len(big_plan.row_strips)} x {len(big_plan.col_strips)} tiles "
+          f"of {big_plan.ghost} ghost rows and columns")
     t_c = cuda_ms(lambda: nk.nms_rounds(score, NMS_RADIUS, NMS_ROUNDS))
     t_c_plain = cuda_ms(lambda: nk.nms_rounds_plain(score, NMS_RADIUS,
                                                     NMS_ROUNDS))
     dev_c = _sum_ms(device_ms(lambda: nk.nms_rounds(score, NMS_RADIUS,
                                                     NMS_ROUNDS)))
-    dev_c16 = _sum_ms(device_ms(lambda: nk.nms_rounds(
-        score, NMS_RADIUS, NMS_ROUNDS, cluster=16)))
-    dev_c_tall = _sum_ms(device_ms(lambda: nk.nms_rounds(
-        tall, NMS_RADIUS, NMS_ROUNDS)))
-    print(f"[kernels] nms_rounds device ms a call: {dev_c:.4f} (clusters of "
-          f"{nk.CLUSTER}), {dev_c16:.4f} (of 16); {NMS_STRIP_SHAPE}: "
-          f"{dev_c_tall:.4f}")
+    dev_c_big = _sum_ms(device_ms(lambda: nk.nms_rounds(
+        big, NMS_RADIUS, NMS_ROUNDS)))
+    print(f"[kernels] nms_rounds device ms a call: {dev_c:.4f}; "
+          f"{NMS_STRIP_SHAPE}: {dev_c_big:.4f}")
     b_c, by_c = nms_bound_ms(score)
     return dict(name="nms_rounds", route="cuda",
                 source="ei_nexus_tpu_torch/csrc/nms.cu",
@@ -579,7 +604,7 @@ def check_nms(gen) -> dict:
                        f"from the peers, two cluster barriers a round; "
                        f"is_max dilated as bits",
                 device_ms=dev_c, library_device_ms=None,
-                device_ms_cluster16=dev_c16, device_ms_strips=dev_c_tall,
+                device_ms_strips=dev_c_big,
                 strips_shape=list(NMS_STRIP_SHAPE))
 
 

@@ -22,12 +22,13 @@
 // rows, and the r rows above and below that a column window needs are
 // copied from the ranks that hold them (`map_shared_rank`) into the
 // block's own halo rows, after a cluster barrier, not a grid-wide one.
-// Clusters are independent: one per map, or per strip of a map too tall
-// for one cluster (the plan, ops/nms_kernel.py `nms_plan`). A strip loads
-// 2*n_iter*r ghost rows on each side (a value after n rounds depends only
-// on inputs that many rows away), runs every round on what it loaded, with
-// the map-edge fill at its loaded edges, and writes only its own rows,
-// which are exact.
+// Clusters are independent: one per map, or per tile of a map that one
+// cluster cannot hold (the plan, ops/nms_kernel.py `nms_plan`): the map is
+// cut into row strips, and where its rows are too wide, column strips too.
+// A tile loads 2*n_iter*r ghost rows and columns on each side where it was
+// cut (a value after n rounds depends only on inputs that far away), runs
+// every round on what it loaded, with the map-edge fill at its loaded
+// edges, and writes only its own rows and columns, which are exact.
 //
 // The map stays as loaded: the zeros of the rounds so far are kept as
 // bits, 32 pixels to a word (`sup`), applied wherever x is read and once
@@ -48,7 +49,7 @@
 // again only after the next barrier, so no buffer is overwritten while a
 // peer may read it; a last cluster barrier keeps a block from leaving while
 // a peer may still read it. Global traffic: one read and one write of each
-// map (plus the ghost rows of a strip), no scratch tensor.
+// map (plus the ghost rows and columns of a tile), no scratch tensor.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -65,13 +66,16 @@ constexpr int kWarps = kThreads / 32;
 template <int R> constexpr int kRun = R <= 4 ? 21 : 7;
 template <int R> constexpr int kChunk = R <= 4 ? 17 : 8;
 constexpr int kMaxRadius = 8;  // radii compiled: 1..kMaxRadius
+constexpr int kCluster = 8;    // blocks a cluster: the portable maximum
 constexpr int kMaxStrips = 128;
-constexpr int kMaxCluster = 16;
-constexpr int kErrNoCluster = -4;  // no cluster of this size fits the card
+constexpr int kMaxDevices = 16;  // devices whose launch state is kept
+constexpr int kErrNoCluster = -4;  // no cluster fits the card
 
-// A map's strips, from the plan: own rows [x, y), loaded rows [z, w).
-struct Strips {
-  int n;
+// A map's tiles, from the plan: `n_rows` row strips, then `n_cols` column
+// strips, each owning [x, y) and loading [z, w); tile (i, j) is row strip
+// i by column strip j.
+struct Tiles {
+  int n_rows, n_cols;
   int4 s[kMaxStrips];
 };
 
@@ -135,17 +139,65 @@ __device__ __forceinline__ void pull_halo(cg::cluster_group& cluster, U* buf,
   }
 }
 
+// A cluster's tile: map b, its row strip and its column strip.
+struct Tile {
+  int b;
+  int4 r, c;
+};
+
+// This block's tile: the grid is (column strips x kCluster, row strips,
+// maps). The block index is read anew at each call, so that what is derived
+// from it is not held in registers through the rounds (the write-out reads
+// the tile again; held, it left the radius-3 and -4 float32 kernels a stack
+// frame at 64 registers).
+__device__ __forceinline__ Tile tile_of(const Tiles& tiles) {
+  unsigned x, y, z;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(x));
+  asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(y));
+  asm volatile("mov.u32 %0, %%ctaid.z;" : "=r"(z));
+  return {(int)z, tiles.s[y], tiles.s[tiles.n_rows + x / kCluster]};
+}
+
+// f(i, y, j) for each i = y * n + j < rows * n that this thread takes (i
+// from threadIdx.x in steps of kThreads), y and j stepped along without a
+// division in the loop.
+template <typename F>
+__device__ __forceinline__ void for_grid(int rows, int n, F f) {
+  const int dy = kThreads / n, dj = kThreads - dy * n;
+  int y = threadIdx.x / n, j = threadIdx.x - y * n;
+  for (int i = threadIdx.x; i < rows * n; i += kThreads) {
+    f(i, y, j);
+    y += dy;
+    j += dj;
+    if (j >= n) {
+      j -= n;
+      ++y;
+    }
+  }
+}
+
+// Whether a tile's rows move 16 bytes at a time: the map's row pitch, the
+// tile's column bounds and both pointers on 16-byte boundaries.
+template <typename T>
+__device__ __forceinline__ bool wide_rows(const T* in, const T* out,
+                                          int pitch, int4 c) {
+  constexpr int V = 16 / sizeof(T);
+  return ((pitch | c.x | c.y | c.z | c.w) & (V - 1)) == 0 &&
+         ((reinterpret_cast<size_t>(in) | reinterpret_cast<size_t>(out)) &
+          15) == 0;
+}
+
+// in, out: (B, H, pitch) maps; each cluster runs one tile of one map.
 template <typename T, int R>
 __global__ void __launch_bounds__(kThreads, 1)
-    nms_kernel(const T* __restrict__ in, T* __restrict__ out, int H, int W,
-               int rows, int n_iter,
-               const __grid_constant__ Strips strips) {
+    nms_kernel(const T* __restrict__ in, T* __restrict__ out, int H,
+               int pitch, int rows, int n_iter,
+               const __grid_constant__ Tiles tiles) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int cid = blockIdx.x / (int)cluster.num_blocks();
-  const int b = cid / strips.n;
-  const int4 st = strips.s[cid - b * strips.n];
-  const int L = st.w - st.z;              // rows the cluster loaded
+  const Tile tile = tile_of(tiles);
+  const int L = tile.r.w - tile.r.z;      // rows the cluster loaded
+  const int W = tile.c.w - tile.c.z;      // columns it loaded
   const int r0 = rank * rows;             // this block's first loaded row
   const int nr = max(0, min(rows, L - r0));
   const int nw = nms_words(W);
@@ -165,17 +217,19 @@ __global__ void __launch_bounds__(kThreads, 1)
                                                      : to_f(xs[y * W + c]);
   };
 
-  // the band, 16 bytes a load where the rows allow it
+  // the band, 16 bytes a load where the rows and columns allow it
   constexpr int V = 16 / sizeof(T);
-  const bool wide = W % V == 0 && ((reinterpret_cast<size_t>(in) |
-                                    reinterpret_cast<size_t>(out)) & 15) == 0;
-  const size_t band = ((size_t)b * H + st.z + r0) * W;
-  if (wide) {
-    const uint4* src = reinterpret_cast<const uint4*>(in + band);
-    for (int i = threadIdx.x; i < nr * W / V; i += kThreads)
-      reinterpret_cast<uint4*>(xs)[i] = src[i];
+  const T* src =
+      in + ((size_t)tile.b * H + tile.r.z + r0) * pitch + tile.c.z;
+  if (wide_rows(in, out, pitch, tile.c)) {
+    for_grid(nr, W / V, [&](int i, int y, int j) {
+      reinterpret_cast<uint4*>(xs)[i] = reinterpret_cast<const uint4*>(
+          src + (size_t)y * pitch)[j];
+    });
   } else {
-    for (int i = threadIdx.x; i < nr * W; i += kThreads) xs[i] = in[band + i];
+    for_grid(nr, W, [&](int i, int y, int j) {
+      xs[i] = src[(size_t)y * pitch + j];
+    });
   }
   for (int i = threadIdx.x; i < nr * nw; i += kThreads) sup[i] = 0u;
   // halo rows outside the loaded rows hold the fill for good; the others
@@ -272,15 +326,19 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
   }
 
-  // this block's rows among the strip's own rows
+  // this block's rows among the tile's own rows, and the tile's own
+  // columns: [ox, ox + wo) of those it loaded
+  const Tile own = tile_of(tiles);
+  const int4 st = own.r, ct = own.c;
   const int lo = max(r0, st.x - st.z), hi = min(r0 + nr, st.y - st.z);
-  const size_t dst = ((size_t)b * H + st.z + lo) * W;
-  if (wide) {
-    // V pixels a store, their zero bits in one word (V divides W and 32)
-    for (int i = threadIdx.x; i < (hi - lo) * W / V; i += kThreads) {
-      const int p = i * V, y = p / W, c = p - y * W;
-      const unsigned z = sup[(lo - r0 + y) * nw + (c >> 5)] >> (c & 31);
-      uint4 val = *reinterpret_cast<const uint4*>(xs + (lo - r0) * W + p);
+  const int ox = ct.x - ct.z, wo = ct.y - ct.x;
+  T* dst = out + ((size_t)own.b * H + st.z + lo) * pitch + ct.x;
+  if (wide_rows(in, out, pitch, ct)) {
+    // V pixels a store, their zero bits in one word (V divides ox and 32)
+    for_grid(hi - lo, wo / V, [&](int, int y, int j) {
+      const int p = j * V, c = ox + p, ys = lo - r0 + y;
+      const unsigned z = sup[ys * nw + (c >> 5)] >> (c & 31);
+      uint4 val = *reinterpret_cast<const uint4*>(xs + ys * W + c);
       auto keep = [&](unsigned w, int j) {  // 32-bit word j of the pixels
         if (sizeof(T) == 4) return (z >> j & 1u) ? 0u : w;
         return w & ((z >> 2 * j & 1u) ? 0xffff0000u : ~0u) &
@@ -288,20 +346,20 @@ __global__ void __launch_bounds__(kThreads, 1)
       };
       val = make_uint4(keep(val.x, 0), keep(val.y, 1), keep(val.z, 2),
                        keep(val.w, 3));
-      *reinterpret_cast<uint4*>(out + dst + p) = val;
-    }
+      *reinterpret_cast<uint4*>(dst + (size_t)y * pitch + p) = val;
+    });
   } else {
-    for (int i = threadIdx.x; i < (hi - lo) * W; i += kThreads) {
-      const int y = lo - r0 + i / W, c = i % W;
-      out[dst + i] = (sup[y * nw + (c >> 5)] >> (c & 31) & 1u)
-                         ? from_f<T>(0.f) : xs[y * W + c];
-    }
+    for_grid(hi - lo, wo, [&](int, int y, int p) {
+      const int c = ox + p, ys = lo - r0 + y;
+      dst[(size_t)y * pitch + p] = (sup[ys * nw + (c >> 5)] >> (c & 31) & 1u)
+                                       ? from_f<T>(0.f) : xs[ys * W + c];
+    });
   }
   cluster.sync();  // no block leaves while a peer may read its rows
 }
 
 template <typename T>
-using NmsKernel = void (*)(const T*, T*, int, int, int, int, Strips);
+using NmsKernel = void (*)(const T*, T*, int, int, int, int, Tiles);
 
 template <typename T>
 static NmsKernel<T> kernel_for(int radius) {
@@ -318,17 +376,17 @@ static NmsKernel<T> kernel_for(int radius) {
   return nullptr;
 }
 
-// The launch configuration of `blocks` blocks in clusters of `cluster`.
+// The launch configuration of a grid of blocks in clusters of kCluster.
 struct ClusterLaunch {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
-  ClusterLaunch(int blocks, int cluster, size_t smem, cudaStream_t s) {
-    cfg.gridDim = dim3(blocks);
+  ClusterLaunch(dim3 grid, size_t smem, cudaStream_t s) {
+    cfg.gridDim = grid;
     cfg.blockDim = dim3(kThreads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = s;
     attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.x = kCluster;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
@@ -338,98 +396,108 @@ struct ClusterLaunch {
 
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use
 
-// Once per kernel and process: the shared-memory and cluster-size
-// attributes, then the number of clusters of `cluster` blocks that fit on
-// the card at once at the most shared memory a block may ask for. Returns
-// that number (0: none), or a negative CUDA error.
+// Once per kernel and device: the shared-memory attribute, then the number
+// of clusters that fit on the current device at once at the most shared
+// memory a block may ask for. Returns that number (0: none), or a negative
+// CUDA error. Devices past kMaxDevices are set up on every call.
 template <typename T>
-static int active_clusters(int radius, int cluster) {
-  static int cache[kMaxRadius + 1][kMaxCluster + 1];  // count + 1; 0: unset
-  int& n = cache[radius][cluster];
-  if (n) return n - 1;
-  NmsKernel<T> kernel = kernel_for<T>(radius);
-  static bool configured[kMaxRadius + 1];
-  if (!configured[radius]) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return -(int)err;
-    configured[radius] = true;
-  }
-  ClusterLaunch probe(cluster, cluster, kMaxSmem, 0);
-  int count = 0;
-  cudaError_t err = cudaOccupancyMaxActiveClusters(
-      &count, (const void*)kernel, &probe.cfg);
+static int active_clusters(int radius) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return -(int)err;
-  n = count + 1;
+  static int cache[kMaxDevices][kMaxRadius + 1];  // count + 1; 0: unset
+  int* n = dev < kMaxDevices ? &cache[dev][radius] : nullptr;
+  if (n && *n) return *n - 1;
+  NmsKernel<T> kernel = kernel_for<T>(radius);
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err != cudaSuccess) return -(int)err;
+  ClusterLaunch probe(dim3(kCluster), kMaxSmem, 0);
+  int count = 0;
+  err = cudaOccupancyMaxActiveClusters(&count, (const void*)kernel,
+                                       &probe.cfg);
+  if (err != cudaSuccess) return -(int)err;
+  if (n) *n = count + 1;
   return count;
+}
+
+// Whether strip (own0, own1, load0, load1) lies in [0, n) and owns rows.
+static bool strip_ok(int4 s, int n) {
+  return 0 <= s.z && s.z <= s.x && s.x < s.y && s.y <= s.w && s.w <= n;
 }
 
 template <typename T>
 static int launch(const void* in, void* out, int B, int H, int W, int radius,
-                  int n_iter, int cluster, int rows, int n_strips,
+                  int n_iter, int rows, int n_rows, int n_cols,
                   const int* strips, cudaStream_t stream) {
-  if (radius < 1 || radius > kMaxRadius || n_iter < 1 || cluster < 1 ||
-      cluster > kMaxCluster || n_strips < 1 || n_strips > kMaxStrips ||
-      rows < 1)
+  if (radius < 1 || radius > kMaxRadius || n_iter < 1 || rows < 1 ||
+      n_rows < 1 || n_cols < 1 || n_rows + n_cols > kMaxStrips)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = nms_smem_bytes(rows, W, sizeof(T), radius);
+  Tiles tiles;
+  tiles.n_rows = n_rows;
+  tiles.n_cols = n_cols;
+  int width = 0;  // the most columns a tile loads
+  for (int i = 0; i < n_rows + n_cols; ++i) {
+    const int4 s = make_int4(strips[4 * i], strips[4 * i + 1],
+                             strips[4 * i + 2], strips[4 * i + 3]);
+    const bool is_row = i < n_rows;
+    if (!strip_ok(s, is_row ? H : W) ||
+        (is_row && s.w - s.z > kCluster * rows))
+      return (int)cudaErrorInvalidValue;
+    if (!is_row && s.w - s.z > width) width = s.w - s.z;
+    tiles.s[i] = s;
+  }
+  const size_t smem = nms_smem_bytes(rows, width, sizeof(T), radius);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  const int active = active_clusters<T>(radius, cluster);
+  const int active = active_clusters<T>(radius);
   if (active < 0) return -active;
   if (active == 0) return kErrNoCluster;
-  Strips st;
-  st.n = n_strips;
-  for (int i = 0; i < n_strips; ++i)
-    st.s[i] = make_int4(strips[4 * i], strips[4 * i + 1], strips[4 * i + 2],
-                        strips[4 * i + 3]);
-  const long long blocks = (long long)B * n_strips * cluster;
-  if (blocks < 1 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  ClusterLaunch lc((int)blocks, cluster, smem, stream);
+  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;  // grid z
+  ClusterLaunch lc(dim3(n_cols * kCluster, n_rows, B), smem, stream);
   cudaError_t err = cudaLaunchKernelEx(
       &lc.cfg, kernel_for<T>(radius), static_cast<const T*>(in),
-      static_cast<T*>(out), H, W, rows, n_iter, st);
+      static_cast<T*>(out), H, W, rows, n_iter, tiles);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace ei
 
-// Shared memory one block of the plan needs (rows of width W, element size
-// `esize`, radius r), for the caller to hold against its plan.
-extern "C" long long ei_nms_smem_bytes(int rows, int W, int esize,
+// Shared memory one block of the plan needs (rows of `width` loaded
+// columns, element size `esize`, radius r), for the caller to hold against
+// its plan.
+extern "C" long long ei_nms_smem_bytes(int rows, int width, int esize,
                                        int radius) {
-  return (long long)ei::nms_smem_bytes(rows, W, esize, radius);
+  return (long long)ei::nms_smem_bytes(rows, width, esize, radius);
 }
 
-// Clusters of `cluster` blocks of the radius-`radius` kernel that fit on the
-// card at once at the most shared memory a block may use; 0 if none, a
-// negative CUDA error if the query failed.
-extern "C" int ei_nms_active_clusters(int dtype, int radius, int cluster) {
-  if (radius < 1 || radius > ei::kMaxRadius || cluster < 1 ||
-      cluster > ei::kMaxCluster)
+// Clusters of the radius-`radius` kernel that fit on the current device at
+// once at the most shared memory a block may use; 0 if none, a negative
+// CUDA error if the query failed.
+extern "C" int ei_nms_active_clusters(int dtype, int radius) {
+  if (radius < 1 || radius > ei::kMaxRadius)
     return -(int)cudaErrorInvalidValue;
   return dtype == ei::kBFloat16
-             ? ei::active_clusters<__nv_bfloat16>(radius, cluster)
-             : ei::active_clusters<float>(radius, cluster);
+             ? ei::active_clusters<__nv_bfloat16>(radius)
+             : ei::active_clusters<float>(radius);
 }
 
-// score, out: (B, H, W) contiguous; strips: n_strips x (own0, own1, load0,
-// load1) rows, the plan's; rows: rows a block holds. One launch of B *
-// n_strips clusters of `cluster` blocks. Returns the CUDA error code of the
-// launch (0 on success), or -4 if no cluster of that size fits the card.
+// score, out: (B, H, W) contiguous; strips: the plan's n_rows row strips
+// then n_cols column strips, each (own0, own1, load0, load1); rows: rows a
+// block holds. One launch of B * n_rows * n_cols clusters of 8 blocks, at
+// most 65535 maps.
+// Returns the CUDA error code of the launch (0 on success), or -4 if no
+// cluster fits the card.
 extern "C" int ei_nms_rounds(int dtype, const void* score, void* out, int B,
-                             int H, int W, int radius, int n_iter,
-                             int cluster, int rows, int n_strips,
-                             const int* strips, void* stream) {
+                             int H, int W, int radius, int n_iter, int rows,
+                             int n_rows, int n_cols, const int* strips,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ei::kFloat32)
-    return ei::launch<float>(score, out, B, H, W, radius, n_iter, cluster,
-                             rows, n_strips, strips, s);
+    return ei::launch<float>(score, out, B, H, W, radius, n_iter, rows,
+                             n_rows, n_cols, strips, s);
   if (dtype == ei::kBFloat16)
     return ei::launch<__nv_bfloat16>(score, out, B, H, W, radius, n_iter,
-                                     cluster, rows, n_strips, strips, s);
+                                     rows, n_rows, n_cols, strips, s);
   return (int)cudaErrorInvalidValue;
 }

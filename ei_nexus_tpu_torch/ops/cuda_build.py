@@ -59,7 +59,7 @@ SIGNATURES = {
         "ei_nms_rounds": ([_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            ctypes.POINTER(_I), _P], _I),
         "ei_nms_smem_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),
-        "ei_nms_active_clusters": ([_I, _I, _I], _I),
+        "ei_nms_active_clusters": ([_I, _I], _I),
     },
     "attention_fwd": {
         "ei_attention_fwd": (
@@ -191,7 +191,7 @@ _OWN_ERRORS = {
     -1: "the CUDA driver refused a TMA tensor map",
     -2: "the build's register count would leave setmaxnreg waiting",
     -3: "the CUDA driver has no cuTensorMapEncodeTiled",
-    -4: "no thread-block cluster of this size fits on the card",
+    -4: "no thread-block cluster of kernel C fits on the card",
 }
 
 

@@ -104,28 +104,46 @@ def test_nms_kernel_bit_exact(cuda, shape, radius, n_iter):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cluster", [8, 16])
-def test_nms_kernel_plateau_ties(cuda, dtype, cluster):
-    """Scores rounded to multiples of 1/8, so neighbouring positive peaks
-    tie, at the flagship's shape, in clusters of 8 and of 16 blocks."""
-    s = torch.rand(8, 264, 352, generator=cuda, device="cuda")
-    s = torch.round(s * 8) / 8
-    s = torch.where(s >= 0.3, s, torch.zeros_like(s)).to(dtype)
-    assert torch.equal(nk.nms_rounds(s, 4, 4, cluster=cluster),
-                       nk.nms_rounds_plain(s, 4, 4))
+@pytest.mark.parametrize("radius", range(1, nk.MAX_RADIUS + 1))
+def test_nms_kernel_every_radius(cuda, radius, dtype):
+    """Every radius the kernel is compiled for (both register tunings, all
+    four doubling depths), bit-exact in float32 and bfloat16 on a map of
+    one cluster and on one the plan cuts into tiles."""
+    for shape in ((2, 70, 90), (1, 700, 900)):
+        s = torch.rand(*shape, generator=cuda, device="cuda")
+        s = torch.where(s > 0.4, s, torch.zeros_like(s)).to(dtype)
+        assert torch.equal(nk.nms_rounds(s, radius, 3),
+                           nk.nms_rounds_plain(s, radius, 3))
+    assert len(nk.nms_plan(1, 700, 900, radius, 3, s.element_size())
+               .row_strips) > 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_nms_kernel_strips(cuda, dtype):
-    """A map one cluster cannot hold: the plan cuts it into strips that
-    load 2 * n_iter * r ghost rows each side; bit-exact all the same."""
-    shape = (1, 1024, 1280)
+def test_nms_kernel_plateau_ties(cuda, dtype):
+    """Scores rounded to multiples of 1/8, so neighbouring positive peaks
+    tie, at the flagship's shape."""
+    s = torch.rand(8, 264, 352, generator=cuda, device="cuda")
+    s = torch.round(s * 8) / 8
+    s = torch.where(s >= 0.3, s, torch.zeros_like(s)).to(dtype)
+    assert torch.equal(nk.nms_rounds(s, 4, 4), nk.nms_rounds_plain(s, 4, 4))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 1024, 1280), (1, 512, 3840),
+                                   (1, 16, 20000), (1, 4096, 200),
+                                   (2, 500, 1001)])
+def test_nms_kernel_strips(cuda, dtype, shape):
+    """Maps one cluster cannot hold: the plan cuts them into tiles, row
+    strips and, where the rows are too wide, column strips, that load
+    2 * n_iter * r ghost rows and columns each side; bit-exact all the
+    same. (2, 500, 1001) has no 16-byte column boundaries."""
     es = torch.empty((), dtype=dtype).element_size()
     plan = nk.nms_plan(*shape, 4, 4, es)
-    assert len(plan.strips) > 1
+    assert len(plan.row_strips) * len(plan.col_strips) > 1
     # the plan's shared memory is the kernel's
     lib = cuda_build.library("nms")
-    assert lib.ei_nms_smem_bytes(plan.rows, 1280, es, 4) == plan.smem_bytes
+    assert lib.ei_nms_smem_bytes(plan.rows, plan.width, es,
+                                 4) == plan.smem_bytes
     s = torch.rand(*shape, generator=cuda, device="cuda")
     s = torch.where(s > 0.4, s, torch.zeros_like(s)).to(dtype)
     assert torch.equal(nk.nms_rounds(s, 4, 4), nk.nms_rounds_plain(s, 4, 4))
@@ -133,14 +151,14 @@ def test_nms_kernel_strips(cuda, dtype):
 
 def test_nms_plan_refuses_before_launch(cuda):
     """What the plan refuses raises ValueError on the card, and nothing is
-    launched: a radius the kernel is not compiled for, a row wider than a
-    block's shared memory."""
+    launched: a radius the kernel is not compiled for, tiles that would own
+    nothing beyond their ghost rows and columns."""
     before = nk.nms_rounds.launches
     s = torch.rand(1, 64, 64, generator=cuda, device="cuda")
     with pytest.raises(ValueError):
         nk.nms_rounds(s, nk.MAX_RADIUS + 1)
     with pytest.raises(ValueError):
-        nk.nms_rounds(torch.zeros(1, 4, 30000, device="cuda"), 4)
+        nk.nms_rounds(torch.zeros(1, 600, 600, device="cuda"), 8, 14)
     assert nk.nms_rounds.launches == before
 
 

@@ -3,7 +3,7 @@
 phase, on one GPU.
 
     python tools/profile_nms_phases.py [--shape 8 264 352] [--radius 4]
-        [--rounds 4] [--cluster 8] [--block 0] [--calls 5]
+        [--rounds 4] [--block 0] [--calls 5]
 
 Builds an instrumented copy of csrc/nms.cu into ei_nexus_tpu_torch/_build/:
 thread 0 of block --block stamps the card's %globaltimer (ns) at each phase
@@ -125,7 +125,6 @@ def main() -> int:
     ap.add_argument("--shape", type=int, nargs=3, default=(8, 264, 352))
     ap.add_argument("--radius", type=int, default=4)
     ap.add_argument("--rounds", type=int, default=4)
-    ap.add_argument("--cluster", type=int, default=nk.CLUSTER)
     ap.add_argument("--block", type=int, default=0)
     ap.add_argument("--calls", type=int, default=5)
     args = ap.parse_args()
@@ -137,12 +136,12 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     score = torch.rand(*args.shape, generator=gen, device="cuda")
     score = torch.where(score > 0.3, score, torch.zeros_like(score))
-    r, n, c = args.radius, args.rounds, args.cluster
-    plain_us = device_us(lambda: nk.nms_rounds(score, r, n, cluster=c))
+    r, n = args.radius, args.rounds
+    plain_us = device_us(lambda: nk.nms_rounds(score, r, n))
     lib = build(args.block)
     cuda_build._LIBS["nms"] = lib  # the instrumented build, this process
     for _ in range(args.calls):
-        got = nk.nms_rounds(score, r, n, cluster=c)
+        got = nk.nms_rounds(score, r, n)
     torch.cuda.synchronize()
     if not torch.equal(got, nk.nms_rounds_plain(score, r, n)):
         raise AssertionError("instrumented kernel C is not bit-exact")
@@ -161,10 +160,11 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    plan = nk.nms_plan(*args.shape, r, n, 4, cluster=c)
+    plan = nk.nms_plan(*args.shape, r, n, 4)
     print(f"{smi}: kernel C at {tuple(args.shape)} float32, r={r}, {n} "
-          f"rounds, clusters of {c} ({plan.rows} rows a block, "
-          f"{len(plan.strips)} strips); device time {plain_us:.2f} us a "
+          f"rounds, clusters of {plan.cluster} ({plan.rows} rows a block, "
+          f"{len(plan.row_strips)} x {len(plan.col_strips)} tiles); "
+          f"device time {plain_us:.2f} us a "
           f"call (uninstrumented); block {args.block}, thread 0, last of "
           f"{args.calls} calls:")
     for it, row in enumerate(rounds):
@@ -177,7 +177,7 @@ def main() -> int:
     print(f"  write-out {write_us:.2f} us; the stamping block's whole run "
           f"{(t[63] - t0) / 1e3:.2f} us after its load")
     print(json.dumps({"device": smi, "shape": list(args.shape), "radius": r,
-                      "rounds": n, "cluster": c, "device_us": plain_us,
+                      "rounds": n, "device_us": plain_us,
                       "round_us": rounds, "write_us": write_us}))
     return 0
 
