@@ -62,12 +62,25 @@ Phases, each of which raises on failure:
  6. the pose tail (5-point RANSAC and pose recovery) on eight synthetic
     scenes, on the CPU and on the card with the same injected samples:
     float64 agreement to 1e-4, and the rotation within 1 degree of the
-    truth in float64 and float32 on both devices.
+    truth in float64 and float32 on both devices;
+ 7. the "auto" forward fed by the data path: a DataLoader of 4 threads
+    over `LoaderPairs` (the readers' sample contract, 27k-55k events a
+    window in 262,144 slots), the C++ wire encode (required), the pinned
+    put and `serve.serve_loader`: the decode on the card bit-equal to the
+    host's round(v*64)/64, wire-fed matches equal to float-fed ones,
+    launches a batch A 18, B 9, C 2 over the timed pass; pairs/s,
+    host-only pairs/s, host share, buckets taken, and the encode and put
+    of one batch alone;
+ 8. the stage-1 model (the flagship with the MNN matcher) at inference,
+    B=8: C 2 launches a forward and no attention kernel, latency and
+    pairs/s; its tiny float32 config on the CPU and the card: matches
+    equal.
 
 Prints each phase's wall seconds, the kernels' JSON line (launches: A, B,
 C from the "auto" forward; D, F from the stage-2 step; E from the
 q-blocked forward; G from the flash forward), the card's `nvidia-smi`
-line, the forward, serving and step rates, and as its last line
+line, the forward, serving, loader-fed, MNN and step rates, and as its
+last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a card. Writes the nvcc/ptxas log to
 chiprun_out/chip_smoke_build.log.
@@ -1482,6 +1495,293 @@ def phase_serving_pose(forward, B: int):
     return per_batch, pose_ms, syncs
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the loader-fed forward (the data path feeding the main path)
+# ---------------------------------------------------------------------------
+
+LOADER_B, LOADER_BATCHES, LOADER_WORKERS = 8, 12, 4
+LOADER_SLOTS = 1 << 18            # configs/dataset/mvsec.yaml max_events
+LOADER_EVENTS = (27000, 55000)    # mini-MVSEC median and max a window
+
+
+class LoaderPairs:
+    """A map-style dataset of the readers' sample contract (MVSEC's
+    single mode: (data0, data1 = data0, T01 = I, T10 = I)). Sample i is
+    drawn from (seed, i): a bursty window of 27k-55k events padded to
+    262,144 slots, a 260x346x1 float32 frame, its stamp, K and pose."""
+
+    def __init__(self, n: int, H: int, W: int, seed: int = 0):
+        self.n, self.H, self.W, self.seed = n, H, W, seed
+
+    def __len__(self):
+        return self.n
+
+    def events(self, i: int) -> int:
+        """Sample i's event count (the first draw of its generator)."""
+        rng = np.random.default_rng([self.seed, i])
+        return int(rng.integers(LOADER_EVENTS[0], LOADER_EVENTS[1] + 1))
+
+    def __getitem__(self, i):
+        from ei_nexus_tpu_torch.data.representations import pad_events
+        from ei_nexus_tpu_torch.data.synth import bursty_events
+        rng = np.random.default_rng([self.seed, i])
+        n = int(rng.integers(LOADER_EVENTS[0], LOADER_EVENTS[1] + 1))
+        x, y, t, p = bursty_events(rng, n, self.H, self.W)
+        xp, yp, tp, pp, valid = pad_events(x, y, t, p, LOADER_SLOTS)
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, 3] = rng.normal(0, 0.1, 3)
+        view = {"events_x": xp, "events_y": yp, "events_t": tp,
+                "events_p": pp, "events_valid": valid,
+                "image": rng.uniform(0, 255, (self.H, self.W, 1)).astype(
+                    np.float32),
+                "image_ts": np.float32(0.4 * i),
+                "K": np.array([[199.0, 0, self.W / 2], [0, 199.0, self.H / 2],
+                               [0, 0, 1]], np.float32),
+                "pose": pose}
+        eye = np.eye(4, dtype=np.float32)
+        return view, view, eye, eye
+
+
+def phase_loader_forward():
+    """The "auto" flagship fed by the data path: a DataLoader (4 threads)
+    over `LoaderPairs`, each batch through `compact_event_view(keep=
+    ("image",))` with the C++ encoder (required: the phase fails if it
+    does not build) and `device_prefetch` with a `PinnedPut`, then the
+    voxel grid and the forward (`serve.serve_loader`, which takes the C++
+    encoder where it builds, as the JAX package does). Checks: the decode
+    on the card bit-equal to round(v * 64) / 64 of the same encoder on
+    the host; the matches of a batch fed as the wire equal to those of the
+    same batch fed as decoded float arrays (deterministic index_add_ for
+    both); launches a batch A 18, B 9, C 2 over the timed pass. Timed as
+    bench.py's end-to-end pass: a warm pass, a timed pass, a host-only
+    pass; the host's stages of one batch alone (encode with each encoder,
+    the pinned put and its copy). Returns (pairs/s, host-only pairs/s, the
+    host share in % (host-only wall over served wall), the buckets taken,
+    the stages' host ms)."""
+    from ei_nexus_tpu_torch import native
+    from ei_nexus_tpu_torch.data.pipeline import DataLoader, PinnedPut
+    from ei_nexus_tpu_torch.flagship import build_flagship
+    from ei_nexus_tpu_torch.serve import serve_host_only, serve_loader
+    from ei_nexus_tpu_torch.train.steps import (EVENT_BUCKETS,
+                                                EVENT_COORD_SCALE,
+                                                _decode_event_view,
+                                                batch_representation,
+                                                compact_event_view)
+
+    require(native.lib() is not None,
+            "the native event encoder did not build on this machine")
+    model, (H, W, bins) = build_flagship(
+        dtype="bfloat16", generator=torch.Generator().manual_seed(0))
+    B = LOADER_B
+    data = LoaderPairs(B * LOADER_BATCHES, H, W)
+    loader = DataLoader(data, batch_size=B, drop_last=True,
+                        num_workers=LOADER_WORKERS)
+    # the wire length each batch takes (its largest window's bucket)
+    taken = [min(b for b in EVENT_BUCKETS if b >= max(
+        data.events(i) for i in range(k, k + B)))
+        for k in range(0, len(data), B)]
+    buckets = sorted(set(taken))
+
+    # one batch: decode on the card against the host, wire-fed matches
+    # against float-fed matches
+    first = next(iter(loader))[0]
+    enc = compact_event_view(first, keep=("image",), native=True)
+    put = PinnedPut("cuda")
+    dev = _decode_event_view(put(enc), "cuda")
+    L = enc["events_xq"].shape[-1]
+    require(L == taken[0], f"the first batch's wire has {L} columns, "
+            f"not {taken[0]}")
+    for key in ("events_x", "events_y"):
+        v = first[key][:, :L].astype(np.float64) * EVENT_COORD_SCALE
+        want = (np.floor(v + 0.5) / EVENT_COORD_SCALE).astype(np.float32)
+        require(torch.equal(dev[key].cpu(), torch.from_numpy(want)),
+                f"{key} decoded on the card differs from the host's")
+    valid = np.arange(L)[None, :] < first["events_valid"].sum(-1)[:, None]
+    require(torch.equal(dev["events_valid"].cpu(), torch.from_numpy(valid))
+            and bool((first["events_valid"][:, L:] == 0).all()),
+            "validity decoded on the card differs from the host's")
+    floats = {k: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+              for k, a in (("events_x", dev["events_x"].cpu().numpy()),
+                           ("events_y", dev["events_y"].cpu().numpy()),
+                           ("events_t", first["events_t"][:, :L]),
+                           ("events_p", first["events_p"][:, :L]),
+                           ("events_valid", valid))}
+    image = torch.from_numpy(first["image"]).cuda()
+
+    def matches(view, img):
+        rep, mask = batch_representation(view, "VoxelGrid", bins, H, W)
+        return model(rep, img, mask)[2]["matches0"]
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.inference_mode():
+            wire = put(enc)
+            m_wire = matches(wire, wire["image"])
+            m_float = matches(floats, image)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    put.synchronize()
+    require(torch.equal(m_wire, m_float),
+            "wire-fed matches differ from float-fed matches")
+    print(f"[loader] decode on the card bit-equal to the host's "
+          f"round(v*64)/64 (C++ encoder), wire of {L} columns; wire-fed "
+          f"matches0 equal float-fed ({int((m_wire > -1).sum())} matches)")
+
+    # the host's stages of one batch, each alone (host clock, median of 5)
+    def host_ms(fn):
+        out = []
+        for _ in range(5):
+            t = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(out))
+
+    def put_and_wait():
+        put(enc)
+        put.synchronize()
+
+    wire_bytes = sum(np.asarray(v).nbytes for v in enc.values())
+    float_bytes = sum(np.asarray(first[k]).nbytes for k in (
+        "events_x", "events_y", "events_t", "events_p", "events_valid",
+        "image"))
+    stages = {"encode_cpp_ms": host_ms(lambda: compact_event_view(
+                  first, keep=("image",), native=True)),
+              "encode_numpy_ms": host_ms(lambda: compact_event_view(
+                  first, keep=("image",), native=False)),
+              "put_ms": host_ms(put_and_wait)}
+    print(f"[loader] one batch: encode {stages['encode_cpp_ms']:.3f} ms "
+          f"(C++), {stages['encode_numpy_ms']:.3f} ms (numpy); pinned put "
+          f"and copy {stages['put_ms']:.3f} ms for {wire_bytes / 1e6:.2f} MB "
+          f"of wire ({float_bytes / 1e6:.2f} MB as float arrays)")
+
+    serve_loader(model, loader, bins, H, W)    # warm
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    wall, pairs = serve_loader(model, loader, bins, H, W)
+    launches = {n: c.launches for n, c in counters.items()}
+    host_wall, host_pairs = serve_host_only(loader)
+    n_batches = pairs // B
+    per_batch = {n: c / n_batches for n, c in launches.items() if c}
+    print(f"[loader] launches over the timed pass of {n_batches} batches: "
+          f"{launches}; a batch {per_batch}")
+    want = {"self_attention_rot": 18, "cross_attention_bidir": 9,
+            "nms_rounds": 2}
+    want = {n: want.get(n, 0) * n_batches for n in counters}
+    require(launches == want, f"launch counts {launches} != {want}")
+    require(pairs == host_pairs == B * LOADER_BATCHES, "pairs served")
+    rate, host_rate = pairs / wall, host_pairs / host_wall
+    share = 100 * host_wall / wall
+    print(f"[loader] loader-fed forward (auto) B={B}, {LOADER_WORKERS} "
+          f"loader threads, C++ encoder, buckets taken {sorted(buckets)}: "
+          f"{rate:.2f} pairs/s ({wall:.3f} s for {pairs} pairs); host only "
+          f"(loader + encode) {host_rate:.2f} pairs/s ({host_wall:.3f} s); "
+          f"host share {share:.1f}%")
+    return rate, host_rate, share, buckets, stages
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the stage-1 model's MNN forward
+# ---------------------------------------------------------------------------
+
+
+def mnn_config(tiny: bool = False, dtype: str = "bfloat16"):
+    """The stage-1 model as tools/bench_train.py:47-56 builds it: the
+    flagship with a trainable event extractor and the frozen MNN matcher
+    at max_points_num K."""
+    from ei_nexus_tpu_torch.flagship import flagship_config
+    from ei_nexus_tpu_torch.models.eim import MatcherConfig
+    cfg, shape = flagship_config(tiny, dtype)
+    return dataclasses.replace(
+        cfg,
+        event_extractor=dataclasses.replace(cfg.event_extractor,
+                                            freeze=False),
+        matcher=MatcherConfig(type="MNN", freeze=True,
+                              max_points_num=cfg.matcher.max_points_num)
+    ), shape
+
+
+def phase_mnn_forward():
+    """The stage-1 model at inference, full width, B=8 (C 2 launches a
+    forward, no attention kernel), latency and pairs/s; then the tiny
+    float32 config on the CPU and on the card (fixed 4 NMS rounds on
+    both): matches equal. Returns (ms per forward back to back, B)."""
+    from ei_nexus_tpu_torch.models.eim import EIM
+    from ei_nexus_tpu_torch.models.layers import init_parameters
+    from ei_nexus_tpu_torch.train.steps import batch_representation
+
+    cfg, (H, W, bins) = mnn_config()
+    model = EIM(cfg)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    model = model.cuda().eval()
+    ev, image = flagship_inputs()
+    B = image.shape[0]
+
+    def forward():
+        rep, mask = batch_representation(ev, "VoxelGrid", bins, H, W)
+        return model(rep, image, mask)
+
+    counters = kernel_counters()
+    with torch.inference_mode():
+        for c in counters.values():
+            c.launches = 0
+        f0, f1, m = forward()
+        torch.cuda.synchronize()
+        launches = {n: c.launches for n, c in counters.items()}
+        want = {n: 2 if n == "nms_rounds" else 0 for n in counters}
+        print(f"[mnn] launches in one forward: {launches}")
+        require(launches == want, f"launch counts {launches} != {want}")
+        K = cfg.matcher.max_points_num
+        require(m["matches0"].shape == (B, K)
+                and m["log_assignment"].shape == (B, K + 1, K + 1),
+                "MNN match shapes")
+        require(torch.isfinite(m["log_assignment"]).all(),
+                "non-finite log-assignment")
+        n_match = int((m["matches0"] > -1).sum())
+        print(f"[mnn] {n_match} mutual matches of {B * K} slots")
+        require(n_match >= 1, "no MNN match")
+        per_fwd, median, host_ms = time_calls(forward)
+    print(f"[mnn] stage-1 (MNN) forward B={B}: latency median {median:.3f} "
+          f"ms; back to back {per_fwd:.3f} ms per forward (CUDA events; "
+          f"host clock {host_ms:.3f} ms), {B / per_fwd * 1e3:.2f} pairs/s")
+
+    # the tiny config on the CPU and on the card
+    from ei_nexus_tpu_torch.data.synth import bursty_event_batch
+    tcfg, (h, w, tb) = mnn_config(tiny=True, dtype="float32")
+    kp = dataclasses.replace(tcfg.event_extractor.keypoints,
+                             nms_impl="pallas")
+    tcfg = dataclasses.replace(
+        tcfg,
+        event_extractor=dataclasses.replace(tcfg.event_extractor,
+                                            keypoints=kp),
+        image_extractor=dataclasses.replace(tcfg.image_extractor,
+                                            keypoints=kp))
+    cpu_model = EIM(tcfg).eval()
+    init_parameters(cpu_model, torch.Generator().manual_seed(3))
+    gpu_model = copy.deepcopy(cpu_model).cuda()
+    rng = np.random.default_rng(3)
+    tev = bursty_event_batch(rng, 4, 3000, 4096, h, w)
+    timg = torch.as_tensor(rng.uniform(0, 255, (4, h, w, 1)).astype(
+        np.float32))
+    out = {}
+    with torch.inference_mode():
+        for dev, mod in (("cpu", cpu_model), ("cuda", gpu_model)):
+            rep, mask = batch_representation(tev, "VoxelGrid", tb, h, w,
+                                             device=dev)
+            out[dev] = [x for x in mod(rep, timg.to(dev), mask)]
+    (e_c, i_c, m_c), (e_g, i_g, m_g) = out["cpu"], out["cuda"]
+    same_kp = all(torch.equal(a["sparse_positions"][..., :2],
+                              b["sparse_positions"][..., :2].cpu())
+                  for a, b in ((e_c, e_g), (i_c, i_g)))
+    n_c = int((m_c["matches0"] > -1).sum())
+    print(f"[mnn] tiny config CPU vs card: keypoints equal {same_kp}, "
+          f"{n_c} matches on the CPU")
+    for k in ("matches0", "matches1"):
+        require(torch.equal(m_c[k], m_g[k].cpu()),
+                f"MNN {k} on the card differ from the CPU")
+    return per_fwd, B
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1539,6 +1839,9 @@ def main() -> int:
                "flash_attention": flash_launches}
     for r in rows:
         r["launches"] = path_of.get(r["name"], launches)[r["name"]]
+    loader_rate, host_rate, host_share, buckets, stages = timed(
+        "loader-fed forward (auto)", phase_loader_forward)
+    mnn_ms, _ = timed("MNN forward", phase_mnn_forward)
     timed("cpu vs card, forward", phase_cpu_vs_gpu)
     timed("cpu vs card, stage-2 step", phase_cpu_vs_gpu_train)
 
@@ -1549,6 +1852,12 @@ def main() -> int:
                     ("flash forward + pose", serve_ms)):
         print(f"{tag}: {B / ms * 1e3:.2f} pairs/s ({ms:.3f} ms per batch of "
               f"{B}, back to back) on {smi}")
+    print(f"loader-fed forward (auto): {loader_rate:.2f} pairs/s, host only "
+          f"{host_rate:.2f} pairs/s, host share {host_share:.1f}%, buckets "
+          f"{buckets}, C++ encoder; one batch {json.dumps(stages)}; on "
+          f"{smi}")
+    print(f"stage-1 (MNN) forward: {B / mnn_ms * 1e3:.2f} pairs/s "
+          f"({mnn_ms:.3f} ms per batch of {B}, back to back) on {smi}")
     print(f"pose tail: {pose_ms:.3f} ms per batch of {B} "
           f"({100 * pose_ms / serve_ms:.1f}% of the served batch), {syncs} "
           f"host syncs a call, on {smi}")

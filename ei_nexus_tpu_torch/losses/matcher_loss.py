@@ -1,9 +1,9 @@
-"""Stage-2 matcher loss: LightGlue's deep-supervision NLL.
+"""Matcher losses: the MNN NLL and LightGlue's deep-supervision NLL.
 
-Counterpart of `ei_nexus_tpu/losses/matcher_loss.py` (`lightglue_loss`,
-`nll_weights_from_gt`, `_weighted_nll`, `_bce_with_logits`), over the
-model's training outputs `all_log_assignments` and `confidence_logits*`.
-The MNN loss comes with the MNN matcher.
+Counterpart of `ei_nexus_tpu/losses/matcher_loss.py` (`mnn_loss`,
+`lightglue_loss`, `nll_weights_from_gt`, `_weighted_nll`,
+`_bce_with_logits`), over the MNN matcher's `similarity` and LightGlue's
+training outputs `all_log_assignments` and `confidence_logits*`.
 """
 
 from __future__ import annotations
@@ -11,6 +11,28 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+
+
+def mnn_loss(pred_match: Dict, gt_match: Dict, weight: float = 1.0
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """NLL of the dual log-softmax of "2 - chordal distance" scores at the
+    GT-assigned pairs. pred_match: `similarity` (B, N, M); gt_match:
+    `assignment` (B, N, M). Returns (loss, info) as 0-d tensors."""
+    sim = pred_match["similarity"]
+    assignment = gt_match["assignment"].to(sim.dtype)
+    scores = 2.0 - torch.sqrt((2.0 * (1.0 - sim)).clamp(min=1e-6))
+    prob0 = torch.log_softmax(scores, dim=2)
+    prob1 = torch.log_softmax(scores, dim=1)
+    num = assignment.sum(dim=(1, 2)).clamp(min=1.0)
+    nll0 = (prob0 * assignment).sum(dim=(1, 2)) / num
+    nll1 = (prob1 * assignment).sum(dim=(1, 2)) / num
+    nll = -(nll0 + nll1) / 2.0
+    loss = nll.mean() * weight
+    return loss, {
+        "matcher_n_pair_nll": loss,
+        "matcher_total": loss,
+        "matcher_num_matchable": num.mean(),
+    }
 
 
 def nll_weights_from_gt(la_shape, gt_matches0: torch.Tensor,

@@ -9,10 +9,12 @@ as at inference, BatchNorm on its running statistics and without
 gradient, and with pad_mode="random" the Matcher fills the invalid slots
 with random keypoints, after which every slot is valid.
 
+`ImageImageMatcher` runs one shared image extractor on two frames and
+the same Matcher.
+
 Ported so far: the "vgg" event extractor, the "superpointv1" image
-extractor and the LightGlue matcher. Other extractor and matcher types,
-training an extractor (stage 1) and ImageImageMatcher raise
-NotImplementedError.
+extractor and the LightGlue and MNN matchers. Other extractor and matcher
+types and training an extractor (stage 1) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from .extractor import KeypointExtractorConfig, VGGExtractor
 from .lightglue import LightGlue, LightGlueConfig
+from .mnn import mnn_match
 from .superpoint import SuperPointV1
 
 
@@ -117,7 +120,7 @@ class Matcher(nn.Module):
         self.config = config
         if config.type == "LightGlue":
             self.lightglue = LightGlue(config.lightglue, training_heads)
-        elif config.type is not None:
+        elif config.type not in ("MNN", None):
             raise NotImplementedError(
                 f"matcher type {config.type!r} is not ported")
 
@@ -173,7 +176,11 @@ class Matcher(nn.Module):
                          for f in (feats0, feats1))
         f0 = self._fit_slots(feats0, fill[0])
         f1 = self._fit_slots(feats1, fill[1])
-        out = self.lightglue(f0, f1, training=training)
+        if cfg.type == "MNN":
+            out = mnn_match(f0, f1, cfg.ratio_thresh, cfg.distance_thresh,
+                            mutual_check=True)
+        else:
+            out = self.lightglue(f0, f1, training=training)
         keys = ("sparse_positions", "sparse_descriptors", "sparse_valid",
                 "image_size")
         out["input_feats0"] = {k: f0[k] for k in keys}
@@ -219,13 +226,46 @@ class EIM(nn.Module):
         return events_feats, image_feats, matches
 
 
+class ImageImageMatcher(nn.Module):
+    """Two frames through one shared image extractor, then the matcher
+    (the SuperPoint/SiLK baseline of the JAX package)."""
+
+    def __init__(self, config: EIMConfig = EIMConfig(),
+                 training_heads: bool = False):
+        super().__init__()
+        self.config = config
+        self.image_extractor = _build_extractor(config.image_extractor)
+        self.matcher = Matcher(config.matcher, training_heads)
+
+    def forward(self, image0: torch.Tensor, image1: torch.Tensor,
+                mask0: Optional[torch.Tensor] = None,
+                mask1: Optional[torch.Tensor] = None,
+                training: bool = False) -> Tuple[Dict, Dict, Optional[Dict]]:
+        """image0, image1: (B, H, W, 1) in [0, 255]; `training` as
+        `EIM.forward` (the random fill from torch's default generator)."""
+        cfg = self.config
+        if training and not cfg.image_extractor.freeze:
+            raise NotImplementedError(
+                "training an extractor (stage 1) is not ported yet")
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not training):
+            feats0 = self.image_extractor(image0, mask0)
+            feats1 = self.image_extractor(image1, mask1)
+        matches = self.matcher(feats0, feats1,
+                               training=training and not cfg.matcher.freeze)
+        return feats0, feats1, matches
+
+
 def build_model(model_type: str, config: EIMConfig,
                 device: Optional[Union[str, torch.device]] = None
                 ) -> nn.Module:
     """Name -> module dispatch ("EDM" is accepted as EIM, like the JAX
-    package), in eval mode on `device` (the card unless the caller names
-    another)."""
+    package; "ImageImageMatcher"), in eval mode on `device` (the card
+    unless the caller names another)."""
     dev = resolve_device(device)
-    if model_type not in ("EIM", "EDM"):
-        raise NotImplementedError(f"model type {model_type!r} is not ported")
-    return EIM(config=config).to(dev).eval()
+    if model_type in ("EIM", "EDM"):
+        model = EIM(config=config)
+    elif model_type == "ImageImageMatcher":
+        model = ImageImageMatcher(config=config)
+    else:
+        raise ValueError(f"unknown model type {model_type!r}")
+    return model.to(dev).eval()

@@ -1,24 +1,164 @@
-"""Batch preparation and the stage-2 training step.
+"""The wire format, batch preparation and the stage-2 training step.
 
-Counterpart of `ei_nexus_tpu/train/steps.py`: padded raw events become the
-voxel grid (NHWC) and the event-occupancy mask on the device
-(`batch_representation`), and `make_stage2_train_step` trains LightGlue on
-time-separated pairs with ground-truth matches from pose and depth. The
-stage-1 and homography steps come with their slices.
+Counterpart of `ei_nexus_tpu/train/steps.py`. The host shrinks a collated
+batch's padded event arrays to the compact wire format
+(`compact_event_view`: uint16 fixed-point coordinates, float32 relative
+times, uint8 polarity and one valid count per row, the columns cut to a
+bucketed length); `_decode_event_view` restores the float arrays on the
+device. `batch_representation` accepts either format and builds the voxel
+grid (NHWC) and the event-occupancy mask on the device, and
+`make_stage2_train_step` trains LightGlue on time-separated pairs with
+ground-truth matches from pose and depth. The stage-1 and homography steps
+come with their slices.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
+from .. import native as native_ops
 from ..data import representations as reps
 from ..device import resolve_device
 from ..geometry import Camera, Pose, gt_matches_from_pose_depth
 from ..losses.matcher_loss import lightglue_loss
 from .partition import check_frozen
 from .state import TrainState
+
+
+# uint16 fixed-point event coordinates: 1/64-px resolution. 64 is a power
+# of two, so encode and decode round-trip exactly in float32.
+EVENT_COORD_SCALE = 64.0
+
+
+def compact_event_view(view: Mapping[str, np.ndarray],
+                       keep: Tuple[str, ...] = (), bucket: bool = True,
+                       native: Optional[bool] = None
+                       ) -> Dict[str, np.ndarray]:
+    """A collated view's padded event arrays -> the compact wire format.
+
+    x and y become uint16 round(v * 64), t float32 relative to the
+    window's first event (float64 stamps are shifted before narrowing;
+    float32 ones pass through), p uint8, and the tail-padded validity mask
+    one int32 count a row (`events_n`). `keep` lists the other keys to
+    carry through (e.g. "image", "K", "depth"); the rest is dropped.
+    `bucket` cuts the columns to the smallest `EVENT_BUCKETS` length that
+    holds every row's events (lossless).
+
+    `native` picks the encoder of (B, L) inputs: None takes the C++
+    encoder where it builds and numpy elsewhere, as the JAX package does;
+    True requires the C++ encoder (raises when it does not build); False
+    takes numpy. They differ at exact half quanta: C++ rounds half up,
+    numpy half to even."""
+    x = np.asarray(view["events_x"])
+    y = np.asarray(view["events_y"])
+    pol = np.asarray(view["events_p"])
+    valid = np.asarray(view["events_valid"])
+    t = np.asarray(view["events_t"])
+    enc = None
+    if x.ndim == 2 and native is not False:
+        enc = native_ops.compact_encode(
+            x.astype(np.float32, copy=False),
+            y.astype(np.float32, copy=False),
+            pol.astype(np.float32, copy=False), valid, EVENT_COORD_SCALE)
+        if enc is None and native:
+            raise RuntimeError("the native event encoder did not build "
+                               "(g++ with OpenMP is needed)")
+    elif native:
+        raise ValueError("the native encoder takes (B, L) event arrays")
+    if enc is not None:
+        xq, yq, pq, n = enc
+    else:
+        n = valid.sum(axis=-1).astype(np.int32)
+        xq = np.round(x * EVENT_COORD_SCALE).astype(np.uint16)
+        yq = np.round(y * EVENT_COORD_SCALE).astype(np.uint16)
+        pq = pol.astype(np.uint8)
+    if t.dtype == np.float64:
+        t0 = t[..., :1] * (n > 0)[..., None]
+        t = ((t - t0) * valid).astype(np.float32)
+    out = {
+        "events_xq": xq,
+        "events_yq": yq,
+        "events_tr": np.asarray(t, np.float32),
+        "events_pq": pq,
+        "events_n": n,
+    }
+    if bucket:
+        out = bucket_event_view(out)
+    for k in keep:
+        if k in view:
+            out[k] = view[k]
+    return out
+
+
+# wire lengths of the padded event columns: real windows fill far fewer
+# than the max_events=262144 slots (mini-MVSEC median 27k, max 55k events
+# a window, as the JAX package records), and the columns are tail-padded,
+# so cutting them to the smallest bucket that holds the batch is lossless
+EVENT_BUCKETS = (16384, 32768, 65536, 131072)
+
+
+def bucket_event_view(enc: Dict[str, np.ndarray],
+                      buckets: Tuple[int, ...] = EVENT_BUCKETS
+                      ) -> Dict[str, np.ndarray]:
+    """Cut tail-padded compact event columns to a bucketed length."""
+    L = enc["events_xq"].shape[-1]
+    n = int(np.max(enc["events_n"])) if enc["events_n"].size else 0
+    b = next((bk for bk in sorted(buckets) if bk >= n), L)
+    if b >= L:
+        return enc
+    out = dict(enc)
+    for k in ("events_xq", "events_yq", "events_tr", "events_pq"):
+        out[k] = np.ascontiguousarray(enc[k][..., :b])
+    return out
+
+
+def _decode_event_view(view: Mapping[str, object],
+                       device: Union[str, torch.device]
+                       ) -> Dict[str, object]:
+    """The inverse of `compact_event_view` on `device`: float32 events_x,
+    events_y, events_t, events_p and the bool events_valid from events_n
+    (the columns' length is the wire's). A view without the compact keys
+    passes through unchanged."""
+    if "events_xq" not in view:
+        return dict(view)
+    out = {k: v for k, v in view.items() if not k.startswith("events_")}
+
+    def get(key):
+        return torch.as_tensor(view[key]).to(device)
+
+    L = view["events_xq"].shape[-1]
+    out["events_x"] = get("events_xq").to(torch.float32) / EVENT_COORD_SCALE
+    out["events_y"] = get("events_yq").to(torch.float32) / EVENT_COORD_SCALE
+    out["events_t"] = get("events_tr").to(torch.float32)
+    out["events_p"] = get("events_pq").to(torch.float32)
+    n = get("events_n")
+    out["events_valid"] = (torch.arange(L, device=n.device)[None, :]
+                           < n[:, None])
+    return out
+
+
+def compact_stage1_batch(batch) -> Tuple[Dict[str, np.ndarray]]:
+    """The stage-1 step's wire: batch[0]'s events and image (data1 is the
+    same view in the single-pair protocol)."""
+    return (compact_event_view(batch[0], keep=("image",)),)
+
+
+def compact_stage2_batch(batch):
+    """The stage-2 step's wire: data0's events (compact), K and depth,
+    data1's image and depth, and the relative poses."""
+    data0, data1, T01, T10 = batch[:4]
+    return (compact_event_view(data0, keep=("K", "depth")),
+            {"image": data1["image"], "depth": data1["depth"]},
+            T01, T10)
+
+
+def compact_stage2_homography_batch(batch):
+    """The homography-supervised stage-2 step's wire (EC): data0's events
+    and frame; the second view is made on the device inside the step."""
+    return (compact_event_view(batch[0], keep=("image",)),)
 
 
 def batch_representation(batch_view: Mapping[str, object], kind: str,
@@ -28,12 +168,15 @@ def batch_representation(batch_view: Mapping[str, object], kind: str,
     """Padded raw events -> (events_rep NHWC (B, H, W, bins), mask (B, H, W)).
 
     `batch_view` holds (B, N) arrays or tensors `events_x`, `events_y`,
-    `events_t`, `events_p`, `events_valid`; they are moved to `device` (the
-    card unless the caller names another). Exact-scatter semantics (the JAX
-    package's `fast=False`); VoxelGrid only in this slice."""
+    `events_t`, `events_p`, `events_valid`, or the compact wire format of
+    `compact_event_view` (decoded on the device first); they are moved to
+    `device` (the card unless the caller names another). N may be any
+    length. Exact-scatter semantics (the JAX package's `fast=False`);
+    VoxelGrid only in this slice."""
     dev = resolve_device(device)
     if kind != "VoxelGrid":
         raise NotImplementedError(f"representation {kind!r} is not ported")
+    batch_view = _decode_event_view(batch_view, dev)
 
     def get(key, dtype):
         return torch.as_tensor(batch_view[key]).to(device=dev, dtype=dtype)
@@ -60,7 +203,8 @@ def make_stage2_train_step(
 
     step(state, batch, generator=None, fill=None) -> info. `batch` is
     (data0, data1, T01, T10) as the JAX step takes it: data0 with the
-    padded events, "K" (B, 3, 3) and "depth" (B, H, W); data1 with
+    padded events or their wire format (`compact_stage2_batch`), "K"
+    (B, 3, 3) and "depth" (B, H, W); data1 with
     "image" (B, H, W, 1) and "depth"; T01, T10 (B, 4, 4). Arrays are moved
     to the model's device (a no-op for tensors already there). `generator`
     draws the matcher's random slot fill (or `fill` hands it in, see

@@ -800,3 +800,102 @@ def _rotation(w):
     k = w / th
     K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
     return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+
+
+# ---------------------------------------------------------------------------
+# the data path on the card: decode, the pinned put, the MNN matcher
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
+def test_decode_on_the_card(cuda, native):
+    """The wire decoded on the card equals the CPU decode bit for bit, and
+    x, y equal round(v * 64) / 64 of the encoder that ran; the voxel grid
+    of the wire equals the one of the decoded float arrays (deterministic
+    index_add_)."""
+    import numpy as np
+    from ei_nexus_tpu_torch.data.synth import bursty_event_batch
+    from ei_nexus_tpu_torch.train import steps as ts
+
+    rng = np.random.default_rng(0)
+    H, W = 260, 346
+    ev = bursty_event_batch(rng, 4, 30000, 1 << 18, H, W)
+    ev["events_x"][:, :100] = (rng.integers(0, 345 * 64, (4, 100))
+                               + 0.5).astype(np.float32) / 64
+    enc = ts.compact_event_view(ev, keep=("image",), native=native)
+    assert enc["events_xq"].shape[-1] == 32768
+    dev = ts._decode_event_view(enc, "cuda")
+    cpu = ts._decode_event_view(enc, "cpu")
+    assert dev.keys() == cpu.keys()
+    for k in cpu:
+        assert dev[k].device.type == "cuda"
+        assert torch.equal(dev[k].cpu(), cpu[k]), k
+    v = ev["events_x"][:, :32768].astype(np.float64) * 64
+    q = np.floor(v + 0.5) if native else np.round(v)
+    assert torch.equal(dev["events_x"].cpu(),
+                       torch.from_numpy((q / 64).astype(np.float32)))
+    floats = {k: v.cpu() for k, v in dev.items()}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        a = ts.batch_representation(enc, "VoxelGrid", 16, H, W)
+        b = ts.batch_representation(floats, "VoxelGrid", 16, H, W)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("switch", ["0", "1"])
+def test_pinned_put_through_device_prefetch(cuda, monkeypatch, switch):
+    """Batches through `device_prefetch` with a `PinnedPut`, the card kept
+    busy so that the copies lag behind the puts: every batch arrives
+    intact, its pinned buffers are held while its copy is pending, and
+    none is left held once the stream is drained."""
+    import numpy as np
+    from ei_nexus_tpu_torch.data.pipeline import PinnedPut, device_prefetch
+
+    monkeypatch.setenv("EI_NEXUS_DEVICE_PREFETCH", switch)
+    rng = np.random.default_rng(1)
+    batches = [{"xq": rng.integers(0, 1 << 16, (8, 65536), dtype=np.uint16),
+                "n": rng.integers(0, 65536, 8).astype(np.int32),
+                "image": rng.uniform(0, 255, (8, 260, 346, 1)).astype(
+                    np.float32)} for _ in range(6)]
+    big = torch.randn(4096, 4096, device="cuda")
+    put = PinnedPut("cuda")
+    got, held = [], []
+    for out in device_prefetch(iter(batches), put):
+        for _ in range(4):      # keep the stream busy behind the copies
+            big = big @ big
+            big = big / big.norm()
+        held.append(put.in_flight)
+        got.append({k: v.sum() for k, v in out.items()} | {"out": out})
+    torch.cuda.synchronize()
+    assert max(held) >= 1
+    assert put.in_flight == 0
+    for b, g in zip(batches, got):
+        for k in b:
+            assert g["out"][k].device.type == "cuda"
+            assert torch.equal(g["out"][k].cpu(), torch.from_numpy(b[k])), k
+    put.synchronize()
+
+
+def test_mnn_on_the_card(cuda):
+    """mnn_match on the card equals the CPU, with ties, masks and both
+    thresholds (descriptors on a 1/4 grid: exact similarities)."""
+    import numpy as np
+    from ei_nexus_tpu_torch.models.mnn import mnn_match
+
+    rng = np.random.default_rng(2)
+    feats = []
+    for K in (1024, 1000):
+        feats.append({
+            "sparse_descriptors": torch.from_numpy(
+                rng.integers(-2, 3, (4, K, 16)).astype(np.float32) / 4),
+            "sparse_valid": torch.from_numpy(rng.uniform(size=(4, K)) < 0.8)})
+    for ratio, dist in ((None, None), (0.95, 1.5)):
+        want = mnn_match(*feats, ratio, dist)
+        got = mnn_match(*({k: v.cuda() for k, v in f.items()}
+                          for f in feats), ratio, dist)
+        for k in ("matches0", "matches1"):
+            assert got[k].device.type == "cuda"
+            assert torch.equal(got[k].cpu(), want[k]), k
+        assert (want["matches0"] > -1).any()

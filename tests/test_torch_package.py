@@ -104,7 +104,7 @@ def test_unported_paths_raise():
                                                      LightGlueConfig)
 
     with pytest.raises(NotImplementedError):
-        Matcher(MatcherConfig(type="MNN"))
+        Matcher(MatcherConfig(type="SuperGlue"))
     for bad in (dict(scan_layers=True), dict(depth_confidence=0.95),
                 dict(shard_heads=True)):
         with pytest.raises(NotImplementedError):
