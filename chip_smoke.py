@@ -74,13 +74,32 @@ Phases, each of which raises on failure:
  8. the stage-1 model (the flagship with the MNN matcher) at inference,
     B=8: C 2 launches a forward and no attention kernel, latency and
     pairs/s; its tiny float32 config on the CPU and the card: matches
-    equal.
+    equal;
+ 9. stage-1 training (the event extractor distilled against the frozen
+    SuperPoint): (a) the flagship stage-1 step at full width
+    (`build_stage1_flagship`, bf16, B=8, the bursty events): launches
+    read around one step, none (the step runs no NMS, top-k or attention,
+    as the compiled JAX step does not), finite loss and terms, grad_norm
+    > 0, SuperPoint bit-unchanged, every event-extractor parameter and
+    running statistic changed, the loss lower after 10 more steps on the
+    batch, steps/s over 24 steps back to back with the spread of single
+    steps and peak memory, beside phase 4's stage-2 steps/s; (b) one step
+    of the tiny float32 config on the CPU and the card: loss, grad_norm,
+    updated parameters and running statistics agree within stated
+    bounds; (c) the entry point from disk: a mini-EC of the six EC
+    training sequences rendered from a seed into a temporary directory,
+    `python -m ei_nexus_tpu_torch.train_extractor --config
+    configs/train_EIM_stage1_EC_SP_MNN.yaml --max-steps 4` on the card
+    (160x160 crops, B=8, 4 loader threads): exit 0, finite logged losses,
+    a `final` checkpoint; then `--resume` from it to step 6, and the
+    entry's steady steps/s.
 
 Prints each phase's wall seconds, the kernels' JSON line (launches: A, B,
 C from the "auto" forward; D, F from the stage-2 step; E from the
-q-blocked forward; G from the flash forward), the card's `nvidia-smi`
-line, the forward, serving, loader-fed, MNN and step rates, and as its
-last line
+q-blocked forward; G from the flash forward; each row's
+launches_stage1_step from the stage-1 step), the card's `nvidia-smi`
+line, the forward, serving, loader-fed, MNN, step and entry rates, and as
+its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a card. Writes the nvcc/ptxas log to
 chiprun_out/chip_smoke_build.log.
@@ -1782,6 +1801,264 @@ def phase_mnn_forward():
     return per_fwd, B
 
 
+# ---------------------------------------------------------------------------
+# phase 9: stage-1 training (event-extractor distillation)
+# ---------------------------------------------------------------------------
+
+
+def stage1_batch(B: int = 8, max_events: int = 1 << 17):
+    """The stage-1 step's batch on the card: the flagship's bursty events
+    (95% of the slots full) and frames, as (data0,)."""
+    from ei_nexus_tpu_torch.data.synth import bursty_event_batch
+    from ei_nexus_tpu_torch.flagship import stage1_config
+    _, (H, W, _) = stage1_config()
+    rng = np.random.default_rng(0)
+    view = bursty_event_batch(rng, B, int(max_events * 0.95), max_events,
+                              H, W)
+    view["image"] = rng.uniform(0, 255, (B, H, W, 1)).astype(np.float32)
+    return ({k: torch.as_tensor(v).cuda() for k, v in view.items()},)
+
+
+def phase_stage1():
+    """The flagship stage-1 step at full width (`build_stage1_flagship`:
+    event VGG trained, SuperPoint and MNN frozen, the losses of
+    tools/bench_train.py:84-99, AdamW and the cosine schedule of
+    configs/train/train_stage1.yaml; bf16, B=8): launch counts read around
+    one step (no kernel: the step runs no NMS, top-k or attention, as the
+    compiled JAX step does not), finite loss and terms, grad_norm > 0,
+    SuperPoint bit-unchanged, every event-extractor parameter and running
+    statistic changed, the loss lower after 10 more steps on the same
+    batch, then steps/s over 24 steps back to back with the spread of
+    single steps, and peak memory. Returns (launches, ms per step)."""
+    from ei_nexus_tpu_torch.flagship import (STAGE1_LOSSES,
+                                             build_stage1_flagship,
+                                             stage1_train_state)
+    from ei_nexus_tpu_torch.losses import build_losses
+    from ei_nexus_tpu_torch.ops.attention_kernels import hopper_attention
+    from ei_nexus_tpu_torch.train.steps import make_stage1_train_step
+
+    model, (H, W, bins) = build_stage1_flagship(
+        dtype="bfloat16", generator=torch.Generator().manual_seed(0))
+    state = stage1_train_state(model, steps_per_epoch=100)
+    batch = stage1_batch()
+    B = batch[0]["image"].shape[0]
+    step = make_stage1_train_step(build_losses(STAGE1_LOSSES), "VoxelGrid",
+                                  bins, H, W)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    hopper_attention.packs = 0
+    info = step(state, batch)
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}
+    print(f"[stage1] launches in one step: {launches}; pack passes: "
+          f"{hopper_attention.packs}")
+    want = {n: 0 for n in counters}
+    require(launches == want and hopper_attention.packs == 0,
+            f"launch counts {launches} != {want}")
+    vals = {k: float(v) for k, v in info.items()}
+    require(all(np.isfinite(v) for v in vals.values())
+            and vals["grad_norm"] > 0, f"step 1 info {vals}")
+    require(set(vals) == {"loss", "extractor_keypoints_loss",
+                          "extractor_descriptor_loss", "feature_loss",
+                          "grad_norm", "dropped_splat_weight"},
+            f"info keys {sorted(vals)}")
+    print("[stage1] step 1: " + ", ".join(f"{k} {v:.6f}"
+                                          for k, v in vals.items()))
+    for _ in range(10):
+        info = step(state, batch)
+    loss11 = float(info["loss"])
+    print(f"[stage1] loss after 10 more updates on the same batch: "
+          f"{loss11:.6f} (step 1: {vals['loss']:.6f})")
+    require(loss11 < vals["loss"], "the loss did not decrease")
+    end = model.state_dict()
+    frozen = [k for k in start if k.startswith("image_extractor.")]
+    changed = [k for k in frozen if not torch.equal(start[k], end[k])]
+    require(not changed, f"frozen tensors changed: {changed[:5]}")
+    trained = [k for k in start if k.startswith("event_extractor.")]
+    stats = [k for k in trained if k.endswith(("running_mean",
+                                               "running_var"))]
+    still = [k for k in trained if torch.equal(start[k], end[k])]
+    print(f"[stage1] {len(frozen)} SuperPoint tensors bit-unchanged; "
+          f"{len(trained) - len(still)} of {len(trained)} event-extractor "
+          f"tensors changed ({len(stats)} of them BatchNorm running "
+          f"statistics)")
+    require(not still, f"event-extractor tensors unchanged: {still[:5]}")
+
+    torch.cuda.reset_peak_memory_stats()
+    n = 24
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(n):
+        step(state, batch)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    each = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    per_step = events[0].elapsed_time(events[-1]) / n
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[stage1] step B={B}: {per_step:.3f} ms per step back to back "
+          f"over {n} (CUDA events; host clock {host_ms:.3f} ms), "
+          f"{1e3 / per_step:.3f} steps/s; single steps min "
+          f"{min(each):.3f}, median {float(np.median(each)):.3f}, max "
+          f"{max(each):.3f} ms; peak memory {peak_gb:.2f} GB")
+    return launches, per_step, (min(each), float(np.median(each)),
+                                max(each)), peak_gb
+
+
+def phase_stage1_cpu_vs_gpu():
+    """One stage-1 step of the tiny float32 config (score and descriptor
+    losses: its event width of 16 cannot meet SuperPoint's 128) on the CPU
+    and on the card from the same weights and batch: loss (rel 1e-4),
+    grad_norm (rel 1e-3), updated parameters (within 4 lr: Adam's first
+    step moves a parameter by about lr whatever its gradient's size, so a
+    near-zero gradient whose sign differs flips it), running statistics
+    (1e-4), SuperPoint bit-unchanged on both."""
+    from ei_nexus_tpu_torch.data.synth import bursty_event_batch
+    from ei_nexus_tpu_torch.flagship import (STAGE1_LOSSES, STAGE1_LR,
+                                             build_stage1_flagship,
+                                             stage1_train_state)
+    from ei_nexus_tpu_torch.losses import build_losses
+    from ei_nexus_tpu_torch.train.steps import make_stage1_train_step
+
+    cpu_model, (H, W, bins) = build_stage1_flagship(
+        tiny=True, dtype="float32", device="cpu",
+        generator=torch.Generator().manual_seed(4))
+    gpu_model = copy.deepcopy(cpu_model).cuda()
+    start = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    rng = np.random.default_rng(4)
+    view = bursty_event_batch(rng, 2, 3000, 4096, H, W)
+    view["image"] = rng.uniform(0, 255, (2, H, W, 1)).astype(np.float32)
+    losses = build_losses({k: v for k, v in STAGE1_LOSSES.items()
+                           if k != "feature_loss"})
+    step = make_stage1_train_step(losses, "VoxelGrid", bins, H, W)
+    infos = {}
+    for name, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+        infos[name] = {k: float(v) for k, v in
+                       step(stage1_train_state(model), (view,)).items()}
+    ic, ig = infos["cpu"], infos["cuda"]
+    sc = cpu_model.state_dict()
+    sg = {k: v.cpu() for k, v in gpu_model.state_dict().items()}
+    e_loss = abs(ig["loss"] - ic["loss"]) / abs(ic["loss"])
+    e_norm = abs(ig["grad_norm"] - ic["grad_norm"]) / ic["grad_norm"]
+    stats = [k for k in sc if k.endswith(("running_mean", "running_var"))]
+    e_stats = max(max_err(sg[k], sc[k]) for k in stats)
+    e_par = max(max_err(sg[k], sc[k]) for k in sc
+                if k.startswith("event_extractor.") and k not in stats)
+    frozen_ok = all(torch.equal(sg[k], start[k]) and torch.equal(sc[k],
+                                                                 start[k])
+                    for k in sc if k.startswith("image_extractor."))
+    print(f"[cpu-vs-gpu] stage-1 step: loss {ic['loss']:.6f} (cpu) vs "
+          f"{ig['loss']:.6f} (card), rel {e_loss:.2e}; grad_norm "
+          f"{ic['grad_norm']:.6f} vs {ig['grad_norm']:.6f}, rel "
+          f"{e_norm:.2e}; updated parameters max|err| {e_par:.2e} (bound "
+          f"{4 * STAGE1_LR:g}); running statistics max|err| {e_stats:.2e}; "
+          f"SuperPoint unchanged on both: {frozen_ok}")
+    require(e_loss <= 1e-4, f"stage-1 loss differs: rel {e_loss:.2e}")
+    require(e_norm <= 1e-3, f"grad_norm differs: rel {e_norm:.2e}")
+    require(e_par <= 4 * STAGE1_LR, f"parameters differ: {e_par:.2e}")
+    require(e_stats <= 1e-4, f"running statistics differ: {e_stats:.2e}")
+    require(frozen_ok, "a SuperPoint tensor changed")
+    return e_loss, e_norm, e_par, e_stats
+
+
+ENTRY_CONFIG = "configs/train_EIM_stage1_EC_SP_MNN.yaml"
+ENTRY_FRAMES = 216     # the [100:-100] crop leaves about 15 a sequence
+
+
+def _entry_run(extra, data, out, timeout=600):
+    """`python -m ei_nexus_tpu_torch.train_extractor` on the card over the
+    rendered mini-EC; returns (its run directory, metrics rows, log text,
+    wall seconds). Raises on a non-zero exit."""
+    cmd = [sys.executable, "-m", "ei_nexus_tpu_torch.train_extractor",
+           "--config", ENTRY_CONFIG] + extra + [
+        f"dataset.data_path={data}", f"logger.output_dir={out}",
+        "logger.status_freq=1"]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+    require(proc.returncode == 0,
+            f"train_extractor exited {proc.returncode}")
+    run, = [p for p in os.listdir(out)
+            if os.path.isdir(os.path.join(out, p))]
+    run = os.path.join(out, run)
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    with open(os.path.join(run, "log.txt")) as f:
+        log = f.read()
+    return run, rows, log, wall
+
+
+def phase_stage1_entry():
+    """The stage-1 entry point from disk: render the six EC training
+    sequences of a mini-EC (`data/mini_ec.py`, seeded) into a temporary
+    directory, run `python -m ei_nexus_tpu_torch.train_extractor --config
+    configs/train_EIM_stage1_EC_SP_MNN.yaml --max-steps 4` on the card (the
+    full-width EC config at its 160x160 crops, B=8, 4 loader threads):
+    exit 0, finite logged losses at steps 1-4, a `final` checkpoint at step
+    4; then `--resume <final> --max-steps 6`: steps 5 and 6. Returns the
+    entry's steady steps/s (its own log: steps 3 and 4, timed from the
+    drain of step 1 to that of step 4), both runs' process wall seconds
+    and the render seconds."""
+    import tempfile
+    from ei_nexus_tpu_torch.data.ec import TRAIN_SEQUENCES
+    from ei_nexus_tpu_torch.data.mini_ec import make_mini_ec
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ec_")
+    try:
+        data = os.path.join(tmp, "mini_ec")
+        t = time.perf_counter()
+        counts = make_mini_ec(data, ENTRY_FRAMES, sequences=TRAIN_SEQUENCES)
+        render_s = time.perf_counter() - t
+        print(f"[entry] rendered the mini-EC's {len(counts)} training "
+              f"sequences ({ENTRY_FRAMES} frames, {sum(counts.values())} "
+              f"events) in {render_s:.1f} s")
+        run, rows, log, wall = _entry_run(["--max-steps", "4"], data,
+                                          os.path.join(tmp, "runs"))
+        require([r["step"] for r in rows] == [1, 2, 3, 4],
+                f"logged steps {[r['step'] for r in rows]}")
+        for r in rows:
+            require(all(np.isfinite(v) for v in r.values()),
+                    f"non-finite logged values {r}")
+        require("training at 160x160" in log, "not trained at the crop")
+        final = os.path.join(run, "checkpoints", "final")
+        ck = torch.load(os.path.join(final, "state.pt"), map_location="cpu",
+                        weights_only=True)
+        require(ck["step"] == 4, f"final checkpoint at step {ck['step']}")
+        rate = _steady_rate(log)
+        print(f"[entry] 4 steps in {wall:.1f} s (process wall): losses "
+              + ", ".join(f"{r['loss']:.5f}" for r in rows)
+              + f"; steady {rate:.3f} steps/s")
+        run2, rows2, log2, wall2 = _entry_run(
+            ["--max-steps", "6", "--resume", final], data,
+            os.path.join(tmp, "runs2"))
+        require([r["step"] for r in rows2] == [5, 6],
+                f"resumed at steps {[r['step'] for r in rows2]}")
+        require("resumed from" in log2, "no resume in the log")
+        ck2 = torch.load(os.path.join(run2, "checkpoints", "final",
+                                      "state.pt"), map_location="cpu",
+                         weights_only=True)
+        require(ck2["step"] == 6, f"resumed final at step {ck2['step']}")
+        print(f"[entry] resumed from step 4 to 6 in {wall2:.1f} s (process "
+              f"wall): losses " + ", ".join(f"{r['loss']:.5f}"
+                                            for r in rows2))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rate, (wall, wall2), render_s
+
+
+def _steady_rate(log: str) -> float:
+    m = re.search(r"steady rate: .* ([0-9.]+) steps/s", log)
+    require(m is not None, "no steady rate in the entry's log")
+    return float(m.group(1))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1844,6 +2121,13 @@ def main() -> int:
     mnn_ms, _ = timed("MNN forward", phase_mnn_forward)
     timed("cpu vs card, forward", phase_cpu_vs_gpu)
     timed("cpu vs card, stage-2 step", phase_cpu_vs_gpu_train)
+    s1_launches, s1_ms, s1_spread, s1_peak = timed("stage-1 step",
+                                                   phase_stage1)
+    for r in rows:
+        r["launches_stage1_step"] = s1_launches[r["name"]]
+    timed("cpu vs card, stage-1 step", phase_stage1_cpu_vs_gpu)
+    entry_rate, entry_walls, render_s = timed("stage-1 entry point",
+                                              phase_stage1_entry)
 
     print(json.dumps({"kernels": rows}))
     for tag, ms in (("flagship forward", fwd_ms),
@@ -1863,6 +2147,17 @@ def main() -> int:
           f"host syncs a call, on {smi}")
     print(f"stage-2 training step: {1e3 / step_ms:.3f} steps/s "
           f"({step_ms:.3f} ms per step of {B} pairs, back to back) on {smi}")
+    print(f"stage-1 training step: {1e3 / s1_ms:.3f} steps/s ({s1_ms:.3f} "
+          f"ms per step of {B} pairs, back to back; single steps min "
+          f"{s1_spread[0]:.3f}, median {s1_spread[1]:.3f}, max "
+          f"{s1_spread[2]:.3f} ms; peak {s1_peak:.2f} GB) against the "
+          f"stage-2 step's {1e3 / step_ms:.3f} steps/s in this run "
+          f"({step_ms / s1_ms:.2f}x), on {smi}")
+    print(f"stage-1 entry point (EC config, 160x160 crops, B={B}, from a "
+          f"mini-EC rendered in {render_s:.1f} s): steady "
+          f"{entry_rate:.3f} steps/s (steps 3-4); process wall "
+          f"{entry_walls[0]:.1f} s for 4 steps, {entry_walls[1]:.1f} s "
+          f"resumed for 2, on {smi}")
     print(f"wall seconds by phase: {json.dumps(walls)}")
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,12 @@ layers of 4 heads; tiny is 32x48, 4 bins, K=32, width 16, descriptors 32,
 B, or kernel E with block_q 64 or 128), "flash" (kernel G) or "xla". Its
 stage-2 variant (`build_stage2_flagship`) freezes the event
 extractor as tools/bench_train.py does and trains LightGlue with the
-optimizer of configs/train/train_stage2.yaml (`stage2_train_state`).
+optimizer of configs/train/train_stage2.yaml (`stage2_train_state`). Its
+stage-1 variant (`build_stage1_flagship`, tools/bench_train.py:44-56)
+trains the event extractor against the frozen SuperPoint with the frozen
+MNN matcher, the losses of tools/bench_train.py:84-99 (`STAGE1_LOSSES`)
+and the optimizer of configs/train/train_stage1.yaml
+(`stage1_train_state`).
 """
 
 from __future__ import annotations
@@ -35,6 +40,25 @@ STAGE2_OPTIMIZER = {"type": "AdamW",
 STAGE2_SCHEDULER = {"type": "CosineAnnealingLR",
                     "CosineAnnealingLR": {"T_max": 50, "eta_min": 1e-7}}
 STAGE2_LR = 1e-4
+
+# configs/train/train_stage1.yaml
+STAGE1_OPTIMIZER = {"type": "AdamW",
+                    "AdamW": {"weight_decay": 1e-5, "betas": [0.9, 0.999],
+                              "eps": 1e-8}}
+STAGE1_SCHEDULER = {"type": "CosineAnnealingLR",
+                    "CosineAnnealingLR": {"T_max": 50, "eta_min": 1e-7}}
+STAGE1_LR = 1e-3
+# tools/bench_train.py:84-99
+STAGE1_LOSSES = {
+    "keypoints_loss": {"type": "ScoreLoss",
+                       "ScoreLoss": {"weight": 1.0, "mode": "mse",
+                                     "use_mask": True}},
+    "descriptors_loss": {"type": "DescriptorsLoss",
+                         "DescriptorsLoss": {"mode": "mae", "weight": 1.0,
+                                             "use_mask": True}},
+    "feature_loss": {"type": "FeatureLoss",
+                     "FeatureLoss": {"mode": "mse", "weight": 1.0}},
+}
 
 
 def flagship_config(tiny: bool = False, dtype: str = "bfloat16",
@@ -116,4 +140,41 @@ def stage2_train_state(model: EIM, steps_per_epoch: int = 1) -> TrainState:
     cosine schedule over the rest."""
     return create_train_state(model, frozen_roots_from_config(model.config),
                               STAGE2_OPTIMIZER, STAGE2_SCHEDULER, STAGE2_LR,
+                              steps_per_epoch)
+
+
+def stage1_config(tiny: bool = False, dtype: str = "bfloat16"
+                  ) -> Tuple[EIMConfig, Tuple[int, int, int]]:
+    """The flagship with its event extractor trainable, SuperPoint frozen
+    and the frozen MNN matcher at max_points_num K (stage 1)."""
+    cfg, shape = flagship_config(tiny, dtype)
+    return dataclasses.replace(
+        cfg,
+        event_extractor=dataclasses.replace(cfg.event_extractor,
+                                            freeze=False),
+        matcher=MatcherConfig(type="MNN", freeze=True,
+                              max_points_num=cfg.matcher.max_points_num)
+    ), shape
+
+
+def build_stage1_flagship(tiny: bool = False, dtype: str = "bfloat16",
+                          device: Optional[Union[str, torch.device]] = "cuda",
+                          generator: Optional[torch.Generator] = None
+                          ) -> Tuple[EIM, Tuple[int, int, int]]:
+    """(stage-1 model on `device`, (H, W, bins)); weights random from
+    `generator` as `build_flagship`."""
+    dev = resolve_device(device)
+    cfg, shape = stage1_config(tiny, dtype)
+    model = EIM(cfg)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    init_parameters(model, generator)
+    return model.to(dev), shape
+
+
+def stage1_train_state(model: EIM, steps_per_epoch: int = 1) -> TrainState:
+    """Freeze the config's frozen roots and build stage 1's AdamW with its
+    cosine schedule over the rest (the event extractor)."""
+    return create_train_state(model, frozen_roots_from_config(model.config),
+                              STAGE1_OPTIMIZER, STAGE1_SCHEDULER, STAGE1_LR,
                               steps_per_epoch)

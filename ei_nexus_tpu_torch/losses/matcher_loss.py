@@ -1,9 +1,11 @@
-"""Matcher losses: the MNN NLL and LightGlue's deep-supervision NLL.
+"""Matcher losses: the MNN NLL, the single-layer assignment NLL and
+LightGlue's deep-supervision NLL.
 
 Counterpart of `ei_nexus_tpu/losses/matcher_loss.py` (`mnn_loss`,
-`lightglue_loss`, `nll_weights_from_gt`, `_weighted_nll`,
-`_bce_with_logits`), over the MNN matcher's `similarity` and LightGlue's
-training outputs `all_log_assignments` and `confidence_logits*`.
+`nll_matcher_loss`, `lightglue_loss`, `nll_weights_from_gt`,
+`_weighted_nll`, `_bce_with_logits`), over the MNN matcher's `similarity`
+and LightGlue's training outputs `all_log_assignments` and
+`confidence_logits*`.
 """
 
 from __future__ import annotations
@@ -64,6 +66,27 @@ def _weighted_nll(log_assignment: torch.Tensor, weights: torch.Tensor,
     nll_neg = (nll_neg0 + nll_neg1) / (num_neg0 + num_neg1)
     nll = nll_balancing * nll_pos + (1.0 - nll_balancing) * nll_neg
     return nll, nll_pos, nll_neg, num_pos, (num_neg0 + num_neg1) / 2.0
+
+
+def nll_matcher_loss(log_assignment: torch.Tensor,
+                     gt_matches0: torch.Tensor, gt_matches1: torch.Tensor,
+                     gt_assignment: torch.Tensor, weight: float = 1.0,
+                     nll_balancing: float = 0.5
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The balanced NLL of one (B, N+1, M+1) log-assignment against the GT
+    labels. Returns (loss, info) as 0-d tensors."""
+    w = nll_weights_from_gt(log_assignment.shape, gt_matches0, gt_matches1,
+                            gt_assignment)
+    nll, nll_pos, nll_neg, num_pos, num_neg = _weighted_nll(
+        log_assignment, w, nll_balancing)
+    loss = nll.mean() * weight
+    return loss, {
+        "matcher_n_pair_nll": loss,
+        "matcher_nll_positive": nll_pos.mean(),
+        "matcher_nll_negtive": nll_neg.mean(),
+        "matcher_num_matchable": num_pos.mean(),
+        "matcher_num_unmatchable": num_neg.mean(),
+    }
 
 
 def _bce_with_logits(logits: torch.Tensor, targets: torch.Tensor

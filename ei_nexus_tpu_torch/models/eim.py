@@ -3,18 +3,28 @@
 Counterpart of `ei_nexus_tpu/models/eim.py`: an event extractor, a frozen
 image extractor and the Matcher wrapper, dispatched from the same config
 dataclasses. At inference the Matcher fits the fixed-K slots to
-`max_points_num` and the validity masks flow into the matcher. In training
-(stage 2: both extractors frozen, the matcher trained) the extractors run
-as at inference, BatchNorm on its running statistics and without
-gradient, and with pad_mode="random" the Matcher fills the invalid slots
-with random keypoints, after which every slot is valid.
+`max_points_num` and the validity masks flow into the matcher.
+
+In training, as the JAX package's per-call `train` flags do, each forward
+puts every extractor in train() or eval() mode: a trainable extractor
+(stage 1) runs with its BatchNorm on batch statistics, updating the
+running ones, and a frozen one runs as at inference, BatchNorm on its
+running statistics and without gradient.
+ - Stage 1 (an extractor trainable): the forward returns both extractors'
+   dense maps (`dense_maps`: what the distillation losses read) and no
+   matches. The compiled JAX step computes no more: nothing it reads
+   depends on the keypoints, so XLA drops the NMS, the top-k and the
+   matcher.
+ - Stage 2 (both extractors frozen, the matcher trained): with
+   pad_mode="random" the Matcher fills the invalid slots with random
+   keypoints, after which every slot is valid.
 
 `ImageImageMatcher` runs one shared image extractor on two frames and
 the same Matcher.
 
 Ported so far: the "vgg" event extractor, the "superpointv1" image
-extractor and the LightGlue and MNN matchers. Other extractor and matcher
-types and training an extractor (stage 1) raise NotImplementedError.
+extractor and the LightGlue and MNN matchers. The "vgg_np" and "silk"
+extractors raise NotImplementedError (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -71,6 +81,10 @@ class EIMConfig:
 
 def _build_extractor(spec: ExtractorSpec) -> nn.Module:
     dtype = getattr(torch, spec.dtype)
+    if spec.type in ("vgg_np", "silk"):
+        raise NotImplementedError(
+            f"extractor type {spec.type!r} is not ported yet (the cell-1 "
+            f"extractors, ROADMAP Queue 1 item 3)")
     if spec.type == "vgg":
         if spec.padding != 1:
             raise NotImplementedError("only padding=1 VGG is ported")
@@ -83,10 +97,23 @@ def _build_extractor(spec: ExtractorSpec) -> nn.Module:
     if spec.type == "superpointv1":
         return SuperPointV1(config=spec.keypoints,
                             descriptor_dim=spec.descriptor_dim, dtype=dtype)
-    raise NotImplementedError(f"extractor type {spec.type!r} is not ported")
+    raise ValueError(f"unknown extractor type {spec.type!r}")
 
 
 Fill = Tuple[torch.Tensor, torch.Tensor]
+
+
+def run_extractor(extractor: nn.Module, train: bool, x: torch.Tensor,
+                  mask: Optional[torch.Tensor], dense: bool = False,
+                  stage1: bool = False) -> Dict[str, torch.Tensor]:
+    """One extractor in train() (`train`: batch statistics, gradients) or
+    eval() mode (running statistics, no gradient): its dense maps when
+    `stage1`, else its keypoints."""
+    extractor.train(train)
+    with torch.set_grad_enabled(torch.is_grad_enabled() and train):
+        if stage1:
+            return extractor.dense_maps(x, mask)
+        return extractor(x, mask, dense)
 
 
 def random_fill(feats: Dict[str, torch.Tensor], length: int,
@@ -208,18 +235,20 @@ class EIM(nn.Module):
         """events: (B, H, W, bins) NHWC; image: (B, H, W, 1) in [0, 255];
         events_mask: (B, H, W) bool occupancy. `dense=True` also returns
         the full-resolution descriptor maps (see models/extractor.py).
-        `training=True` trains the matcher unless it is frozen;
-        `generator` and `fill` drive its random slot fill (Matcher)."""
+        `training=True` trains what is not frozen: with a trainable
+        extractor (stage 1) both extractors' dense maps come back and the
+        matches are None; else the matcher trains, `generator` and `fill`
+        driving its random slot fill (Matcher)."""
         cfg = self.config
-        if training and not (cfg.event_extractor.freeze
-                             and cfg.image_extractor.freeze):
-            raise NotImplementedError(
-                "training an extractor (stage 1) is not ported yet")
-        # frozen extractors run as at inference (JAX's train=False): BN on
-        # its running statistics, and nothing to differentiate
-        with torch.set_grad_enabled(torch.is_grad_enabled() and not training):
-            events_feats = self.event_extractor(events, events_mask, dense)
-            image_feats = self.image_extractor(image, image_mask, dense)
+        ev_train = training and not cfg.event_extractor.freeze
+        im_train = training and not cfg.image_extractor.freeze
+        stage1 = ev_train or im_train
+        events_feats = run_extractor(self.event_extractor, ev_train, events,
+                                     events_mask, dense, stage1)
+        image_feats = run_extractor(self.image_extractor, im_train, image,
+                                    image_mask, dense, stage1)
+        if stage1:
+            return events_feats, image_feats, None
         matches = self.matcher(events_feats, image_feats,
                                training=training and not cfg.matcher.freeze,
                                generator=generator, fill=fill)
@@ -242,14 +271,17 @@ class ImageImageMatcher(nn.Module):
                 mask1: Optional[torch.Tensor] = None,
                 training: bool = False) -> Tuple[Dict, Dict, Optional[Dict]]:
         """image0, image1: (B, H, W, 1) in [0, 255]; `training` as
-        `EIM.forward` (the random fill from torch's default generator)."""
+        `EIM.forward` (the random fill from torch's default generator): a
+        trainable extractor gives both frames' dense maps, in train() mode
+        one after the other, and no matches."""
         cfg = self.config
-        if training and not cfg.image_extractor.freeze:
-            raise NotImplementedError(
-                "training an extractor (stage 1) is not ported yet")
-        with torch.set_grad_enabled(torch.is_grad_enabled() and not training):
-            feats0 = self.image_extractor(image0, mask0)
-            feats1 = self.image_extractor(image1, mask1)
+        train = training and not cfg.image_extractor.freeze
+        feats0 = run_extractor(self.image_extractor, train, image0, mask0,
+                               stage1=train)
+        feats1 = run_extractor(self.image_extractor, train, image1, mask1,
+                               stage1=train)
+        if train:
+            return feats0, feats1, None
         matches = self.matcher(feats0, feats1,
                                training=training and not cfg.matcher.freeze)
         return feats0, feats1, matches

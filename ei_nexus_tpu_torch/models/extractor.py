@@ -10,6 +10,9 @@ plus the dense maps. Eager PyTorch computes every map it is asked for
 descriptor maps `normalized_descriptors`, `dense_descriptors` and
 `dense_positions` (~760 MB per extractor at the flagship size) are made
 only when the caller passes `dense=True`; the inference path does not.
+`extract_dense` (an extractor's `dense_maps`) is the stage-1 forward: the
+dense maps the distillation losses read, `normalized_descriptors`
+included, and no keypoint selection.
 """
 
 from __future__ import annotations
@@ -46,6 +49,85 @@ class KeypointExtractorConfig:
     nms_impl: str = "auto"            # "auto" | "xla" | "pallas"
 
 
+def _score_maps(logits: torch.Tensor, padder: Optional[Padder],
+                cfg: KeypointExtractorConfig,
+                score_mask: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(probability, border-zeroed score on the padded grid): probability
+    -> pixel-shuffle score -> event mask -> border removal. The
+    border-zeroed map is what the reference returns as `score` (its
+    remove_border_points zeroes the tensor in place)."""
+    probability = logits_to_prob(logits)          # (B, hp, wp, cell^2+1)
+    score = depth_to_space(probability, cfg.cell_size)     # (B, Hp, Wp)
+    if score_mask is not None:
+        mask = score_mask[..., 0] if score_mask.ndim == 4 else score_mask
+        if padder is not None:
+            mask = padder.pad(mask, hw_axes=(-2, -1))
+        if cfg.smooth_mask:
+            mask = smooth_score_mask(mask)
+        score = torch.where(mask, score, torch.zeros_like(score))
+    return probability, remove_border_scores(score, cfg.remove_borders)
+
+
+def _check_cell(cfg: KeypointExtractorConfig) -> None:
+    if (cfg.cell_size != 8 or cfg.sparse_desc_from != "lowres"
+            or cfg.coord_offset):
+        raise NotImplementedError("only the cell-8 extractor is ported")
+
+
+def _normalized_descriptors(raw_desc: torch.Tensor,
+                            padded_size: Tuple[int, int],
+                            padder: Optional[Padder],
+                            cfg: KeypointExtractorConfig) -> torch.Tensor:
+    """The full-resolution L2-normalised descriptor map, unpadded."""
+    normalized = upsample_descriptors(raw_desc, padded_size,
+                                      cfg.descriptor_scale_factor)
+    return padder.unpad(normalized) if padder is not None else normalized
+
+
+def _image_size(B: int, image_size: Tuple[int, int],
+                device: torch.device) -> torch.Tensor:
+    H, W = image_size
+    return torch.stack([torch.full((B,), float(H), device=device),
+                        torch.full((B,), float(W), device=device)], dim=-1)
+
+
+def extract_dense(
+    feats: torch.Tensor,
+    logits: torch.Tensor,
+    raw_desc: torch.Tensor,
+    image_size: Tuple[int, int],
+    padder: Optional[Padder],
+    cfg: KeypointExtractorConfig,
+    score_mask: Optional[torch.Tensor] = None,
+) -> Dict[str, Any]:
+    """The dense maps of `extract_keypoints` and nothing else: image_size,
+    backbone_feats, logits, raw_descriptors, probability, score (border-
+    zeroed, unpadded), coarse_descriptors and normalized_descriptors
+    (unpadded). These are all the stage-1 losses read, and all the
+    compiled JAX stage-1 step computes: it reads no keypoint, so XLA drops
+    the NMS, the top-k and the descriptor sampling. Here they are not run
+    at all, and the maps keep their autograd graph."""
+    _check_cell(cfg)
+    B = logits.shape[0]
+    padded_size = (logits.shape[1] * cfg.cell_size,
+                   logits.shape[2] * cfg.cell_size)
+    probability, bordered = _score_maps(logits, padder, cfg, score_mask)
+    return {
+        "image_size": _image_size(B, image_size, logits.device),
+        "backbone_feats": feats,
+        "logits": logits,
+        "raw_descriptors": raw_desc,
+        "probability": probability,
+        "score": (padder.unpad(bordered, hw_axes=(-2, -1))
+                  if padder is not None else bordered),
+        "coarse_descriptors": normalize_descriptors(
+            raw_desc, cfg.descriptor_scale_factor),
+        "normalized_descriptors": _normalized_descriptors(
+            raw_desc, padded_size, padder, cfg),
+    }
+
+
 def extract_keypoints(
     feats: torch.Tensor,
     logits: torch.Tensor,
@@ -61,31 +143,18 @@ def extract_keypoints(
     feats/logits/raw_desc are NHWC maps on the *padded* grid; `image_size`
     is the original (H, W). Pipeline order: probability -> pixel-shuffle
     score -> event mask -> border removal -> NMS -> top-k threshold ->
-    descriptor sampling -> unpad & in-image filtering. Cell 8 only in this
-    slice (the cell-1 extractors come later)."""
-    if (cfg.cell_size != 8 or cfg.sparse_desc_from != "lowres"
-            or cfg.coord_offset):
-        raise NotImplementedError("only the cell-8 extractor is ported")
+    descriptor sampling -> unpad & in-image filtering. Keypoint selection
+    carries no gradient (the JAX package's stop_gradient around the NMS):
+    the NMS reads a detached score map, so the kept map and the positions'
+    scores are constants. Cell 8 only in this slice (the cell-1 extractors
+    come later)."""
+    _check_cell(cfg)
     H, W = image_size
-    cell = cfg.cell_size
     B = logits.shape[0]
-    padded_size = (logits.shape[1] * cell, logits.shape[2] * cell)
-
-    probability = logits_to_prob(logits)          # (B, hp, wp, cell^2+1)
-    score = depth_to_space(probability, cell)     # (B, Hp, Wp)
-
-    if score_mask is not None:
-        mask = score_mask[..., 0] if score_mask.ndim == 4 else score_mask
-        if padder is not None:
-            mask = padder.pad(mask, hw_axes=(-2, -1))
-        if cfg.smooth_mask:
-            mask = smooth_score_mask(mask)
-        score = torch.where(mask, score, torch.zeros_like(score))
-
-    # The border-zeroed map is what the reference returns as `score` (its
-    # remove_border_points zeroes the tensor in place).
-    bordered = remove_border_scores(score, cfg.remove_borders)
-    nms_map = nms(bordered, cfg.nms_radius, impl=cfg.nms_impl)
+    padded_size = (logits.shape[1] * cfg.cell_size,
+                   logits.shape[2] * cfg.cell_size)
+    probability, bordered = _score_maps(logits, padder, cfg, score_mask)
+    nms_map = nms(bordered.detach(), cfg.nms_radius, impl=cfg.nms_impl)
     # after nms(radius=r) survivors are > r apart, so top-k may first
     # reduce to per-(r+1)-block candidates
     positions, valid = select_topk_keypoints(
@@ -113,14 +182,12 @@ def extract_keypoints(
     Hs, Ws = score_u.shape[1], score_u.shape[2]
     iy = torch.floor(py).to(torch.int64).clamp(0, Hs - 1)
     ix = torch.floor(px).to(torch.int64).clamp(0, Ws - 1)
-    kept = torch.zeros(B, Hs * Ws, dtype=score_u.dtype, device=score.device)
+    kept = torch.zeros(B, Hs * Ws, dtype=score_u.dtype, device=logits.device)
     kept.scatter_add_(1, iy * Ws + ix, torch.where(
         valid, positions[..., 2], torch.zeros_like(positions[..., 2])))
 
     out = {
-        "image_size": torch.stack(
-            [torch.full((B,), float(H), device=score.device),
-             torch.full((B,), float(W), device=score.device)], dim=-1),
+        "image_size": _image_size(B, image_size, logits.device),
         "backbone_feats": feats,
         "logits": logits,
         "raw_descriptors": raw_desc,
@@ -133,10 +200,8 @@ def extract_keypoints(
         "sparse_descriptors": sparse_desc,
     }
     if dense:
-        normalized = upsample_descriptors(raw_desc, padded_size,
-                                          cfg.descriptor_scale_factor)
-        if padder is not None:
-            normalized = padder.unpad(normalized)
+        normalized = _normalized_descriptors(raw_desc, padded_size, padder,
+                                             cfg)
         out["normalized_descriptors"] = normalized
         out["dense_descriptors"] = dense_descriptors(normalized)
         out["dense_positions"] = dense_positions(score_u, cfg.ordering)
@@ -161,9 +226,9 @@ class VGGExtractor(nn.Module):
         self.descriptor_head = VGGDescriptorHead(
             feat_channels, descriptor_dim, use_batchnorm, dtype)
 
-    def forward(self, x: torch.Tensor,
-                score_mask: Optional[torch.Tensor] = None,
-                dense: bool = False) -> Dict[str, Any]:
+    def _heads(self, x: torch.Tensor):
+        """Backbone and heads on the padded input: the leading arguments of
+        `extract_keypoints` / `extract_dense`."""
         assert x.ndim == 4, "expected NHWC input"
         H, W = x.shape[1], x.shape[2]
         padder = Padder(H, W, 8)
@@ -171,7 +236,17 @@ class VGGExtractor(nn.Module):
         feats = self.backbone(x)
         logits = self.detector_head(feats)
         raw_desc = self.descriptor_head(feats)
-        return extract_keypoints(
-            feats.permute(0, 2, 3, 1), logits.permute(0, 2, 3, 1).float(),
-            raw_desc.permute(0, 2, 3, 1).float(), (H, W), padder,
-            self.config, score_mask, dense)
+        return (feats.permute(0, 2, 3, 1), logits.permute(0, 2, 3, 1).float(),
+                raw_desc.permute(0, 2, 3, 1).float(), (H, W), padder)
+
+    def forward(self, x: torch.Tensor,
+                score_mask: Optional[torch.Tensor] = None,
+                dense: bool = False) -> Dict[str, Any]:
+        return extract_keypoints(*self._heads(x), self.config, score_mask,
+                                 dense)
+
+    def dense_maps(self, x: torch.Tensor,
+                   score_mask: Optional[torch.Tensor] = None
+                   ) -> Dict[str, Any]:
+        """The dense maps only (`extract_dense`): the stage-1 forward."""
+        return extract_dense(*self._heads(x), self.config, score_mask)

@@ -72,8 +72,19 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm(nn.Module):
-    """flax nn.BatchNorm in inference (running statistics), epsilon 1e-5,
-    over the channel axis of an NCHW tensor."""
+    """flax nn.BatchNorm(momentum=0.9, epsilon=1e-5) over the channel axis
+    of an NCHW tensor.
+
+    In eval() it normalises with the running statistics. In train() it
+    normalises with the batch's, as flax does with
+    use_running_average=False: the mean and the BIASED variance over
+    (N, H, W), reduced in at least float32 in flax's fast form E[x^2] -
+    E[x]^2 clipped at 0, the output cast back to the input's dtype; and it
+    updates the running statistics as r <- 0.9 r + 0.1 batch, the biased
+    variance too. (torch's F.batch_norm(training=True) would update the
+    running variance with the unbiased one, n / (n - 1) larger.)"""
+
+    MOMENTUM = 0.9   # the JAX package's (models/vgg.py)
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -84,8 +95,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=(0, 2, 3))
+        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(self.MOMENTUM).add_(
+                mean.detach() * (1.0 - self.MOMENTUM))
+            self.running_var.mul_(self.MOMENTUM).add_(
+                var.detach() * (1.0 - self.MOMENTUM))
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 class LayerNorm(nn.LayerNorm):

@@ -18,7 +18,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import Padder
-from .extractor import KeypointExtractorConfig, extract_keypoints
+from .extractor import (KeypointExtractorConfig, extract_dense,
+                        extract_keypoints)
 from .layers import Conv2d
 
 # (name, in, out, kernel, max-pool after)
@@ -42,10 +43,9 @@ class SuperPointV1(nn.Module):
         self.convDa = Conv2d(128, 256, 3, dtype)
         self.convDb = Conv2d(256, descriptor_dim, 1, dtype)
 
-    def forward(self, image: torch.Tensor,
-                score_mask: Optional[torch.Tensor] = None,
-                dense: bool = False) -> Dict[str, Any]:
-        """image: (B, H, W, 1) grayscale in [0, 255] (or (B, H, W, 3) RGB)."""
+    def _heads(self, image: torch.Tensor):
+        """Encoder and heads on the padded image: the leading arguments of
+        `extract_keypoints` / `extract_dense`."""
         assert image.ndim == 4
         H, W = image.shape[1], image.shape[2]
         x = image.to(self.dtype) / 255.0
@@ -62,8 +62,23 @@ class SuperPointV1(nn.Module):
         feats = x
         logits = self.convPb(F.relu(self.convPa(feats)))
         raw_desc = self.convDb(F.relu(self.convDa(feats)))
-        cfg = dataclasses.replace(self.config, smooth_mask=False)
-        return extract_keypoints(
-            feats.permute(0, 2, 3, 1), logits.permute(0, 2, 3, 1).float(),
-            raw_desc.permute(0, 2, 3, 1).float(), (H, W), padder, cfg,
-            score_mask, dense)
+        return (feats.permute(0, 2, 3, 1), logits.permute(0, 2, 3, 1).float(),
+                raw_desc.permute(0, 2, 3, 1).float(), (H, W), padder)
+
+    def _postprocessing(self) -> KeypointExtractorConfig:
+        # the event mask applies unsmoothed on the image side
+        return dataclasses.replace(self.config, smooth_mask=False)
+
+    def forward(self, image: torch.Tensor,
+                score_mask: Optional[torch.Tensor] = None,
+                dense: bool = False) -> Dict[str, Any]:
+        """image: (B, H, W, 1) grayscale in [0, 255] (or (B, H, W, 3) RGB)."""
+        return extract_keypoints(*self._heads(image), self._postprocessing(),
+                                 score_mask, dense)
+
+    def dense_maps(self, image: torch.Tensor,
+                   score_mask: Optional[torch.Tensor] = None
+                   ) -> Dict[str, Any]:
+        """The dense maps only (`extract_dense`): the stage-1 forward."""
+        return extract_dense(*self._heads(image), self._postprocessing(),
+                             score_mask)

@@ -3,7 +3,10 @@
 Counterpart of `ei_nexus_tpu/train/state.py`. The JAX TrainState is an
 immutable pytree that each step replaces; this one holds the model, the
 optimizer, the schedule, the frozen roots and the step count, and the
-training step updates it IN PLACE (parameters, optimizer moments, step).
+training step updates it IN PLACE (parameters, BatchNorm statistics,
+optimizer moments, step). `host_lr` marks a host-driven schedule
+(ReduceLROnPlateau): the step then leaves the optimizer's lr as the
+trainer set it.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from typing import Any, Callable, Iterable, List, Mapping, Set
 import torch
 import torch.nn as nn
 
-from .optim import build_optimizer, build_schedule
+from .optim import build_optimizer, build_schedule, is_host_driven
 from .partition import freeze
 
 
@@ -26,6 +29,7 @@ class TrainState:
     frozen_roots: Set[str]
     trainable: List[nn.Parameter]
     step: int = 0
+    host_lr: bool = False
 
 
 def create_train_state(model: nn.Module, frozen_roots: Iterable[str],
@@ -40,4 +44,5 @@ def create_train_state(model: nn.Module, frozen_roots: Iterable[str],
                       optimizer=build_optimizer(optimizer, trainable,
                                                 schedule),
                       schedule=schedule, frozen_roots=roots,
-                      trainable=trainable)
+                      trainable=trainable,
+                      host_lr=is_host_driven(scheduler))

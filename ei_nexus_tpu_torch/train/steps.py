@@ -7,9 +7,10 @@ times, uint8 polarity and one valid count per row, the columns cut to a
 bucketed length); `_decode_event_view` restores the float arrays on the
 device. `batch_representation` accepts either format and builds the voxel
 grid (NHWC) and the event-occupancy mask on the device, and
-`make_stage2_train_step` trains LightGlue on time-separated pairs with
-ground-truth matches from pose and depth. The stage-1 and homography steps
-come with their slices.
+`make_stage1_train_step` distils the event extractor against the frozen
+image extractor, and `make_stage2_train_step` trains LightGlue on
+time-separated pairs with ground-truth matches from pose and depth. The
+homography step comes with its slice.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from ..data import representations as reps
 from ..device import resolve_device
 from ..geometry import Camera, Pose, gt_matches_from_pose_depth
 from ..losses.matcher_loss import lightglue_loss
+from .optim import set_learning_rate
 from .partition import check_frozen
 from .state import TrainState
 
@@ -193,6 +195,72 @@ def batch_representation(batch_view: Mapping[str, object], kind: str,
     return rep.permute(0, 2, 3, 1), acc > 0
 
 
+def _apply_gradients(state: TrainState) -> torch.Tensor:
+    """After the backward: check that no frozen parameter took a gradient,
+    take the global gradient norm over the trainable parameters, write
+    lr(step) into the optimizer (unless the schedule is host-driven), make
+    one update and count the step. Returns the norm, a 0-d tensor left on
+    the device."""
+    check_frozen(state.model, state.frozen_roots)
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in state.trainable]
+    grad_norm = torch.nn.utils.get_total_norm(grads)
+    if not state.host_lr:
+        set_learning_rate(state.optimizer, state.schedule(state.step))
+    state.optimizer.step()
+    state.step += 1
+    return grad_norm
+
+
+def make_stage1_train_step(
+    losses: Mapping[str, Callable], rep_kind: str, bins: int, height: int,
+    width: int,
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """The stage-1 (extractor distillation) step.
+
+    step(state, batch) -> info. `batch` is (data0, ...) as the JAX step
+    takes it: data0 with the padded events or their wire format
+    (`compact_stage1_batch`) and "image" (B, H, W, 1); arrays are moved to
+    the model's device. The model's stage-1 forward gives both
+    extractors' dense maps (the trainable one's BatchNorm on batch
+    statistics, its running statistics updated); `losses` (as
+    `losses.build_losses` returns them) compare them: keypoints_loss and
+    descriptors_loss under the event mask, feature_loss unmasked; their
+    sum is differentiated and one update made. No NMS, top-k or matcher
+    runs: nothing the losses read depends on them, as in the compiled JAX
+    step. `state` is updated in place. info holds 0-d tensors, left on the
+    device (the step never synchronises with the host): loss, each loss's
+    term (extractor_keypoints_loss, extractor_descriptor_loss,
+    feature_loss, for the losses the config names), grad_norm (over the
+    trainable parameters) and dropped_splat_weight (always 0: the exact
+    scatter)."""
+
+    def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        model = state.model
+        dev = next(model.parameters()).device
+        data0 = batch[0]
+        ev_rep, ev_mask = batch_representation(data0, rep_kind, bins,
+                                               height, width, device=dev)
+        image = torch.as_tensor(data0["image"]).to(dev)
+
+        state.optimizer.zero_grad(set_to_none=True)
+        ev_feats, im_feats, _ = model(ev_rep, image, ev_mask, None,
+                                      training=True)
+        l_kp, i_kp = losses["keypoints_loss"](ev_feats, im_feats, ev_mask)
+        l_de, i_de = losses["descriptors_loss"](ev_feats, im_feats, ev_mask)
+        l_fe, i_fe = losses["feature_loss"](ev_feats, im_feats)
+        total = l_kp + l_de + l_fe
+        total.backward()
+        grad_norm = _apply_gradients(state)
+        return {"loss": total.detach(),
+                **{k: v.detach() for i in (i_kp, i_de, i_fe)
+                   for k, v in i.items()},
+                "grad_norm": grad_norm,
+                "dropped_splat_weight": torch.zeros((), device=dev)}
+
+    return step
+
+
 def make_stage2_train_step(
     rep_kind: str, bins: int, height: int, width: int,
     pos_th: float = 3.0, neg_th: float = 5.0, gamma: float = 1.0,
@@ -247,15 +315,7 @@ def make_stage2_train_step(
                                     nll_balancing=nll_balancing,
                                     training=True)
         loss.backward()
-        check_frozen(model, state.frozen_roots)
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in state.trainable]
-        grad_norm = torch.nn.utils.get_total_norm(grads)
-        lr = state.schedule(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.step()
-        state.step += 1
+        grad_norm = _apply_gradients(state)
         n_gt = (gt["matches0"] > -1).sum(dim=-1).float().mean()
         return {"loss": loss.detach(), "gt_matches": n_gt,
                 **{k: v.detach() for k, v in info.items()},

@@ -899,3 +899,109 @@ def test_mnn_on_the_card(cuda):
             assert got[k].device.type == "cuda"
             assert torch.equal(got[k].cpu(), want[k]), k
         assert (want["matches0"] > -1).any()
+
+
+def test_training_extractor_runs_kernel_c(cuda):
+    """An event extractor in train() with gradients enabled: its keypoint
+    forward takes kernel C on the card without raising (the NMS reads a
+    detached map), and the selection carries no gradient."""
+    from ei_nexus_tpu_torch.models.extractor import (KeypointExtractorConfig,
+                                                     VGGExtractor)
+    from ei_nexus_tpu_torch.models.layers import init_parameters
+
+    model = VGGExtractor(KeypointExtractorConfig(detection_top_k=64),
+                         in_channels=4, feat_channels=16, descriptor_dim=32,
+                         lat_channels=32)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    model = model.cuda().train()
+    x = torch.randn(2, 64, 96, 4, generator=cuda, device="cuda")
+    mask = torch.rand(2, 64, 96, generator=cuda, device="cuda") > 0.3
+    before = nk.nms_rounds.launches
+    with torch.enable_grad():
+        out = model(x, mask)
+    torch.cuda.synchronize()
+    assert nk.nms_rounds.launches == before + 1
+    assert out["sparse_positions"].grad_fn is None
+    assert out["nms"].grad_fn is None
+    assert out["score"].grad_fn is not None
+    out["sparse_descriptors"].sum().backward()
+    assert next(model.parameters()).grad is not None
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 0.0)])
+def test_batchnorm_training_on_the_card(cuda, dtype, tol):
+    """BatchNorm in train() at B*H*W = 48 on the card against the CPU:
+    output and running statistics to 1e-5 in float32; in bfloat16 the
+    output equal to the CPU's after its float32 reductions, rounded (one
+    bfloat16 ulp apart at most)."""
+    from ei_nexus_tpu_torch.models.layers import BatchNorm
+
+    x = (1.5 + 2.0 * torch.randn(3, 8, 4, 4, generator=cuda,
+                                 device="cuda")).to(dtype)
+    gpu, cpu = BatchNorm(8).cuda().train(), BatchNorm(8).train()
+    with torch.no_grad():
+        for bn in (gpu, cpu):
+            bn.weight.copy_(torch.linspace(0.5, 1.5, 8))
+            bn.bias.copy_(torch.linspace(-0.1, 0.1, 8))
+    y_gpu, y_cpu = gpu(x), cpu(x.cpu())
+    assert y_gpu.dtype == dtype
+    if dtype == torch.float32:
+        assert (y_gpu.cpu() - y_cpu).abs().max() <= tol
+    else:   # a float32 difference may round to the neighbouring bfloat16
+        ulp = y_cpu.float().abs().clamp(min=1e-3) * 2 ** -7
+        assert ((y_gpu.cpu().float() - y_cpu.float()).abs() <= ulp).all()
+    for k in ("running_mean", "running_var"):
+        diff = (getattr(gpu, k).cpu() - getattr(cpu, k)).abs().max()
+        assert diff <= 1e-5, k
+
+
+def test_stage1_step_on_the_card(cuda):
+    """One stage-1 step of the tiny float32 config on the CPU and on the
+    card from the same weights and batch: loss and grad_norm close,
+    updated parameters within 4 lr (Adam's first step moves a parameter by
+    about lr whatever its gradient's size), running statistics to 1e-4,
+    the frozen SuperPoint bit-unchanged on both. TF32 is off for the
+    card's convolutions too (cuDNN's default is on; with it grad_norm read
+    2.8e-3 apart, its 10-bit mantissa's rounding)."""
+    import copy
+    import numpy as np
+    from ei_nexus_tpu_torch.data.synth import bursty_event_batch
+    from ei_nexus_tpu_torch.flagship import (STAGE1_LOSSES, STAGE1_LR,
+                                             build_stage1_flagship,
+                                             stage1_train_state)
+    from ei_nexus_tpu_torch.losses import build_losses
+    from ei_nexus_tpu_torch.train.steps import make_stage1_train_step
+
+    cpu_model, (H, W, bins) = build_stage1_flagship(
+        tiny=True, dtype="float32", device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).cuda()
+    start = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    rng = np.random.default_rng(1)
+    view = bursty_event_batch(rng, 2, 3000, 4096, H, W)
+    view["image"] = rng.uniform(0, 255, (2, H, W, 1)).astype(np.float32)
+    losses = build_losses({k: v for k, v in STAGE1_LOSSES.items()
+                           if k != "feature_loss"})
+    step = make_stage1_train_step(losses, "VoxelGrid", bins, H, W)
+    infos = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+            infos[name] = {k: float(v) for k, v in
+                           step(stage1_train_state(model), (view,)).items()}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    ic, ig = infos["cpu"], infos["cuda"]
+    assert abs(ig["loss"] - ic["loss"]) <= 1e-4 * abs(ic["loss"])
+    assert abs(ig["grad_norm"] - ic["grad_norm"]) <= 1e-3 * ic["grad_norm"]
+    sc = cpu_model.state_dict()
+    sg = {k: v.cpu() for k, v in gpu_model.state_dict().items()}
+    for k in sc:
+        if k.startswith("image_extractor."):
+            assert torch.equal(sg[k], start[k]) and torch.equal(sc[k],
+                                                                start[k]), k
+        elif k.endswith(("running_mean", "running_var")):
+            assert (sg[k] - sc[k]).abs().max() <= 1e-4, k
+        else:
+            assert (sg[k] - sc[k]).abs().max() <= 4 * STAGE1_LR, k

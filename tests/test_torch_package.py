@@ -45,7 +45,10 @@ def test_importing_the_port_loads_no_jax():
             "ei_nexus_tpu_torch.models, ei_nexus_tpu_torch.data.synth, "
             "ei_nexus_tpu_torch.train.steps, ei_nexus_tpu_torch.geometry, "
             "ei_nexus_tpu_torch.losses, ei_nexus_tpu_torch.train.state, "
-            "ei_nexus_tpu_torch.metrics; "
+            "ei_nexus_tpu_torch.metrics, ei_nexus_tpu_torch.train, "
+            "ei_nexus_tpu_torch.train_extractor, "
+            "ei_nexus_tpu_torch.data.mini_ec, ei_nexus_tpu_torch.utils, "
+            "ei_nexus_tpu_torch.models.config_adapter; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -62,11 +65,18 @@ def test_entry_points_default_to_the_card():
     from ei_nexus_tpu_torch.models.eim import build_model
     from ei_nexus_tpu_torch.train.steps import batch_representation
 
-    from ei_nexus_tpu_torch.flagship import build_stage2_flagship
+    from ei_nexus_tpu_torch.flagship import (build_stage1_flagship,
+                                             build_stage2_flagship)
+    from ei_nexus_tpu_torch import train_extractor
     with pytest.raises(RuntimeError, match="CUDA"):
         build_flagship(tiny=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_stage2_flagship(tiny=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_stage1_flagship(tiny=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_extractor.main(["--config", str(
+            ROOT / "configs" / "train_EIM_stage1_EC_SP_MNN.yaml")])
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model("EIM", flagship_config(tiny=True)[0])
     ev = bursty_event_batch(np.random.default_rng(0), 1, 10, 16, 8, 8)
@@ -113,11 +123,10 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         EIM(dataclasses.replace(cfg, image_extractor=dataclasses.replace(
             cfg.image_extractor, type="silk")))
-    # training a (trainable) event extractor is stage 1, not ported yet
-    with pytest.raises(NotImplementedError, match="stage 1"):
-        EIM(cfg, training_heads=True)(torch.zeros(1, 32, 48, 4),
-                                      torch.zeros(1, 32, 48, 1),
-                                      training=True)
+    # the cell-1 event extractor waits for its slice
+    with pytest.raises(NotImplementedError, match="item 3"):
+        EIM(dataclasses.replace(cfg, event_extractor=dataclasses.replace(
+            cfg.event_extractor, type="vgg_np")))
 
 
 def test_unported_training_options_raise():
@@ -127,10 +136,16 @@ def test_unported_training_options_raise():
 
     sched = build_schedule({"type": "CosineAnnealingLR"}, 1e-4)
     params = [torch.nn.Parameter(torch.zeros(2))]
-    for otype in ("Adam", "SGD"):
+    # every optimizer and schedule of the JAX package is ported; other
+    # names raise
+    for otype in ("Adam", "SGD", "AdamW"):
+        build_optimizer({"type": otype}, params, sched)
+    for otype in ("RMSprop", "Adagrad"):
         with pytest.raises(NotImplementedError):
             build_optimizer({"type": otype}, params, sched)
     for stype in ("StepLR", "OneCycleLR", "ReduceLROnPlateau"):
+        build_schedule({"type": stype}, 1e-4)
+    for stype in ("PolynomialLR", "LambdaLR"):
         with pytest.raises(NotImplementedError):
             build_schedule({"type": stype}, 1e-4)
     # an inference-built LightGlue has only the last layer's head

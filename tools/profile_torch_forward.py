@@ -1,8 +1,8 @@
 #!/usr/bin/env python
-"""Where the time of the port's flagship forward, or of its stage-2
-training step, goes on one GPU.
+"""Where the time of the port's flagship forward, or of its stage-1 or
+stage-2 training step, goes on one GPU.
 
-    python tools/profile_torch_forward.py [--path forward|stage2]
+    python tools/profile_torch_forward.py [--path forward|stage1|stage2]
         [--attention auto|flash|qblock] [--pose] [--seed 0] [--iters 3]
         [--no-trace]
 
@@ -15,13 +15,17 @@ the forward is chained with the 5-point RANSAC pose tail as chip_smoke.py's
 serving phase chains it, and the pose tail alone (on one forward's
 matches) is traced as well. `--path stage2` runs the stage-2 training step
 (both extractors frozen, LightGlue trained with AdamW; the same batch and
-random slot fill every step). After a warm-up it traces --iters runs with
+random slot fill every step), `--path stage1` the stage-1 step (the event
+extractor trained against the frozen SuperPoint, as chip_smoke.py's
+phase 9 runs it; the same batch every step). After a warm-up it traces --iters runs with
 torch.profiler and prints the device time by kernel group (the port's
 kernels A-G and the Hopper loops' pack pass, the pose tail's QR, SVD and
 sampling, convolutions, matrix products, norms, voxel scatter, sorting,
 the optimizer, everything else),
-the device's busy and idle share of the traced wall time, and the 25
-heaviest kernels; unless --no-trace, writes the chrome trace to
+the device's busy and idle share of the traced wall time, the 25
+heaviest kernels; then, over a second traced window that records input
+shapes, the 25 heaviest operators by their own device time and the device
+time by each operator's largest input; unless --no-trace, writes the chrome trace to
 chiprun_out/profile_torch_<what>.json. Needs a CUDA device.
 """
 
@@ -58,6 +62,7 @@ GROUPS = (
     ("bwd_rows_kernel", "F attention_bwd"),
     ("row_dot_kernel", "F attention_bwd"),
     ("multi_tensor_apply", "optimizer (AdamW, foreach)"),
+    ("upsample", "descriptor upsampling (bilinear)"),
     ("geqrf", "pose: QR and SVD (cuSOLVER, cuBLAS)"),
     ("orgqr", "pose: QR and SVD (cuSOLVER, cuBLAS)"),
     ("larf", "pose: QR and SVD (cuSOLVER, cuBLAS)"),
@@ -99,7 +104,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=3)
-    ap.add_argument("--path", choices=("forward", "stage2"),
+    ap.add_argument("--path", choices=("forward", "stage1", "stage2"),
                     default="forward")
     ap.add_argument("--attention", choices=("auto", "flash", "qblock"),
                     default="auto")
@@ -112,6 +117,8 @@ def main() -> int:
     B = 8
     if args.path == "stage2":
         runs = {"step": stage2_runner(B, args.seed)}
+    elif args.path == "stage1":
+        runs = {"stage-1 step": stage1_runner(B, args.seed)}
     else:
         runs = forward_runners(B, args.seed, args.attention, args.pose)
     for what, run in runs.items():
@@ -160,6 +167,36 @@ def profile_run(what: str, run, B: int, args) -> None:
     print(f"heaviest kernels per {what}:")
     for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
         print(f"  {us / 1e3 / per:9.3f} ms  {n[:110]}")
+    # the operators that launched them (host-side events), with their
+    # input shapes: which tensors the device time is spent on. A second
+    # traced window: recording shapes costs the host enough to move the
+    # idle share above
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as shaped:
+        for _ in range(args.iters):
+            run()
+        torch.cuda.synchronize()
+    ops = [a for a in shaped.key_averages(group_by_input_shape=True)
+           if a.device_type == torch.autograd.DeviceType.CPU
+           and a.self_device_time_total > 0]
+    print(f"heaviest operators per {what} (self device time, input "
+          f"shapes):")
+    for a in sorted(ops, key=lambda a: -a.self_device_time_total)[:25]:
+        print(f"  {a.self_device_time_total / 1e3 / per:9.3f} ms  "
+              f"{a.count // per:4d}x  {a.key[:40]:40s} "
+              f"{str(a.input_shapes)[:90]}")
+    by_shape = {}
+    for a in ops:
+        shapes = [tuple(x) for x in a.input_shapes
+                  if x and all(isinstance(d, int) for d in x)]
+        big = max(shapes, key=lambda x: int(np.prod(x)), default=())
+        by_shape[big] = by_shape.get(big, 0.0) + a.self_device_time_total
+    shaped_ms = sum(by_shape.values()) / 1e3
+    print(f"device time per {what} by the operator's largest input "
+          f"(second window, {shaped_ms / per:.3f} ms attributed):")
+    for shape, us in sorted(by_shape.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {us / 1e3 / per:9.3f} ms  "
+              f"{100 * us / 1e3 / shaped_ms:5.1f}%  {list(shape)}")
     if not args.no_trace:
         os.makedirs("chiprun_out", exist_ok=True)
         prof.export_chrome_trace(os.path.join(
@@ -248,6 +285,30 @@ def stage2_runner(B: int, seed: int):
         fill.manual_seed(seed + 1)
         return step(state, batch, fill)
     return run
+
+
+def stage1_runner(B: int, seed: int):
+    """One stage-1 training step of the flagship on the same batch every
+    time (as chip_smoke.py's phase 9)."""
+    from ei_nexus_tpu_torch.data.synth import bursty_event_batch
+    from ei_nexus_tpu_torch.flagship import (STAGE1_LOSSES,
+                                             build_stage1_flagship,
+                                             stage1_train_state)
+    from ei_nexus_tpu_torch.losses import build_losses
+    from ei_nexus_tpu_torch.train.steps import make_stage1_train_step
+
+    max_events = 1 << 17
+    model, (H, W, bins) = build_stage1_flagship(
+        dtype="bfloat16", generator=torch.Generator().manual_seed(seed))
+    state = stage1_train_state(model, steps_per_epoch=100)
+    rng = np.random.default_rng(seed)
+    view = bursty_event_batch(rng, B, int(max_events * 0.95), max_events,
+                              H, W)
+    view["image"] = rng.uniform(0, 255, (B, H, W, 1)).astype(np.float32)
+    batch = ({k: torch.as_tensor(v).cuda() for k, v in view.items()},)
+    step = make_stage1_train_step(build_losses(STAGE1_LOSSES), "VoxelGrid",
+                                  bins, H, W)
+    return lambda: step(state, batch)
 
 
 if __name__ == "__main__":
