@@ -92,14 +92,34 @@ Phases, each of which raises on failure:
     configs/train_EIM_stage1_EC_SP_MNN.yaml --max-steps 4` on the card
     (160x160 crops, B=8, 4 loader threads): exit 0, finite logged losses,
     a `final` checkpoint; then `--resume` from it to step 6, and the
-    entry's steady steps/s.
+    entry's steady steps/s;
+10. the SiLK family (the cell-1 event extractor `vgg_np` and the frozen
+    SiLK, `flagship.silk_config`): (a) the EI_SiLK_LG forward at full
+    width (bf16, B=8, 260x346, K=1024, LightGlue through its 128 -> 256
+    input projection): launches A 18, B 9, C 2 and 18 pack passes, its
+    latency, pairs/s beside phase 3's "auto" forward and peak memory; (b)
+    EI_SiLK_MNN and SiLKMatcher: C 2 each, pairs/s; (c) kernel C at the
+    cell-1 score maps (8, 260, 346) and (8, 242, 328) (padding 1 and 0):
+    its plan, bit-exact in float32 and bfloat16, its device time; (d)
+    tiny float32 EI_SiLK_LG and EI_SiLK_MNN, and EI_SiLK_LG with both
+    extractors at padding 0, on the CPU and the card: keypoints, validity
+    and matches equal, maps within 1e-3; (e) the EIM_stage2_SiLK_LG step
+    at full width through phase 4's runner (D 36, F 36, C 2); (f) the
+    SiLK stage-1 entry, `--config configs/train_EIM_stage1_EC_SiLK_MNN
+    .yaml --max-steps 4` over phase 9's rendered mini-EC: exit 0, finite
+    losses, a `final` checkpoint, its steady steps/s; (g) every event
+    representation at B=8, 131,072 slots, 16 bins, 260x346 on the card
+    against the CPU (the DistanceMap's CPU side on one stream): bit-equal
+    but for the voxel grid (held as phase 5 holds it), the card's ms.
 
 Prints each phase's wall seconds, the kernels' JSON line (launches: A, B,
 C from the "auto" forward; D, F from the stage-2 step; E from the
 q-blocked forward; G from the flash forward; each row's
-launches_stage1_step from the stage-1 step), the card's `nvidia-smi`
-line, the forward, serving, loader-fed, MNN, step and entry rates, and as
-its last line
+launches_stage1_step from the stage-1 step, launches_silk_lg_forward and
+launches_silk_stage2_step from phase 10; C's row also its device ms and
+plans at the cell-1 shapes), the card's `nvidia-smi` line, the forward,
+serving, loader-fed, MNN, SiLK, step and entry rates, and as its last
+line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a card. Writes the nvcc/ptxas log to
 chiprun_out/chip_smoke_build.log.
@@ -115,6 +135,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1082,7 +1103,11 @@ def to_cuda(batch):
             torch.as_tensor(T01).cuda(), torch.as_tensor(T10).cuda())
 
 
-def phase_stage2():
+def phase_stage2(tag: str = "stage2", built=None):
+    """The stage-2 step at full width, B=8: the flagship's
+    (`build_stage2_flagship`), or `built` = (model on the card with
+    LightGlue's training heads, (H, W, bins)). Returns (launches, ms per
+    step back to back, peak GB)."""
     from ei_nexus_tpu_torch.data.synth import stage2_batch
     from ei_nexus_tpu_torch.flagship import (build_stage2_flagship,
                                              stage2_train_state)
@@ -1090,7 +1115,7 @@ def phase_stage2():
     from ei_nexus_tpu_torch.train.steps import make_stage2_train_step
 
     B, max_events = 8, 1 << 17
-    model, (H, W, bins) = build_stage2_flagship(
+    model, (H, W, bins) = built or build_stage2_flagship(
         dtype="bfloat16", generator=torch.Generator().manual_seed(0))
     # 100 steps an epoch: the cosine schedule stays near its base lr here
     state = stage2_train_state(model, steps_per_epoch=100)
@@ -1109,7 +1134,7 @@ def phase_stage2():
     torch.cuda.synchronize()
     launches = {n: c.launches for n, c in counters.items()}
     packs = hopper_attention.packs
-    print(f"[stage2] launches in one step: {launches}; pack passes of D "
+    print(f"[{tag}] launches in one step: {launches}; pack passes of D "
           f"and F: {packs}")
     want = {n: 0 for n in counters}
     want.update(nms_rounds=2, attention_fwd=36, attention_bwd=36)
@@ -1121,13 +1146,13 @@ def phase_stage2():
     loss1, gnorm = float(info["loss"]), float(info["grad_norm"])
     require(np.isfinite(loss1) and np.isfinite(gnorm) and gnorm > 0,
             f"loss {loss1}, grad_norm {gnorm}")
-    print(f"[stage2] step 1: loss {loss1:.6f}, grad_norm {gnorm:.6f}, "
+    print(f"[{tag}] step 1: loss {loss1:.6f}, grad_norm {gnorm:.6f}, "
           f"gt_matches {float(info['gt_matches']):.2f}")
     for _ in range(10):
         fill.manual_seed(1)     # the same batch and the same fill
         info = step(state, batch, fill)
     loss11 = float(info["loss"])
-    print(f"[stage2] loss after 10 more updates on the same batch and "
+    print(f"[{tag}] loss after 10 more updates on the same batch and "
           f"fill: {loss11:.6f} (step 1: {loss1:.6f})")
     require(loss11 < loss1, "the loss did not decrease")
     end = model.state_dict()
@@ -1138,7 +1163,7 @@ def phase_stage2():
     moved = sum(not torch.equal(start[k], end[k]) for k in start
                 if k.startswith("matcher."))
     n_matcher = sum(k.startswith("matcher.") for k in start)
-    print(f"[stage2] {len(frozen)} frozen tensors ({n_stats} BatchNorm "
+    print(f"[{tag}] {len(frozen)} frozen tensors ({n_stats} BatchNorm "
           f"statistics) bit-unchanged; {moved} of {n_matcher} matcher "
           f"tensors changed")
     require(moved == n_matcher, "a matcher parameter did not change")
@@ -1159,12 +1184,12 @@ def phase_stage2():
     each = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
     per_step = events[0].elapsed_time(events[-1]) / n
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[stage2] step B={B}: {per_step:.3f} ms per step back to back "
+    print(f"[{tag}] step B={B}: {per_step:.3f} ms per step back to back "
           f"over {n} (CUDA events; host clock {host_ms:.3f} ms), "
           f"{1e3 / per_step:.3f} steps/s; single steps min "
           f"{min(each):.3f}, median {float(np.median(each)):.3f}, max "
           f"{max(each):.3f} ms; peak memory {peak_gb:.2f} GB")
-    return launches, per_step
+    return launches, per_step, peak_gb
 
 
 # ---------------------------------------------------------------------------
@@ -1966,15 +1991,16 @@ def phase_stage1_cpu_vs_gpu():
 
 
 ENTRY_CONFIG = "configs/train_EIM_stage1_EC_SP_MNN.yaml"
+SILK_ENTRY_CONFIG = "configs/train_EIM_stage1_EC_SiLK_MNN.yaml"
 ENTRY_FRAMES = 216     # the [100:-100] crop leaves about 15 a sequence
 
 
-def _entry_run(extra, data, out, timeout=600):
+def _entry_run(extra, data, out, config=ENTRY_CONFIG, timeout=600):
     """`python -m ei_nexus_tpu_torch.train_extractor` on the card over the
     rendered mini-EC; returns (its run directory, metrics rows, log text,
     wall seconds). Raises on a non-zero exit."""
     cmd = [sys.executable, "-m", "ei_nexus_tpu_torch.train_extractor",
-           "--config", ENTRY_CONFIG] + extra + [
+           "--config", config] + extra + [
         f"dataset.data_path={data}", f"logger.output_dir={out}",
         "logger.status_freq=1"]
     t = time.perf_counter()
@@ -1995,62 +2021,306 @@ def _entry_run(extra, data, out, timeout=600):
     return run, rows, log, wall
 
 
-def phase_stage1_entry():
-    """The stage-1 entry point from disk: render the six EC training
-    sequences of a mini-EC (`data/mini_ec.py`, seeded) into a temporary
-    directory, run `python -m ei_nexus_tpu_torch.train_extractor --config
-    configs/train_EIM_stage1_EC_SP_MNN.yaml --max-steps 4` on the card (the
-    full-width EC config at its 160x160 crops, B=8, 4 loader threads):
-    exit 0, finite logged losses at steps 1-4, a `final` checkpoint at step
-    4; then `--resume <final> --max-steps 6`: steps 5 and 6. Returns the
-    entry's steady steps/s (its own log: steps 3 and 4, timed from the
-    drain of step 1 to that of step 4), both runs' process wall seconds
-    and the render seconds."""
-    import tempfile
+def render_mini_ec(root: str) -> float:
+    """The six EC training sequences of a mini-EC (`data/mini_ec.py`,
+    seeded) rendered under `root`; returns the seconds it took."""
     from ei_nexus_tpu_torch.data.ec import TRAIN_SEQUENCES
     from ei_nexus_tpu_torch.data.mini_ec import make_mini_ec
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_ec_")
-    try:
-        data = os.path.join(tmp, "mini_ec")
-        t = time.perf_counter()
-        counts = make_mini_ec(data, ENTRY_FRAMES, sequences=TRAIN_SEQUENCES)
-        render_s = time.perf_counter() - t
-        print(f"[entry] rendered the mini-EC's {len(counts)} training "
-              f"sequences ({ENTRY_FRAMES} frames, {sum(counts.values())} "
-              f"events) in {render_s:.1f} s")
-        run, rows, log, wall = _entry_run(["--max-steps", "4"], data,
-                                          os.path.join(tmp, "runs"))
-        require([r["step"] for r in rows] == [1, 2, 3, 4],
-                f"logged steps {[r['step'] for r in rows]}")
-        for r in rows:
-            require(all(np.isfinite(v) for v in r.values()),
-                    f"non-finite logged values {r}")
-        require("training at 160x160" in log, "not trained at the crop")
-        final = os.path.join(run, "checkpoints", "final")
-        ck = torch.load(os.path.join(final, "state.pt"), map_location="cpu",
-                        weights_only=True)
-        require(ck["step"] == 4, f"final checkpoint at step {ck['step']}")
-        rate = _steady_rate(log)
-        print(f"[entry] 4 steps in {wall:.1f} s (process wall): losses "
-              + ", ".join(f"{r['loss']:.5f}" for r in rows)
-              + f"; steady {rate:.3f} steps/s")
-        run2, rows2, log2, wall2 = _entry_run(
-            ["--max-steps", "6", "--resume", final], data,
-            os.path.join(tmp, "runs2"))
-        require([r["step"] for r in rows2] == [5, 6],
-                f"resumed at steps {[r['step'] for r in rows2]}")
-        require("resumed from" in log2, "no resume in the log")
-        ck2 = torch.load(os.path.join(run2, "checkpoints", "final",
-                                      "state.pt"), map_location="cpu",
-                         weights_only=True)
-        require(ck2["step"] == 6, f"resumed final at step {ck2['step']}")
-        print(f"[entry] resumed from step 4 to 6 in {wall2:.1f} s (process "
-              f"wall): losses " + ", ".join(f"{r['loss']:.5f}"
-                                            for r in rows2))
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    return rate, (wall, wall2), render_s
+    t = time.perf_counter()
+    counts = make_mini_ec(root, ENTRY_FRAMES, sequences=TRAIN_SEQUENCES)
+    render_s = time.perf_counter() - t
+    print(f"[entry] rendered the mini-EC's {len(counts)} training "
+          f"sequences ({ENTRY_FRAMES} frames, {sum(counts.values())} "
+          f"events) in {render_s:.1f} s")
+    return render_s
+
+
+def phase_stage1_entry(data: str, tmp: str, tag: str = "entry",
+                       config: str = ENTRY_CONFIG, resume: bool = True):
+    """The stage-1 entry point from disk, over the mini-EC rendered in
+    `data`: `python -m ei_nexus_tpu_torch.train_extractor --config
+    <config> --max-steps 4` on the card (the full-width EC config at its
+    160x160 crops, B=8, 4 loader threads), its runs under `tmp`: exit 0,
+    finite logged losses at steps 1-4, a `final` checkpoint at step 4;
+    then, with `resume`, `--resume <final> --max-steps 6`: steps 5 and 6.
+    Returns the entry's steady steps/s (its own log: steps 3 and 4, timed
+    from the drain of step 1 to that of step 4) and the runs' process
+    wall seconds."""
+    run, rows, log, wall = _entry_run(["--max-steps", "4"], data,
+                                      os.path.join(tmp, f"{tag}_runs"),
+                                      config)
+    require([r["step"] for r in rows] == [1, 2, 3, 4],
+            f"logged steps {[r['step'] for r in rows]}")
+    for r in rows:
+        require(all(np.isfinite(v) for v in r.values()),
+                f"non-finite logged values {r}")
+    require("training at 160x160" in log, "not trained at the crop")
+    final = os.path.join(run, "checkpoints", "final")
+    ck = torch.load(os.path.join(final, "state.pt"), map_location="cpu",
+                    weights_only=True)
+    require(ck["step"] == 4, f"final checkpoint at step {ck['step']}")
+    rate = _steady_rate(log)
+    print(f"[{tag}] {config}: 4 steps in {wall:.1f} s (process wall): "
+          f"losses " + ", ".join(f"{r['loss']:.5f}" for r in rows)
+          + f"; steady {rate:.3f} steps/s")
+    if not resume:
+        return rate, (wall,)
+    run2, rows2, log2, wall2 = _entry_run(
+        ["--max-steps", "6", "--resume", final], data,
+        os.path.join(tmp, f"{tag}_runs2"), config)
+    require([r["step"] for r in rows2] == [5, 6],
+            f"resumed at steps {[r['step'] for r in rows2]}")
+    require("resumed from" in log2, "no resume in the log")
+    ck2 = torch.load(os.path.join(run2, "checkpoints", "final",
+                                  "state.pt"), map_location="cpu",
+                     weights_only=True)
+    require(ck2["step"] == 6, f"resumed final at step {ck2['step']}")
+    print(f"[{tag}] resumed from step 4 to 6 in {wall2:.1f} s (process "
+          f"wall): losses " + ", ".join(f"{r['loss']:.5f}" for r in rows2))
+    return rate, (wall, wall2)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the SiLK family (cell-1 extractors)
+# ---------------------------------------------------------------------------
+
+NMS_CELL1_SHAPES = ((8, 260, 346), (8, 242, 328))   # padding 1 and 0
+
+
+def _read_launches(fn, tag: str, want: dict, want_packs=None):
+    """Run `fn` once with every kernel counter at 0, hold the launches
+    (and the Hopper loops' pack passes) to `want`; returns (launches, the
+    output)."""
+    from ei_nexus_tpu_torch.ops.attention_kernels import hopper_attention
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    hopper_attention.packs = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}
+    print(f"[{tag}] launches in one forward: {launches}; pack passes "
+          f"{hopper_attention.packs}")
+    want = {n: want.get(n, 0) for n in counters}
+    require(launches == want, f"[{tag}] launch counts {launches} != {want}")
+    if want_packs is not None:
+        require(hopper_attention.packs == want_packs,
+                f"[{tag}] {hopper_attention.packs} pack passes != "
+                f"{want_packs}")
+    return launches, out
+
+
+def phase_silk_forwards(auto_ms: float):
+    """(a) The EI_SiLK_LG forward at full width (vgg_np at cell 1 with
+    128-d descriptors, the frozen SiLK, LightGlue through its 128 -> 256
+    input projection, bf16, B=8, 260x346, K=1024): launches A 18, B 9,
+    C 2, 18 pack passes; shapes and finite outputs; latency and pairs/s
+    beside phase 3's "auto" forward (`auto_ms`), peak memory. (b)
+    EI_SiLK_MNN and SiLKMatcher (SiLK on a frame and the frame shifted by
+    2 px): C 2 each, no attention kernel, pairs/s. Returns (EI_SiLK_LG's
+    launches, {tag: ms per forward back to back}, its peak GB)."""
+    from ei_nexus_tpu_torch.flagship import build_silk
+    from ei_nexus_tpu_torch.train.steps import batch_representation
+
+    ev, image = flagship_inputs()
+    B = image.shape[0]
+    rates, out_launches, peak_gb = {}, None, None
+    for name, want in (("EI_SiLK_LG", {"self_attention_rot": 18,
+                                       "cross_attention_bidir": 9,
+                                       "nms_rounds": 2}),
+                       ("EI_SiLK_MNN", {"nms_rounds": 2}),
+                       ("SiLKMatcher", {"nms_rounds": 2})):
+        model, (H, W, bins) = build_silk(
+            name, generator=torch.Generator().manual_seed(0))
+        if name == "SiLKMatcher":
+            image1 = torch.roll(image, 2, dims=2)
+
+            def forward():
+                return model(image, image1)
+        else:
+            def forward():
+                rep, mask = batch_representation(ev, "VoxelGrid", bins, H, W)
+                return model(rep, image, mask)
+        with torch.inference_mode():
+            launches, (f0, f1, m) = _read_launches(
+                forward, name, want, 18 if name == "EI_SiLK_LG" else 0)
+            L = model.config.matcher.max_points_num
+            sides = ((model.image_extractor,) * 2 if name == "SiLKMatcher"
+                     else (model.event_extractor, model.image_extractor))
+            tops = [ex.config.detection_top_k for ex in sides]
+            for f, K in zip((f0, f1), tops):
+                require(f["sparse_positions"].shape == (B, K, 3)
+                        and f["sparse_descriptors"].shape == (B, K, 128),
+                        f"[{name}] keypoint or descriptor shape")
+                require(torch.isfinite(f["sparse_positions"]).all()
+                        and torch.isfinite(f["sparse_descriptors"]).all(),
+                        f"[{name}] non-finite keypoints or descriptors")
+            require(m["matches0"].shape == (B, L)
+                    and torch.isfinite(m["matching_scores0"]).all(),
+                    f"[{name}] match shapes or scores")
+            n_valid = [int(f["sparse_valid"].sum()) for f in (f0, f1)]
+            n_match = int((m["matches0"] > -1).sum())
+            slots = [B * K for K in tops]
+            print(f"[{name}] valid keypoints {n_valid} of {slots} per "
+                  f"side, {n_match} matches in {B * L} slots")
+            require(n_match >= 1, f"[{name}] no valid match")
+            torch.cuda.reset_peak_memory_stats()
+            per_fwd, median, host_ms = time_calls(forward)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        rates[name] = per_fwd
+        print(f"[{name}] forward B={B}: latency median {median:.3f} ms; back "
+              f"to back {per_fwd:.3f} ms per forward (CUDA events; host "
+              f"clock {host_ms:.3f} ms), {B / per_fwd * 1e3:.2f} pairs/s "
+              f"({auto_ms / per_fwd:.3f}x the flagship's \"auto\" forward "
+              f"in this run); peak memory {peak:.2f} GB")
+        if name == "EI_SiLK_LG":
+            out_launches, peak_gb = launches, peak
+        del model, f0, f1, m
+        torch.cuda.empty_cache()
+    return out_launches, rates, peak_gb
+
+
+def phase_nms_cell1(gen) -> dict:
+    """(c) Kernel C at the cell-1 score maps, (8, 260, 346) (padding 1)
+    and (8, 242, 328) (padding 0): its plan, bit-exact against the plain
+    version in float32 and bfloat16, its device time. Returns the keys it
+    adds to C's row of the kernels' JSON line."""
+    from ei_nexus_tpu_torch.ops import nms_kernel as nk
+    dev, plans = {}, {}
+    for shape in NMS_CELL1_SHAPES:
+        score = torch.rand(*shape, generator=gen, device="cuda")
+        score = torch.where(score > 0.3, score, torch.zeros_like(score))
+        for dtype in (torch.float32, torch.bfloat16):
+            x = score.to(dtype)
+            plan = nk.nms_plan(*shape, NMS_RADIUS, NMS_ROUNDS,
+                               x.element_size())
+            got = nk.nms_rounds(x, NMS_RADIUS, NMS_ROUNDS)
+            want = nk.nms_rounds_plain(x, NMS_RADIUS, NMS_ROUNDS)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want),
+                    f"NMS kernel is not bit-exact at {shape} in {dtype}: "
+                    f"{int((got != want).sum())} pixels differ")
+            text = (f"clusters of {plan.cluster} blocks, {plan.rows} rows "
+                    f"of {plan.width} a block, {len(plan.row_strips)} x "
+                    f"{len(plan.col_strips)} tiles, {plan.smem_bytes} bytes "
+                    f"of shared memory a block")
+            plans[f"{shape} {str(dtype)[6:]}"] = text
+            print(f"[nms cell 1] {shape} {dtype}: bit-exact; plan {text}")
+        dev[str(shape)] = _sum_ms(device_ms(lambda: nk.nms_rounds(
+            score, NMS_RADIUS, NMS_ROUNDS)))
+        print(f"[nms cell 1] {shape} float32: device {dev[str(shape)]:.4f} "
+              f"ms a call; bound {nms_bound_ms(score)[0]:.4f} ms")
+    return {"device_ms_cell1": dev, "plan_cell1": plans}
+
+
+def phase_silk_cpu_vs_gpu():
+    """(d) Tiny float32 SiLK-family models on the CPU and on the card
+    (kernel C there, the same fixed 4 NMS rounds on the CPU), same weights
+    and inputs: EI_SiLK_LG and EI_SiLK_MNN at padding 1, and EI_SiLK_LG
+    with vgg_np and SiLK both at padding 0 (VALID, no event mask):
+    keypoints, validity and matches equal, score maps and descriptors
+    within phase 5's 1e-3."""
+    from ei_nexus_tpu_torch.data.synth import bursty_event_batch
+    from ei_nexus_tpu_torch.flagship import build_silk
+    from ei_nexus_tpu_torch.train.steps import batch_representation
+
+    worst = 0.0
+    for i, (name, padding) in enumerate((("EI_SiLK_LG", 1),
+                                         ("EI_SiLK_MNN", 1),
+                                         ("EI_SiLK_LG", 0))):
+        cpu_model, (H, W, bins) = build_silk(
+            name, tiny=True, dtype="float32", device="cpu",
+            generator=torch.Generator().manual_seed(10 + i), padding=padding)
+        for ex in (cpu_model.event_extractor, cpu_model.image_extractor):
+            ex.config = dataclasses.replace(ex.config, nms_impl="pallas")
+        gpu_model = copy.deepcopy(cpu_model).cuda()
+        rng = np.random.default_rng(10 + i)
+        ev = bursty_event_batch(rng, 4, 3000, 4096, H, W)
+        image = torch.as_tensor(rng.uniform(0, 255, (4, H, W, 1)).astype(
+            np.float32))
+        out = {}
+        with torch.inference_mode():
+            for dev, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+                rep, mask = batch_representation(ev, "VoxelGrid", bins, H,
+                                                 W, device=dev)
+                out[dev] = model(rep, image.to(dev),
+                                 mask if padding else None)
+        (e_c, i_c, m_c), (e_g, i_g, m_g) = out["cpu"], out["cuda"]
+        errs = []
+        for a, b in ((e_c, e_g), (i_c, i_g)):
+            require(torch.equal(a["sparse_positions"][..., :2],
+                                b["sparse_positions"][..., :2].cpu()),
+                    f"[{name} padding {padding}] keypoints differ")
+            require(torch.equal(a["sparse_valid"], b["sparse_valid"].cpu()),
+                    f"[{name} padding {padding}] validity differs")
+            errs += [max_err(a[k], b[k].cpu()) for k in
+                     ("score", "sparse_descriptors")]
+        for k in ("matches0", "matches1"):
+            require(torch.equal(m_c[k], m_g[k].cpu()),
+                    f"[{name} padding {padding}] {k} differ")
+        n_match = int((m_c["matches0"] > -1).sum())
+        print(f"[cpu-vs-gpu] tiny {name} padding {padding}: keypoints, "
+              f"validity and {n_match} matches equal; score and descriptor "
+              f"max|err| {max(errs):.2e}")
+        require(max(errs) <= 1e-3, f"[{name}] maps differ: {max(errs)}")
+        worst = max(worst, max(errs))
+    return worst
+
+
+def phase_silk_stage2():
+    """(e) The EIM_stage2_SiLK_LG step at full width through phase 4's
+    runner: D 36, F 36, C 2, 18 pack passes; frozen tensors bit-unchanged,
+    the loss lower after 10 steps on one batch and fill, steps/s over 24
+    steps, peak memory."""
+    from ei_nexus_tpu_torch.flagship import build_silk
+    model, shape = build_silk("EIM_stage2_SiLK_LG", training_heads=True,
+                              generator=torch.Generator().manual_seed(0))
+    return phase_stage2("silk-stage2", (model, shape))
+
+
+def phase_representations():
+    """(g) Every representation on the card against the CPU at the
+    flagship's input (B=8 bursty streams of 131,072 slots, 16 bins,
+    260x346; the DistanceMap's CPU side on the first stream): bit-equal
+    for TimeSurface, EventStack, AccumulationImage and DistanceMap, the
+    VoxelGrid as phase 5 holds it; the card's ms for each."""
+    from ei_nexus_tpu_torch.train.steps import batch_representation
+
+    from ei_nexus_tpu_torch.flagship import flagship_config
+    ev, _ = flagship_inputs()
+    _, (H, W, bins) = flagship_config()
+    ev_cpu = {k: v.cpu() for k, v in ev.items()}
+    times = {}
+    for kind in ("VoxelGrid", "TimeSurface", "EventStack", "DistanceMap",
+                 "AccumulationImage"):
+        got, mask = batch_representation(ev, kind, bins, H, W)
+        n = 1 if kind == "DistanceMap" else got.shape[0]
+        want, want_mask = batch_representation(
+            {k: v[:n] for k, v in ev_cpu.items()}, kind, bins, H, W,
+            device="cpu")
+        got, mask = got[:n].cpu(), mask[:n].cpu()
+        require(torch.equal(mask, want_mask), f"[{kind}] masks differ")
+        if kind == "VoxelGrid":
+            # the card's atomic float sums run in another order: held
+            # relative to the grid's largest value (hot pixels reach tens)
+            flips = int(((got == 0) != (want == 0)).sum())
+            err, top = max_err(got, want), float(want.abs().max())
+            require(err <= 1e-5 * max(1.0, top)
+                    and flips <= 1e-3 * got.numel(),
+                    f"[{kind}] max|err| {err} (max|v| {top}), {flips} zero "
+                    f"flips")
+            note = (f"max|err| {err:.2e} of max|v| {top:.2f}, {flips} zero "
+                    f"flips")
+        else:
+            require(torch.equal(got, want), f"[{kind}] differs from the CPU")
+            note = "bit-equal"
+        times[kind] = cuda_ms(lambda: batch_representation(
+            ev, kind, bins, H, W), iters=5, warmup=1)
+        print(f"[representations] {kind}: card vs CPU on {n} of 8 streams "
+              f"{note}; card {times[kind]:.3f} ms a batch of 8 (with the "
+              f"accumulation mask)")
+    return times
 
 
 def _steady_rate(log: str) -> float:
@@ -2110,7 +2380,7 @@ def main() -> int:
         "forward (q-blocked)", phase_forward, "qblock",
         {"qblock_attention": 36, "nms_rounds": 2}, 18, block_q=64)
     timed("pose check", phase_pose_check)
-    train_launches, step_ms = timed("stage-2 step", phase_stage2)
+    train_launches, step_ms, _ = timed("stage-2 step", phase_stage2)
     path_of = {"attention_fwd": train_launches, "attention_bwd":
                train_launches, "qblock_attention": qblock_launches,
                "flash_attention": flash_launches}
@@ -2126,8 +2396,30 @@ def main() -> int:
     for r in rows:
         r["launches_stage1_step"] = s1_launches[r["name"]]
     timed("cpu vs card, stage-1 step", phase_stage1_cpu_vs_gpu)
-    entry_rate, entry_walls, render_s = timed("stage-1 entry point",
-                                              phase_stage1_entry)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ec_")
+    try:
+        data = os.path.join(tmp, "mini_ec")
+        render_s = timed("mini-EC render", render_mini_ec, data)
+        entry_rate, entry_walls = timed("stage-1 entry point",
+                                        phase_stage1_entry, data, tmp)
+        # phase 10: the SiLK family
+        silk_launches, silk_ms, silk_peak = timed(
+            "SiLK forwards", phase_silk_forwards, fwd_ms)
+        c_row = next(r for r in rows if r["name"] == "nms_rounds")
+        c_row.update(timed("kernel C at the cell-1 shapes", phase_nms_cell1,
+                           torch.Generator(device="cuda").manual_seed(3)))
+        timed("cpu vs card, SiLK forwards", phase_silk_cpu_vs_gpu)
+        silk_s2_launches, silk_step_ms, silk_s2_peak = timed(
+            "SiLK stage-2 step", phase_silk_stage2)
+        silk_entry_rate, silk_entry_walls = timed(
+            "SiLK stage-1 entry point", phase_stage1_entry, data, tmp,
+            "silk-entry", SILK_ENTRY_CONFIG, False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rep_ms = timed("representations", phase_representations)
+    for r in rows:
+        r["launches_silk_lg_forward"] = silk_launches[r["name"]]
+        r["launches_silk_stage2_step"] = silk_s2_launches[r["name"]]
 
     print(json.dumps({"kernels": rows}))
     for tag, ms in (("flagship forward", fwd_ms),
@@ -2158,6 +2450,24 @@ def main() -> int:
           f"{entry_rate:.3f} steps/s (steps 3-4); process wall "
           f"{entry_walls[0]:.1f} s for 4 steps, {entry_walls[1]:.1f} s "
           f"resumed for 2, on {smi}")
+    for name, ms in silk_ms.items():
+        print(f"{name} forward: {B / ms * 1e3:.2f} pairs/s ({ms:.3f} ms per "
+              f"batch of {B}, back to back; {fwd_ms / ms:.3f}x the flagship's "
+              f"\"auto\" forward in this run)"
+              + (f", peak {silk_peak:.2f} GB" if name == "EI_SiLK_LG" else "")
+              + f", on {smi}")
+    print(f"SiLK stage-2 training step (EIM_stage2_SiLK_LG): "
+          f"{1e3 / silk_step_ms:.3f} steps/s ({silk_step_ms:.3f} ms per step "
+          f"of {B} pairs, back to back; peak {silk_s2_peak:.2f} GB) against "
+          f"the flagship's {1e3 / step_ms:.3f} steps/s in this run, on {smi}")
+    print(f"SiLK stage-1 entry point (configs/train_EIM_stage1_EC_SiLK_MNN"
+          f".yaml, 160x160 crops, B={B}): steady {silk_entry_rate:.3f} "
+          f"steps/s (steps 3-4); process wall {silk_entry_walls[0]:.1f} s "
+          f"for 4 steps, on {smi}")
+    print("representations on the card, ms a batch of 8 (131,072 slots, 16 "
+          "bins, 260x346, with the accumulation mask): "
+          + json.dumps({k: round(v, 4) for k, v in rep_ms.items()})
+          + f", on {smi}")
     print(f"wall seconds by phase: {json.dumps(walls)}")
     print(smi)
     print(json.dumps({"ok": True, "device": {

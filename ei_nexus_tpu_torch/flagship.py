@@ -14,12 +14,15 @@ stage-1 variant (`build_stage1_flagship`, tools/bench_train.py:44-56)
 trains the event extractor against the frozen SuperPoint with the frozen
 MNN matcher, the losses of tools/bench_train.py:84-99 (`STAGE1_LOSSES`)
 and the optimizer of configs/train/train_stage1.yaml
-(`stage1_train_state`).
+(`stage1_train_state`). `silk_config` reads the SiLK family's model
+configs (the cell-1 event extractor `vgg_np` and the frozen SiLK, with
+LightGlue or MNN, or SiLK on both frames) at the same sizes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Optional, Tuple, Union
 
 import torch
@@ -27,10 +30,13 @@ import torch
 from .device import resolve_device
 from .train.partition import frozen_roots_from_config
 from .train.state import TrainState, create_train_state
-from .models.eim import EIM, EIMConfig, ExtractorSpec, MatcherConfig
+from .models.config_adapter import eim_config_from_dict
+from .models.eim import (EIM, EIMConfig, ExtractorSpec, ImageImageMatcher,
+                         MatcherConfig)
 from .models.extractor import KeypointExtractorConfig
 from .models.layers import init_parameters
 from .models.lightglue import LightGlueConfig
+from .utils.config import load_config
 
 
 # configs/train/train_stage2.yaml
@@ -178,3 +184,81 @@ def stage1_train_state(model: EIM, steps_per_epoch: int = 1) -> TrainState:
     return create_train_state(model, frozen_roots_from_config(model.config),
                               STAGE1_OPTIMIZER, STAGE1_SCHEDULER, STAGE1_LR,
                               steps_per_epoch)
+
+
+CONFIGS = Path(__file__).resolve().parent.parent / "configs" / "model"
+# the SiLK family's model configs: name -> (YAML, model type)
+SILK_CONFIGS = {
+    "EI_SiLK_LG": ("test/EI_SiLK_LG.yaml", "EIM"),
+    "EI_SiLK_MNN": ("test/EI_SiLK_MNN.yaml", "EIM"),
+    "EIM_stage2_SiLK_LG": ("EIM_stage2_SiLK_LG.yaml", "EIM"),
+    "SiLK_MNN": ("SiLK_MNN.yaml", "EIM"),
+    "SiLKMatcher": ("SiLKMatcher.yaml", "ImageImageMatcher"),
+}
+
+
+def silk_model_dict(tiny: bool = False, dtype: str = "bfloat16",
+                    name: str = "EI_SiLK_LG"
+                    ) -> Tuple[dict, Tuple[int, int, int]]:
+    """(model config dict, (H, W, bins)) of one SiLK-family model config
+    (`SILK_CONFIGS`), read through the config loader. Only the compute
+    dtype of the extractors and LightGlue is overridden, and at `tiny` the
+    sizes: 32x48, 4 bins, 32 matcher slots with the config's ratio of
+    keypoints to slots (512 of 1024 -> 16 of 32), 2 LightGlue layers; the
+    widths (LightGlue's input_dim 128 included) stay. Full size is MVSEC's
+    260x346 at the config's 16 bins."""
+    path = str(CONFIGS / SILK_CONFIGS[name][0])
+    raw = load_config(path).to_dict()
+    overrides = [f"event_extractor.dtype={dtype}",
+                 f"image_extractor.dtype={dtype}", f"matcher.dtype={dtype}"]
+    ev_type = raw["event_extractor"]["type"]
+    slots = raw["matcher"].get("max_points_num", 1024)
+    if tiny:
+        H, W, bins, K = 32, 48, 4, 32
+        overrides += [f"event_extractor.{ev_type}.in_channels={bins}",
+                      f"matcher.max_points_num={K}",
+                      "matcher.LightGlue.n_layers=2"]
+        for side in ("event_extractor", "image_extractor"):
+            etype = raw[side]["type"]
+            top_k = raw[side].get(etype, {}).get("detection_top_k", 1024)
+            overrides.append(f"{side}.{etype}.detection_top_k="
+                             f"{top_k * K // slots}")
+    else:
+        H, W = 260, 346
+        bins = raw["event_extractor"].get(ev_type, {}).get("in_channels", 16)
+    return load_config(path, overrides).to_dict(), (H, W, bins)
+
+
+def silk_config(tiny: bool = False, dtype: str = "bfloat16",
+                name: str = "EI_SiLK_LG"
+                ) -> Tuple[EIMConfig, Tuple[int, int, int]]:
+    """(EIMConfig, (H, W, bins)) of `silk_model_dict` through the config
+    adapter; the model type to build is `SILK_CONFIGS[name][1]`."""
+    model_dict, shape = silk_model_dict(tiny, dtype, name)
+    return eim_config_from_dict(model_dict), shape
+
+
+def build_silk(name: str = "EI_SiLK_LG", tiny: bool = False,
+               dtype: str = "bfloat16",
+               device: Optional[Union[str, torch.device]] = "cuda",
+               generator: Optional[torch.Generator] = None,
+               training_heads: bool = False, **spec
+               ) -> Tuple[torch.nn.Module, Tuple[int, int, int]]:
+    """(model of `silk_config(tiny, dtype, name)` in eval mode on
+    `device`, (H, W, bins)): an EIM or an ImageImageMatcher as
+    `SILK_CONFIGS` says, with LightGlue's training heads when
+    `training_heads`; `spec` replaces fields of both extractors' specs
+    (e.g. padding=0). Weights random from `generator` as
+    `build_flagship`."""
+    dev = resolve_device(device)
+    cfg, shape = silk_config(tiny, dtype, name)
+    if spec:
+        cfg = dataclasses.replace(cfg, **{
+            side: dataclasses.replace(getattr(cfg, side), **spec)
+            for side in ("event_extractor", "image_extractor")})
+    cls = EIM if SILK_CONFIGS[name][1] == "EIM" else ImageImageMatcher
+    model = cls(cfg, training_heads)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    init_parameters(model, generator)
+    return model.to(dev).eval(), shape

@@ -2,8 +2,8 @@
 model dataclasses.
 
 A copy of `ei_nexus_tpu/models/config_adapter.py`: every extractor type of
-the configs maps to its spec, "vgg_np" and "silk" included; only
-`build_model` refuses those two (they are not ported yet)."""
+the configs ("vgg", "vgg_np", "superpointv1", "silk") maps to its spec,
+and `build_model` builds each of them."""
 
 from __future__ import annotations
 

@@ -22,9 +22,10 @@ running statistics and without gradient.
 `ImageImageMatcher` runs one shared image extractor on two frames and
 the same Matcher.
 
-Ported so far: the "vgg" event extractor, the "superpointv1" image
-extractor and the LightGlue and MNN matchers. The "vgg_np" and "silk"
-extractors raise NotImplementedError (ROADMAP Queue 1 item 3).
+Every extractor of the JAX package is ported: the event extractors "vgg"
+(cell 8) and "vgg_np" (cell 1), the image extractors "superpointv1" and
+"silk" (cell 1), the last two at padding 1 or 0 (VALID convolutions and
+the +9 px remap); and the LightGlue and MNN matchers.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from ..device import resolve_device
 from .extractor import KeypointExtractorConfig, VGGExtractor
 from .lightglue import LightGlue, LightGlueConfig
 from .mnn import mnn_match
+from .silk import SiLKVGG
 from .superpoint import SuperPointV1
 
 
@@ -59,7 +61,7 @@ class MatcherConfig:
 class ExtractorSpec:
     """One extractor's type + hyperparameters."""
 
-    type: str = "vgg"                    # vgg | superpointv1 (others later)
+    type: str = "vgg"                    # vgg | vgg_np | superpointv1 | silk
     freeze: bool = False
     dtype: str = "float32"               # conv compute dtype
     in_channels: int = 16
@@ -80,23 +82,42 @@ class EIMConfig:
 
 
 def _build_extractor(spec: ExtractorSpec) -> nn.Module:
+    """The extractor of `spec`, as the JAX package's `_build_extractor`
+    builds it: "vgg" ignores `padding` (SAME convolutions always); the
+    cell-1 types take padding 0 as VALID convolutions and the +9 px
+    remap; "silk" has SiLK's own widths and scale factor 1.41, whatever
+    the spec says."""
+    kcfg = spec.keypoints
     dtype = getattr(torch, spec.dtype)
-    if spec.type in ("vgg_np", "silk"):
-        raise NotImplementedError(
-            f"extractor type {spec.type!r} is not ported yet (the cell-1 "
-            f"extractors, ROADMAP Queue 1 item 3)")
+    padding = "VALID" if spec.padding == 0 else "SAME"
+    offset = 9.0 if spec.padding == 0 else 0.0
     if spec.type == "vgg":
-        if spec.padding != 1:
-            raise NotImplementedError("only padding=1 VGG is ported")
         return VGGExtractor(
-            config=spec.keypoints, in_channels=spec.in_channels,
+            config=kcfg, in_channels=spec.in_channels,
             feat_channels=spec.feat_channels,
             descriptor_dim=spec.descriptor_dim,
             lat_channels=spec.lat_channels,
             use_batchnorm=spec.use_batchnorm, dtype=dtype)
+    if spec.type == "vgg_np":
+        kcfg = dataclasses.replace(kcfg, cell_size=1,
+                                   sparse_desc_from="fullres",
+                                   coord_offset=offset)
+        return VGGExtractor(
+            config=kcfg, in_channels=spec.in_channels,
+            feat_channels=spec.feat_channels,
+            descriptor_dim=spec.descriptor_dim,
+            lat_channels=spec.lat_channels,
+            use_batchnorm=spec.use_batchnorm, dtype=dtype,
+            use_max_pooling=False, conv_padding=padding)
     if spec.type == "superpointv1":
-        return SuperPointV1(config=spec.keypoints,
+        return SuperPointV1(config=kcfg,
                             descriptor_dim=spec.descriptor_dim, dtype=dtype)
+    if spec.type == "silk":
+        kcfg = dataclasses.replace(kcfg, cell_size=1,
+                                   sparse_desc_from="fullres",
+                                   descriptor_scale_factor=1.41,
+                                   coord_offset=offset)
+        return SiLKVGG(config=kcfg, conv_padding=padding, dtype=dtype)
     raise ValueError(f"unknown extractor type {spec.type!r}")
 
 

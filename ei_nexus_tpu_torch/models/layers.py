@@ -52,13 +52,17 @@ class Linear(nn.Linear):
 
 
 class Conv2d(nn.Conv2d):
-    """flax nn.Conv with "SAME" padding (3x3) or "VALID" (1x1), stride 1."""
+    """flax nn.Conv, stride 1, with flax's `padding`: "SAME" pads an odd
+    kernel by kernel // 2 on each side (none for 1x1), "VALID" pads
+    nothing."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, padding: str = "SAME"):
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding {padding!r}: SAME or VALID")
         self.compute_dtype = dtype
         super().__init__(in_channels, out_channels, kernel,
-                         padding=kernel // 2)
+                         padding=kernel // 2 if padding == "SAME" else 0)
 
     def reset_parameters(self, generator=None) -> None:
         with torch.no_grad():

@@ -3,10 +3,15 @@ descriptor heads.
 
 Counterpart of `ei_nexus_tpu/models/vgg.py`, on NCHW tensors inside the
 extractor (the NHWC maps of the public functions are permuted views).
-Block order conv -> ReLU -> BatchNorm; 3x3 convs pad by 1.
+Block order conv -> ReLU -> BatchNorm; 3x3 convs pad by 1 ("SAME") or not
+at all ("VALID", the padding=0 cell-1 extractors). Without max pooling the
+backbone keeps full resolution (the cell-1 event extractor and SiLK), and
+`stage_channels` sets its per-stage widths (SiLK's ParametricVGG).
 """
 
 from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -20,9 +25,9 @@ class VGGBlock(nn.Module):
 
     def __init__(self, in_channels: int, features: int,
                  use_batchnorm: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, padding: str = "SAME"):
         super().__init__()
-        self.conv = Conv2d(in_channels, features, 3, dtype)
+        self.conv = Conv2d(in_channels, features, 3, dtype, padding)
         self.bn = BatchNorm(features) if use_batchnorm else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -31,22 +36,29 @@ class VGGBlock(nn.Module):
 
 
 class VGGBackbone(nn.Module):
-    """4-stage VGG encoder with widths (64,64)(64,64)(128,128)(C,C), a 2x2
-    max-pool after each of the first three stages (stride 8 overall)."""
+    """4-stage VGG encoder with widths (64,64)(64,64)(128,128)(C,C) (or
+    `stage_channels`); with `use_max_pooling` a 2x2 max-pool follows each
+    of the first three stages (stride 8 overall), without it the maps stay
+    at full resolution."""
 
     def __init__(self, in_channels: int, feat_channels: int = 128,
                  use_batchnorm: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 use_max_pooling: bool = True,
+                 stage_channels: Optional[Sequence[Tuple[int, int]]] = None,
+                 padding: str = "SAME"):
         super().__init__()
-        stages = ((64, 64), (64, 64), (128, 128),
-                  (feat_channels, feat_channels))
+        stages = stage_channels or ((64, 64), (64, 64), (128, 128),
+                                    (feat_channels, feat_channels))
         self.blocks = []  # (block name, max-pool after it)
         c = in_channels
         for si, widths in enumerate(stages):
             for ci, width in enumerate(widths):
                 name = f"l{si + 1}_{ci}"
-                self.add_module(name, VGGBlock(c, width, use_batchnorm, dtype))
-                self.blocks.append((name, ci == len(widths) - 1
+                self.add_module(name, VGGBlock(c, width, use_batchnorm, dtype,
+                                               padding))
+                self.blocks.append((name, use_max_pooling
+                                    and ci == len(widths) - 1
                                     and si < len(stages) - 1))
                 c = width
 
@@ -63,9 +75,10 @@ class VGGDetectorHead(nn.Module):
 
     def __init__(self, in_channels: int, lat_channels: int = 256,
                  out_channels: int = 65, use_batchnorm: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, padding: str = "SAME"):
         super().__init__()
-        self.h1 = VGGBlock(in_channels, lat_channels, use_batchnorm, dtype)
+        self.h1 = VGGBlock(in_channels, lat_channels, use_batchnorm, dtype,
+                           padding)
         self.h2_conv = Conv2d(lat_channels, out_channels, 1, dtype)
         self.h2_bn = BatchNorm(out_channels) if use_batchnorm else None
 
@@ -79,6 +92,6 @@ class VGGDescriptorHead(VGGDetectorHead):
 
     def __init__(self, in_channels: int, out_channels: int = 256,
                  use_batchnorm: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, padding: str = "SAME"):
         super().__init__(in_channels, out_channels, out_channels,
-                         use_batchnorm, dtype)
+                         use_batchnorm, dtype, padding)

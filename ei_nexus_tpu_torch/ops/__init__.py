@@ -17,6 +17,7 @@ from .detector import (
 from .descriptor import (
     normalize_descriptors,
     sample_descriptors_lowres,
+    sample_descriptors_fullres,
     upsample_descriptors,
     dense_descriptors,
 )
@@ -28,6 +29,7 @@ __all__ = [
     "logits_to_prob", "depth_to_space", "remove_border_scores", "nms",
     "select_topk_keypoints", "smooth_score_mask", "dense_positions",
     "normalize_descriptors", "sample_descriptors_lowres",
-    "upsample_descriptors", "dense_descriptors",
+    "sample_descriptors_fullres", "upsample_descriptors",
+    "dense_descriptors",
     "qblock_attention", "flash_attention", "segment_ids_from_mask",
 ]

@@ -5,6 +5,8 @@ keypoint slots. Coordinate conventions:
  - low-res sampling: full-res positions shifted by -0.5, normalized by
    (padded_size - 1), then bilinearly sampled on the coarse map with
    half-pixel centers and zero padding (grid_sample, align_corners=False);
+ - full-resolution sampling (cell 1): the integer (floor) gather, clipped
+   to the map;
  - upsampling: half-pixel bilinear resize (F.interpolate,
    align_corners=False), then L2 normalization.
 """
@@ -76,6 +78,25 @@ def sample_descriptors_lowres(
     ly = (uy + 1.0) / 2.0 * h - 0.5
     lx = (ux + 1.0) / 2.0 * w - 0.5
     desc = _bilinear_gather_nhwc(raw_desc, lx, ly)
+    return normalize_descriptors(desc, scale_factor, normalize)
+
+
+def sample_descriptors_fullres(
+    raw_desc: torch.Tensor,
+    positions: torch.Tensor,
+    scale_factor: float = 1.0,
+    normalize: bool = True,
+    ordering: str = "yx",
+) -> torch.Tensor:
+    """Integer (floor) gather from a full-resolution (B, H, W, D) map at
+    (B, K, >=2) positions, clipped to the map, then normalised."""
+    assert ordering in ("yx", "xy")
+    B, H, W, D = raw_desc.shape
+    cols = (0, 1) if ordering == "yx" else (1, 0)
+    yi = torch.floor(positions[..., cols[0]]).to(torch.int64).clamp(0, H - 1)
+    xi = torch.floor(positions[..., cols[1]]).to(torch.int64).clamp(0, W - 1)
+    idx = (yi * W + xi)[..., None].expand(-1, -1, D)
+    desc = torch.gather(raw_desc.reshape(B, H * W, D), 1, idx)
     return normalize_descriptors(desc, scale_factor, normalize)
 
 

@@ -5,8 +5,8 @@ batch's padded event arrays to the compact wire format
 (`compact_event_view`: uint16 fixed-point coordinates, float32 relative
 times, uint8 polarity and one valid count per row, the columns cut to a
 bucketed length); `_decode_event_view` restores the float arrays on the
-device. `batch_representation` accepts either format and builds the voxel
-grid (NHWC) and the event-occupancy mask on the device, and
+device. `batch_representation` accepts either format and builds the
+representation (NHWC) and the event-occupancy mask on the device, and
 `make_stage1_train_step` distils the event extractor against the frozen
 image extractor, and `make_stage2_train_step` trains LightGlue on
 time-separated pairs with ground-truth matches from pose and depth. The
@@ -167,17 +167,17 @@ def batch_representation(batch_view: Mapping[str, object], kind: str,
                          bins: int, height: int, width: int,
                          device: Optional[Union[str, torch.device]] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Padded raw events -> (events_rep NHWC (B, H, W, bins), mask (B, H, W)).
+    """Padded raw events -> (events_rep NHWC (B, H, W, C), mask (B, H, W)).
 
     `batch_view` holds (B, N) arrays or tensors `events_x`, `events_y`,
     `events_t`, `events_p`, `events_valid`, or the compact wire format of
     `compact_event_view` (decoded on the device first); they are moved to
     `device` (the card unless the caller names another). N may be any
-    length. Exact-scatter semantics (the JAX package's `fast=False`);
-    VoxelGrid only in this slice."""
+    length. `kind` is any of `data.representations.build_representation`
+    (VoxelGrid, TimeSurface, EventStack, DistanceMap, AccumulationImage),
+    with the JAX package's `fast=False` semantics: the voxel grid is the
+    exact scatter, not the TPU's matmul splat."""
     dev = resolve_device(device)
-    if kind != "VoxelGrid":
-        raise NotImplementedError(f"representation {kind!r} is not ported")
     batch_view = _decode_event_view(batch_view, dev)
 
     def get(key, dtype):
@@ -188,8 +188,8 @@ def batch_representation(batch_view: Mapping[str, object], kind: str,
     t = get("events_t", torch.float32)
     p = get("events_p", torch.float32)
     m = get("events_valid", torch.bool)
-    rep = reps.events_to_voxel_grid(x, y, t, p, bins=bins, height=height,
-                                    width=width, mask=m)
+    rep = reps.build_representation(kind, x, y, t, p, bins=bins,
+                                    height=height, width=width, mask=m)
     acc = reps.events_to_accumulation_image(x, y, height=height, width=width,
                                             mask=m)
     return rep.permute(0, 2, 3, 1), acc > 0

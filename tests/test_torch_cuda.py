@@ -1005,3 +1005,89 @@ def test_stage1_step_on_the_card(cuda):
             assert (sg[k] - sc[k]).abs().max() <= 1e-4, k
         else:
             assert (sg[k] - sc[k]).abs().max() <= 4 * STAGE1_LR, k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 260, 346), (2, 242, 328)],
+                         ids=["cell1-padding1", "cell1-padding0"])
+def test_nms_kernel_cell1_shapes(cuda, dtype, shape):
+    """Kernel C at the cell-1 extractors' full-resolution score maps:
+    MVSEC's 260x346 unpadded (padding 1) and 18 px smaller (padding 0),
+    bit-exact against the plain version."""
+    s = torch.rand(*shape, generator=cuda, device="cuda")
+    s = torch.where(s > 0.3, s, torch.zeros_like(s)).to(dtype)
+    before = nk.nms_rounds.launches
+    assert torch.equal(nk.nms_rounds(s, 4, 4), nk.nms_rounds_plain(s, 4, 4))
+    assert nk.nms_rounds.launches == before + 1
+
+
+@pytest.mark.parametrize("name,padding", [("EI_SiLK_LG", 1),
+                                          ("EI_SiLK_MNN", 0)])
+def test_tiny_silk_forward_on_the_card(cuda, name, padding):
+    """The tiny float32 SiLK-family EIM on the CPU and on the card (kernel
+    C on the card, the same fixed 4 NMS rounds on the CPU), same weights
+    and inputs: keypoints, validity and matches equal, maps to 1e-4."""
+    import copy
+    import dataclasses
+    import numpy as np
+    from ei_nexus_tpu_torch.data.synth import bursty_event_batch
+    from ei_nexus_tpu_torch.flagship import build_silk
+    from ei_nexus_tpu_torch.train.steps import batch_representation
+
+    cpu_model, (H, W, bins) = build_silk(
+        name, tiny=True, dtype="float32", device="cpu",
+        generator=torch.Generator().manual_seed(5), padding=padding)
+    for ex in (cpu_model.event_extractor, cpu_model.image_extractor):
+        ex.config = dataclasses.replace(ex.config, nms_impl="pallas")
+    gpu_model = copy.deepcopy(cpu_model).cuda()
+    rng = np.random.default_rng(5)
+    ev = bursty_event_batch(rng, 2, 3000, 4096, H, W)
+    image = torch.as_tensor(rng.uniform(0, 255, (2, H, W, 1)).astype(
+        np.float32))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        with torch.inference_mode():
+            for dev, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+                rep, mask = batch_representation(ev, "VoxelGrid", bins, H,
+                                                 W, device=dev)
+                before = nk.nms_rounds.launches
+                out[dev] = model(rep, image.to(dev), mask if padding else None)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    assert nk.nms_rounds.launches == before + 2
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (e_c, i_c, m_c), (e_g, i_g, m_g) = out["cpu"], out["cuda"]
+    for a, b in ((e_c, e_g), (i_c, i_g)):
+        assert torch.equal(a["sparse_positions"][..., :2],
+                           b["sparse_positions"][..., :2].cpu())
+        assert torch.equal(a["sparse_valid"], b["sparse_valid"].cpu())
+        for k in ("score", "sparse_descriptors", "raw_descriptors"):
+            assert (a[k] - b[k].cpu()).abs().max() <= 1e-4, k
+    for k in ("matches0", "matches1"):
+        assert torch.equal(m_c[k], m_g[k].cpu()), k
+
+
+@pytest.mark.parametrize("kind", ["VoxelGrid", "TimeSurface", "EventStack",
+                                  "DistanceMap", "AccumulationImage"])
+def test_representations_on_the_card(cuda, kind):
+    """Each representation on the card against the CPU on the same bursty
+    events: bit-equal, but for the voxel grid, whose atomic float sums run
+    in another order (to 1e-5, and a zero may read ~1e-8)."""
+    import numpy as np
+    from ei_nexus_tpu_torch.data.synth import bursty_event_batch
+    from ei_nexus_tpu_torch.train.steps import batch_representation
+
+    H, W, bins = 60, 80, 6
+    ev = bursty_event_batch(np.random.default_rng(6), 2, 6000, 8192, H, W)
+    want, want_mask = batch_representation(ev, kind, bins, H, W,
+                                           device="cpu")
+    got, mask = batch_representation(ev, kind, bins, H, W, device="cuda")
+    assert torch.equal(mask.cpu(), want_mask)
+    if kind == "VoxelGrid":
+        assert (got.cpu() - want).abs().max() <= 1e-5
+    else:
+        assert torch.equal(got.cpu(), want)
+    assert (want != 0).any()

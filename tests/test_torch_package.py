@@ -74,6 +74,9 @@ def test_entry_points_default_to_the_card():
         build_stage2_flagship(tiny=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_stage1_flagship(tiny=True)
+    from ei_nexus_tpu_torch.flagship import build_silk
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_silk(tiny=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         train_extractor.main(["--config", str(
             ROOT / "configs" / "train_EIM_stage1_EC_SP_MNN.yaml")])
@@ -120,13 +123,9 @@ def test_unported_paths_raise():
         with pytest.raises(NotImplementedError):
             LightGlue(LightGlueConfig(**bad))
     cfg, _ = flagship_config(tiny=True, dtype="float32")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown extractor type"):
         EIM(dataclasses.replace(cfg, image_extractor=dataclasses.replace(
-            cfg.image_extractor, type="silk")))
-    # the cell-1 event extractor waits for its slice
-    with pytest.raises(NotImplementedError, match="item 3"):
-        EIM(dataclasses.replace(cfg, event_extractor=dataclasses.replace(
-            cfg.event_extractor, type="vgg_np")))
+            cfg.image_extractor, type="superpointv2")))
 
 
 def test_unported_training_options_raise():

@@ -569,14 +569,63 @@ def test_image_image_matcher_trains_its_extractor():
 
 
 def test_build_model_refuses_the_cell1_extractors():
+    """`build_model` builds the cell-1 extractors on the CPU: the tiny
+    flagship with its event extractor made "vgg_np" and its image
+    extractor "silk" (both 128-d, the MNN matcher), in train() as stage 1
+    runs them; the dense maps and, at inference, the keypoints and matches
+    equal the JAX model's."""
+    from __graft_entry__ import _flagship
     from ei_nexus_tpu_torch.flagship import flagship_config
-    cfg, _ = flagship_config(tiny=True, dtype="float32")
-    for kind, side in (("vgg_np", "event_extractor"),
-                       ("silk", "image_extractor")):
-        bad = dataclasses.replace(cfg, **{side: dataclasses.replace(
-            getattr(cfg, side), type=kind)})
-        with pytest.raises(NotImplementedError, match="item 3"):
-            teim.build_model("EIM", bad, device="cpu")
+    from ei_nexus_tpu_torch.models.silk import SiLKVGG
+
+    def cell1(cfg, module):
+        return dataclasses.replace(
+            cfg,
+            event_extractor=dataclasses.replace(
+                cfg.event_extractor, type="vgg_np", descriptor_dim=128,
+                freeze=False),
+            image_extractor=dataclasses.replace(cfg.image_extractor,
+                                                type="silk"),
+            matcher=module.MatcherConfig(type="MNN", freeze=True,
+                                         max_points_num=32))
+
+    cfg, (Hh, Ww, bins) = flagship_config(tiny=True, dtype="float32")
+    tm = teim.build_model("EIM", cell1(cfg, teim), device="cpu")
+    assert isinstance(tm.event_extractor, text.VGGExtractor)
+    assert tm.event_extractor.cell == 1
+    assert isinstance(tm.image_extractor, SiLKVGG)
+    jm = jeim.build_model("EIM", cell1(_flagship(tiny=True)[0].config, jeim))
+    batch = _stage1_batch(Hh, Ww)
+    from ei_nexus_tpu_torch.train.steps import batch_representation
+    rep, mask = batch_representation(batch[0], "VoxelGrid", bins, Hh, Ww,
+                                     device="cpu")
+    image = batch[0]["image"]
+    variables = _perturb(jax.jit(jm.init)(jax.random.PRNGKey(0),
+                                          rep.numpy(), image, mask.numpy()))
+    tm.load_state_dict(load_jax_variables(variables), strict=True)
+    (je, ji, _), _ = jax.jit(lambda v, r, i, m: jm.apply(
+        v, r, i, m, None, True, mutable=["batch_stats"]))(
+            variables, rep.numpy(), image, mask.numpy())
+    te, ti, matches = tm(rep, _t(image), mask, training=True)
+    assert matches is None
+    for got, want in ((te, je), (ti, ji)):
+        for k in DENSE_KEYS:
+            np.testing.assert_allclose(got[k].detach().numpy(),
+                                       np.asarray(want[k]), err_msg=k,
+                                       atol=1e-4, rtol=1e-4)
+    je, ji, jmatch = jax.jit(jm.apply)(variables, rep.numpy(), image,
+                                       mask.numpy())
+    tm.load_state_dict(load_jax_variables(variables), strict=True)
+    with torch.no_grad():
+        te, ti, tmatch = tm(rep, _t(image), mask)
+    for got, want in ((te, je), (ti, ji)):
+        np.testing.assert_array_equal(got["sparse_positions"][..., :2],
+                                      np.asarray(want["sparse_positions"])
+                                      [..., :2])
+        np.testing.assert_array_equal(got["sparse_valid"],
+                                      np.asarray(want["sparse_valid"]))
+    np.testing.assert_array_equal(tmatch["matches0"],
+                                  np.asarray(jmatch["matches0"]))
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ stage-2 training step, goes on one GPU.
 
     python tools/profile_torch_forward.py [--path forward|stage1|stage2]
         [--attention auto|flash|qblock] [--pose] [--seed 0] [--iters 3]
-        [--no-trace]
+        [--model flagship|EI_SiLK_LG|EI_SiLK_MNN|SiLKMatcher|
+                 EIM_stage2_SiLK_LG] [--no-trace]
 
 Builds the full-width flagship EIM of `ei_nexus_tpu_torch` (bf16, B=8,
 random weights from --seed) on bursty events. `--path forward` (default)
@@ -17,7 +18,11 @@ matches) is traced as well. `--path stage2` runs the stage-2 training step
 (both extractors frozen, LightGlue trained with AdamW; the same batch and
 random slot fill every step), `--path stage1` the stage-1 step (the event
 extractor trained against the frozen SuperPoint, as chip_smoke.py's
-phase 9 runs it; the same batch every step). After a warm-up it traces --iters runs with
+phase 9 runs it; the same batch every step). `--model` swaps the flagship
+for one of the SiLK family's configs (`flagship.silk_config`, bf16, as
+chip_smoke.py's phase 10 runs them) in the forward and stage-2 paths;
+SiLKMatcher matches the frame against itself shifted by 2 px. After a
+warm-up it traces --iters runs with
 torch.profiler and prints the device time by kernel group (the port's
 kernels A-G and the Hopper loops' pack pass, the pose tail's QR, SVD and
 sampling, convolutions, matrix products, norms, voxel scatter, sorting,
@@ -109,6 +114,9 @@ def main() -> int:
     ap.add_argument("--attention", choices=("auto", "flash", "qblock"),
                     default="auto")
     ap.add_argument("--pose", action="store_true")
+    ap.add_argument("--model", default="flagship",
+                    choices=("flagship", "EI_SiLK_LG", "EI_SiLK_MNN",
+                             "SiLKMatcher", "EIM_stage2_SiLK_LG"))
     ap.add_argument("--no-trace", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -116,11 +124,12 @@ def main() -> int:
         return 2
     B = 8
     if args.path == "stage2":
-        runs = {"step": stage2_runner(B, args.seed)}
+        runs = {"step": stage2_runner(B, args.seed, args.model)}
     elif args.path == "stage1":
         runs = {"stage-1 step": stage1_runner(B, args.seed)}
     else:
-        runs = forward_runners(B, args.seed, args.attention, args.pose)
+        runs = forward_runners(B, args.seed, args.attention, args.pose,
+                               args.model)
     for what, run in runs.items():
         profile_run(what, run, B, args)
     return 0
@@ -210,21 +219,26 @@ def profile_run(what: str, run, B: int, args) -> None:
         "groups_ms": {g: us / 1e3 / per for g, us in by_group.items()}}))
 
 
-def forward_runners(B: int, seed: int, attention: str, pose: bool):
-    """{name: run}: one inference forward of the flagship (voxel grid
-    included) with the given attention setting; with `pose`, the forward
-    chained with the pose tail, and the pose tail alone on one forward's
-    matches."""
+def forward_runners(B: int, seed: int, attention: str, pose: bool,
+                    model_name: str = "flagship"):
+    """{name: run}: one inference forward of the flagship, or of the SiLK
+    config `model_name` (voxel grid included), with the given attention
+    setting; with `pose`, the forward chained with the pose tail, and the
+    pose tail alone on one forward's matches."""
     from ei_nexus_tpu_torch.data.synth import bursty_event_batch
-    from ei_nexus_tpu_torch.flagship import build_flagship
+    from ei_nexus_tpu_torch.flagship import build_flagship, build_silk
     from ei_nexus_tpu_torch.metrics.ransac import estimate_pose_batch
     from ei_nexus_tpu_torch.train.steps import batch_representation
 
     max_events = 1 << 17
-    model, (H, W, bins) = build_flagship(
-        dtype="bfloat16", generator=torch.Generator().manual_seed(seed),
-        attention_impl="flash" if attention == "flash" else "auto",
-        block_q=64 if attention == "qblock" else 0)
+    if model_name == "flagship":
+        model, (H, W, bins) = build_flagship(
+            dtype="bfloat16", generator=torch.Generator().manual_seed(seed),
+            attention_impl="flash" if attention == "flash" else "auto",
+            block_q=64 if attention == "qblock" else 0)
+    else:
+        model, (H, W, bins) = build_silk(
+            model_name, generator=torch.Generator().manual_seed(seed))
     rng = np.random.default_rng(seed)
     ev = bursty_event_batch(rng, B, int(max_events * 0.95), max_events, H, W)
     ev = {k: torch.as_tensor(v).cuda() for k, v in ev.items()}
@@ -233,10 +247,13 @@ def forward_runners(B: int, seed: int, attention: str, pose: bool):
 
     @torch.inference_mode()
     def forward():
+        if model_name == "SiLKMatcher":
+            return model(image, torch.roll(image, 2, dims=2))
         rep, mask = batch_representation(ev, "VoxelGrid", bins, H, W)
         return model(rep, image, mask)
 
-    name = f"forward ({attention})"
+    name = (f"forward ({attention})" if model_name == "flagship"
+            else f"{model_name} forward ({attention})")
     if not pose:
         return {name: forward}
     # as bench.py:239-258: focal 199, centre (W/2, H/2), threshold 1/199
@@ -261,17 +278,24 @@ def forward_runners(B: int, seed: int, attention: str, pose: bool):
             "pose tail": lambda: pose_of(out)}
 
 
-def stage2_runner(B: int, seed: int):
-    """One stage-2 training step of the flagship, the same batch and slot
-    fill every time (as chip_smoke.py's stage-2 phase)."""
+def stage2_runner(B: int, seed: int, model_name: str = "flagship"):
+    """One stage-2 training step of the flagship (or of the SiLK config
+    `model_name`), the same batch and slot fill every time (as
+    chip_smoke.py's stage-2 phase)."""
     from ei_nexus_tpu_torch.data.synth import stage2_batch
-    from ei_nexus_tpu_torch.flagship import (build_stage2_flagship,
+    from ei_nexus_tpu_torch.flagship import (build_silk,
+                                             build_stage2_flagship,
                                              stage2_train_state)
     from ei_nexus_tpu_torch.train.steps import make_stage2_train_step
 
     max_events = 1 << 17
-    model, (H, W, bins) = build_stage2_flagship(
-        dtype="bfloat16", generator=torch.Generator().manual_seed(seed))
+    if model_name == "flagship":
+        model, (H, W, bins) = build_stage2_flagship(
+            dtype="bfloat16", generator=torch.Generator().manual_seed(seed))
+    else:
+        model, (H, W, bins) = build_silk(
+            model_name, generator=torch.Generator().manual_seed(seed),
+            training_heads=True)
     state = stage2_train_state(model, steps_per_epoch=100)
     d0, d1, T01, T10 = stage2_batch(np.random.default_rng(seed), B,
                                     int(max_events * 0.95), max_events, H, W)
