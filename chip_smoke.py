@@ -110,16 +110,38 @@ Phases, each of which raises on failure:
     losses, a `final` checkpoint, its steady steps/s; (g) every event
     representation at B=8, 131,072 slots, 16 bins, 260x346 on the card
     against the CPU (the DistanceMap's CPU side on one stream): bit-equal
-    but for the voxel grid (held as phase 5 holds it), the card's ms.
+    but for the voxel grid (held as phase 5 holds it), the card's ms;
+11. homography-supervised stage 2 and evaluation: (a) the homography
+    step at full width through phase 4's runner (the frame warped by a
+    random corner jitter, GT from the known H; D 36, F 36, C 2, 18 pack
+    passes; GT matches found; frozen tensors bit-unchanged; the loss
+    lower after 10 steps on the same batch, jitter and fill; steps/s
+    beside phase 4's); (b) the small float32 model's homography step on
+    the CPU and the card, the same weights, batch, jitter and fill: H,
+    image1, loss, grad_norm and the updated parameters within stated
+    bounds; (c) the five EC validation sequences rendered into phase 9's
+    mini-EC, then `python -m ei_nexus_tpu_torch.train_matcher --config
+    configs/train_EIM_stage2.yaml --stage1-ckpt <phase 9's final>
+    --max-steps 4 dataset=ec` (the homography route, B=8, 180x240):
+    exit 0, finite losses, a `final` checkpoint, a resume to step 6, the
+    steady steps/s; (d) `python -m
+    ei_nexus_tpu_torch.test_events_image_different_time dataset=test_ec
+    --ckpt <(c)'s final> --max-batches 16` under --backend opencv and
+    torch and `python -m ei_nexus_tpu_torch.val_extractor` on phase 9's
+    final: exit 0, finite metrics; in this process the eval forward's
+    launches around one batch (A, B, C as the shape guard predicts), and
+    `rpe_eval`'s pairs/s under each backend with the share of the loop in
+    cv2's pose estimation.
 
 Prints each phase's wall seconds, the kernels' JSON line (launches: A, B,
 C from the "auto" forward; D, F from the stage-2 step; E from the
 q-blocked forward; G from the flash forward; each row's
 launches_stage1_step from the stage-1 step, launches_silk_lg_forward and
-launches_silk_stage2_step from phase 10; C's row also its device ms and
+launches_silk_stage2_step from phase 10, launches_homography_step and
+launches_eval_forward from phase 11; C's row also its device ms and
 plans at the cell-1 shapes), the card's `nvidia-smi` line, the forward,
-serving, loader-fed, MNN, SiLK, step and entry rates, and as its last
-line
+serving, loader-fed, MNN, SiLK, step, entry and evaluation rates, and as
+its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a card. Writes the nvcc/ptxas log to
 chiprun_out/chip_smoke_build.log.
@@ -1103,25 +1125,35 @@ def to_cuda(batch):
             torch.as_tensor(T01).cuda(), torch.as_tensor(T10).cuda())
 
 
-def phase_stage2(tag: str = "stage2", built=None):
+def phase_stage2(tag: str = "stage2", built=None, homography=False):
     """The stage-2 step at full width, B=8: the flagship's
     (`build_stage2_flagship`), or `built` = (model on the card with
-    LightGlue's training heads, (H, W, bins)). Returns (launches, ms per
-    step back to back, peak GB)."""
-    from ei_nexus_tpu_torch.data.synth import stage2_batch
+    LightGlue's training heads, (H, W, bins)); the pose + depth step, or
+    with `homography` the homography-supervised one (the frame warped by
+    a random corner jitter, GT from the known H; the generator reseeded
+    before each step gives the same jitter and fill, and it must find GT
+    matches). Returns (launches, ms per step back to back, peak GB)."""
+    from ei_nexus_tpu_torch.data.synth import homography_batch, stage2_batch
     from ei_nexus_tpu_torch.flagship import (build_stage2_flagship,
                                              stage2_train_state)
     from ei_nexus_tpu_torch.ops.attention_kernels import hopper_attention
-    from ei_nexus_tpu_torch.train.steps import make_stage2_train_step
+    from ei_nexus_tpu_torch.train.steps import (
+        make_stage2_homography_train_step, make_stage2_train_step)
 
     B, max_events = 8, 1 << 17
     model, (H, W, bins) = built or build_stage2_flagship(
         dtype="bfloat16", generator=torch.Generator().manual_seed(0))
     # 100 steps an epoch: the cosine schedule stays near its base lr here
     state = stage2_train_state(model, steps_per_epoch=100)
-    batch = to_cuda(stage2_batch(np.random.default_rng(0), B,
-                                 int(max_events * 0.95), max_events, H, W))
-    step = make_stage2_train_step("VoxelGrid", bins, H, W)
+    rng = np.random.default_rng(0)
+    if homography:
+        batch = ({k: torch.as_tensor(v).cuda() for k, v in homography_batch(
+            rng, B, int(max_events * 0.95), max_events, H, W)[0].items()},)
+        step = make_stage2_homography_train_step("VoxelGrid", bins, H, W)
+    else:
+        batch = to_cuda(stage2_batch(rng, B, int(max_events * 0.95),
+                                     max_events, H, W))
+        step = make_stage2_train_step("VoxelGrid", bins, H, W)
     fill = torch.Generator(device="cuda")
     start = {k: v.clone() for k, v in model.state_dict().items()}
 
@@ -1146,8 +1178,10 @@ def phase_stage2(tag: str = "stage2", built=None):
     loss1, gnorm = float(info["loss"]), float(info["grad_norm"])
     require(np.isfinite(loss1) and np.isfinite(gnorm) and gnorm > 0,
             f"loss {loss1}, grad_norm {gnorm}")
+    n_gt = float(info["gt_matches"])
     print(f"[{tag}] step 1: loss {loss1:.6f}, grad_norm {gnorm:.6f}, "
-          f"gt_matches {float(info['gt_matches']):.2f}")
+          f"gt_matches {n_gt:.2f}")
+    require(n_gt > 0 or not homography, "no GT match from the homography")
     for _ in range(10):
         fill.manual_seed(1)     # the same batch and the same fill
         info = step(state, batch, fill)
@@ -1287,18 +1321,19 @@ def phase_cpu_vs_gpu():
     return report, match_agree
 
 
-def phase_cpu_vs_gpu_train():
-    """One stage-2 step of a small float32 model (descriptors 256 in 4
-    heads of 64, 2 layers, K=128) on the CPU (plain versions) and on the
-    card (kernels D, F, C), same weights, batch and fill."""
-    from ei_nexus_tpu_torch.data.synth import stage2_batch
-    from ei_nexus_tpu_torch.flagship import (STAGE2_LR, stage2_config,
-                                             stage2_train_state)
+SMALL = dict(H=64, W=96, bins=4, K=128, B=2)   # the small float32 model
+
+
+def small_stage2_model(seed: int):
+    """The small float32 stage-2 model on the CPU (descriptors 256 in 4
+    heads of 64, 2 layers, K=128: on the kernels' shape grid; 4 fixed NMS
+    rounds on both devices), weights from `seed`, with its training
+    heads."""
+    from ei_nexus_tpu_torch.flagship import stage2_config
     from ei_nexus_tpu_torch.models.eim import EIM
     from ei_nexus_tpu_torch.models.layers import init_parameters
-    from ei_nexus_tpu_torch.train.steps import make_stage2_train_step
 
-    H, W, bins, K, B = 64, 96, 4, 128, 2
+    bins, K = SMALL["bins"], SMALL["K"]
     cfg, _ = stage2_config(tiny=False, dtype="float32")
     kp = dataclasses.replace(cfg.event_extractor.keypoints,
                              detection_top_k=K, nms_impl="pallas")
@@ -1313,26 +1348,39 @@ def phase_cpu_vs_gpu_train():
             cfg.matcher, max_points_num=K,
             lightglue=dataclasses.replace(cfg.matcher.lightglue,
                                           n_layers=2)))
-    cpu_model = EIM(cfg, training_heads=True)
-    init_parameters(cpu_model, torch.Generator().manual_seed(2))
-    gpu_model = copy.deepcopy(cpu_model).cuda()
-    rng = np.random.default_rng(2)
-    batch = stage2_batch(rng, B, 6000, 8192, H, W)
-    # one fill for both devices: positions uniform over the image (zero
-    # third column), unit normal descriptors
+    model = EIM(cfg, training_heads=True)
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    return model
+
+
+def small_fill(rng):
+    """One slot fill for both devices: positions uniform over the small
+    model's image (zero third column), unit normal descriptors."""
+    H, W, K, B = SMALL["H"], SMALL["W"], SMALL["K"], SMALL["B"]
     pos = np.concatenate([rng.uniform(0, 1, (B, K, 2)) * [H, W],
                           np.zeros((B, K, 1))], -1).astype(np.float32)
     desc = rng.normal(size=(B, K, 256))
     desc = (desc / np.linalg.norm(desc, axis=-1, keepdims=True)).astype(
         np.float32)
-    fill = tuple((torch.as_tensor(pos), torch.as_tensor(desc))
+    return tuple((torch.as_tensor(pos), torch.as_tensor(desc))
                  for _ in range(2))
-    step = make_stage2_train_step("VoxelGrid", bins, H, W)
+
+
+def compare_steps(tag, step, batch, fill, seed, **kw):
+    """One stage-2 `step` of the small model (weights from `seed`) on the
+    CPU (plain versions) and on the card (kernels D, F, C), the same
+    batch, fill and `kw`: loss (rel 1e-4), grad_norm (rel 1e-3), GT
+    matches equal, updated parameters within 4 lr. Returns the errors."""
+    from ei_nexus_tpu_torch.flagship import STAGE2_LR, stage2_train_state
+
+    cpu_model = small_stage2_model(seed)
+    gpu_model = copy.deepcopy(cpu_model).cuda()
     res = {}
     for name, model in (("cpu", cpu_model), ("cuda", gpu_model)):
         state = stage2_train_state(model)
         dev_fill = tuple((p.to(name), d.to(name)) for p, d in fill)
-        info = step(state, batch, fill=dev_fill)
+        info = step(state, batch, fill=dev_fill,
+                    **{k: v.to(name) for k, v in kw.items()})
         res[name] = ({k: float(v) for k, v in info.items()},
                      {k: v.cpu() for k, v in model.state_dict().items()})
     (ic, sc), (ig, sg) = res["cpu"], res["cuda"]
@@ -1340,7 +1388,7 @@ def phase_cpu_vs_gpu_train():
     e_norm = abs(ig["grad_norm"] - ic["grad_norm"]) / ic["grad_norm"]
     e_par = max(max_err(sg[k], sc[k]) for k in sc)
     lr = STAGE2_LR
-    print(f"[cpu-vs-gpu] stage-2 step: loss {ic['loss']:.6f} (cpu) vs "
+    print(f"[cpu-vs-gpu] {tag}: loss {ic['loss']:.6f} (cpu) vs "
           f"{ig['loss']:.6f} (card), rel {e_loss:.2e}; grad_norm "
           f"{ic['grad_norm']:.6f} vs {ig['grad_norm']:.6f}, rel "
           f"{e_norm:.2e}; updated parameters max|err| {e_par:.2e}; "
@@ -1353,6 +1401,21 @@ def phase_cpu_vs_gpu_train():
     require(e_norm <= 1e-3, f"grad_norm differs: rel {e_norm:.2e}")
     require(e_par <= 4 * lr, f"updated parameters differ: {e_par:.2e}")
     return e_loss, e_norm, e_par
+
+
+def phase_cpu_vs_gpu_train():
+    """One stage-2 step of the small float32 model (`small_stage2_model`)
+    on the CPU (plain versions) and on the card (kernels D, F, C), same
+    weights, batch and fill."""
+    from ei_nexus_tpu_torch.data.synth import stage2_batch
+    from ei_nexus_tpu_torch.train.steps import make_stage2_train_step
+
+    H, W, bins, B = SMALL["H"], SMALL["W"], SMALL["bins"], SMALL["B"]
+    rng = np.random.default_rng(2)
+    batch = stage2_batch(rng, B, 6000, 8192, H, W)
+    return compare_steps("stage-2 step",
+                         make_stage2_train_step("VoxelGrid", bins, H, W),
+                         batch, small_fill(rng), seed=2)
 
 
 # ---------------------------------------------------------------------------
@@ -1995,22 +2058,29 @@ SILK_ENTRY_CONFIG = "configs/train_EIM_stage1_EC_SiLK_MNN.yaml"
 ENTRY_FRAMES = 216     # the [100:-100] crop leaves about 15 a sequence
 
 
-def _entry_run(extra, data, out, config=ENTRY_CONFIG, timeout=600):
-    """`python -m ei_nexus_tpu_torch.train_extractor` on the card over the
-    rendered mini-EC; returns (its run directory, metrics rows, log text,
-    wall seconds). Raises on a non-zero exit."""
-    cmd = [sys.executable, "-m", "ei_nexus_tpu_torch.train_extractor",
-           "--config", config] + extra + [
-        f"dataset.data_path={data}", f"logger.output_dir={out}",
-        "logger.status_freq=1"]
+def _run_module(module, args, timeout=600):
+    """`python -m ei_nexus_tpu_torch.<module> <args>` on the card; returns
+    (its stdout, wall seconds). Raises on a non-zero exit."""
+    cmd = [sys.executable, "-m", f"ei_nexus_tpu_torch.{module}"] + args
     t = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           timeout=timeout)
     wall = time.perf_counter() - t
     if proc.returncode != 0:
         print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
-    require(proc.returncode == 0,
-            f"train_extractor exited {proc.returncode}")
+    require(proc.returncode == 0, f"{module} exited {proc.returncode}")
+    return proc.stdout, wall
+
+
+def _entry_run(extra, data, out, config=ENTRY_CONFIG, timeout=600,
+               module="train_extractor", overrides=()):
+    """A training entry (`python -m ei_nexus_tpu_torch.<module>`, options
+    `extra` before the key=value `overrides`) on the card over the
+    rendered mini-EC; returns (its run directory, metrics rows, log text,
+    wall seconds). Raises on a non-zero exit."""
+    _, wall = _run_module(module, ["--config", config] + extra + list(
+        overrides) + [f"dataset.data_path={data}", f"logger.output_dir={out}",
+                      "logger.status_freq=1"], timeout)
     run, = [p for p in os.listdir(out)
             if os.path.isdir(os.path.join(out, p))]
     run = os.path.join(out, run)
@@ -2036,26 +2106,31 @@ def render_mini_ec(root: str) -> float:
     return render_s
 
 
-def phase_stage1_entry(data: str, tmp: str, tag: str = "entry",
-                       config: str = ENTRY_CONFIG, resume: bool = True):
-    """The stage-1 entry point from disk, over the mini-EC rendered in
-    `data`: `python -m ei_nexus_tpu_torch.train_extractor --config
-    <config> --max-steps 4` on the card (the full-width EC config at its
-    160x160 crops, B=8, 4 loader threads), its runs under `tmp`: exit 0,
-    finite logged losses at steps 1-4, a `final` checkpoint at step 4;
+def phase_entry(data: str, tmp: str, tag: str = "entry",
+                config: str = ENTRY_CONFIG, resume: bool = True,
+                module: str = "train_extractor", options=(), overrides=(),
+                expect=("training at 160x160",)):
+    """A training entry point from disk, over the mini-EC rendered in
+    `data`: `python -m ei_nexus_tpu_torch.<module> --config <config>
+    <options> --max-steps 4 <overrides>` on the card (the stage-1 entry by
+    default: the full-width EC config at its 160x160 crops, B=8, 4 loader
+    threads), its runs under `tmp`: exit 0, each of `expect` in its log,
+    finite logged values at steps 1-4, a `final` checkpoint at step 4;
     then, with `resume`, `--resume <final> --max-steps 6`: steps 5 and 6.
     Returns the entry's steady steps/s (its own log: steps 3 and 4, timed
-    from the drain of step 1 to that of step 4) and the runs' process
-    wall seconds."""
-    run, rows, log, wall = _entry_run(["--max-steps", "4"], data,
-                                      os.path.join(tmp, f"{tag}_runs"),
-                                      config)
+    from the drain of step 1 to that of step 4), the runs' process wall
+    seconds and the first run's `final` checkpoint."""
+    run, rows, log, wall = _entry_run(
+        list(options) + ["--max-steps", "4"], data,
+        os.path.join(tmp, f"{tag}_runs"), config, module=module,
+        overrides=overrides)
     require([r["step"] for r in rows] == [1, 2, 3, 4],
             f"logged steps {[r['step'] for r in rows]}")
     for r in rows:
         require(all(np.isfinite(v) for v in r.values()),
                 f"non-finite logged values {r}")
-    require("training at 160x160" in log, "not trained at the crop")
+    for line in expect:
+        require(line in log, f"[{tag}] no {line!r} in the log")
     final = os.path.join(run, "checkpoints", "final")
     ck = torch.load(os.path.join(final, "state.pt"), map_location="cpu",
                     weights_only=True)
@@ -2065,10 +2140,11 @@ def phase_stage1_entry(data: str, tmp: str, tag: str = "entry",
           f"losses " + ", ".join(f"{r['loss']:.5f}" for r in rows)
           + f"; steady {rate:.3f} steps/s")
     if not resume:
-        return rate, (wall,)
+        return rate, (wall,), final
     run2, rows2, log2, wall2 = _entry_run(
-        ["--max-steps", "6", "--resume", final], data,
-        os.path.join(tmp, f"{tag}_runs2"), config)
+        list(options) + ["--max-steps", "6", "--resume", final], data,
+        os.path.join(tmp, f"{tag}_runs2"), config, module=module,
+        overrides=overrides)
     require([r["step"] for r in rows2] == [5, 6],
             f"resumed at steps {[r['step'] for r in rows2]}")
     require("resumed from" in log2, "no resume in the log")
@@ -2078,7 +2154,7 @@ def phase_stage1_entry(data: str, tmp: str, tag: str = "entry",
     require(ck2["step"] == 6, f"resumed final at step {ck2['step']}")
     print(f"[{tag}] resumed from step 4 to 6 in {wall2:.1f} s (process "
           f"wall): losses " + ", ".join(f"{r['loss']:.5f}" for r in rows2))
-    return rate, (wall, wall2)
+    return rate, (wall, wall2), final
 
 
 # ---------------------------------------------------------------------------
@@ -2323,6 +2399,189 @@ def phase_representations():
     return times
 
 
+# ---------------------------------------------------------------------------
+# phase 11: homography-supervised stage 2, its entry, and evaluation
+# ---------------------------------------------------------------------------
+
+STAGE2_CONFIG = "configs/train_EIM_stage2.yaml"
+EVAL_BATCHES = 16
+
+
+def render_mini_ec_val(root: str) -> float:
+    """The five EC validation sequences and their pair files rendered into
+    phase 9's mini-EC; returns the seconds it took."""
+    from ei_nexus_tpu_torch.data.ec import VAL_SEQUENCES
+    from ei_nexus_tpu_torch.data.mini_ec import make_mini_ec
+
+    t = time.perf_counter()
+    counts = make_mini_ec(root, ENTRY_FRAMES, sequences=VAL_SEQUENCES)
+    render_s = time.perf_counter() - t
+    n_pairs = sum(len(np.loadtxt(os.path.join(root, f"new_{q}_val.txt"),
+                             ndmin=2)) for q in VAL_SEQUENCES)
+    print(f"[eval] rendered the mini-EC's {len(counts)} validation "
+          f"sequences ({ENTRY_FRAMES} frames, {n_pairs} pairs) in "
+          f"{render_s:.1f} s")
+    return render_s
+
+
+def phase_homography_cpu_vs_gpu():
+    """(b) The homography step of the small float32 model on the CPU and
+    the card, the same weights, batch, corner jitter and fill: H to 1e-4
+    of max|H|; image1 within 1e-5 of max|image| plus what the two devices'
+    float32 H^-1 move the sampling points (bilinear sampling moves a value
+    by at most max|image| a pixel moved along x and along y); then the
+    step as phase 5 holds it (`compare_steps`)."""
+    from ei_nexus_tpu_torch.data.synth import homography_batch
+    from ei_nexus_tpu_torch.ops import homographic as hg
+    from ei_nexus_tpu_torch.train.steps import (
+        homography_view, make_stage2_homography_train_step)
+
+    H, W, bins, B = SMALL["H"], SMALL["W"], SMALL["bins"], SMALL["B"]
+    rng = np.random.default_rng(4)
+    batch = homography_batch(rng, B, 6000, 8192, H, W)
+    jitter = torch.as_tensor((rng.uniform(-1, 1, (B, 4, 2)) * [W, H]
+                              * 0.125).astype(np.float32))
+    fill = small_fill(rng)
+    image0 = torch.as_tensor(batch[0]["image"])
+    Hc, ic = homography_view(image0, jitter, H, W)
+    Hg, ig = homography_view(image0.cuda(), jitter.cuda(), H, W)
+    e_h = max_err(Hg.cpu(), Hc) / float(Hc.abs().max())
+    grid = hg.create_meshgrid(W, H, normalized=False).reshape(-1, 2)
+    moved = max_err(
+        hg.transform_points(torch.linalg.inv_ex(Hg)[0], grid.cuda()).cpu(),
+        hg.transform_points(torch.linalg.inv_ex(Hc)[0], grid)) * 2
+    top = float(image0.abs().max())
+    e_img, bound = max_err(ig.cpu(), ic), (1e-5 + moved) * top
+    print(f"[cpu-vs-gpu] homography view: H rel {e_h:.2e}; sampling points "
+          f"moved <= {moved:.2e} px; image1 max|err| {e_img:.2e} (bound "
+          f"{bound:.2e})")
+    require(e_h <= 1e-4, f"H differs: rel {e_h:.2e}")
+    require(e_img <= bound, f"image1 differs: {e_img:.2e} > {bound:.2e}")
+    return compare_steps("homography step",
+                         make_stage2_homography_train_step("VoxelGrid", bins,
+                                                           H, W),
+                         batch, fill, seed=3, jitter=jitter)
+
+
+def phase_eval_entries(data: str, stage2_final: str, stage1_final: str):
+    """(d) The evaluation entry points on the card, over the mini-EC's
+    validation pairs: `test_events_image_different_time` (EC's test
+    protocol, the stage-2 entry's checkpoint, the first EVAL_BATCHES
+    pairs) under --backend opencv and --backend torch, each exit 0 with
+    finite RPE AUCs; `val_extractor` on the stage-1 entry's checkpoint:
+    finite R@1 (and MMA@3 where it matched). Returns the process walls."""
+    walls = {}
+    for backend in ("opencv", "torch"):
+        out, walls[backend] = _run_module(
+            "test_events_image_different_time",
+            ["--config", STAGE2_CONFIG, "--ckpt", stage2_final, "--backend",
+             backend, "--max-batches", str(EVAL_BATCHES), "dataset=test_ec",
+             f"dataset.data_path={data}"])
+        m = json.loads(out)
+        aucs = {t: m[f"RPE@{t}_auc"] for t in (5, 10, 20)}
+        print(f"[eval] test_events_image_different_time --backend {backend}: "
+              f"{m['n_pairs']} pairs, AUC@5/10/20 {aucs[5]:.4f} / "
+              f"{aucs[10]:.4f} / {aucs[20]:.4f}, RPE_pose_errs "
+              f"{m['RPE_pose_errs']}, in {walls[backend]:.1f} s (process "
+              f"wall)")
+        require(m["n_pairs"] == EVAL_BATCHES, f"{m['n_pairs']} pairs")
+        require(all(np.isfinite(v) for v in aucs.values()),
+                f"non-finite RPE AUC {aucs}")
+    out, walls["val_extractor"] = _run_module(
+        "val_extractor", ["--config", ENTRY_CONFIG, "--ckpt", stage1_final,
+                          "--max-batches", str(EVAL_BATCHES),
+                          f"dataset.data_path={data}"])
+    m = json.loads(out)
+    print(f"[eval] val_extractor: R@1 {m['R@1']:.4f}, R@3 {m['R@3']:.4f}, "
+          f"MMA@3 {m.get('MMA@3', 'no match')}, MR {m['MR']:.4f}, in "
+          f"{walls['val_extractor']:.1f} s (process wall)")
+    require(np.isfinite(m["R@1"]) and np.isfinite(m.get("MMA@3", 0.0)),
+            f"non-finite val_extractor metrics {m}")
+    return walls
+
+
+def phase_eval_loop(data: str, stage2_final: str):
+    """(d) In this process, the stage-2 model of configs/train_EIM_stage2
+    .yaml with the stage-2 entry's checkpoint over EC's test protocol
+    (B=1, 180x240, 1024 matcher slots): the eval forward's launches read
+    around one batch, held to what the shape guard predicts (A for each
+    layer's two self-attentions and B once a layer where
+    `_pallas_supported` holds at 1024 tokens, C once an extractor); then
+    `rpe_eval` over the first EVAL_BATCHES pairs from the loader, after a
+    warm pass, under each backend: pairs/s, and for OpenCV the share of
+    the loop's wall spent in cv2's pose estimation on the host. Returns
+    (launches, {backend: pairs/s}, cv2 share)."""
+    from ei_nexus_tpu_torch.data import DataLoader
+    from ei_nexus_tpu_torch.metrics import matching
+    from ei_nexus_tpu_torch.models.lightglue import _pallas_supported
+    from ei_nexus_tpu_torch.train.evaluate import (build_eval_model,
+                                                   rpe_eval, val_dataset)
+    from ei_nexus_tpu_torch.train.steps import make_eval_step
+    from ei_nexus_tpu_torch.utils import load_config
+
+    cfg = load_config(STAGE2_CONFIG, ["dataset=test_ec",
+                                      f"dataset.data_path={data}"])
+    ds = cfg.dataset.to_dict()
+    (H, W), bins, rep = ds["resolution"], ds["channel"], \
+        ds["representation_type"]
+    model = build_eval_model(cfg.model.to_dict(), stage2_final, "cuda")
+    val_ds = val_dataset(ds)
+
+    def loader():
+        return DataLoader(val_ds, batch_size=1, shuffle=False,
+                          drop_last=False)
+
+    lg = model.config.matcher.lightglue
+    n, d = model.config.matcher.max_points_num, lg.descriptor_dim // \
+        lg.num_heads
+    want = {"self_attention_rot": 2 * lg.n_layers * _pallas_supported(n, d),
+            "cross_attention_bidir": lg.n_layers * _pallas_supported(n, d, n),
+            "nms_rounds": 2}
+    print(f"[eval] the shape guard at {n} tokens, heads of {d}: self "
+          f"{_pallas_supported(n, d)}, cross {_pallas_supported(n, d, n)}")
+    step = make_eval_step(rep, bins, H, W)
+    batch = next(iter(loader()))
+    launches, (_, _, matches) = _read_launches(lambda: step(model, batch),
+                                               "eval", want)
+    require(any(launches.values()), "the eval forward launched no kernel")
+    print(f"[eval] one batch: {int((matches['matches0'] > -1).sum())} "
+          f"matches of {n} slots")
+
+    cv2_s = [0.0]
+    timed_pose = matching.RelativePoseEstimation.estimate_pose
+
+    def estimate_pose(self, *args, **kw):
+        t = time.perf_counter()
+        try:
+            return timed_pose(self, *args, **kw)
+        finally:
+            cv2_s[0] += time.perf_counter() - t
+
+    rates, share = {}, None
+    matching.RelativePoseEstimation.estimate_pose = estimate_pose
+    try:
+        for backend in ("opencv", "torch"):
+            rpe_eval(model, loader(), rep, bins, H, W, backend=backend,
+                     max_batches=2)                  # warm
+            cv2_s[0] = 0.0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = rpe_eval(model, loader(), rep, bins, H, W,
+                           backend=backend, max_batches=EVAL_BATCHES)
+            wall = time.perf_counter() - t
+            rates[backend] = out["n_pairs"] / wall
+            if backend == "opencv":
+                share = cv2_s[0] / wall
+            print(f"[eval] rpe_eval --backend {backend}: {out['n_pairs']} "
+                  f"pairs in {wall:.3f} s, {rates[backend]:.2f} pairs/s"
+                  + (f"; cv2 pose estimation {cv2_s[0]:.3f} s, "
+                     f"{100 * share:.1f}% of the loop"
+                     if backend == "opencv" else ""))
+    finally:
+        matching.RelativePoseEstimation.estimate_pose = timed_pose
+    return launches, rates, share
+
+
 def _steady_rate(log: str) -> float:
     m = re.search(r"steady rate: .* ([0-9.]+) steps/s", log)
     require(m is not None, "no steady rate in the entry's log")
@@ -2400,8 +2659,8 @@ def main() -> int:
     try:
         data = os.path.join(tmp, "mini_ec")
         render_s = timed("mini-EC render", render_mini_ec, data)
-        entry_rate, entry_walls = timed("stage-1 entry point",
-                                        phase_stage1_entry, data, tmp)
+        entry_rate, entry_walls, s1_final = timed("stage-1 entry point",
+                                                  phase_entry, data, tmp)
         # phase 10: the SiLK family
         silk_launches, silk_ms, silk_peak = timed(
             "SiLK forwards", phase_silk_forwards, fwd_ms)
@@ -2411,15 +2670,36 @@ def main() -> int:
         timed("cpu vs card, SiLK forwards", phase_silk_cpu_vs_gpu)
         silk_s2_launches, silk_step_ms, silk_s2_peak = timed(
             "SiLK stage-2 step", phase_silk_stage2)
-        silk_entry_rate, silk_entry_walls = timed(
-            "SiLK stage-1 entry point", phase_stage1_entry, data, tmp,
+        silk_entry_rate, silk_entry_walls, _ = timed(
+            "SiLK stage-1 entry point", phase_entry, data, tmp,
             "silk-entry", SILK_ENTRY_CONFIG, False)
+        # phase 11: homography-supervised stage 2, its entry, evaluation
+        t11 = time.perf_counter()
+        h_launches, h_ms, h_peak = timed(
+            "homography step", phase_stage2, "homography", None, True)
+        timed("cpu vs card, homography step", phase_homography_cpu_vs_gpu)
+        val_render_s = timed("mini-EC render (validation)",
+                             render_mini_ec_val, data)
+        m_rate, m_walls, s2_final = timed(
+            "stage-2 entry point", phase_entry, data, tmp, "matcher-entry",
+            STAGE2_CONFIG, True, "train_matcher",
+            ["--stage1-ckpt", s1_final], ["dataset=ec"],
+            ("homography-supervised stage 2", "grid 180x240",
+             "loaded stage-1 event extractor"))
+        eval_walls = timed("evaluation entry points", phase_eval_entries,
+                           data, s2_final, s1_final)
+        eval_launches, eval_rates, cv2_share = timed(
+            "evaluation loop", phase_eval_loop, data, s2_final)
+        walls["phase 11"] = time.perf_counter() - t11
+        print(f"[wall] phase 11: {walls['phase 11']:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rep_ms = timed("representations", phase_representations)
     for r in rows:
         r["launches_silk_lg_forward"] = silk_launches[r["name"]]
         r["launches_silk_stage2_step"] = silk_s2_launches[r["name"]]
+        r["launches_homography_step"] = h_launches[r["name"]]
+        r["launches_eval_forward"] = eval_launches[r["name"]]
 
     print(json.dumps({"kernels": rows}))
     for tag, ms in (("flagship forward", fwd_ms),
@@ -2464,6 +2744,23 @@ def main() -> int:
           f".yaml, 160x160 crops, B={B}): steady {silk_entry_rate:.3f} "
           f"steps/s (steps 3-4); process wall {silk_entry_walls[0]:.1f} s "
           f"for 4 steps, on {smi}")
+    print(f"homography stage-2 step: {1e3 / h_ms:.3f} steps/s ({h_ms:.3f} "
+          f"ms per step of {B} pairs, back to back; peak {h_peak:.2f} GB), "
+          f"{step_ms / h_ms:.3f}x the pose + depth step's {1e3 / step_ms:.3f} "
+          f"steps/s in this run, on {smi}")
+    print(f"stage-2 entry point (configs/train_EIM_stage2.yaml dataset=ec, "
+          f"the homography route, B={B}, 180x240 grid, from phase 9's "
+          f"stage-1 checkpoint): steady {m_rate:.3f} steps/s (steps 3-4); "
+          f"process wall {m_walls[0]:.1f} s for 4 steps, {m_walls[1]:.1f} s "
+          f"resumed for 2, on {smi}")
+    print(f"evaluation (EC test protocol, B=1, 180x240, validation "
+          f"sequences rendered in {val_render_s:.1f} s): rpe_eval "
+          f"{eval_rates['opencv']:.2f} pairs/s with OpenCV "
+          f"({100 * cv2_share:.1f}% of the loop in cv2's pose estimation), "
+          f"{eval_rates['torch']:.2f} pairs/s with the torch backend; entry "
+          f"process walls "
+          + json.dumps({k: round(v, 1) for k, v in eval_walls.items()})
+          + f" s, on {smi}")
     print("representations on the card, ms a batch of 8 (131,072 slots, 16 "
           "bins, 260x346, with the accumulation mask): "
           + json.dumps({k: round(v, 4) for k, v in rep_ms.items()})

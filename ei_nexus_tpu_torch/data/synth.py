@@ -3,7 +3,8 @@
 A copy of `ei_nexus_tpu/data/synth.py` (numpy only): temporally bursty,
 spatially clustered streams with hot pixels and exact timestamp ties, the
 regime that stresses voxelization and NMS. Same generator, same numbers.
-`stage2_batch` wraps them into the stage-2 training batch.
+`stage2_batch` wraps them into the stage-2 training batch,
+`homography_batch` into the homography-supervised step's.
 """
 
 from __future__ import annotations
@@ -72,3 +73,14 @@ def stage2_batch(rng: np.random.Generator, batch: int, n: int,
     T01 = np.tile(np.eye(4, dtype=np.float32), (batch, 1, 1))
     T01[:, 0, 3] = shift
     return data0, data1, T01, np.linalg.inv(T01).astype(np.float32)
+
+
+def homography_batch(rng: np.random.Generator, batch: int, n: int,
+                     max_events: int, height: int, width: int):
+    """The homography-supervised stage-2 step's batch (data0,): bursty
+    events (`n` of `max_events` slots) and a random frame in [0, 255],
+    both on the (height, width) grid."""
+    data0 = bursty_event_batch(rng, batch, n, max_events, height, width)
+    data0["image"] = rng.uniform(0, 255, (batch, height, width, 1)).astype(
+        np.float32)
+    return (data0,)

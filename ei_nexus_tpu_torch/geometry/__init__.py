@@ -1,12 +1,12 @@
 """Geometry of the stage-2 supervision: SE(3) poses, pinhole cameras,
-depth reprojection, epipolar distances and ground-truth matches from pose
-and depth. Counterpart of `ei_nexus_tpu/geometry/` (the homography path
-comes with the homography step)."""
+depth reprojection, epipolar distances, homography warping and
+ground-truth matches from pose and depth or from a known homography.
+Counterpart of `ei_nexus_tpu/geometry/`."""
 
 from .se3 import Pose
 from .camera import Camera
-from . import depthproj, epipolar
-from .gt_matches import gt_matches_from_pose_depth
+from . import depthproj, epipolar, homography
+from .gt_matches import gt_matches_from_homography, gt_matches_from_pose_depth
 
-__all__ = ["Pose", "Camera", "depthproj", "epipolar",
-           "gt_matches_from_pose_depth"]
+__all__ = ["Pose", "Camera", "depthproj", "epipolar", "homography",
+           "gt_matches_from_pose_depth", "gt_matches_from_homography"]

@@ -1,9 +1,10 @@
-"""Ground-truth matches from pose and depth: the stage-2 supervision.
+"""Ground-truth matches from pose and depth, or from a known homography:
+the stage-2 supervision.
 
 Counterpart of `ei_nexus_tpu/geometry/gt_matches.py`
-(`gt_matches_from_pose_depth`), with the same labels: a match index, -1
-unmatched, -2 ignored. Argmin ties, and rows that are all +inf, go to the
-first index, as with `jnp.argmin`.
+(`gt_matches_from_pose_depth`, `gt_matches_from_homography`), with the
+same labels: a match index, -1 unmatched, -2 ignored. Argmin ties, and
+rows that are all +inf, go to the first index, as with `jnp.argmin`.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from .camera import Camera
 from .depthproj import project, sample_depth
 from .epipolar import T_to_E, sym_epipolar_distance_all
+from .homography import warp_points_homography
 from .se3 import Pose
 
 IGNORE_FEATURE = -2
@@ -124,4 +126,51 @@ def gt_matches_from_pose_depth(
         "proj_1to0": kp1_0,
         "visible0": visible0,
         "visible1": visible1,
+    }
+
+
+def gt_matches_from_homography(
+    kp0: torch.Tensor, kp1: torch.Tensor, H: torch.Tensor,
+    pos_th: float = 3.0, neg_th: float = 6.0,
+    mask0: Optional[torch.Tensor] = None,
+    mask1: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """GT matches between kp0 (B, N, 2) and kp1 (B, M, 2), both xy, from a
+    known homography H (B, 3, 3) mapping view 0 to view 1. Slots outside
+    `mask0` / `mask1` take no part in the assignment and are labelled
+    IGNORE. Returns assignment (B, N, M), reward, matches0/1 int32,
+    matching_scores0/1 and proj_0to1/1to0, as the JAX package."""
+    kp0 = kp0[..., :2]
+    kp1 = kp1[..., :2]
+    kp0_1 = warp_points_homography(kp0, H, inverse=False)
+    kp1_0 = warp_points_homography(kp1, H, inverse=True)
+
+    dist0 = ((kp0_1[..., :, None, :] - kp1[..., None, :, :]) ** 2).sum(-1)
+    dist1 = ((kp0[..., :, None, :] - kp1_0[..., None, :, :]) ** 2).sum(-1)
+    dist = torch.maximum(dist0, dist1)
+    inf = torch.full_like(dist, float("inf"))
+    if mask0 is not None:
+        dist = torch.where(mask0[..., :, None], dist, inf)
+    if mask1 is not None:
+        dist = torch.where(mask1[..., None, :], dist, inf)
+
+    reward = (dist < pos_th ** 2).float() - (dist > neg_th ** 2).float()
+    positive, min0, min1 = _mutual_min_assignment(dist, pos_th)
+    negative0 = dist0.amin(dim=-1) > neg_th ** 2
+    negative1 = dist1.amin(dim=-2) > neg_th ** 2
+    m0, m1 = _pack_labels(positive, min0, min1, negative0, negative1)
+    if mask0 is not None:
+        m0 = torch.where(mask0, m0, torch.full_like(m0, IGNORE_FEATURE))
+    if mask1 is not None:
+        m1 = torch.where(mask1, m1, torch.full_like(m1, IGNORE_FEATURE))
+
+    return {
+        "assignment": positive,
+        "reward": reward,
+        "matches0": m0.to(torch.int32),
+        "matches1": m1.to(torch.int32),
+        "matching_scores0": (m0 > -1).float(),
+        "matching_scores1": (m1 > -1).float(),
+        "proj_0to1": kp0_1,
+        "proj_1to0": kp1_0,
     }

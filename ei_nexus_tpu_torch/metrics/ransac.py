@@ -297,3 +297,44 @@ def estimate_pose_batch_from_matches(
     n_matches = sel.sum(-1)
     return [None if n_matches[b] < min_n or n_inl[b] < min_n
             else (R[b], t[b], inl[b][sel[b]]) for b in range(B)]
+
+
+def estimate_pose_torch(
+    p0n: np.ndarray, p1n: np.ndarray, thresh: float, solver: str = "5pt",
+    device: Optional[Union[str, torch.device]] = "cuda",
+) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """One pair's pose with the contract of the OpenCV backend of
+    `RelativePoseEstimation.estimate_pose`: (R, t, inlier mask) or None.
+
+    The counterpart of the JAX package's `estimate_pose_jax`: p0n, p1n
+    (N, 2) K-normalised correspondences are cut to 2048, padded to a power
+    of two (at least 8) and masked, then posed by `estimate_pose_batch` as
+    one pair on `device` (the card unless the caller names another) with
+    its default hypotheses, the samples drawn by `sample_indices` from a
+    generator seeded 0. None with fewer than 5 (8 for 8pt)
+    correspondences or inliers."""
+    dev = resolve_device(device)
+    min_n = 5 if solver == "5pt" else 8
+    n = len(p0n)
+    if n < min_n:
+        return None
+    n_pad = min(2048, int(2 ** np.ceil(np.log2(max(n, 8)))))
+    if n > n_pad:
+        p0n, p1n = p0n[:n_pad], p1n[:n_pad]
+        n = n_pad
+    pad = ((0, n_pad - n), (0, 0))
+    p0 = np.pad(np.asarray(p0n, np.float32), pad)
+    p1 = np.pad(np.asarray(p1n, np.float32), pad)
+    mask = np.zeros(n_pad, bool)
+    mask[:n] = True
+    R, t, inl, n_inl = estimate_pose_batch(
+        torch.as_tensor(p0[None], device=dev),
+        torch.as_tensor(p1[None], device=dev),
+        torch.as_tensor(mask[None], device=dev),
+        torch.full((1,), thresh, dtype=torch.float32, device=dev),
+        solver=solver)
+    if int(n_inl[0]) < min_n:
+        return None
+    return (R[0].cpu().numpy().astype(np.float64),
+            t[0].cpu().numpy().astype(np.float64),
+            inl[0].cpu().numpy()[:len(p0n)])

@@ -290,17 +290,18 @@ class ImageImageMatcher(nn.Module):
     def forward(self, image0: torch.Tensor, image1: torch.Tensor,
                 mask0: Optional[torch.Tensor] = None,
                 mask1: Optional[torch.Tensor] = None,
-                training: bool = False) -> Tuple[Dict, Dict, Optional[Dict]]:
-        """image0, image1: (B, H, W, 1) in [0, 255]; `training` as
-        `EIM.forward` (the random fill from torch's default generator): a
-        trainable extractor gives both frames' dense maps, in train() mode
-        one after the other, and no matches."""
+                training: bool = False, dense: bool = False
+                ) -> Tuple[Dict, Dict, Optional[Dict]]:
+        """image0, image1: (B, H, W, 1) in [0, 255]; `training` and `dense`
+        as `EIM.forward` (the random fill from torch's default generator):
+        a trainable extractor gives both frames' dense maps, in train()
+        mode one after the other, and no matches."""
         cfg = self.config
         train = training and not cfg.image_extractor.freeze
         feats0 = run_extractor(self.image_extractor, train, image0, mask0,
-                               stage1=train)
+                               dense, stage1=train)
         feats1 = run_extractor(self.image_extractor, train, image1, mask1,
-                               stage1=train)
+                               dense, stage1=train)
         if train:
             return feats0, feats1, None
         matches = self.matcher(feats0, feats1,
@@ -309,16 +310,17 @@ class ImageImageMatcher(nn.Module):
 
 
 def build_model(model_type: str, config: EIMConfig,
-                device: Optional[Union[str, torch.device]] = None
-                ) -> nn.Module:
+                device: Optional[Union[str, torch.device]] = None,
+                training_heads: bool = False) -> nn.Module:
     """Name -> module dispatch ("EDM" is accepted as EIM, like the JAX
     package; "ImageImageMatcher"), in eval mode on `device` (the card
-    unless the caller names another)."""
+    unless the caller names another); `training_heads` gives LightGlue
+    every layer's assignment and confidence heads (stage-2 training)."""
     dev = resolve_device(device)
     if model_type in ("EIM", "EDM"):
-        model = EIM(config=config)
+        model = EIM(config, training_heads)
     elif model_type == "ImageImageMatcher":
-        model = ImageImageMatcher(config=config)
+        model = ImageImageMatcher(config, training_heads)
     else:
         raise ValueError(f"unknown model type {model_type!r}")
     return model.to(dev).eval()

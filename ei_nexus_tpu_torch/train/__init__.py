@@ -1,6 +1,8 @@
-"""Training of the port: batch preparation, freezing, optimizers and
-schedules, the training state, the stage-1 and stage-2 steps and
-checkpoints. Counterpart of `ei_nexus_tpu/train/`."""
+"""Training and evaluation of the port: batch preparation, freezing,
+optimizers and schedules, the training state, the stage-1 and stage-2
+steps (pose + depth or homography), the entries' epoch loop (`loop.py`),
+checkpoints and the evaluation loops (`evaluate.py`). Counterpart of
+`ei_nexus_tpu/train/`."""
 
 from .optim import (PlateauController, build_optimizer, build_schedule,
                     get_learning_rate, is_host_driven, set_learning_rate)

@@ -66,11 +66,11 @@ def restore_checkpoint(path: str, state, params_only: bool = False
 def restore_any_checkpoint(path: str, state, model_config):
     """A checkpoint directory of this package, or a reference `.pth`
     state dict. The `.pth` ingest needs `models/port_torch.py`, which is
-    not ported yet (ROADMAP Queue 1 item 6), and raises."""
+    not ported yet (ROADMAP Queue 1), and raises."""
     if str(path).endswith((".pth", ".pt")):
         raise NotImplementedError(
             "reading a reference .pth checkpoint needs models/port_torch.py,"
-            " which is not ported yet (ROADMAP Queue 1 item 6)")
+            " which is not ported yet (ROADMAP Queue 1)")
     return restore_checkpoint(path, state, params_only=True)
 
 

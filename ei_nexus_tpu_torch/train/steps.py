@@ -8,9 +8,12 @@ bucketed length); `_decode_event_view` restores the float arrays on the
 device. `batch_representation` accepts either format and builds the
 representation (NHWC) and the event-occupancy mask on the device, and
 `make_stage1_train_step` distils the event extractor against the frozen
-image extractor, and `make_stage2_train_step` trains LightGlue on
-time-separated pairs with ground-truth matches from pose and depth. The
-homography step comes with its slice.
+image extractor, `make_stage2_train_step` trains LightGlue on
+time-separated pairs with ground-truth matches from pose and depth,
+`make_stage2_homography_train_step` trains it on a frame and its random
+perspective warp with ground-truth matches from the known homography
+(datasets without depth, EC), and `make_eval_step` is the inference
+forward of the evaluation loops.
 """
 
 from __future__ import annotations
@@ -23,8 +26,11 @@ import torch
 from .. import native as native_ops
 from ..data import representations as reps
 from ..device import resolve_device
-from ..geometry import Camera, Pose, gt_matches_from_pose_depth
+from ..geometry import (Camera, Pose, gt_matches_from_homography,
+                        gt_matches_from_pose_depth)
 from ..losses.matcher_loss import lightglue_loss
+from ..ops.homographic import (extract_crops_batched,
+                               perspective_transform_from_points)
 from .optim import set_learning_rate
 from .partition import check_frozen
 from .state import TrainState
@@ -321,5 +327,116 @@ def make_stage2_train_step(
                 **{k: v.detach() for k, v in info.items()},
                 "grad_norm": grad_norm,
                 "dropped_splat_weight": torch.zeros((), device=dev)}
+
+    return step
+
+
+def homography_view(image0: torch.Tensor, jitter: torch.Tensor,
+                    height: int, width: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The homography step's second view: the frame's corners
+    [[0, 0], [W, 0], [W, H], [0, H]] moved by `jitter` (B, 4, 2) give the
+    quad in image0 that H (B, 3, 3, solved from the 4 points in float32)
+    maps onto the whole (height, width) frame; image1 is image0
+    (B, h, w, C) warped by H into that frame, zero outside. Returns
+    (H, image1)."""
+    corners = torch.tensor([[0.0, 0.0], [width, 0.0], [width, height],
+                            [0.0, height]], dtype=torch.float32,
+                           device=image0.device)
+    src = corners + jitter.float()
+    dst = corners.expand_as(src)
+    Hmat = perspective_transform_from_points(src, dst)
+    return Hmat, extract_crops_batched(image0.float(), Hmat,
+                                       (height, width))
+
+
+def make_stage2_homography_train_step(
+    rep_kind: str, bins: int, height: int, width: int,
+    pos_th: float = 3.0, neg_th: float = 5.0, gamma: float = 1.0,
+    nll_balancing: float = 0.5, max_corner_jitter: float = 0.125,
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """The stage-2 (LightGlue) step with homography supervision, for
+    datasets without depth (EC): the events stay as they are, the frame is
+    warped by a random perspective transform and the ground-truth matches
+    come from the known H.
+
+    step(state, batch, generator=None, fill=None, jitter=None) -> info.
+    `batch` is (data0, ...) as the JAX step takes it: data0 with the
+    padded events or their wire format (`compact_stage2_homography_batch`)
+    and "image" (B, h, w, 1), moved to the model's device. Per step the
+    corner jitter U(-1, 1) * (W, H) * max_corner_jitter of shape (B, 4, 2)
+    is drawn from `generator` (a generator of the model's device), or
+    handed in scaled (`jitter`); `homography_view` makes H and image1 at
+    (height, width); the matcher's random slot fill is drawn from
+    `generator` after the jitter, or handed in (`fill`, see
+    models/eim.py). `state` is updated in place. info holds 0-d tensors,
+    left on the device (no host sync): loss, gt_matches, the matcher_*
+    terms, grad_norm and dropped_splat_weight (always 0), as the JAX
+    step's."""
+
+    def step(state: TrainState, batch, generator=None, fill=None,
+             jitter=None) -> Dict[str, torch.Tensor]:
+        model = state.model
+        dev = next(model.parameters()).device
+        data0 = batch[0]
+        ev_rep, ev_mask = batch_representation(data0, rep_kind, bins,
+                                               height, width, device=dev)
+        image0 = torch.as_tensor(data0["image"]).to(dev)
+        if jitter is None:
+            u = torch.rand(image0.shape[0], 4, 2, generator=generator,
+                           device=dev)
+            scale = torch.tensor([width, height], dtype=torch.float32,
+                                 device=dev) * max_corner_jitter
+            jitter = (u * 2 - 1) * scale
+        Hmat, image1 = homography_view(image0, torch.as_tensor(jitter).to(
+            dev), height, width)
+
+        state.optimizer.zero_grad(set_to_none=True)
+        _, _, matches = model(ev_rep, image1, ev_mask, None, training=True,
+                              generator=generator, fill=fill)
+        with torch.no_grad():
+            # sparse positions are (y, x): the homography's GT takes xy
+            f0, f1 = matches["input_feats0"], matches["input_feats1"]
+            gt = gt_matches_from_homography(
+                f0["sparse_positions"][..., :2].flip(-1),
+                f1["sparse_positions"][..., :2].flip(-1), Hmat,
+                pos_th=pos_th, neg_th=neg_th, mask0=f0["sparse_valid"],
+                mask1=f1["sparse_valid"])
+        loss, info = lightglue_loss(matches, gt, gamma=gamma,
+                                    nll_balancing=nll_balancing,
+                                    training=True)
+        loss.backward()
+        grad_norm = _apply_gradients(state)
+        n_gt = (gt["matches0"] > -1).sum(dim=-1).float().mean()
+        return {"loss": loss.detach(), "gt_matches": n_gt,
+                **{k: v.detach() for k, v in info.items()},
+                "grad_norm": grad_norm,
+                "dropped_splat_weight": torch.zeros((), device=dev)}
+
+    return step
+
+
+def make_eval_step(rep_kind: str, bins: int, height: int, width: int,
+                   dense: bool = False
+                   ) -> Callable[..., Tuple[Dict, Dict, Optional[Dict]]]:
+    """The inference step of the evaluation loops: step(model, batch) ->
+    (event feats, image feats, matches) of `model(ev_rep, data1["image"],
+    ev_mask)` under `torch.no_grad()`, in inference mode (no random slot
+    fill: invalid slots stay masked); `dense` adds the full-resolution
+    descriptor maps the validation losses read (the JAX package's
+    extractors always return them). `batch` is (data0, data1, ...):
+    data0's padded events or their wire format; arrays are moved to the
+    model's device."""
+
+    def step(model: torch.nn.Module, batch
+             ) -> Tuple[Dict, Dict, Optional[Dict]]:
+        dev = next(model.parameters()).device
+        data0, data1 = batch[0], batch[1]
+        with torch.no_grad():
+            ev_rep, ev_mask = batch_representation(data0, rep_kind, bins,
+                                                   height, width, device=dev)
+            image = torch.as_tensor(data1["image"]).to(dev)
+            return model(ev_rep, image, ev_mask, None, training=False,
+                         dense=dense)
 
     return step

@@ -23,31 +23,10 @@ JAX package's and is not read.
 from __future__ import annotations
 
 import argparse
-import json
 import os
-import signal
-import time
 
 import numpy as np
 import torch
-
-
-class GracefulShutdown:
-    """SIGTERM/SIGINT -> finish the current step, checkpoint, exit: a flag
-    the epoch loop checks each step, so a preempted job saves a resumable
-    checkpoint."""
-
-    def __init__(self):
-        self.requested = False
-
-        def handler(signum, frame):
-            self.requested = True
-
-        for sig in (signal.SIGTERM, signal.SIGINT):
-            try:
-                signal.signal(sig, handler)
-            except ValueError:
-                pass  # not the main thread
 
 
 def parse_args(argv=None):
@@ -66,7 +45,7 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    from .data import DataLoader, PinnedPut, device_prefetch
+    from .data import DataLoader, PinnedPut
     from .data.ec import fetch_ec_dataset
     from .data.mvsec import fetch_mvsec_dataset
     from .device import resolve_device
@@ -75,8 +54,8 @@ def main(argv=None):
     from .models.config_adapter import eim_config_from_dict
     from .models.layers import init_parameters
     from .train import (PlateauController, create_train_state,
-                        restore_checkpoint, save_checkpoint,
-                        set_learning_rate)
+                        restore_checkpoint)
+    from .train.loop import load_plateau, resume_position, train_epochs
     from .train.partition import frozen_roots_from_config
     from .train.steps import compact_stage1_batch, make_stage1_train_step
     from .utils import load_config, logger_from_config, save_config
@@ -123,10 +102,13 @@ def main(argv=None):
     model = model.to(dev)
     n_params = sum(p.numel() for p in model.parameters())
     logger.log_info(f"model parameters: {n_params / 1e6:.2f}M")
-    if cfg.get("superpoint_weights"):
+    # optional pretrained image-extractor weights, read only where the file
+    # exists (a config naming an absent file trains on, as the JAX entry)
+    sp_path = cfg.get("superpoint_weights")
+    if sp_path and os.path.exists(sp_path):
         raise NotImplementedError(
             "superpoint_weights needs models/port_torch.py, which is not "
-            "ported yet (ROADMAP Queue 1 item 6)")
+            "ported yet (ROADMAP Queue 1)")
 
     # -- optimizer ---------------------------------------------------------
     tcfg = cfg.train.to_dict()
@@ -140,102 +122,19 @@ def main(argv=None):
     resume_skip = 0
     if args.resume:
         state, start_epoch = restore_checkpoint(args.resume, state)
-        # exact mid-epoch resume: the step count positions the stream
-        # inside the (seed + epoch keyed) epoch permutation
-        resume_skip = max(0, state.step - start_epoch * steps_per_epoch)
-        start_epoch += resume_skip // steps_per_epoch
-        resume_skip %= steps_per_epoch
+        start_epoch, resume_skip = resume_position(state, start_epoch,
+                                                   steps_per_epoch)
         logger.log_info(f"resumed from {args.resume} @ epoch {start_epoch}"
                         + (f" batch {resume_skip}" if resume_skip else ""))
-        if plateau is not None:
-            sidecar = os.path.join(args.resume, "plateau.json")
-            if os.path.exists(sidecar):
-                with open(sidecar) as f:
-                    plateau.load_state_dict(json.load(f))
+        load_plateau(plateau, args.resume)
 
     losses = build_losses(tcfg["loss"])
     step_fn = make_stage1_train_step(losses, rep, bins, H, W)
-    shutdown = GracefulShutdown()
     put = PinnedPut(dev)
-    ckpt_dir = os.path.join(logger.run_dir, "checkpoints")
-
-    # -- epoch loop --------------------------------------------------------
-    global_step = state.step
-    start_step = global_step
-    epochs = tcfg["epochs"]
-    # the epoch of the "final" checkpoint: the epoch in progress when
-    # stopping early (SIGTERM, --max-steps), so resuming from it continues
-    # the same trajectory
-    end_epoch = epochs
-    # the steady rate: from the first drain (the steps up to the one
-    # enqueued then are excluded) to the last drain
-    timing = {"t0": None, "step0": None, "t1": None, "step1": None}
-    for epoch in range(start_epoch, epochs):
-        loader.set_epoch(epoch, resume_skip if epoch == start_epoch else 0)
-        t_epoch = time.time()
-        epoch_losses = []
-
-        def drain(pending):
-            # read the PREVIOUS step's scalars only after the next step is
-            # enqueued: the card works while the host waits for them
-            pstep, pinfo = pending
-            vals = {k: float(v) for k, v in pinfo.items()}
-            now = time.perf_counter()
-            if timing["t0"] is None:
-                # called once step pstep + 1 is enqueued
-                timing["t0"], timing["step0"] = now, pstep + 1
-            timing["t1"], timing["step1"] = now, pstep
-            logger.maybe_status(pstep, vals, prefix=f"[stage1 e{epoch}] ")
-            if plateau is not None:
-                epoch_losses.append(vals["loss"])
-
-        pending = None
-        batches = device_prefetch(iter(loader),
-                                  lambda b: put(compact_stage1_batch(b)))
-        for batch in batches:
-            info = step_fn(state, batch)
-            global_step += 1
-            if pending is not None:
-                drain(pending)
-            pending = (global_step, info)
-            if shutdown.requested or (
-                    args.max_steps and global_step >= args.max_steps):
-                break
-        if pending is not None:
-            drain(pending)
-        logger.log_info(f"epoch {epoch} done in {time.time() - t_epoch:.1f}s")
-        if plateau is not None and epoch_losses and not shutdown.requested:
-            # the monitored metric is the epoch-mean training loss; skipped
-            # on preemption (the epoch is partial and resuming replays it)
-            new_lr = plateau.step(float(np.mean(epoch_losses)))
-            set_learning_rate(state.optimizer, new_lr)
-            logger.log_info(f"plateau lr -> {new_lr:.2e}")
-        if not shutdown.requested and (
-                (epoch + 1) % tcfg.get("checkpoint_freq", 5) == 0):
-            path = save_checkpoint(ckpt_dir, state, epoch + 1)
-            if plateau is not None:
-                with open(os.path.join(path, "plateau.json"), "w") as f:
-                    json.dump(plateau.state_dict(), f)
-            logger.log_info(f"checkpoint saved: {path}")
-        if shutdown.requested:
-            path = save_checkpoint(ckpt_dir, state, epoch, name="preempted")
-            logger.log_info(f"shutdown requested; saved {path}")
-            end_epoch = epoch
-            break
-        if args.max_steps and global_step >= args.max_steps:
-            end_epoch = epoch
-            break
-    path = save_checkpoint(ckpt_dir, state, end_epoch, name="final")
-    logger.log_info(f"final checkpoint: {path}")
-    logger.log_info(f"stopped at step {global_step}, epoch "
-                    f"{end_epoch}/{epochs}")
-    n = (timing["step1"] or 0) - (timing["step0"] or 0)
-    if n > 0:
-        secs = timing["t1"] - timing["t0"]
-        logger.log_info(f"steady rate: steps {timing['step0'] + 1} to "
-                        f"{timing['step1']} (of {start_step + 1} to "
-                        f"{global_step}) in {secs:.3f} s, "
-                        f"{n / secs:.3f} steps/s")
+    train_epochs(state, loader, lambda batch, i: step_fn(state, batch),
+                 lambda b: put(compact_stage1_batch(b)), logger, tcfg,
+                 plateau, os.path.join(logger.run_dir, "checkpoints"),
+                 start_epoch, resume_skip, args.max_steps, prefix="stage1")
     logger.close()
     return state
 

@@ -17,6 +17,7 @@ from ei_nexus_tpu.ops.pallas_attention import (cross_attention_bidir,
                                                self_attention)
 from ei_nexus_tpu_torch.models import lightglue as tlg
 from ei_nexus_tpu_torch.ops import attention_kernels as ak
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):

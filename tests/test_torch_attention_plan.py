@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from ei_nexus_tpu_torch.ops.attention_kernels import operand_plan
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 B, N, H, D = 8, 1024, 4, 64   # the flagship's LightGlue: 4 heads of 64
 

@@ -1091,3 +1091,133 @@ def test_representations_on_the_card(cuda, kind):
     else:
         assert torch.equal(got.cpu(), want)
     assert (want != 0).any()
+
+
+def _grid_stage2_model():
+    """The tiny float32 stage-2 flagship with LightGlue on the kernels'
+    shape grid: 128 slots, 2 heads of 64 (its 32-d descriptors projected
+    to 128), so D and F (training) and A and B (inference) take every
+    attention call; (model on the CPU with training heads, (H, W, bins))."""
+    import dataclasses
+    from ei_nexus_tpu_torch.flagship import stage2_config
+    from ei_nexus_tpu_torch.models.eim import EIM
+    from ei_nexus_tpu_torch.models.layers import init_parameters
+
+    cfg, shape = stage2_config(tiny=True, dtype="float32")
+    # 4 fixed NMS rounds on both devices (the CPU's "auto" runs the loop
+    # to convergence)
+    kp = dataclasses.replace(cfg.event_extractor.keypoints,
+                             nms_impl="pallas")
+    cfg = dataclasses.replace(
+        cfg,
+        event_extractor=dataclasses.replace(cfg.event_extractor,
+                                            keypoints=kp),
+        image_extractor=dataclasses.replace(cfg.image_extractor,
+                                            keypoints=kp),
+        matcher=dataclasses.replace(
+            cfg.matcher, max_points_num=128,
+            lightglue=dataclasses.replace(cfg.matcher.lightglue,
+                                          descriptor_dim=128, num_heads=2)))
+    model = EIM(cfg, training_heads=True)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    return model, shape
+
+
+def test_homography_step_on_the_card(cuda):
+    """One homography-supervised stage-2 step of the small on-grid model
+    on the CPU and on the card, the same weights, batch, corner jitter and
+    slot fill: the card launches D and F 4 a layer and C twice; H and
+    image1 agree (image1 within what the two devices' float32 H^-1 move
+    the sampling points: max|image| per pixel moved), loss and grad_norm to
+    1e-4 and 1e-3 relative, updated parameters within 4 lr, frozen
+    tensors bit-unchanged. TF32 off for matmuls and convolutions."""
+    import copy
+    import numpy as np
+    from ei_nexus_tpu_torch.data.synth import homography_batch
+    from ei_nexus_tpu_torch.flagship import STAGE2_LR, stage2_train_state
+    from ei_nexus_tpu_torch.models.eim import random_fill
+    from ei_nexus_tpu_torch.ops import homographic as hg
+    from ei_nexus_tpu_torch.train.steps import (
+        homography_view, make_stage2_homography_train_step)
+
+    cpu_model, (H, W, bins) = _grid_stage2_model()
+    gpu_model = copy.deepcopy(cpu_model).cuda()
+    start = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    batch = homography_batch(np.random.default_rng(2), 2, 3000, 4096, H, W)
+    gen = torch.Generator().manual_seed(5)
+    jitter = (torch.rand(2, 4, 2, generator=gen) * 2 - 1) \
+        * torch.tensor([W, H]) * 0.125
+    feats = {"sparse_positions": torch.zeros(2, 1, 3),
+             "sparse_descriptors": torch.zeros(2, 1, 32),
+             "image_size": torch.tensor([[H, W]] * 2)}
+    fill = tuple(random_fill(feats, 128, 1.0, gen) for _ in range(2))
+
+    Hc, ic = homography_view(torch.as_tensor(batch[0]["image"]), jitter, H,
+                             W)
+    Hg, ig = homography_view(torch.as_tensor(batch[0]["image"]).cuda(),
+                             jitter.cuda(), H, W)
+    assert (Hg.cpu() - Hc).abs().max() <= 1e-4 * Hc.abs().max()
+    grid = hg.create_meshgrid(W, H, normalized=False).reshape(-1, 2)
+    moved = (hg.transform_points(torch.linalg.inv_ex(Hg)[0],
+                                 grid.cuda()).cpu()
+             - hg.transform_points(torch.linalg.inv_ex(Hc)[0],
+                                   grid)).abs().sum(-1).max()
+    assert (ig.cpu() - ic).abs().max() <= (1e-5 + float(moved)) * 255
+
+    step = make_stage2_homography_train_step("VoxelGrid", bins, H, W)
+    counters = (ak.attention_fwd, ak.attention_bwd, nk.nms_rounds)
+    infos = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+            dev = next(model.parameters()).device
+            before = [c.launches for c in counters]
+            info = step(stage2_train_state(model), batch,
+                        fill=tuple((p.to(dev), d.to(dev)) for p, d in fill),
+                        jitter=jitter.to(dev))
+            infos[name] = {k: float(v) for k, v in info.items()}
+            launched = [c.launches - b for c, b in zip(counters, before)]
+            assert launched == ([0, 0, 0] if name == "cpu" else [8, 8, 2])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    ic_, ig_ = infos["cpu"], infos["cuda"]
+    assert np.isfinite(ig_["loss"]) and ig_["gt_matches"] >= 0
+    assert abs(ig_["loss"] - ic_["loss"]) <= 1e-4 * abs(ic_["loss"])
+    assert abs(ig_["grad_norm"] - ic_["grad_norm"]) \
+        <= 1e-3 * ic_["grad_norm"]
+    sc = cpu_model.state_dict()
+    sg = {k: v.cpu() for k, v in gpu_model.state_dict().items()}
+    for k in sc:
+        if k.startswith("matcher."):
+            assert (sg[k] - sc[k]).abs().max() <= 4 * STAGE2_LR, k
+        else:
+            assert torch.equal(sg[k], start[k]) and torch.equal(sc[k],
+                                                                start[k]), k
+
+
+def test_eval_forward_launches_a_b_c(cuda):
+    """`rpe_eval` on the card (both RANSAC backends) over one batch of the
+    small on-grid model: its eval forward launches A for each layer's two
+    self-attentions, B once a layer and C once an extractor, as the shape
+    guard predicts for 128 slots and heads of 64; the metrics are
+    finite."""
+    import numpy as np
+    from ei_nexus_tpu_torch.data.synth import stage2_batch
+    from ei_nexus_tpu_torch.models.lightglue import _pallas_supported
+    from ei_nexus_tpu_torch.train.evaluate import rpe_eval
+
+    model, (H, W, bins) = _grid_stage2_model()
+    model = model.cuda().eval()
+    batch = stage2_batch(np.random.default_rng(3), 2, 3000, 4096, H, W)
+    layers = model.config.matcher.lightglue.n_layers
+    assert _pallas_supported(128, 64) and _pallas_supported(128, 64, 128)
+    counters = (ak.self_attention, ak.cross_attention_bidir, nk.nms_rounds)
+    for backend in ("opencv", "torch"):
+        before = [c.launches for c in counters]
+        out = rpe_eval(model, [batch], "VoxelGrid", bins, H, W,
+                       backend=backend)
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        assert launched == [2 * layers, layers, 2]
+        assert out["n_pairs"] == 2
+        assert all(np.isfinite(out[f"RPE@{t}_auc"]) for t in (5, 10, 20))

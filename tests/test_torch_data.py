@@ -27,6 +27,7 @@ from ei_nexus_tpu_torch.data import ec as tec
 from ei_nexus_tpu_torch.data import interpolator as tint
 from ei_nexus_tpu_torch.data import mvsec as tmvsec
 from ei_nexus_tpu_torch.data import pipeline as tpipe
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 H, W = 26, 34

@@ -25,6 +25,7 @@ from ei_nexus_tpu.train import steps as jsteps
 from ei_nexus_tpu_torch import native as tnative
 from ei_nexus_tpu_torch.models.port_jax import load_jax_variables
 from ei_nexus_tpu_torch.train import steps as tsteps
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 TRAIN_CONFIGS = sorted((ROOT / "configs").glob("train_*.yaml"))
@@ -447,9 +448,26 @@ def test_train_extractor_entry_runs_and_resumes(mini_ec_root, tmp_path):
 
 
 def test_train_extractor_refuses_superpoint_weights(mini_ec_root, tmp_path):
+    """A config naming a `superpoint_weights` file that does not exist
+    trains on, as the JAX entry does (`train_extractor.py:132-133`: the
+    file is read only where it exists): one step, a `final` checkpoint."""
+    options, overrides = _entry_args(mini_ec_root)
+    state, run, rows = _run_entry(
+        options + ["--max-steps", "1"],
+        overrides + ["superpoint_weights=superpoint_v1.pth"], tmp_path)
+    assert state.step == 1 and [r["step"] for r in rows] == [1]
+    assert (run / "checkpoints" / "final" / "state.pt").is_file()
+
+
+def test_train_extractor_refuses_present_superpoint_weights(mini_ec_root,
+                                                            tmp_path):
+    """A `superpoint_weights` file that exists is refused until the
+    reference `.pth` import is ported."""
     from ei_nexus_tpu_torch import train_extractor
+    weights = tmp_path / "superpoint_v1.pth"
+    torch.save({}, weights)
     options, overrides = _entry_args(mini_ec_root)
     with pytest.raises(NotImplementedError, match="port_torch"):
         train_extractor.main(options + overrides + [
-            f"logger.output_dir={tmp_path}",
-            "superpoint_weights=superpoint_v1.pth"])
+            f"logger.output_dir={tmp_path / 'runs'}",
+            f"superpoint_weights={weights}"])

@@ -38,6 +38,7 @@ from ei_nexus_tpu_torch.models import lightglue as tlg
 from ei_nexus_tpu_torch.models.port_jax import load_jax_variables
 from ei_nexus_tpu_torch.ops import attention_kernels as ak
 from ei_nexus_tpu_torch.ops import flash_kernel as fk
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):

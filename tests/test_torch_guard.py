@@ -20,6 +20,7 @@ import torch
 from ei_nexus_tpu.models import lightglue as jlg
 from ei_nexus_tpu_torch.models import lightglue as tlg
 from ei_nexus_tpu_torch.models.port_jax import load_jax_variables
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

@@ -29,6 +29,7 @@ from ei_nexus_tpu_torch.models import mnn as tmnn
 from ei_nexus_tpu_torch.flagship import flagship_config
 
 from test_torch_models import _compare_feats, _load, _perturb, _t
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -29,6 +29,7 @@ from ei_nexus_tpu_torch.models.eim import EIM
 from ei_nexus_tpu_torch.models.port_jax import load_jax_variables
 from ei_nexus_tpu_torch.models.superpoint import SuperPointV1
 from ei_nexus_tpu_torch.flagship import flagship_config
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

@@ -14,6 +14,7 @@ import torch
 from ei_nexus_tpu_torch.ops.nms_kernel import (CLUSTER, MAX_STRIPS, NmsPlan,
                                                nms_plan, nms_rounds_plain,
                                                smem_bytes)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 FULL = 232448  # the shared memory a Hopper block may use
 

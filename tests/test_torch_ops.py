@@ -19,6 +19,7 @@ from ei_nexus_tpu_torch.ops import descriptor as tdesc
 from ei_nexus_tpu_torch.ops import detector as tdet
 from ei_nexus_tpu_torch.ops.nms_kernel import nms_rounds, nms_rounds_plain
 from ei_nexus_tpu_torch.ops.pad import Padder as TPadder
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):

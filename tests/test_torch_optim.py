@@ -20,6 +20,7 @@ import torch
 
 from ei_nexus_tpu.train import optim as jopt
 from ei_nexus_tpu_torch.train import optim as topt
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 SPE = 4          # steps an epoch
 EPOCHS = 3

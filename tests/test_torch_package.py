@@ -10,10 +10,17 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ei_nexus_tpu",
              "__graft_entry__", "bench")
+
+
+# the port's `python -m` entry points
+ENTRIES = ("train_extractor", "train_matcher", "val_extractor",
+           "val_matcher", "test_events_image_same_time",
+           "test_events_image_different_time")
 
 
 def _port_files():
@@ -48,7 +55,12 @@ def test_importing_the_port_loads_no_jax():
             "ei_nexus_tpu_torch.metrics, ei_nexus_tpu_torch.train, "
             "ei_nexus_tpu_torch.train_extractor, "
             "ei_nexus_tpu_torch.data.mini_ec, ei_nexus_tpu_torch.utils, "
-            "ei_nexus_tpu_torch.models.config_adapter; "
+            "ei_nexus_tpu_torch.models.config_adapter, "
+            + ", ".join(f"ei_nexus_tpu_torch.{m}" for m in ENTRIES)
+            + ", ei_nexus_tpu_torch.train.evaluate, "
+            "ei_nexus_tpu_torch.train.loop, "
+            "ei_nexus_tpu_torch.data.val_pairs, "
+            "ei_nexus_tpu_torch.ops.homographic; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -67,7 +79,6 @@ def test_entry_points_default_to_the_card():
 
     from ei_nexus_tpu_torch.flagship import (build_stage1_flagship,
                                              build_stage2_flagship)
-    from ei_nexus_tpu_torch import train_extractor
     with pytest.raises(RuntimeError, match="CUDA"):
         build_flagship(tiny=True)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -77,9 +88,12 @@ def test_entry_points_default_to_the_card():
     from ei_nexus_tpu_torch.flagship import build_silk
     with pytest.raises(RuntimeError, match="CUDA"):
         build_silk(tiny=True)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        train_extractor.main(["--config", str(
-            ROOT / "configs" / "train_EIM_stage1_EC_SP_MNN.yaml")])
+    import importlib
+    for name in ENTRIES:
+        entry = importlib.import_module(f"ei_nexus_tpu_torch.{name}")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry.main(["--config", str(
+                ROOT / "configs" / "train_EIM_stage1_EC_SP_MNN.yaml")])
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model("EIM", flagship_config(tiny=True)[0])
     ev = bursty_event_batch(np.random.default_rng(0), 1, 10, 16, 8, 8)
@@ -91,6 +105,22 @@ def test_entry_points_default_to_the_card():
         estimate_pose_batch_from_matches(pos, pos, np.zeros((1, 8), int),
                                          np.eye(3)[None], np.eye(3)[None],
                                          1.0)
+    from ei_nexus_tpu_torch.metrics import (RelativePoseEstimation,
+                                            estimate_pose_torch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        estimate_pose_torch(pos[0], pos[0], 1.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RelativePoseEstimation("RPE", [5], backend="torch").update_one(
+            pos[0], pos[0], np.eye(3), np.eye(3), np.eye(4))
+    from ei_nexus_tpu_torch.data.val_pairs import pair_overlap_ratio
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pair_overlap_ratio(np.ones((8, 8)), np.ones((8, 8)), np.eye(3),
+                           np.eye(4), np.eye(4))
+    from ei_nexus_tpu_torch.train.evaluate import build_eval_model
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_eval_model({"name": "EIM", "event_extractor": {"type": "vgg"},
+                          "image_extractor": {"type": "superpointv1"},
+                          "matcher": {"type": "MNN"}})
     # asking for the CPU works
     model, _ = build_flagship(tiny=True, dtype="float32", device="cpu")
     assert next(model.parameters()).device.type == "cpu"

@@ -27,6 +27,7 @@ from ei_nexus_tpu.metrics.fivepoint import five_point_candidates as jfive
 from ei_nexus_tpu_torch.metrics import ransac as tr
 from ei_nexus_tpu_torch.metrics.fivepoint import five_point_candidates
 from test_fivepoint import make_scene
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 THRESH = 5e-3   # normalized units: 1/199 px at the flagship's focal 199
 

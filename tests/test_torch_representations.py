@@ -22,6 +22,7 @@ from ei_nexus_tpu.train.steps import batch_representation as jax_batch_rep
 from ei_nexus_tpu_torch.data import representations as treps
 from ei_nexus_tpu_torch.data.synth import bursty_event_batch
 from ei_nexus_tpu_torch.train.steps import batch_representation
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):

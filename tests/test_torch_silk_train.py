@@ -29,6 +29,7 @@ from ei_nexus_tpu.models.config_adapter import (
 from ei_nexus_tpu_torch.flagship import silk_config, silk_model_dict
 from ei_nexus_tpu_torch.models import eim as teim
 from ei_nexus_tpu_torch.models.port_jax import load_jax_variables
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 BN_TOL = dict(atol=1e-5, rtol=0)
 # FeatureLoss (and the total it dominates) at rtol 1e-4: it is the mean

@@ -43,6 +43,7 @@ from ei_nexus_tpu_torch.models import eim as teim
 from ei_nexus_tpu_torch.models import extractor as text
 from ei_nexus_tpu_torch.models.layers import BatchNorm
 from ei_nexus_tpu_torch.models.port_jax import load_jax_variables
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 LOSS_TOL = dict(rtol=1e-5, atol=1e-7)
 BN_TOL = dict(atol=1e-5, rtol=0)

@@ -28,6 +28,7 @@ from ei_nexus_tpu.train import steps as jsteps
 from ei_nexus_tpu_torch import native as tnative
 from ei_nexus_tpu_torch.data.synth import bursty_event_batch, stage2_batch
 from ei_nexus_tpu_torch.train import steps as tsteps
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 def _events(seed, B=3, n=3000, L=40000, H=260, W=346, half=0):
     """Bursty padded events; `half` of each row's valid coordinates moved
