@@ -133,12 +133,52 @@ Phases, each of which raises on failure:
     `rpe_eval`'s pairs/s under each backend with the share of the loop in
     cv2's pose estimation.
 
+12. reference checkpoints and adaptive LightGlue: (a) synthetic `.pth`
+    files in the reference's layout (`models/port_torch.py:
+    to_reference_layout` of seeded weights: the flagship EIM of
+    configs/train_EIM_stage2.yaml and EI_SiLK_LG) read back strictly on
+    the card, every tensor bit-equal; `python -m
+    ei_nexus_tpu_torch.test_events_image_different_time dataset=test_ec
+    --ckpt <.pth> --max-batches 16` over phase 11's mini-EC (exit 0,
+    finite AUCs) and, in this process, the .pth eval forward's launches
+    (A 18, B 9, C 2); the stage-1 entry with `superpoint_weights=<.pth>`
+    for 2 steps (its image extractor equals the file); (b) adaptive
+    LightGlue at full width (the flagship, bf16, B=8, depth_confidence
+    0.95 and width_confidence 0.99, or width alone for the pruning
+    regimes) with the decision heads' biases steered into four regimes
+    (never exit: A 18, B 9, matches equal to the plain "auto" forward's on
+    one voxel grid; exit after layer 0: A 2, B 1; prune everything: no
+    match; prune about half, layer 0's matchability reading descriptor
+    channel 0 against its median), each under "auto" (A, B), "flash" (G)
+    and block_q=64 (E): launches, the stop-decision host reads
+    (`LightGlue.host_syncs`) and every sync PyTorch reports, exit layer,
+    surviving share, latency and pairs/s beside phase 3's "auto" forward;
+    A, B, E and G against their plain versions at the pruned masks with
+    the last batch row pruned whole; a tiny float32 adaptive LightGlue on
+    the CPU and the card (exit layers, surviving masks, matches equal);
+13. the SLAM back end: (a) `parallel/ba.py:ba_solve` at
+    tools/bench_ba.py's defaults (512 keyframes, 65,536 landmarks, 10
+    observations each, 12 LM iterations of 20 CG steps, Huber 4 px, z_min
+    0.01; its synthetic problem, `ba_problem`): the cost falls; ms per LM
+    iteration (CUDA events, the slope between 3 and 12 iterations), host
+    syncs in a solve, peak memory; (b) a small exact problem on the CPU
+    and the card, plain and robust: costs, poses and points within stated
+    bounds; (c) `pose_graph_solve` on an 8-pose ring with a loop closure:
+    residuals below 5%; (d) `parallel/slam.py:refine_map` on a synthetic
+    drifted trajectory of 40 keyframes with 512 keypoints each: the cost
+    and the ATE (Umeyama) fall; (e) the front end's wiring: the stage-1
+    MNN model (C 2) on 8 frames, its matcher's matches0 between
+    consecutive frames into `chain_tracks` -> `build_ba_problem` ->
+    `ba_solve`: finite costs.
+
 Prints each phase's wall seconds, the kernels' JSON line (launches: A, B,
 C from the "auto" forward; D, F from the stage-2 step; E from the
 q-blocked forward; G from the flash forward; each row's
 launches_stage1_step from the stage-1 step, launches_silk_lg_forward and
 launches_silk_stage2_step from phase 10, launches_homography_step and
-launches_eval_forward from phase 11; C's row also its device ms and
+launches_eval_forward from phase 11, launches_pth_eval_forward and
+launches_adaptive_forward by setting/regime from phase 12; C's row also
+its device ms and
 plans at the cell-1 shapes), the card's `nvidia-smi` line, the forward,
 serving, loader-fed, MNN, SiLK, step, entry and evaluation rates, and as
 its last line
@@ -2582,6 +2622,818 @@ def phase_eval_loop(data: str, stage2_final: str):
     return launches, rates, share
 
 
+# ---------------------------------------------------------------------------
+# phase 12: reference .pth checkpoints, and adaptive LightGlue
+# ---------------------------------------------------------------------------
+
+PTH_SEED = 12
+
+
+def phase_pth(data: str, tmp: str):
+    """(12a) Reference `.pth` checkpoints (synthetic: a seeded model's
+    weights written in the reference's layout by `to_reference_layout`,
+    none being in the repository): the flagship EIM of
+    configs/train_EIM_stage2.yaml (SuperPoint + LightGlue, its eval model)
+    and EI_SiLK_LG, each saved with `torch.save` into `tmp` and read back
+    through `models/port_torch.py` into a model on the card strictly, every
+    tensor bit-equal to the source's; then `python -m
+    ei_nexus_tpu_torch.test_events_image_different_time dataset=test_ec
+    --ckpt <flagship .pth> --max-batches 16` over phase 11's mini-EC: exit
+    0, finite AUCs; in this process the .pth eval forward's launches
+    around one batch (A 18, B 9, C 2); and the stage-1 entry with
+    `superpoint_weights=<a synthetic superpoint_v1.pth>` for 2 steps: the
+    image extractor of its checkpoint equals the file. Returns (the eval
+    forward's launches, process walls)."""
+    from ei_nexus_tpu_torch.data import DataLoader
+    from ei_nexus_tpu_torch.flagship import build_silk
+    from ei_nexus_tpu_torch.models import build_model
+    from ei_nexus_tpu_torch.models.config_adapter import eim_config_from_dict
+    from ei_nexus_tpu_torch.models.layers import init_parameters
+    from ei_nexus_tpu_torch.models.port_torch import (
+        load_eim_torch_checkpoint, load_torch_file, to_reference_layout)
+    from ei_nexus_tpu_torch.train.evaluate import (build_eval_model,
+                                                   val_dataset)
+    from ei_nexus_tpu_torch.train.steps import make_eval_step
+    from ei_nexus_tpu_torch.utils import load_config
+
+    cfg = load_config(STAGE2_CONFIG, ["dataset=test_ec",
+                                      f"dataset.data_path={data}"])
+    model_dict = cfg.model.to_dict()
+    flagship = build_eval_model(model_dict, device="cpu", seed=PTH_SEED)
+    silk, _ = build_silk("EI_SiLK_LG", device="cpu", training_heads=True,
+                         generator=torch.Generator().manual_seed(PTH_SEED))
+    paths = {}
+    for name, src, image in (("flagship", flagship, "superpointv1"),
+                             ("EI_SiLK_LG", silk, "silk")):
+        path = os.path.join(tmp, f"{name}_reference.pth")
+        ref = to_reference_layout(src.state_dict(), image)
+        torch.save(ref, path)
+        c = src.config
+        sd = load_eim_torch_checkpoint(
+            load_torch_file(path), image_extractor_type=image,
+            matcher_type=c.matcher.type,
+            n_lightglue_layers=c.matcher.lightglue.n_layers,
+            use_batchnorm=c.event_extractor.use_batchnorm)
+        dst = type(src)(c, training_heads=True).cuda()
+        dst.load_state_dict(sd, strict=True)
+        want = src.state_dict()
+        bad = [k for k, v in dst.state_dict().items()
+               if not torch.equal(v.cpu(), want[k])]
+        require(not bad, f"[pth] {name}: {len(bad)} tensors differ, "
+                         f"{bad[:3]}")
+        mb = os.path.getsize(path) / 2 ** 20
+        print(f"[pth] {name}: {len(ref)} reference keys ({mb:.1f} MiB) -> "
+              f"{len(sd)} tensors, loaded strictly on the card, each "
+              f"bit-equal to the source")
+        paths[name] = path
+        del dst
+
+    walls = {}
+    out, walls["eval entry"] = _run_module(
+        "test_events_image_different_time",
+        ["--config", STAGE2_CONFIG, "--ckpt", paths["flagship"],
+         "--max-batches", str(EVAL_BATCHES), "dataset=test_ec",
+         f"dataset.data_path={data}"])
+    m = json.loads(out)
+    aucs = {t: m[f"RPE@{t}_auc"] for t in (5, 10, 20)}
+    print(f"[pth] test_events_image_different_time --ckpt <.pth>: "
+          f"{m['n_pairs']} pairs, AUC@5/10/20 {aucs[5]:.4f} / {aucs[10]:.4f}"
+          f" / {aucs[20]:.4f}, in {walls['eval entry']:.1f} s (process "
+          f"wall)")
+    require(m["n_pairs"] == EVAL_BATCHES, f"{m['n_pairs']} pairs")
+    require(all(np.isfinite(v) for v in aucs.values()),
+            f"non-finite RPE AUC {aucs}")
+
+    model = build_eval_model(model_dict, paths["flagship"], "cuda")
+    want = flagship.state_dict()
+    require(all(torch.equal(v.cpu(), want[k])
+                for k, v in model.state_dict().items()),
+            "the eval model's weights differ from the .pth's")
+    ds = cfg.dataset.to_dict()
+    (H, W), bins = ds["resolution"], ds["channel"]
+    step = make_eval_step(ds["representation_type"], bins, H, W)
+    batch = next(iter(DataLoader(val_dataset(ds), batch_size=1,
+                                 shuffle=False, drop_last=False)))
+    launches, _ = _read_launches(
+        lambda: step(model, batch), "pth-eval",
+        {"self_attention_rot": 18, "cross_attention_bidir": 9,
+         "nms_rounds": 2})
+
+    # the stage-1 entry with superpoint_weights
+    s1 = load_config(ENTRY_CONFIG).model.to_dict()
+    sp = build_model(s1.get("name", "EIM"), eim_config_from_dict(s1),
+                     device="cpu").image_extractor
+    init_parameters(sp, torch.Generator().manual_seed(PTH_SEED))
+    sp_sd = {k: v.float().clone() for k, v in sp.state_dict().items()}
+    sp_path = os.path.join(tmp, "superpoint_v1.pth")
+    torch.save(sp_sd, sp_path)
+    run, rows, log, walls["stage-1 entry"] = _entry_run(
+        ["--max-steps", "2"], data, os.path.join(tmp, "sp_runs"),
+        overrides=[f"superpoint_weights={sp_path}"])
+    require([r["step"] for r in rows] == [1, 2],
+            f"logged steps {[r['step'] for r in rows]}")
+    require("loaded SuperPoint weights" in log, "no SuperPoint load logged")
+    ck = torch.load(os.path.join(run, "checkpoints", "final", "state.pt"),
+                    map_location="cpu", weights_only=True)["model"]
+    bad = [k for k, v in sp_sd.items()
+           if not torch.equal(ck[f"image_extractor.{k}"].float(), v)]
+    require(not bad, f"[pth] the trained image extractor differs from "
+                     f"superpoint_weights: {bad[:3]}")
+    print(f"[pth] train_extractor superpoint_weights=<.pth>: 2 steps in "
+          f"{walls['stage-1 entry']:.1f} s (process wall), losses "
+          + ", ".join(f"{r['loss']:.5f}" for r in rows)
+          + f"; its {len(sp_sd)} SuperPoint tensors equal the file's")
+    return launches, walls
+
+
+# the adaptive settings (the reference's defaults) and the regimes the
+# decision heads' biases are steered into, as tests/test_lightglue_adaptive
+# .py steers them: with depth_confidence on, a token is pruned only once
+# confident, and a batch whose tokens are all confident stops, so the
+# pruning regimes run width_confidence alone, as those tests do
+ADAPTIVE = dict(depth_confidence=0.95, width_confidence=0.99)
+WIDTH_ONLY = dict(width_confidence=0.99)
+REGIMES = {"never_exit": ADAPTIVE, "exit_after_layer_0": ADAPTIVE,
+           "prune_all": WIDTH_ONLY, "prune_half": WIDTH_ONLY}
+KEEP_LOGIT = float(np.log(0.01 / 0.99))   # sigmoid > 1 - 0.99
+
+
+def adaptive_flagship(plain_sd, extra, attention_impl="auto", block_q=0):
+    """The flagship (bf16) with adaptive LightGlue (`extra`) on the card:
+    `plain_sd`'s weights (phase 3's seed) and the heads the plain model
+    lacks (the first eight assignment heads, the token confidences) from
+    seed 1."""
+    from ei_nexus_tpu_torch.flagship import flagship_config
+    from ei_nexus_tpu_torch.models.eim import EIM
+    from ei_nexus_tpu_torch.models.layers import init_parameters
+
+    cfg, shape = flagship_config(dtype="bfloat16",
+                                 attention_impl=attention_impl,
+                                 block_q=block_q)
+    lg = dataclasses.replace(cfg.matcher.lightglue, **extra)
+    cfg = dataclasses.replace(cfg, matcher=dataclasses.replace(
+        cfg.matcher, lightglue=lg))
+    model = EIM(cfg)
+    init_parameters(model, torch.Generator().manual_seed(1))
+    res = model.load_state_dict(plain_sd, strict=False)
+    require(not res.unexpected_keys, f"{res.unexpected_keys}")
+    return model.cuda().eval(), shape
+
+
+def _steer(model, regime, median0=None):
+    """Set the decision heads' biases (and, for prune_half, layer 0's
+    matchability readout) for `regime`, in place."""
+    lg = model.matcher.lightglue
+    L = lg.config.n_layers
+    with torch.no_grad():
+        for i in range(L - 1):
+            tok = lg.token_confidence[str(i)].bias
+            mat = lg.log_assignment[str(i)].matchability
+            if regime == "never_exit":
+                tok.fill_(-10.0)
+            elif regime == "exit_after_layer_0":
+                tok.fill_(10.0)
+            elif regime == "prune_all":
+                mat.bias.fill_(-10.0)
+            elif regime == "prune_half":
+                mat.bias.fill_(10.0)
+                if i == 0 and median0 is not None:
+                    # the logit reads descriptor channel 0: about half the
+                    # valid tokens lie below the median
+                    mat.weight.zero_()
+                    mat.weight[0, 0] = 1.0
+                    mat.bias.fill_(KEEP_LOGIT - median0)
+
+
+def _layer0_median(model, forward) -> float:
+    """The median over valid tokens of descriptor channel 0 after
+    LightGlue's first layer (a hook on it), for prune_half's readout."""
+    seen = []
+    hook = model.matcher.lightglue.transformers[0].register_forward_hook(
+        lambda mod, args, out: seen.append((out, args[4], args[5])))
+    try:
+        forward()
+    finally:
+        hook.remove()
+    (d0, d1), m0, m1 = seen[0]
+    vals = torch.cat([d0[..., 0][m0], d1[..., 0][m1]]).float()
+    return float(vals.median())
+
+
+def phase_adaptive(plain_ms: float):
+    """(12b) Adaptive LightGlue at full width (the flagship, bf16, B=8,
+    260x346, K=1024, 9 layers of 4x64) in four steered regimes under
+    "auto" (A, B), "flash" (G) and `block_q=64` (E): launches, LightGlue's
+    host reads of the stop decision and every sync PyTorch reports,
+    exit_layer, surviving share, latency and pairs/s beside phase 3's
+    "auto" forward (`plain_ms`). never_exit's matches equal the plain
+    "auto" forward's on the same weights; prune_all matches nothing. A, B,
+    E and G are then held against their plain versions at prune_half's
+    surviving masks with the last batch row pruned whole; and a tiny
+    float32 adaptive LightGlue (128 tokens, heads of 64: the kernels'
+    grid) runs on the CPU and the card: exit layers, surviving masks and
+    matches equal. Returns ({setting/regime: launches}, {setting/regime:
+    row of numbers})."""
+    from ei_nexus_tpu_torch.flagship import build_flagship, flagship_config
+    from ei_nexus_tpu_torch.models.lightglue import LightGlue
+    from ei_nexus_tpu_torch.train.steps import batch_representation
+
+    plain, (H, W, bins) = build_flagship(
+        dtype="bfloat16", generator=torch.Generator().manual_seed(0))
+    plain_sd = {k: v.cpu() for k, v in plain.state_dict().items()}
+    ev, image = flagship_inputs()
+    B = image.shape[0]
+
+    def forward_of(model):
+        def forward():
+            rep, mask = batch_representation(ev, "VoxelGrid", bins, H, W)
+            return model(rep, image, mask)
+        return forward
+
+    with torch.inference_mode():
+        # one voxel grid for the equality check (the card's scatter adds
+        # atomically, in any order)
+        rep0, mask0 = batch_representation(ev, "VoxelGrid", bins, H, W)
+        plain_m = plain(rep0, image, mask0)[2]
+        _, plain_syncs, _ = count_syncs(forward_of(plain))
+    del plain
+    print(f"[adaptive] the plain \"auto\" forward: {plain_syncs} host syncs "
+          f"PyTorch reports")
+    n_layers = flagship_config()[0].matcher.lightglue.n_layers
+    launches, rows = {}, {}
+    half_masks = None
+    settings = (("auto", "auto", 0, ("self_attention_rot",
+                                     "cross_attention_bidir")),
+                ("flash", "flash", 0, ("flash_attention",)),
+                ("qblock64", "auto", 64, ("qblock_attention",)))
+    for setting, impl, block_q, names in settings:
+        models = {}
+        for extra in (ADAPTIVE, WIDTH_ONLY):
+            models[tuple(extra)] = adaptive_flagship(plain_sd, extra, impl,
+                                                     block_q)[0]
+        for regime, extra in REGIMES.items():
+            model = models[tuple(extra)]
+            forward = forward_of(model)
+            with torch.inference_mode():
+                median0 = None
+                if regime == "prune_half":
+                    _steer(model, regime)
+                    median0 = _layer0_median(model, forward)
+                _steer(model, regime, median0)
+                exits = {"never_exit": n_layers - 1,
+                         "exit_after_layer_0": 0}.get(regime, n_layers - 1)
+                # layers run: A twice a layer, B once, G and E 4 a layer
+                per_layer = {"self_attention_rot": 2,
+                             "cross_attention_bidir": 1,
+                             "flash_attention": 4, "qblock_attention": 4}
+                want = {n: per_layer[n] * (exits + 1) for n in names}
+                want["nms_rounds"] = 2
+                tag = f"adaptive {setting}/{regime}"
+                got, (f0, f1, m) = _read_launches(forward, tag, want)
+                LightGlue.host_syncs = 0
+                _, syncs, where = count_syncs(forward)
+                lg_syncs = LightGlue.host_syncs
+                exit_layer = int(m["exit_layer"])
+                valid = int(f0["sparse_valid"].sum() + f1["sparse_valid"].sum())
+                alive = int(m["surviving0"].sum() + m["surviving1"].sum())
+                n_match = int((m["matches0"] > -1).sum())
+                require(exit_layer == exits, f"[{tag}] exit layer "
+                                             f"{exit_layer} != {exits}")
+                reads = min(exits + 1, n_layers - 1) \
+                    if extra is ADAPTIVE else 0
+                require(lg_syncs == reads,
+                        f"[{tag}] {lg_syncs} stop-decision reads != {reads}")
+                require(torch.isfinite(m["matching_scores0"]).all(),
+                        f"[{tag}] non-finite scores")
+                if regime == "never_exit" and setting == "auto":
+                    same = model(rep0, image, mask0)[2]
+                    require(torch.equal(same["matches0"],
+                                        plain_m["matches0"]),
+                            "[adaptive] never_exit's matches differ from "
+                            "the plain forward's")
+                if regime == "prune_all":
+                    require(alive == 0 and n_match == 0,
+                            f"[{tag}] {alive} survive, {n_match} match")
+                if regime == "prune_half":
+                    require(0.3 * valid < alive < 0.7 * valid,
+                            f"[{tag}] {alive} of {valid} survive")
+                    if setting == "auto":
+                        half_masks = (m["surviving0"].clone(),
+                                      m["surviving1"].clone())
+                per_fwd, median, host_ms = time_calls(forward)
+            launches[f"{setting}/{regime}"] = got
+            rows[f"{setting}/{regime}"] = {
+                "exit_layer": exit_layer, "surviving": alive / valid,
+                "matches": n_match, "stop_reads": lg_syncs,
+                "syncs": syncs, "latency_ms": median, "ms": per_fwd,
+                "pairs_per_s": B / per_fwd * 1e3,
+                "vs_plain": plain_ms / per_fwd}
+            print(f"[{tag}] exit after layer {exit_layer}, surviving "
+                  f"{alive}/{valid} ({100 * alive / valid:.1f}%), "
+                  f"{n_match} matches; {lg_syncs} stop-decision reads, "
+                  f"{syncs} host syncs in all ({plain_syncs} in the plain "
+                  f"forward; at {where}); latency median {median:.3f} ms, "
+                  f"back to back {per_fwd:.3f} ms, {B / per_fwd * 1e3:.2f} "
+                  f"pairs/s ({plain_ms / per_fwd:.3f}x phase 3's \"auto\" "
+                  f"forward)")
+        del models
+    check_pruned_kernels(half_masks)
+    check_adaptive_cpu_vs_gpu()
+    return launches, rows
+
+
+def check_pruned_kernels(masks):
+    """A, B, E (block_q 64) and G against their plain versions, bf16 at
+    the flagship's attention shapes, with the key masks the prune_half
+    run left (the last batch row pruned whole: its keys all masked, which
+    the -1e9 key bias, or G's mask value, turns into a uniform average of
+    the values on both sides)."""
+    from ei_nexus_tpu_torch.ops import attention_kernels as ak
+    from ei_nexus_tpu_torch.ops import flash_kernel as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = attention_inputs(torch.bfloat16, gen)
+    m0, m1 = (m.clone() for m in masks)
+    m0[-1] = False
+    m1[-1] = False
+    tol = 2e-2
+
+    def check(name, got, want):
+        torch.cuda.synchronize()
+        got, want = (got if isinstance(got, tuple) else (got,),
+                     want if isinstance(want, tuple) else (want,))
+        for g, w in zip(got, want):
+            require(bool(torch.isfinite(g.float()).all()),
+                    f"{name} non-finite at the pruned masks")
+            e = max_err(g, w)
+            bound = tol * max(1.0, float(w.float().abs().max()))
+            require(e <= bound, f"{name} disagrees at the pruned masks: "
+                                f"{e:.3e} > {bound:.3e}")
+        print(f"[adaptive] {name} at the pruned masks (row {MAIN_B - 1} "
+              f"all pruned): max|err| "
+              f"{max(max_err(g, w) for g, w in zip(got, want)):.3e}")
+
+    check("self_attention (A)",
+          ak.self_attention(x["q"], x["k"], x["v"], m0, rot=x["rot"]),
+          ak.self_attention_plain(x["q"], x["k"], x["v"], m0, rot=x["rot"]))
+    check("cross_attention_bidir (B)",
+          ak.cross_attention_bidir(x["qk0"], x["qk1"], x["v0"], x["v1"], m0,
+                                   m1),
+          ak.cross_attention_bidir_plain(x["qk0"], x["qk1"], x["v0"],
+                                         x["v1"], m0, m1))
+    b0 = ak.key_bias(m0, MAIN_B, MAIN_N, "cuda")
+    check("qblock_attention (E)",
+          ak.qblock_attention(x["q"], x["k"], x["v"], b0, MAIN_D ** -0.5, 64,
+                              x["rot"]),
+          ak.qblock_attention_plain(x["q"], x["k"], x["v"], b0,
+                                    MAIN_D ** -0.5, x["rot"]))
+    q_seg, kv_seg = fk.segment_ids_from_mask(m1, MAIN_N)
+    check("flash_attention (G)",
+          fk.flash_attention(x["qk0"], x["qk1"], x["v1"], q_seg, kv_seg, 1.0),
+          fk.flash_attention_plain(x["qk0"], x["qk1"], x["v1"], q_seg,
+                                   kv_seg, 1.0))
+
+
+def check_adaptive_cpu_vs_gpu():
+    """A tiny float32 adaptive LightGlue (3 layers, 128 tokens, 2 heads of
+    64: kernels A and B on the card, their plain versions on the CPU) at
+    the reference's defaults and in the steered regimes: exit layers,
+    surviving masks and matches equal on both devices."""
+    from ei_nexus_tpu_torch.models.layers import init_parameters
+    from ei_nexus_tpu_torch.models.lightglue import (LightGlue,
+                                                     LightGlueConfig)
+    rng = np.random.default_rng(12)
+    B, N, D = 2, 128, 128
+
+    def feats():
+        valid = rng.uniform(size=(B, N)) > 0.1
+        return {"sparse_descriptors": torch.as_tensor(
+                    rng.normal(size=(B, N, D)).astype(np.float32)),
+                "sparse_positions": torch.as_tensor(np.concatenate(
+                    [rng.uniform(0, 60, (B, N, 2)),
+                     rng.uniform(0, 1, (B, N, 1))], -1).astype(np.float32)),
+                "sparse_valid": torch.as_tensor(valid),
+                "image_size": torch.full((B, 2), 64.0)}
+
+    f0, f1 = feats(), feats()
+    for regime, extra in (("defaults", ADAPTIVE),) + tuple(REGIMES.items()):
+        cfg = LightGlueConfig(input_dim=D, descriptor_dim=D, n_layers=3,
+                              num_heads=2, **extra)
+        model = LightGlue(cfg)
+        init_parameters(model, torch.Generator().manual_seed(2))
+        with torch.no_grad():
+            for i in range(2):
+                tok = model.token_confidence[str(i)].bias
+                mat = model.log_assignment[str(i)].matchability.bias
+                if regime == "never_exit":
+                    tok.fill_(-10.0)
+                elif regime == "exit_after_layer_0":
+                    tok.fill_(10.0)
+                elif regime == "prune_all":
+                    mat.fill_(-10.0)
+                elif regime == "prune_half":
+                    mat.fill_(-4.0)
+        model.eval()
+        with torch.inference_mode():
+            c = model(f0, f1)
+            g = model.cuda()({k: v.cuda() for k, v in f0.items()},
+                             {k: v.cuda() for k, v in f1.items()})
+        for k in ("exit_layer", "surviving0", "surviving1", "matches0",
+                  "matches1"):
+            require(torch.equal(g[k].cpu(), c[k]),
+                    f"[adaptive tiny {regime}] {k} differs CPU vs card")
+        e = max_err(g["log_assignment"].cpu(), c["log_assignment"])
+        print(f"[adaptive] tiny float32 {regime}: exit after layer "
+              f"{int(c['exit_layer'])}, {int(c['surviving0'].sum())} + "
+              f"{int(c['surviving1'].sum())} surviving, "
+              f"{int((c['matches0'] > -1).sum())} matches, equal on the CPU "
+              f"and the card (log-assignment max|err| {e:.2e})")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the SLAM back end
+# ---------------------------------------------------------------------------
+
+# tools/bench_ba.py's defaults
+BA_KF, BA_LM, BA_OBS_PER, BA_ITERS, BA_CG = 512, 65536, 10, 12, 20
+BA_HUBER, BA_ZMIN = 4.0, 0.01
+
+
+def _rotmats(w: np.ndarray) -> np.ndarray:
+    """Rodrigues in float32 numpy, (M, 3) -> (M, 3, 3)."""
+    th = np.linalg.norm(w, axis=-1, keepdims=True) + 1e-12
+    k = w / th
+    K = np.zeros((len(w), 3, 3), np.float32)
+    K[:, 0, 1], K[:, 0, 2] = -k[:, 2], k[:, 1]
+    K[:, 1, 0], K[:, 1, 2] = k[:, 2], -k[:, 0]
+    K[:, 2, 0], K[:, 2, 1] = -k[:, 1], k[:, 0]
+    th = th[..., None]
+    return (np.eye(3, dtype=np.float32)[None] + np.sin(th) * K
+            + (1 - np.cos(th)) * (K @ K)).astype(np.float32)
+
+
+def ba_problem(rng, M: int, L: int, obs_per: int, device="cuda",
+               noise_pose=0.01, noise_point=0.05, noise_px=0.3):
+    """tools/bench_ba.py's synthetic problem (a smooth forward trajectory
+    with gentle yaw, landmarks ahead, each seen from `obs_per` keyframes
+    near it, the rotation and camera centre perturbed and t recomposed)
+    as the port's BAProblem on `device`."""
+    from ei_nexus_tpu_torch.parallel.ba import BAProblem
+    intr = np.tile(np.array([300.0, 300.0, 160.0, 120.0], np.float32),
+                   (M, 1))
+    s = np.arange(M, dtype=np.float32)
+    w = np.stack([0.02 * np.sin(s * 0.05), 0.05 * np.sin(s * 0.03),
+                  np.zeros(M, np.float32)], -1)
+    centers = np.stack([0.5 * s, 0.2 * np.sin(s * 0.1),
+                        np.zeros(M, np.float32)], -1)
+    points = np.stack([rng.uniform(-5, 0.5 * M + 5, L),
+                       rng.uniform(-6, 6, L),
+                       rng.uniform(4, 12, L)], -1).astype(np.float32)
+    R = _rotmats(w)
+    t = -np.einsum("mij,mj->mi", R, centers)
+    base = np.clip((points[:, 0] / 0.5).astype(np.int64), 0, M - 1)
+    off = rng.integers(-8, 9, (L, obs_per))
+    obs_pose = np.clip(base[:, None] + off, 0, M - 1).reshape(-1)
+    obs_point = np.repeat(np.arange(L, dtype=np.int64), obs_per)
+    Xc = np.einsum("oij,oj->oi", R[obs_pose], points[obs_point]) \
+        + t[obs_pose]
+    z = np.maximum(Xc[:, 2], 1e-3)
+    uv = np.stack([intr[0, 0] * Xc[:, 0] / z + intr[0, 2],
+                   intr[0, 1] * Xc[:, 1] / z + intr[0, 3]], -1)
+    valid = Xc[:, 2] > 0.5
+    uv = uv + rng.normal(0, noise_px, uv.shape)
+    w_n, c_n = w.copy(), centers.copy()
+    w_n[1:] += rng.normal(0, noise_pose, (M - 1, 3)).astype(np.float32)
+    c_n[1:] += rng.normal(0, noise_pose, (M - 1, 3)).astype(np.float32)
+    R_n = _rotmats(w_n.astype(np.float32))
+    t_n = -np.einsum("mij,mj->mi", R_n, c_n)
+    init = np.concatenate([w_n, t_n], -1).astype(np.float32)
+    fixed = np.zeros(M, bool)
+    fixed[0] = True
+
+    def T(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return BAProblem(
+        poses=T(init, torch.float32), intrinsics=T(intr, torch.float32),
+        points=T(points + rng.normal(0, noise_point, points.shape),
+                 torch.float32),
+        obs_pose=T(obs_pose, torch.int32), obs_point=T(obs_point,
+                                                       torch.int32),
+        obs_uv=T(uv, torch.float32), obs_valid=T(valid, torch.bool),
+        fixed_poses=T(fixed, torch.bool))
+
+
+def phase_ba():
+    """(13a) `ba_solve` at tools/bench_ba.py's defaults: 512 keyframes,
+    65,536 landmarks, 10 observations each, 12 LM iterations of 20 CG
+    steps, Huber 4 px, z_min 0.01, float32: the cost falls; ms per LM
+    iteration (CUDA events, the slope between 3 and 12 iterations as
+    bench_ba.py takes it, best of 2), the card's busy time in a solve of
+    one iteration by kernel (torch.profiler), the host syncs PyTorch
+    reports in a solve, peak memory. Returns a dict of the numbers."""
+    from ei_nexus_tpu_torch.parallel.ba import ba_solve
+
+    prob = ba_problem(np.random.default_rng(0), BA_KF, BA_LM, BA_OBS_PER)
+    O = prob.obs_uv.shape[0]
+    kw = dict(cg_iters=BA_CG, huber_delta=BA_HUBER, z_min=BA_ZMIN)
+
+    def run(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = ba_solve(prob, iters=iters, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), out
+
+    run(3)                                      # warm
+    torch.cuda.reset_peak_memory_stats()
+    t_long, (refined, errs) = min((run(BA_ITERS) for _ in range(2)),
+                                  key=lambda r: r[0])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t_short = min(run(3)[0] for _ in range(2))
+    per_iter = (t_long - t_short) / (BA_ITERS - 3)
+    _, syncs, where = count_syncs(
+        lambda: ba_solve(prob, iters=BA_ITERS, **kw))
+    # the card's time in one LM iteration (with the initial cost), by
+    # kernel (torch.profiler)
+    times = device_ms(lambda: ba_solve(prob, iters=1, **kw), iters=3)
+    busy = sum(times.values())
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[ba] one LM iteration: the card busy {busy:.3f} ms; by kernel: "
+          + "; ".join(f"{n[:60]} {ms:.3f}" for n, ms in top))
+    errs = errs.cpu().numpy()
+    print(f"[ba] {BA_KF} keyframes, {BA_LM} landmarks, {O} observations "
+          f"({int(prob.obs_valid.sum())} valid), {BA_ITERS} LM x {BA_CG} CG, "
+          f"Huber {BA_HUBER}, z_min {BA_ZMIN}: cost {errs[0]:.4f} -> "
+          f"{errs[-1]:.4f} ({', '.join(f'{e:.4f}' for e in errs[1:4])}, "
+          f"...); {per_iter:.3f} ms per LM iteration (slope; {t_long:.1f} ms "
+          f"for {BA_ITERS}), {syncs} host syncs in a solve, peak "
+          f"{peak:.2f} GB")
+    require(np.isfinite(errs).all() and errs[-1] < errs[0],
+            f"the BA cost did not fall: {errs}")
+    return {"ms_per_iter": per_iter, "ms_total": t_long, "syncs": syncs,
+            "busy_ms_one_iter": busy,
+            "peak_gb": peak, "cost": (float(errs[0]), float(errs[-1])),
+            "observations": O}
+
+
+def _ring_problem(rng, M=6, L=120, device="cpu"):
+    """A small exact problem (tests/test_ba.py's ring of cameras around a
+    landmark cloud, noisy initialisation)."""
+    from ei_nexus_tpu_torch.parallel.ba import BAProblem
+    intr = np.tile(np.array([300.0, 300.0, 160.0, 120.0]), (M, 1))
+    points = rng.uniform([-2, -2, 4], [2, 2, 8], (L, 3))
+    w = np.stack([[0.0, 0.05 * m, 0.0] for m in range(M)])
+    R = _rotmats(w.astype(np.float32)).astype(np.float64)
+    t = -np.einsum("mij,mj->mi", R, np.stack(
+        [[0.3 * m - 0.75, 0.0, 0.0] for m in range(M)]))
+    Xc = np.einsum("mij,lj->mli", R, points) + t[:, None]
+    uv = np.stack([300.0 * Xc[..., 0] / Xc[..., 2] + 160.0,
+                   300.0 * Xc[..., 1] / Xc[..., 2] + 120.0], -1)
+    init = np.concatenate([w, t], -1)
+    init[1:] += rng.normal(0, 0.02, (M - 1, 6))
+    fixed = np.zeros(M, bool)
+    fixed[0] = True
+
+    def T(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return BAProblem(
+        poses=T(init, torch.float32), intrinsics=T(intr, torch.float32),
+        points=T(points + rng.normal(0, 0.05, points.shape), torch.float32),
+        obs_pose=T(np.repeat(np.arange(M), L), torch.int32),
+        obs_point=T(np.tile(np.arange(L), M), torch.int32),
+        obs_uv=T(uv.reshape(-1, 2), torch.float32),
+        obs_valid=torch.ones(M * L, dtype=torch.bool, device=device),
+        fixed_poses=T(fixed, torch.bool))
+
+
+def phase_ba_cpu_vs_gpu():
+    """(13b) A small exact problem (6 keyframes, 120 landmarks) solved on
+    the CPU and the card, plain and with Huber 4 px and z_min 0.01: the
+    initial costs to rtol 1e-5; the first iteration's to 1e-4 of the
+    initial cost (that step leaves ~3e-4 of it, which carries the
+    summation order: the card's atomic `index_add_` changes it from run to
+    run, by 1.3% and 3.5% of its value in two runs); refined poses to atol
+    1e-4, points to atol 1e-3 (tests/test_torch_ba.py's bounds against
+    JAX); both converge below 1e-3 px^2. (13c) `pose_graph_solve` on an
+    8-pose ring with a loop closure: its residuals fall below 5% in 100
+    steps, on the card."""
+    from ei_nexus_tpu_torch.parallel import ba as tba
+
+    prob = _ring_problem(np.random.default_rng(13))
+    for kw in ({}, dict(huber_delta=BA_HUBER, z_min=BA_ZMIN)):
+        rc, ec = tba.ba_solve(prob, iters=10, cg_iters=25, **kw)
+        rg, eg = tba.ba_solve(prob.to("cuda"), iters=10, cg_iters=25, **kw)
+        eg, rg = eg.cpu().numpy(), rg.to("cpu")
+        ec = ec.numpy()
+        e_pose = max_err(rg.poses, rc.poses)
+        e_point = max_err(rg.points, rc.points)
+        print(f"[ba] small problem {kw or 'plain'}: cost {ec[0]:.4f} -> "
+              f"{ec[-1]:.2e} (CPU), {eg[0]:.4f} -> {eg[-1]:.2e} (card); "
+              f"first iteration {ec[1]:.4e} / {eg[1]:.4e}; poses max|err| "
+              f"{e_pose:.2e}, points {e_point:.2e}")
+        require(abs(eg[0] - ec[0]) <= 1e-5 * ec[0], "initial costs differ")
+        require(abs(eg[1] - ec[1]) <= 1e-4 * ec[0], "first steps differ")
+        require(e_pose <= 1e-4 and e_point <= 1e-3,
+                "refined problems differ CPU vs card")
+        require(ec[-1] < 1e-3 and eg[-1] < 1e-3, "no convergence")
+
+    rng = np.random.default_rng(14)
+    M = 8
+    gt = np.zeros((M, 6), np.float32)
+    gt[:, 4] = np.linspace(0, 1.0, M)
+    gt[:, 1] = np.linspace(0, 0.3, M)
+    ei = list(range(M - 1)) + [M - 1]
+    ej = list(range(1, M)) + [0]
+    g = torch.as_tensor(gt)
+    rels = tba._pose_compose(g[ej], tba._pose_inv(g[ei]))
+    init = gt.copy()
+    init[1:] += rng.normal(0, 0.05, (M - 1, 6)).astype(np.float32)
+    fixed = torch.zeros(M, dtype=torch.bool)
+    fixed[0] = True
+    graph = tba.PoseGraph(torch.as_tensor(init), torch.as_tensor(ei),
+                          torch.as_tensor(ej), rels, torch.ones(len(ei)),
+                          fixed).to("cuda")
+    r0 = float((tba.pose_graph_residuals(graph) ** 2).sum())
+    solved, costs = tba.pose_graph_solve(graph, iters=100)
+    r1 = float((tba.pose_graph_residuals(solved) ** 2).sum())
+    print(f"[pose-graph] {M} poses, {len(ei)} edges (one loop closure): "
+          f"squared residuals {r0:.4e} -> {r1:.4e} in 100 steps on the card")
+    require(r1 < 0.05 * r0, f"pose graph residuals {r0} -> {r1}")
+    require(bool(torch.equal(solved.poses[0], graph.poses[0])),
+            "the gauge pose moved")
+
+
+def umeyama_ate(est: np.ndarray, gt: np.ndarray) -> float:
+    """Camera-centre RMSE after a similarity alignment (the gauge of
+    monocular BA: first pose fixed, scale free), as tools/slam_mvsec.py
+    takes it."""
+    mu_e, mu_g = est.mean(0), gt.mean(0)
+    E, G = est - mu_e, gt - mu_g
+    U, S, Vt = np.linalg.svd(E.T @ G)
+    D = np.eye(3)
+    if np.linalg.det(U @ Vt) < 0:
+        D[2, 2] = -1
+    R = U @ D @ Vt
+    s = (S * np.diag(D)).sum() / max((E ** 2).sum(), 1e-12)
+    aligned = s * (E @ R) + mu_g
+    return float(np.sqrt(((aligned - gt) ** 2).sum(-1).mean()))
+
+
+def _centers(poses6: np.ndarray) -> np.ndarray:
+    R = _rotmats(poses6[:, :3].astype(np.float32))
+    return -np.einsum("mij,mi->mj", R, poses6[:, 3:])
+
+
+SLAM_KF, SLAM_TOPK, SLAM_STRIDE = 40, 512, 64   # slam_mvsec's --frames 40
+
+
+def slam_scene(rng, drift=0.005):
+    """A synthetic drifted trajectory: 40 keyframes 0.25 apart along x
+    with gentle yaw, each seeing 512 landmarks (ids f*64 .. f*64+511, ahead
+    at depth 3-8) as keypoints at MVSEC's intrinsics with 0.5 px noise;
+    consecutive keyframes share 448, matched by id. The initial poses
+    accumulate noisy relative motions (`drift` rad and units a step) from
+    the first, as tools/slam_mvsec.py drifts them. Returns (keyframes at
+    the drifted poses, matches01, the true camera centres)."""
+    from ei_nexus_tpu_torch.parallel.slam import Keyframe
+    K = np.array([[226.4, 0, 173.1], [0, 226.4, 130.5], [0, 0, 1]],
+                 np.float32)
+    M, P, S = SLAM_KF, SLAM_TOPK, SLAM_STRIDE
+    n_lm = S * (M - 1) + P
+    s = np.arange(M, dtype=np.float32)
+    w = np.stack([np.zeros(M), 0.03 * np.sin(s * 0.1), np.zeros(M)],
+                 -1).astype(np.float32)
+    centers = np.stack([0.25 * s, np.zeros(M), np.zeros(M)], -1)
+    R = _rotmats(w).astype(np.float64)
+    P_true = np.tile(np.eye(4), (M, 1, 1))
+    P_true[:, :3, :3] = R
+    P_true[:, :3, 3] = -np.einsum("mij,mj->mi", R, centers)
+    # landmark j is seen by keyframes j // S - 7 .. j // S: place it ahead
+    # of the middle one
+    mid = np.clip(np.arange(n_lm) // S - 3, 0, M - 1)
+    depth = rng.uniform(3, 8, n_lm)
+    lm_c = np.stack([rng.uniform(-0.6, 0.6, n_lm) * depth,
+                     rng.uniform(-0.45, 0.45, n_lm) * depth, depth], -1)
+    X = np.einsum("lji,lj->li", R[mid], lm_c) + centers[mid]
+    kfs_true, kps = [], []
+    for f in range(M):
+        ids = f * S + np.arange(P)
+        Xc = X[ids] @ R[f].T + P_true[f, :3, 3]
+        uv = Xc @ K.T.astype(np.float64)
+        uv = uv[:, :2] / uv[:, 2:] + rng.normal(0, 0.5, (P, 2))
+        kps.append(np.concatenate([uv[:, ::-1], np.ones((P, 1))],
+                                  1).astype(np.float32))
+    drifted = [P_true[0]]
+    for f in range(1, M):
+        rel = P_true[f] @ np.linalg.inv(P_true[f - 1])
+        noise = np.eye(4)
+        noise[:3, :3] = _rotmats(rng.normal(0, drift, (1, 3)).astype(
+            np.float32))[0]
+        noise[:3, 3] = rng.normal(0, drift, 3)
+        drifted.append(noise @ rel @ drifted[-1])
+    kfs = [Keyframe(keypoints=kps[f], valid=np.ones(P, bool),
+                    pose=drifted[f].astype(np.float32), K=K)
+           for f in range(M)]
+    matches01 = [np.where(np.arange(P) >= S, np.arange(P) - S, -1)
+                 for _ in range(M - 1)]
+    return kfs, matches01, centers
+
+
+def phase_slam():
+    """(13d) `refine_map` on a synthetic drifted trajectory of 40
+    keyframes with 512 keypoints each (tools/slam_mvsec.py's --frames 40
+    --topk 512): tracks chained, triangulated on the card, bundle-adjusted
+    (10 LM iterations): the cost falls; ATE (Umeyama) before and after.
+    (13e) The front end's wiring: the stage-1 MNN model (C 2) on 8
+    synthetic frames at full width, its matcher's matches0 between
+    consecutive frames' event keypoints into `chain_tracks` ->
+    `build_ba_problem` -> `ba_solve` (Cauchy 2 px, z_min 0.05, as
+    slam_mvsec.py solves): finite costs; random weights make no accuracy
+    claim. Returns the numbers."""
+    from ei_nexus_tpu_torch.models.eim import EIM
+    from ei_nexus_tpu_torch.models.layers import init_parameters
+    from ei_nexus_tpu_torch.parallel import ba as tba
+    from ei_nexus_tpu_torch.parallel.slam import (Keyframe, _so3log_np,
+                                                  build_ba_problem,
+                                                  chain_tracks, refine_map)
+    from ei_nexus_tpu_torch.train.steps import batch_representation
+
+    kfs, matches01, gt = slam_scene(np.random.default_rng(15))
+    t = time.perf_counter()
+    refined, errs = refine_map(kfs, matches01, iters=10, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    tracks = chain_tracks(matches01, SLAM_TOPK)
+    init6 = np.stack([np.concatenate([_so3log_np(k.pose[:3, :3]),
+                                      k.pose[:3, 3]]) for k in kfs])
+    ate0 = umeyama_ate(_centers(init6), gt)
+    ate1 = umeyama_ate(_centers(refined.poses.cpu().numpy()), gt)
+    print(f"[slam] refine_map: {SLAM_KF} keyframes x {SLAM_TOPK} keypoints, "
+          f"{len(tracks)} tracks, {refined.obs_uv.shape[0]} observations: "
+          f"cost {errs[0]:.4f} -> {errs[-1]:.4f} in 10 iterations, "
+          f"{wall:.2f} s wall (chaining, triangulation and BA); ATE "
+          f"{ate0:.4f} -> {ate1:.4f} (Umeyama, trajectory length "
+          f"{0.25 * (SLAM_KF - 1):.2f})")
+    require(np.isfinite(errs).all() and errs[-1] < errs[0],
+            f"refine_map's cost did not fall: {errs}")
+    require(ate1 < ate0, f"refine_map left the ATE at {ate1} >= {ate0}")
+
+    cfg, (H, W, bins) = mnn_config()
+    model = EIM(cfg)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    model = model.cuda().eval()
+    ev, image = flagship_inputs()
+    with torch.inference_mode():
+        rep, mask = batch_representation(ev, "VoxelGrid", bins, H, W)
+        launches, (feats, _, _) = _read_launches(
+            lambda: model(rep, image, mask), "slam front end",
+            {"nms_rounds": 2})
+
+        def frame(f):
+            return {k: v[f:f + 1] for k, v in feats.items()
+                    if torch.is_tensor(v) and v.shape[:1] == (8,)}
+
+        m01 = [model.matcher(frame(f), frame(f + 1))["matches0"][0]
+               .cpu().numpy() for f in range(7)]
+    Kf = np.array([[226.4, 0, 173.1], [0, 226.4, 130.5], [0, 0, 1]],
+                  np.float32)
+    poses = np.tile(np.eye(4, dtype=np.float32), (8, 1, 1))
+    poses[:, 0, 3] = -0.1 * np.arange(8)
+    pos = feats["sparse_positions"].float().cpu().numpy()
+    valid = feats["sparse_valid"].cpu().numpy()
+    fkfs = [Keyframe(pos[f], valid[f], poses[f], Kf) for f in range(8)]
+    ftracks = chain_tracks(m01, pos.shape[1])
+    prob = build_ba_problem(fkfs, ftracks, device="cuda")
+    require(prob is not None, "the front end gave no track")
+    # slam_mvsec.py's gate: drop every landmark with an observation behind
+    # a camera or 40 px off at the initial poses
+    r0 = tba.residuals(prob).norm(dim=-1)
+    bad = (tba._obs_z(prob) < 0.05) | (r0 > 40.0)
+    bad_lm = torch.zeros(prob.points.shape[0], dtype=torch.bool,
+                         device="cuda").index_put_(
+        (prob.obs_point.long()[bad],), torch.tensor(True, device="cuda"))
+    prob = prob._replace(obs_valid=prob.obs_valid
+                         & ~bad_lm[prob.obs_point.long()])
+    _, ferrs = tba.ba_solve(prob, iters=6, huber_delta=2.0, robust="cauchy",
+                            z_min=0.05)
+    ferrs = ferrs.cpu().numpy()
+    print(f"[slam] front end: the stage-1 MNN model on 8 frames (C "
+          f"{launches['nms_rounds']}), "
+          f"{np.mean([(m > -1).sum() for m in m01]):.0f} matches a pair, "
+          f"{len(ftracks)} tracks, {int(prob.obs_valid.sum())} of "
+          f"{prob.obs_uv.shape[0]} observations kept by the gate; "
+          f"BA costs {ferrs[0]:.4f} -> {ferrs[-1]:.4f} (random weights: no "
+          f"accuracy claim)")
+    require(np.isfinite(ferrs).all(), f"non-finite front-end costs {ferrs}")
+    return {"ate": (ate0, ate1), "cost": (float(errs[0]), float(errs[-1])),
+            "tracks": len(tracks), "wall_s": wall,
+            "front_end_tracks": len(ftracks)}
+
+
 def _steady_rate(log: str) -> float:
     m = re.search(r"steady rate: .* ([0-9.]+) steps/s", log)
     require(m is not None, "no steady rate in the entry's log")
@@ -2692,14 +3544,26 @@ def main() -> int:
             "evaluation loop", phase_eval_loop, data, s2_final)
         walls["phase 11"] = time.perf_counter() - t11
         print(f"[wall] phase 11: {walls['phase 11']:.1f} s")
+        # phase 12a: reference .pth checkpoints (over phase 11's mini-EC)
+        pth_launches, pth_walls = timed("reference .pth", phase_pth, data,
+                                        tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rep_ms = timed("representations", phase_representations)
+    # phase 12b: adaptive LightGlue; phase 13: the SLAM back end
+    adaptive_launches, adaptive_rows = timed("adaptive LightGlue",
+                                             phase_adaptive, fwd_ms)
+    ba = timed("bundle adjustment", phase_ba)
+    timed("cpu vs card, BA and pose graph", phase_ba_cpu_vs_gpu)
+    slam = timed("SLAM assembly", phase_slam)
     for r in rows:
         r["launches_silk_lg_forward"] = silk_launches[r["name"]]
         r["launches_silk_stage2_step"] = silk_s2_launches[r["name"]]
         r["launches_homography_step"] = h_launches[r["name"]]
         r["launches_eval_forward"] = eval_launches[r["name"]]
+        r["launches_pth_eval_forward"] = pth_launches[r["name"]]
+        r["launches_adaptive_forward"] = {
+            k: v[r["name"]] for k, v in adaptive_launches.items()}
 
     print(json.dumps({"kernels": rows}))
     for tag, ms in (("flagship forward", fwd_ms),
@@ -2765,6 +3629,28 @@ def main() -> int:
           "bins, 260x346, with the accumulation mask): "
           + json.dumps({k: round(v, 4) for k, v in rep_ms.items()})
           + f", on {smi}")
+    print(f"reference .pth (flagship of {STAGE2_CONFIG}): the eval entry "
+          f"and train_extractor superpoint_weights=, process walls "
+          + json.dumps({k: round(v, 1) for k, v in pth_walls.items()})
+          + f" s, on {smi}")
+    print("adaptive LightGlue (flagship, bf16, B=8, depth 0.95 / width "
+          "0.99 or width alone for the pruning regimes), by setting/"
+          "regime: " + json.dumps(
+              {k: {n: (round(v, 4) if isinstance(v, float) else v)
+                   for n, v in row.items()}
+               for k, row in adaptive_rows.items()}) + f", on {smi}")
+    print(f"bundle adjustment ({BA_KF} keyframes, {BA_LM} landmarks, "
+          f"{ba['observations']} observations, {BA_CG} CG steps, Huber "
+          f"{BA_HUBER}, z_min {BA_ZMIN}): {ba['ms_per_iter']:.3f} ms per LM "
+          f"iteration ({ba['busy_ms_one_iter']:.3f} ms of the card's time in "
+          f"a solve of one), {ba['ms_total']:.1f} ms for {BA_ITERS}, cost "
+          f"{ba['cost'][0]:.4f} -> {ba['cost'][1]:.4f}, {ba['syncs']} host "
+          f"syncs, peak {ba['peak_gb']:.2f} GB, on {smi}")
+    print(f"refine_map ({SLAM_KF} keyframes x {SLAM_TOPK} keypoints, "
+          f"{slam['tracks']} tracks): cost {slam['cost'][0]:.4f} -> "
+          f"{slam['cost'][1]:.4f}, ATE {slam['ate'][0]:.4f} -> "
+          f"{slam['ate'][1]:.4f}, {slam['wall_s']:.2f} s; front end "
+          f"{slam['front_end_tracks']} tracks, on {smi}")
     print(f"wall seconds by phase: {json.dumps(walls)}")
     print(smi)
     print(json.dumps({"ok": True, "device": {

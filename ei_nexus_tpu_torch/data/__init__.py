@@ -9,6 +9,7 @@ of `ei_nexus_tpu/data/`.
 - `pipeline`: the sharded, threaded loader, collation and the put to the
   device.
 - `synth`: synthetic bursty event streams.
+- `rectify`: offline MVSEC rectification and EC undistortion.
 
 h5py, yaml, cv2 and scipy are imported inside the functions that need
 them, so importing this package needs none of them.

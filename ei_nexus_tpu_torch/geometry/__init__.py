@@ -1,6 +1,7 @@
-"""Geometry of the stage-2 supervision: SE(3) poses, pinhole cameras,
-depth reprojection, epipolar distances, homography warping and
-ground-truth matches from pose and depth or from a known homography.
+"""Geometry of the stage-2 supervision and the SLAM back end: SE(3)
+poses, pinhole cameras, depth reprojection, epipolar distances,
+homography warping, ground-truth matches from pose and depth or from a
+known homography, and linear triangulation (`triangulation`).
 Counterpart of `ei_nexus_tpu/geometry/`."""
 
 from .se3 import Pose

@@ -11,6 +11,7 @@ import dataclasses
 
 import torch
 
+from ..device import resolve_device
 from .se3 import to_homogeneous
 
 
@@ -37,6 +38,49 @@ class Camera:
         dist = K.new_zeros(c.shape[:-1] + (4,))
         return cls(size=size, f=f, c=c, dist=dist)
 
+    @classmethod
+    def from_params(cls, width, height, fx, fy, cx, cy, dist=None,
+                    device=None) -> "Camera":
+        """From scalars or arrays of them (float32) on `device` (the card
+        unless the caller names another); `dist` up to four terms,
+        zero-padded."""
+        device = resolve_device(device)
+        def f32(*xs):
+            return torch.stack([torch.as_tensor(x, dtype=torch.float32,
+                                                device=device) for x in xs],
+                               dim=-1)
+        size, f, c = f32(width, height), f32(fx, fy), f32(cx, cy)
+        if dist is None:
+            d = f.new_zeros(f.shape[:-1] + (4,))
+        else:
+            d = torch.as_tensor(dist, dtype=torch.float32, device=device)
+            if d.shape[-1] < 4:
+                d = torch.cat([d, d.new_zeros(d.shape[:-1]
+                                              + (4 - d.shape[-1],))], -1)
+        return cls(size=size, f=f, c=c, dist=d)
+
+    @property
+    def shape(self):
+        return self.f.shape[:-1]
+
+    def scale(self, scales) -> "Camera":
+        """The camera of the image resized by `scales` (a scalar or (sx,
+        sy))."""
+        s = torch.as_tensor(scales, dtype=self.f.dtype,
+                            device=self.f.device).expand(self.f.shape)
+        return Camera(size=self.size * s, f=self.f * s, c=self.c * s,
+                      dist=self.dist, eps=self.eps)
+
+    def crop(self, left_top, size) -> "Camera":
+        """The camera of the crop at `left_top` (x, y) of `size` (w, h)."""
+        lt = torch.as_tensor(left_top, dtype=self.f.dtype,
+                             device=self.f.device)
+        new_size = torch.as_tensor(size, dtype=self.f.dtype,
+                                   device=self.f.device).expand(
+                                       self.size.shape)
+        return Camera(size=new_size, f=self.f, c=self.c - lt,
+                      dist=self.dist, eps=self.eps)
+
     def calibration_matrix(self) -> torch.Tensor:
         z = torch.zeros_like(self.f[..., 0])
         o = torch.ones_like(z)
@@ -56,6 +100,15 @@ class Camera:
         valid = z > self.eps
         z = z.clamp(min=self.eps)
         return p3d[..., :-1] / z[..., None], valid
+
+    def J_project(self, p3d: torch.Tensor) -> torch.Tensor:
+        """Jacobian of the perspective divide, (..., N, 2, 3)."""
+        x, y, z = p3d[..., 0], p3d[..., 1], p3d[..., 2]
+        z = z.clamp(min=self.eps)
+        zero = torch.zeros_like(z)
+        J = torch.stack([1 / z, zero, -x / z ** 2,
+                         zero, 1 / z, -y / z ** 2], dim=-1)
+        return J.unflatten(-1, (2, 3))
 
     def distort(self, pts: torch.Tensor):
         """Radial-tangential distortion of normalised coordinates; valid

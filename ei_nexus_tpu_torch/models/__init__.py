@@ -1,7 +1,9 @@
 """Model zoo of the port: VGG blocks, the cell-8 and cell-1 event
 extractors, SuperPoint v1, SiLK, LightGlue (inference and training), the
-MNN matcher, the composite EIM and ImageImageMatcher. Counterpart of
-`ei_nexus_tpu/models/`; NHWC at the public functions."""
+MNN matcher, the composite EIM and ImageImageMatcher, the PointNet++
+blocks (`pointnet`), and the weight imports: from JAX variables
+(`port_jax`) and from the reference's `.pth` files (`port_torch`).
+Counterpart of `ei_nexus_tpu/models/`; NHWC at the public functions."""
 
 from .vgg import VGGBlock, VGGBackbone, VGGDetectorHead, VGGDescriptorHead
 from .extractor import KeypointExtractorConfig, VGGExtractor, extract_keypoints

@@ -29,9 +29,25 @@ that are multiples of 128 (its `_flash_supported` without the backend
 term): rotary applied outside and scale d^-0.5 for self-attention, two
 passes at scale 1 for the cross-attention; elsewhere, and in training, the
 einsum path. "xla" takes the plain einsum path with `_attention_xla` and
-the CrossBlock's joint mask, under autograd in training. Not ported, and
-refused at construction: scan_layers, adaptive depth/width and
-shard_heads.
+the CrossBlock's joint mask, under autograd in training.
+
+Adaptive inference (`depth_confidence` / `width_confidence` > 0, the
+reference's defaults 0.95 / 0.99; training ignores them): after each layer
+the token-confidence heads decide whether the whole batch stops (every
+pair's share of confident valid, surviving tokens above
+depth_confidence, against the threshold clip(0.8 + 0.1 exp(-4i/L), 0, 1))
+and which tokens are pruned (confident and unmatchable). Shapes never
+change: pruning folds into the attention's key masks, which every
+attention setting takes, and into the exit layer's assignment head (the
+joint outer product of the pruning masks set to -1e9), kept apart from the
+slots' validity so that a run that prunes nothing equals the plain
+forward bit for bit. The layers after the exit are skipped: the JAX
+package's `lax.cond` on the batch's `done` becomes a host read of it, one
+sync a layer until the batch stops (at most L - 1). `scan_layers=True`
+runs the unrolled loop (the JAX package's scanned layers are the same
+math); its parameters are every layer's assignment head, as the scanned
+tree holds them (`port_jax.load_jax_variables` unstacks that tree). Not
+ported, and refused at construction: shard_heads.
 """
 
 from __future__ import annotations
@@ -39,6 +55,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -306,10 +323,16 @@ class MatchAssignment(nn.Module):
         self.final_proj = Linear(dim, dim)
         self.matchability = Linear(dim, 1)
 
-    def forward(self, desc0, desc1):
+    def forward(self, desc0, desc1, mask0=None, mask1=None):
+        """mask0/mask1 (adaptive inference only): the pruning masks; the
+        similarity outside their outer product is -1e9, so both softmaxes
+        run over surviving slots only."""
         mdesc0 = self.final_proj(desc0) / self.dim ** 0.25
         mdesc1 = self.final_proj(desc1) / self.dim ** 0.25
         sim = torch.einsum("bmd,bnd->bmn", mdesc0, mdesc1)
+        if mask0 is not None and mask1 is not None:
+            joint = mask0[:, :, None] & mask1[:, None, :]
+            sim = sim.masked_fill(~joint, _MASK_BIAS)
         scores = sigmoid_log_double_softmax(
             sim, self.matchability(desc0), self.matchability(desc1))
         return scores, sim
@@ -343,7 +366,9 @@ class LightGlue(nn.Module):
     """`training_heads=True` adds what training reads: every layer's
     assignment head (`log_assignment.{i}`) and the token-confidence heads
     (`token_confidence.{i}`, i < L-1), the parameters of the JAX package's
-    training init; inference needs only the last layer's head."""
+    training init; inference needs only the last layer's head, adaptive
+    inference every head (the JAX package's adaptive init) and
+    `scan_layers` every assignment head (its scanned init)."""
 
     def __init__(self, config: LightGlueConfig = LightGlueConfig(),
                  training_heads: bool = False):
@@ -352,11 +377,9 @@ class LightGlue(nn.Module):
         if cfg.attention_impl not in ("auto", "pallas", "xla", "flash"):
             raise NotImplementedError(
                 f"attention_impl={cfg.attention_impl!r} is not ported yet")
-        if (cfg.shard_heads or cfg.scan_layers or cfg.depth_confidence > 0
-                or cfg.width_confidence > 0):
+        if cfg.shard_heads:
             raise NotImplementedError(
-                "shard_heads, scan_layers and adaptive depth/width are not "
-                "ported yet")
+                "shard_heads (tensor-parallel heads) is not ported yet")
         self.config = cfg
         D = cfg.descriptor_dim
         dtype = getattr(torch, cfg.dtype)
@@ -369,13 +392,16 @@ class LightGlue(nn.Module):
             TransformerLayer(D, cfg.num_heads, dtype, attn_impl,
                              getattr(torch, cfg.score_dtype), cfg.block_q)
             for _ in range(cfg.n_layers))
+        # as the JAX package: scanned layers take no adaptive path
+        self.adaptive = (cfg.depth_confidence > 0
+                         or cfg.width_confidence > 0) and not cfg.scan_layers
         L = cfg.n_layers
-        heads = range(L) if training_heads else [L - 1]
+        tokens = training_heads or self.adaptive
+        heads = range(L) if tokens or cfg.scan_layers else [L - 1]
         self.log_assignment = nn.ModuleDict(
             {str(i): MatchAssignment(D) for i in heads})
         self.token_confidence = nn.ModuleDict(
-            {str(i): Linear(D, 1) for i in range(L - 1)}
-            if training_heads else {})
+            {str(i): Linear(D, 1) for i in range(L - 1)} if tokens else {})
         self.training_heads = training_heads
         self.compute_dtype = dtype
 
@@ -403,27 +429,98 @@ class LightGlue(nn.Module):
         enc0 = tuple(e.to(dt) for e in self.posenc(nk0))
         enc1 = tuple(e.to(dt) for e in self.posenc(nk1))
         L = cfg.n_layers
+        adaptive = self.adaptive and not training
         all_scores, conf0, conf1 = [], [], []
-        for i, layer in enumerate(self.transformers):
-            desc0, desc1 = layer(desc0, desc1, enc0, enc1, mask0, mask1,
-                                 training)
-            if training or i == L - 1:
-                d0f, d1f = desc0.float(), desc1.float()
-                scores, sim = self.log_assignment[str(i)](d0f, d1f)
-                all_scores.append(scores)
-            if training and i < L - 1:
-                token = self.token_confidence[str(i)]
-                conf0.append(token(d0f.detach())[..., 0])
-                conf1.append(token(d1f.detach())[..., 0])
+        if adaptive:
+            # the masks become the surviving ones
+            scores, sim, mask0, mask1, exit_layer = self._adaptive_layers(
+                desc0, desc1, enc0, enc1, mask0, mask1)
+        else:
+            for i, layer in enumerate(self.transformers):
+                desc0, desc1 = layer(desc0, desc1, enc0, enc1, mask0, mask1,
+                                     training)
+                if training or i == L - 1:
+                    d0f, d1f = desc0.float(), desc1.float()
+                    scores, sim = self.log_assignment[str(i)](d0f, d1f)
+                    all_scores.append(scores)
+                if training and i < L - 1:
+                    token = self.token_confidence[str(i)]
+                    conf0.append(token(d0f.detach())[..., 0])
+                    conf1.append(token(d1f.detach())[..., 0])
         with torch.no_grad():
             out = self._matches(scores, mask0, mask1)
         out["similarity"] = sim
         out["log_assignment"] = scores
+        if adaptive:
+            out["exit_layer"] = exit_layer
+            out["surviving0"], out["surviving1"] = mask0, mask1
         if training:
             out["all_log_assignments"] = torch.stack(all_scores, dim=1)
             out["confidence_logits0"] = torch.stack(conf0, dim=1)
             out["confidence_logits1"] = torch.stack(conf1, dim=1)
         return out
+
+    @torch.no_grad()
+    def _adaptive_layers(self, desc0, desc1, enc0, enc1, mask0, mask1):
+        """Early exit and point pruning with static shapes (the JAX
+        package's `_adaptive_layers`). Returns (scores, sim, the surviving
+        masks, exit layer as an int32 tensor)."""
+        cfg = self.config
+        L = cfg.n_layers
+        do_stop = cfg.depth_confidence > 0
+        do_prune = cfg.width_confidence > 0
+        B, N = desc0.shape[:2]
+        M = desc1.shape[1]
+        dev = desc0.device
+        # the pruning masks p*, apart from the slots' validity: the head
+        # renormalises over pruned slots only (the plain forward feeds
+        # padded slots through it unmasked)
+        p0 = torch.ones(B, N, dtype=torch.bool, device=dev)
+        p1 = torch.ones(B, M, dtype=torch.bool, device=dev)
+        a0 = mask0 if mask0 is not None else p0
+        a1 = mask1 if mask1 is not None else p1
+        scores = sim = None
+        exit_layer = L - 1
+
+        def confidence(i, d):
+            return torch.sigmoid(self.token_confidence[str(i)](
+                d.float())[..., 0])
+
+        def matchable(i, d):
+            head = self.log_assignment[str(i)].matchability
+            return torch.sigmoid(head(d.float())[..., 0]) \
+                > (1 - cfg.width_confidence)
+
+        for i, layer in enumerate(self.transformers):
+            desc0, desc1 = layer(desc0, desc1, enc0, enc1, a0, a1)
+            last = i == L - 1
+            stop = last
+            if not last and (do_stop or do_prune):
+                conf0, conf1 = confidence(i, desc0), confidence(i, desc1)
+                th = float(np.clip(0.8 + 0.1 * np.exp(-4.0 * i / L), 0, 1))
+            if not last and do_stop:
+                # over valid and surviving tokens of both sides; one host
+                # read a layer decides whether the batch goes on
+                low = ((conf0 < th) & a0).sum(1) + ((conf1 < th) & a1).sum(1)
+                num = (a0.sum(1) + a1.sum(1)).clamp(min=1)
+                stop = bool(((1.0 - low / num) > cfg.depth_confidence).all())
+                LightGlue.host_syncs += 1
+            if stop:
+                scores, sim = self.log_assignment[str(i)](
+                    desc0.float(), desc1.float(),
+                    p0 if do_prune else None, p1 if do_prune else None)
+                exit_layer = i
+                break
+            if do_prune:
+                # keep: matchable or not yet confident
+                keep0, keep1 = matchable(i, desc0), matchable(i, desc1)
+                if do_stop:
+                    keep0 = keep0 | (conf0 <= th)
+                    keep1 = keep1 | (conf1 <= th)
+                p0, p1 = p0 & keep0, p1 & keep1
+                a0, a1 = a0 & p0, a1 & p1
+        return (scores, sim, a0, a1,
+                torch.full((), exit_layer, dtype=torch.int32, device=dev))
 
     def _matches(self, scores, mask0, mask1) -> Dict[str, torch.Tensor]:
         m0, m1, ms0, ms1 = filter_matches(scores, self.config.filter_threshold)
@@ -449,3 +546,8 @@ class LightGlue(nn.Module):
             "matching_scores0": ms0,
             "matching_scores1": ms1,
         }
+
+
+# host reads of the adaptive loop's stop decision (one a layer until the
+# batch stops)
+LightGlue.host_syncs = 0

@@ -17,6 +17,12 @@ submodule such as one extractor or LightGlue):
    ffn.3. A training init's variables (every layer's assignment head and
    the token confidences) load into a model built with
    `training_heads=True`.
+A scanned LightGlue tree (the JAX package's `scan_layers=True`:
+`layers/layer`, `log_assignment` and `token_confidence`, each leaf with a
+leading (L,) axis) is unstacked onto `transformers.{i}`,
+`log_assignment.{i}` and `token_confidence.{i}` first, so the port's
+LightGlue built with `scan_layers=True` (or, with the token heads, with
+`training_heads=True`) takes it.
 """
 
 from __future__ import annotations
@@ -52,12 +58,43 @@ def _module_name(name: str) -> str:
     return _FFN.get(name) or _NUMBERED.sub(r"\1.\2", name)
 
 
+def _unstack(tree: Mapping[str, Any], n: int) -> list:
+    """A subtree whose leaves carry a leading (n,) axis -> n subtrees."""
+    parts: list = [{} for _ in range(n)]
+    for k, v in tree.items():
+        subs = _unstack(v, n) if isinstance(v, Mapping) else list(v[:n])
+        for part, sub in zip(parts, subs):
+            part[k] = sub
+    return parts
+
+
+def _unscan(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """A scanned LightGlue's stacked subtrees as numbered siblings, at
+    any depth (LightGlue may sit under matcher/lightglue)."""
+    if "layers" in tree and "layer" in tree["layers"]:
+        stacked = tree["layers"]["layer"]
+        L = len(np.asarray(next(v for _, v in _walk(stacked))))
+        out = {k: v for k, v in tree.items()
+               if k not in ("layers", "log_assignment", "token_confidence")}
+        for name, sub, n in (("transformers", stacked, L),
+                             ("log_assignment", tree.get("log_assignment"),
+                              L),
+                             ("token_confidence",
+                              tree.get("token_confidence"), L - 1)):
+            if sub is not None:
+                for i, one in enumerate(_unstack(sub, n)):
+                    out[f"{name}_{i}"] = one
+        return out
+    return {k: _unscan(v) if isinstance(v, Mapping) else v
+            for k, v in tree.items()}
+
+
 def load_jax_variables(variables: Mapping[str, Any]
                        ) -> Dict[str, torch.Tensor]:
     """flax variables -> the port's state dict (float32 CPU tensors)."""
     state: Dict[str, torch.Tensor] = {}
     for col in ("params", "batch_stats"):
-        for path, leaf in _walk(variables.get(col, {})):
+        for path, leaf in _walk(_unscan(variables.get(col, {}))):
             *mods, name = path
             arr = np.array(leaf, dtype=np.float32)  # a writable copy
             if name == "kernel":

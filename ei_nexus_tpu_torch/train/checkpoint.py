@@ -64,13 +64,22 @@ def restore_checkpoint(path: str, state, params_only: bool = False
 
 
 def restore_any_checkpoint(path: str, state, model_config):
-    """A checkpoint directory of this package, or a reference `.pth`
-    state dict. The `.pth` ingest needs `models/port_torch.py`, which is
-    not ported yet (ROADMAP Queue 1), and raises."""
+    """A checkpoint directory of this package, or a reference `.pth` /
+    `.pt` state dict of a whole EIM (the released-checkpoint layout),
+    read through `models/port_torch.py` into `state.model` as the
+    reference's `strict=False` load does; returns (state, epoch), epoch 0
+    for a `.pth` (it carries no trainer state). `model_config` is the
+    model's `EIMConfig`."""
     if str(path).endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            "reading a reference .pth checkpoint needs models/port_torch.py,"
-            " which is not ported yet (ROADMAP Queue 1)")
+        from ..models.port_torch import load_eim_checkpoint_file
+        cfg = model_config
+        load_eim_checkpoint_file(
+            path, state.model,
+            image_extractor_type=cfg.image_extractor.type,
+            matcher_type=cfg.matcher.type,
+            n_lightglue_layers=cfg.matcher.lightglue.n_layers,
+            use_batchnorm=cfg.event_extractor.use_batchnorm)
+        return state, 0
     return restore_checkpoint(path, state, params_only=True)
 
 

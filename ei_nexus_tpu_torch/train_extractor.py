@@ -106,9 +106,12 @@ def main(argv=None):
     # exists (a config naming an absent file trains on, as the JAX entry)
     sp_path = cfg.get("superpoint_weights")
     if sp_path and os.path.exists(sp_path):
-        raise NotImplementedError(
-            "superpoint_weights needs models/port_torch.py, which is not "
-            "ported yet (ROADMAP Queue 1)")
+        from .models.port_torch import (load_superpoint_torch_weights,
+                                        load_torch_file)
+        model.image_extractor.load_state_dict(
+            load_superpoint_torch_weights(load_torch_file(sp_path)),
+            strict=True)
+        logger.log_info(f"loaded SuperPoint weights from {sp_path}")
 
     # -- optimizer ---------------------------------------------------------
     tcfg = cfg.train.to_dict()

@@ -1221,3 +1221,119 @@ def test_eval_forward_launches_a_b_c(cuda):
         assert launched == [2 * layers, layers, 2]
         assert out["n_pairs"] == 2
         assert all(np.isfinite(out[f"RPE@{t}_auc"]) for t in (5, 10, 20))
+
+
+@pytest.mark.parametrize("regime", ["defaults", "never_exit",
+                                    "exit_after_layer_0", "prune_all",
+                                    "prune_some"])
+def test_adaptive_lightglue_on_the_card(cuda, regime):
+    """A tiny float32 adaptive LightGlue on the kernels' grid (3 layers,
+    128 tokens, 2 heads of 64) on the CPU (plain versions) and the card
+    (A and B, fed the pruned key masks), in steered regimes: exit layer,
+    surviving masks and matches equal, log-assignment within 1e-3 (atol;
+    float32 kernels, online softmax); A twice and B once a layer run."""
+    import numpy as np
+    from ei_nexus_tpu_torch.models.layers import init_parameters
+    from ei_nexus_tpu_torch.models.lightglue import (LightGlue,
+                                                     LightGlueConfig)
+    rng = np.random.default_rng(5)
+    B, N, D = 2, 128, 128
+
+    def feats():
+        return {"sparse_descriptors": torch.as_tensor(
+                    rng.normal(size=(B, N, D)).astype(np.float32)),
+                "sparse_positions": torch.as_tensor(np.concatenate(
+                    [rng.uniform(0, 60, (B, N, 2)),
+                     rng.uniform(0, 1, (B, N, 1))], -1).astype(np.float32)),
+                "sparse_valid": torch.as_tensor(
+                    rng.uniform(size=(B, N)) > 0.1),
+                "image_size": torch.full((B, 2), 64.0)}
+
+    f0, f1 = feats(), feats()
+    extra = dict(width_confidence=0.99) if regime.startswith("prune") \
+        else dict(depth_confidence=0.95, width_confidence=0.99)
+    model = LightGlue(LightGlueConfig(input_dim=D, descriptor_dim=D,
+                                      n_layers=3, num_heads=2, **extra))
+    init_parameters(model, torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        for i in range(2):
+            tok = model.token_confidence[str(i)].bias
+            mat = model.log_assignment[str(i)].matchability.bias
+            if regime == "never_exit":
+                tok.fill_(-10.0)
+            elif regime == "exit_after_layer_0":
+                tok.fill_(10.0)
+            elif regime == "prune_all":
+                mat.fill_(-10.0)
+            elif regime == "prune_some":
+                mat.fill_(-4.0)
+    with torch.inference_mode():
+        c = model.eval()(f0, f1)
+        before = (ak.self_attention.launches,
+                  ak.cross_attention_bidir.launches)
+        g = model.cuda()({k: v.cuda() for k, v in f0.items()},
+                         {k: v.cuda() for k, v in f1.items()})
+        torch.cuda.synchronize()
+    layers = int(c["exit_layer"]) + 1
+    assert (ak.self_attention.launches - before[0],
+            ak.cross_attention_bidir.launches - before[1]) == (2 * layers,
+                                                               layers)
+    for k in ("exit_layer", "surviving0", "surviving1", "matches0",
+              "matches1"):
+        assert torch.equal(g[k].cpu(), c[k]), k
+    assert (g["log_assignment"].cpu() - c["log_assignment"]).abs().max() \
+        <= 1e-3
+    if regime == "prune_all":
+        assert not c["surviving0"].any() and (c["matches0"] == -1).all()
+
+
+def test_ba_on_the_card_matches_the_cpu(cuda):
+    """`ba_solve` on a small exact problem (chip_smoke's ring of 6
+    cameras, 120 landmarks) on the CPU and the card, plain and with Huber
+    4 px and z_min 0.01: the initial costs to rtol 1e-5, the first
+    iteration's to 1e-4 of the initial cost (what that step leaves, ~3e-4
+    of it, carries the summation order, which the card's atomic
+    `index_add_` changes from run to run), refined poses to atol 1e-4 and
+    points to atol 1e-3; both converge. No host sync in the solve."""
+    import numpy as np
+    import chip_smoke
+    from ei_nexus_tpu_torch.parallel.ba import ba_solve
+    prob = chip_smoke._ring_problem(np.random.default_rng(13))
+    for kw in ({}, dict(huber_delta=4.0, z_min=0.01)):
+        rc, ec = ba_solve(prob, iters=10, cg_iters=25, **kw)
+        on_card = prob.to("cuda")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rg, eg = ba_solve(on_card, iters=10, cg_iters=25, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        eg, rg = eg.cpu(), rg.to("cpu")
+        assert abs(eg[0] - ec[0]) <= 1e-5 * ec[0]
+        assert abs(eg[1] - ec[1]) <= 1e-4 * ec[0]
+        assert (rg.poses - rc.poses).abs().max() <= 1e-4
+        assert (rg.points - rc.points).abs().max() <= 1e-3
+        assert ec[-1] < 1e-3 and eg[-1] < 1e-3
+
+
+def test_pth_loads_on_the_card(cuda, tmp_path):
+    """A reference `.pth` (the tiny flagship's seeded weights in the
+    reference's layout) read by `restore_any_checkpoint` into a model on
+    the card: every tensor bit-equal to the source."""
+    import types
+    from ei_nexus_tpu_torch.flagship import flagship_config
+    from ei_nexus_tpu_torch.models.eim import EIM
+    from ei_nexus_tpu_torch.models.layers import init_parameters
+    from ei_nexus_tpu_torch.models.port_torch import to_reference_layout
+    from ei_nexus_tpu_torch.train import restore_any_checkpoint
+    cfg, _ = flagship_config(tiny=True, dtype="float32")
+    src = EIM(cfg, training_heads=True)
+    init_parameters(src, torch.Generator().manual_seed(7))
+    path = tmp_path / "eim.pth"
+    torch.save(to_reference_layout(src.state_dict()), path)
+    model = EIM(cfg, training_heads=True).cuda()
+    restore_any_checkpoint(str(path), types.SimpleNamespace(model=model),
+                           cfg)
+    for k, v in src.state_dict().items():
+        got = model.state_dict()[k]
+        assert got.is_cuda and torch.equal(got.cpu(), v), k

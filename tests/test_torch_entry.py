@@ -166,10 +166,22 @@ def test_checkpoint_round_trip_and_exact_resume(tmp_path):
 
 
 def test_restore_any_checkpoint_refuses_reference_files(tmp_path):
+    """A reference `.pth` (the stage-2 model's weights written in the
+    reference's layout) is no longer refused: `restore_any_checkpoint`
+    reads it into another model through models/port_torch.py, every
+    tensor bit-equal, epoch 0."""
+    from ei_nexus_tpu_torch.models.port_torch import to_reference_layout
     from ei_nexus_tpu_torch.train import restore_any_checkpoint
-    _, state, _ = _tiny_state()
-    with pytest.raises(NotImplementedError, match="port_torch"):
-        restore_any_checkpoint(str(tmp_path / "model.pth"), state, None)
+    src, _, _ = _tiny_state(seed=1, stage=2)
+    path = tmp_path / "model.pth"
+    torch.save({"model": to_reference_layout(src.state_dict())}, path)
+    model, state, _ = _tiny_state(seed=2, stage=2)
+    assert not all(torch.equal(v, model.state_dict()[k])
+                   for k, v in src.state_dict().items())
+    state, epoch = restore_any_checkpoint(str(path), state, model.config)
+    assert epoch == 0
+    for k, v in src.state_dict().items():
+        assert torch.equal(v, model.state_dict()[k]), k
 
 
 def _jax_state(model, variables, lr=1e-3):
@@ -461,13 +473,24 @@ def test_train_extractor_refuses_superpoint_weights(mini_ec_root, tmp_path):
 
 def test_train_extractor_refuses_present_superpoint_weights(mini_ec_root,
                                                             tmp_path):
-    """A `superpoint_weights` file that exists is refused until the
-    reference `.pth` import is ported."""
-    from ei_nexus_tpu_torch import train_extractor
-    weights = tmp_path / "superpoint_v1.pth"
-    torch.save({}, weights)
+    """A `superpoint_weights` file that exists is no longer refused: the
+    entry loads it into the image extractor (a frozen SuperPoint, which
+    the steps leave as it is) and trains on, as the JAX entry does
+    (`train_extractor.py:129-137`)."""
+    from ei_nexus_tpu_torch.models.superpoint import SuperPointV1
+    rng = np.random.default_rng(4)
+    weights = {k: torch.from_numpy(rng.normal(0, 0.05, v.shape)
+                                   .astype(np.float32))
+               for k, v in SuperPointV1().state_dict().items()}
+    path = tmp_path / "superpoint_v1.pth"
+    torch.save(weights, path)
     options, overrides = _entry_args(mini_ec_root)
-    with pytest.raises(NotImplementedError, match="port_torch"):
-        train_extractor.main(options + overrides + [
-            f"logger.output_dir={tmp_path / 'runs'}",
-            f"superpoint_weights={weights}"])
+    state, run, rows = _run_entry(
+        options + ["--max-steps", "1"],
+        overrides + [f"superpoint_weights={path}"], tmp_path / "runs")
+    assert state.step == 1 and [r["step"] for r in rows] == [1]
+    assert "loaded SuperPoint weights" in (run / "log.txt").read_text()
+    got = state.model.image_extractor.state_dict()
+    assert set(got) == set(weights)
+    for k, v in weights.items():
+        assert torch.equal(got[k], v), k

@@ -226,10 +226,24 @@ def test_extractor_entries_run(mini_ec, stage1_final, entry, capsys):
         assert k in out and np.isfinite(out[k]), k
 
 
-def test_eval_entries_refuse_reference_checkpoints(mini_ec, tmp_path):
-    """A reference .pth needs the weight import that is not ported yet."""
+def test_eval_entries_refuse_reference_checkpoints(mini_ec, tmp_path,
+                                                   capsys):
+    """A reference `.pth` is no longer refused: the tiny model's weights
+    from another seed, written in the reference's layout, load into the
+    eval model bit for bit, and the entry evaluates them."""
     from ei_nexus_tpu_torch import test_events_image_different_time as entry
-    with pytest.raises(NotImplementedError, match="port_torch"):
-        entry.main(["--config", STAGE2, "--device", "cpu", "--ckpt",
-                    str(tmp_path / "eim.pth"), "dataset=test_ec",
-                    f"dataset.data_path={mini_ec}"] + TINY)
+    from ei_nexus_tpu_torch.models.port_torch import to_reference_layout
+    from ei_nexus_tpu_torch.train.evaluate import build_eval_model
+    from ei_nexus_tpu_torch.utils import load_config
+    overrides = ["dataset=test_ec", f"dataset.data_path={mini_ec}"] + TINY
+    model_dict = load_config(STAGE2, overrides).model.to_dict()
+    src = build_eval_model(model_dict, device="cpu", seed=5)
+    path = tmp_path / "eim.pth"
+    torch.save(to_reference_layout(src.state_dict()), path)
+    got = build_eval_model(model_dict, str(path), "cpu").state_dict()
+    for k, v in src.state_dict().items():
+        assert torch.equal(got[k], v), k
+    out = _eval(entry, ["--config", STAGE2, "--ckpt", str(path)], overrides,
+                capsys)
+    assert out["n_pairs"] == 1
+    assert all(np.isfinite(out[f"RPE@{t}_auc"]) for t in (5, 10, 20))

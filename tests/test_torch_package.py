@@ -60,7 +60,15 @@ def test_importing_the_port_loads_no_jax():
             + ", ei_nexus_tpu_torch.train.evaluate, "
             "ei_nexus_tpu_torch.train.loop, "
             "ei_nexus_tpu_torch.data.val_pairs, "
-            "ei_nexus_tpu_torch.ops.homographic; "
+            "ei_nexus_tpu_torch.ops.homographic, "
+            "ei_nexus_tpu_torch.models.port_torch, "
+            "ei_nexus_tpu_torch.models.pointnet, "
+            "ei_nexus_tpu_torch.geometry.triangulation, "
+            "ei_nexus_tpu_torch.parallel.ba, ei_nexus_tpu_torch.parallel.slam, "
+            "ei_nexus_tpu_torch.data.rectify, ei_nexus_tpu_torch.utils.setup, "
+            "ei_nexus_tpu_torch.utils.profiling, "
+            "ei_nexus_tpu_torch.utils.image_io, "
+            "ei_nexus_tpu_torch.utils.visualize; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -121,6 +129,19 @@ def test_entry_points_default_to_the_card():
         build_eval_model({"name": "EIM", "event_extractor": {"type": "vgg"},
                           "image_extractor": {"type": "superpointv1"},
                           "matcher": {"type": "MNN"}})
+    from ei_nexus_tpu_torch.geometry import Camera, Pose
+    from ei_nexus_tpu_torch.parallel.slam import (Keyframe, build_ba_problem,
+                                                  refine_map)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_ba_problem([], [])
+    kf = Keyframe(np.zeros((2, 3), np.float32), np.ones(2, bool), np.eye(4),
+                  np.eye(3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        refine_map([kf, kf], [np.arange(2)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Pose.identity()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Camera.from_params(8, 8, 1.0, 1.0, 4.0, 4.0)
     # asking for the CPU works
     model, _ = build_flagship(tiny=True, dtype="float32", device="cpu")
     assert next(model.parameters()).device.type == "cpu"
@@ -148,10 +169,16 @@ def test_unported_paths_raise():
 
     with pytest.raises(NotImplementedError):
         Matcher(MatcherConfig(type="SuperGlue"))
-    for bad in (dict(scan_layers=True), dict(depth_confidence=0.95),
-                dict(shard_heads=True)):
-        with pytest.raises(NotImplementedError):
-            LightGlue(LightGlueConfig(**bad))
+    # adaptive inference and scanned layers are ported: they build, with
+    # the heads their JAX inits create; only tensor-parallel heads raise
+    for ok, heads, tokens in ((dict(scan_layers=True), 9, 0),
+                              (dict(depth_confidence=0.95), 9, 8),
+                              (dict(width_confidence=0.99), 9, 8)):
+        lg = LightGlue(LightGlueConfig(**ok))
+        assert len(lg.log_assignment) == heads
+        assert len(lg.token_confidence) == tokens
+    with pytest.raises(NotImplementedError):
+        LightGlue(LightGlueConfig(shard_heads=True))
     cfg, _ = flagship_config(tiny=True, dtype="float32")
     with pytest.raises(ValueError, match="unknown extractor type"):
         EIM(dataclasses.replace(cfg, image_extractor=dataclasses.replace(
