@@ -171,13 +171,36 @@ Phases, each of which raises on failure:
     consecutive frames into `chain_tracks` -> `build_ba_problem` ->
     `ba_solve`: finite costs.
 
+14. the multi-process slice: (a) `python -m torch.distributed.run
+    --standalone --nproc_per_node <cards> -m
+    ei_nexus_tpu_torch.train_matcher` (NCCL, a card a rank: world size 1
+    on one card) over phase 11's mini-EC for 4 steps: exit 0, every rank
+    printing its NCCL place, rank 0's run directory alone with `final` at
+    step 4; (b) 2 gloo ranks on the one card (CUDA tensors staged through
+    the host; `parallel/dryrun.py:launch`, spawned after the kernels are
+    built) against one process, each at full width (`dp_cases`): the
+    stage-2 step over (2, 1), global batch 8 (per rank D 36, F 36, C 2,
+    no other kernel, each then held against its plain version on the
+    tensors the rank's step hands it; loss, grad_norm, the gradient leaf
+    by leaf, matcher parameters); the stage-1 step (global BatchNorm
+    statistics; the ranks' event masks unequal: loss, running statistics
+    and gradient); the flagship's LightGlue forward (bf16 and float32)
+    and the stage-2 step with the heads split over (1, 2) (C 2, no
+    attention kernel); BA at tools/bench_ba.py's size with the
+    observations split over the 2 ranks (costs within 1e-4 of the
+    initial cost); steps/s at
+    world size 1 and 2 and the collectives' share of the step, which are
+    not scaling figures (two ranks share one card's SMs).
+
 Prints each phase's wall seconds, the kernels' JSON line (launches: A, B,
 C from the "auto" forward; D, F from the stage-2 step; E from the
 q-blocked forward; G from the flash forward; each row's
 launches_stage1_step from the stage-1 step, launches_silk_lg_forward and
 launches_silk_stage2_step from phase 10, launches_homography_step and
 launches_eval_forward from phase 11, launches_pth_eval_forward and
-launches_adaptive_forward by setting/regime from phase 12; C's row also
+launches_adaptive_forward by setting/regime from phase 12,
+launches_dp_stage2_step_per_rank from phase 14b, and for D, F and C
+max_abs_err_dp_rank on a rank's own tensors there; C's row also
 its device ms and
 plans at the cell-1 shapes), the card's `nvidia-smi` line, the forward,
 serving, loader-fed, MNN, SiLK, step, entry and evaluation rates, and as
@@ -216,6 +239,8 @@ MAIN_B, MAIN_H, MAIN_N, MAIN_D = 8, 4, 1024, 64   # LightGlue attention
 # beside the max|err| bound each is held to a relative norm: bfloat16's
 # rounding of the outputs alone gives ~2e-3, a dropped or misread c ~6e-2
 BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# D and F against their plain versions: x max(1, max|ref|)
+ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 NMS_SHAPE, NMS_RADIUS, NMS_ROUNDS = (8, 264, 352), 4, 4
 NMS_STRIP_SHAPE = (1, 1080, 3840)   # a 4K frame: tiles of rows and columns
 QBLOCKS = (64, 128)          # kernel E's compiled tiles
@@ -731,7 +756,7 @@ def phase_kernels(logs: dict):
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
     fused_errs, qblock_errs, flash_errs = {}, {}, {}
-    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+    for dtype, tol in ATTN_TOL.items():
         x = attention_inputs(dtype, gen)
         got = ak.self_attention(x["q"], x["k"], x["v"], x["mask0"],
                                 rot=x["rot"])
@@ -1145,16 +1170,8 @@ def time_calls(fn, n: int = 10):
 
 # the counters of every kernel, by the name the JSON line gives it
 def kernel_counters():
-    from ei_nexus_tpu_torch.ops import attention_kernels as ak
-    from ei_nexus_tpu_torch.ops import nms_kernel as nk
-    from ei_nexus_tpu_torch.ops import flash_kernel as fk
-    return {"self_attention_rot": ak.self_attention,
-            "cross_attention_bidir": ak.cross_attention_bidir,
-            "nms_rounds": nk.nms_rounds,
-            "attention_fwd": ak.attention_fwd,
-            "attention_bwd": ak.attention_bwd,
-            "qblock_attention": ak.qblock_attention,
-            "flash_attention": fk.flash_attention}
+    from ei_nexus_tpu_torch.parallel.dryrun import kernel_counters
+    return kernel_counters()
 
 
 def to_cuda(batch):
@@ -3434,6 +3451,534 @@ def phase_slam():
             "front_end_tracks": len(ftracks)}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the multi-process slice
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2        # gloo ranks on the one card (14b)
+DP_TIMED = 10       # steps timed back to back at world size 1 and 2
+# bfloat16 bounds of one rank against two (14b): the ranks' halves go
+# through cuBLAS and cuDNN at another batch size (other algorithms, other
+# rounding of bf16 products) and the sums meet in another order: loss
+# 1e-3 and grad_norm 1e-2 relative, running statistics 1e-3 x max(1, |r|)
+# (a tenth of a batch statistic's bf16 rounding, momentum 0.9), parameters
+# 3 lr (Adam's first step moves one by about lr whatever its gradient);
+# the stage-1 loss 2^-8 relative: its terms are means of bfloat16 maps,
+# themselves bfloat16 (a rank's half rounds apart from the whole batch).
+# The gradient, leaf by leaf (`grad_gap`): stage 2 a leaf's largest error
+# 0.2 of its largest value and the whole difference's relative norm 3e-2
+# (2.7e-2 and 5.7e-2, 8.9e-3 and 9.3e-3 seen in two calls; grad_norm's
+# relative gap has ranged 8x over calls); stage 1 0.75 and 5e-2 (0.23 and
+# 0.26, 1.5e-2 seen: the full-width extractor's gradient is
+# ill-conditioned, as reversing a batch's rows moves it by 7e-3 of a
+# leaf's largest in float32). A gradient swapped
+# between leaves, a mis-split all-reduce or a sum left unaveraged moves a
+# leaf by its own size.
+DP_LOSS_REL, DP_GNORM_REL, DP_STAT_TOL, DP_PARAM_LRS = 1e-3, 1e-2, 1e-3, 3.0
+DP_S1_LOSS_REL = 2.0 ** -8
+DP_GRAD_LEAF, DP_GRAD_NORM = 0.2, 3e-2
+DP_S1_GRAD_LEAF, DP_S1_GRAD_NORM = 0.75, 5e-2
+
+
+def grad_gap(got: dict, want: dict) -> tuple:
+    """Two gradients by leaf name: (the largest elementwise error of a
+    leaf over the larger of its largest |want| and a hundredth of the
+    largest leaf's, the relative norm of the whole difference)."""
+    require(set(got) == set(want), "the gradients' leaves differ")
+    floor = 1e-2 * max(float(w.abs().max()) for w in want.values())
+    leaf = max(float((got[k] - w).abs().max())
+               / max(float(w.abs().max()), floor) for k, w in want.items())
+    num = sum(float((got[k] - w).square().sum()) for k, w in want.items())
+    den = sum(float(w.square().sum()) for w in want.values())
+    return leaf, (num / den) ** 0.5
+
+
+def check_path_kernels(run) -> dict:
+    """One more step, run(), with the first inputs that D, F and C take on
+    it recorded (their wrappers called through a recorder); each of those
+    kernels then called again on those tensors and held against its plain
+    version at phase 2's tolerances (D and F 2e-2 x max(1, max|ref|) in
+    bfloat16; C bit-exact), F also within BWD_REL's relative norm of
+    `attention_bwd_plain_from_out`, the plain version with c read from
+    D's output as F reads it. These launches are made after the path's
+    were counted. Returns {name: (shape, max abs err[, F's relative norm
+    against that version and against the plain one])} of the kernels the
+    step ran."""
+    from ei_nexus_tpu_torch.ops import attention_kernels as ak
+    from ei_nexus_tpu_torch.ops import detector
+
+    seen = {}
+    real = {(ak, "attention_fwd"): ak.attention_fwd,
+            (ak, "attention_bwd"): ak.attention_bwd,
+            (detector, "nms_rounds"): detector.nms_rounds}
+
+    def recorder(name, fn):
+        def rec(*args):
+            seen.setdefault(name, args)
+            return fn(*args)
+        # the real wrapper counts under its module's name: this one, now
+        rec.launches = 0
+        return rec
+
+    for (mod, name), fn in real.items():
+        setattr(mod, name, recorder(name, fn))
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+    with torch.no_grad():
+        return _hold_path_kernels(seen)
+
+
+def _hold_path_kernels(seen: dict) -> dict:
+    from ei_nexus_tpu_torch.ops import attention_kernels as ak
+    from ei_nexus_tpu_torch.ops import nms_kernel as nk
+
+    out = {}
+    if "attention_fwd" in seen:
+        q, k, v, bias, scale = seen["attention_fwd"]
+        got = ak.attention_fwd(q, k, v, bias, scale)[0]
+        want = ak.fused_attention_plain(q, k, v, bias == 0, scale)
+        e = max_err(got, want)
+        tol = ATTN_TOL[q.dtype] * max(1.0, float(want.float().abs().max()))
+        require(e <= tol, f"attention_fwd at {tuple(q.shape)} disagrees: "
+                          f"{e:.3e} > {tol:.3e}")
+        out["attention_fwd"] = (list(q.shape), e)
+    if "attention_bwd" in seen:
+        q, k, v, o, do, bias, stats, scale = seen["attention_bwd"]
+        got = ak.attention_bwd(q, k, v, o, do, bias, stats, scale)
+        plain = ak.fused_attention_bwd_plain(q, k, v, bias, do, scale)
+        from_out = attention_bwd_plain_from_out(q, k, v, o, do, bias,
+                                                    scale)
+        e = rel = rel_plain = 0.0
+        for name, a, b, c in zip(("dq", "dk", "dv"), got, from_out, plain):
+            bound = ATTN_TOL[q.dtype] * max(1.0,
+                                            float(b.float().abs().max()))
+            err, r = max_err(a, b), rel_err(a, b)
+            err_plain = max_err(a, c)
+            require(err <= bound and r <= BWD_REL[q.dtype]
+                    and err_plain <= bound,
+                    f"attention_bwd {name} at {tuple(q.shape)} disagrees: "
+                    f"{err:.3e} (bound {bound:.3e}), relative norm {r:.3e}; "
+                    f"against the plain version {err_plain:.3e}")
+            e, rel = max(e, err), max(rel, r)
+            rel_plain = max(rel_plain, rel_err(a, c))
+        out["attention_bwd"] = (list(q.shape), e, rel, rel_plain)
+    if "nms_rounds" in seen:
+        x, radius, rounds = seen["nms_rounds"]
+        require(torch.equal(nk.nms_rounds(x, radius, rounds),
+                            nk.nms_rounds_plain(x, radius, rounds)),
+                f"nms_rounds at {tuple(x.shape)} is not bit-exact")
+        out["nms_rounds"] = (list(x.shape), 0.0)
+    return out
+
+
+def attention_bwd_plain_from_out(q, k, v, out, do, bias, scale):
+    """Kernel F's function as `attention_kernels` states it: the plain
+    version's (dq, dk, dv) with c = rowsum(dO o O) read from D's output
+    `out`, as F reads it, where the plain version takes rowsum(dP o P).
+    The two agree but for O's rounding, which rules dQ and dK where a row's
+    softmax is near one-hot and dP - c cancels."""
+    do = do.to(q.dtype)
+    s = torch.matmul(q.float(), k.float().mT) * scale + bias[:, None, None]
+    p = torch.softmax(s, dim=-1)
+    dp = torch.matmul(do.float(), v.float().mT)
+    c = (do.float() * out.float()).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - c)).to(q.dtype).float()
+    dq = (torch.matmul(ds, k.float()) * scale).to(q.dtype)
+    dv = torch.matmul(p.to(do.dtype).float().mT, do.float()).to(v.dtype)
+    dk = (torch.matmul(ds.mT, q.float()) * scale).to(k.dtype)
+    return dq, dk, dv
+
+
+def _dp_stage2(data, model, cfg, sd, batch, timed):
+    """The stage-2 step over a (data, model) mesh on its rows of the global
+    batch, the fill drawn for the global batch from a generator seeded 1
+    (`dryrun.stage2_setup`): `dryrun.first_step` (launches, info, the
+    gradient, rank 0's state dict, kept to the matcher's tensors); then
+    D, F and C checked on the tensors a second step hands them
+    (`check_path_kernels`); with `timed`, ms per step back to back and, in
+    a second pass with the card synchronised around each collective, the
+    collectives' ms per step."""
+    from ei_nexus_tpu_torch.parallel import dryrun
+    from ei_nexus_tpu_torch.train import steps as st
+
+    state, run = dryrun.stage2_setup(data, model, "cuda", cfg, sd, batch)
+    out = dryrun.first_step(state, lambda: run(None, 1))
+    torch.cuda.synchronize()
+    if "state_dict" in out:
+        out["state_dict"] = {k: v.float() for k, v in
+                             out.pop("state_dict").items()
+                             if k.startswith("matcher.")}
+    out["path_kernels"] = check_path_kernels(lambda: run(None, 1))
+    if timed:
+        def steps():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(DP_TIMED):
+                run(None, 1)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) * 1e3 / DP_TIMED
+
+        steps()
+        out["ms"] = steps()
+        spent = [0.0]
+        real = (st._reduce_gradients, st._global_info)
+
+        def synced(fn):
+            def wrapper(*a):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                r = fn(*a)
+                torch.cuda.synchronize()
+                spent[0] += time.perf_counter() - t
+                return r
+            return wrapper
+
+        st._reduce_gradients, st._global_info = (synced(f) for f in real)
+        try:
+            out["ms_synced"] = steps()
+        finally:
+            st._reduce_gradients, st._global_info = real
+        out["collective_ms"] = spent[0] * 1e3 / DP_TIMED
+    return out
+
+
+def _dp_stage1(data, cfg, sd, batch):
+    """The stage-1 step over a (data, 1) mesh (global BatchNorm
+    statistics, global mask counts; `dryrun.stage1_setup`):
+    `dryrun.first_step`, rank 0's state dict kept to the event extractor's
+    running statistics, and this rank's event-mask count."""
+    from ei_nexus_tpu_torch.flagship import STAGE1_LOSSES
+    from ei_nexus_tpu_torch.parallel import dryrun
+    from ei_nexus_tpu_torch.parallel.mesh import shard_batch
+    from ei_nexus_tpu_torch.train.steps import batch_representation
+
+    state, run = dryrun.stage1_setup(data, "cuda", cfg, sd, batch,
+                                     STAGE1_LOSSES)
+    H, W = batch[0]["image"].shape[1:3]
+    _, mask = batch_representation(shard_batch(batch, state.mesh)[0],
+                                   "VoxelGrid",
+                                   cfg.event_extractor.in_channels, H, W,
+                                   device=state.mesh.device)
+    out = dryrun.first_step(state, run)
+    out["mask_count"] = int(mask.sum())
+    if "state_dict" in out:
+        out["stats"] = {k: v.float() for k, v in
+                        out.pop("state_dict").items()
+                        if k.endswith(("running_mean", "running_var"))}
+    return out
+
+
+def _dp_lightglue(mesh, cfg, sd, feats0, feats1):
+    """LightGlue's inference forward under `mesh` (its heads split over
+    the model group): rank 0's log-assignment in float32."""
+    from ei_nexus_tpu_torch.models.lightglue import LightGlue
+    from ei_nexus_tpu_torch.parallel.mesh import shard_batch, use_mesh
+
+    with use_mesh(mesh):
+        lg = LightGlue(cfg)
+        lg.load_state_dict(sd, strict=True)
+        lg = lg.to(mesh.device).eval()
+        with torch.no_grad():
+            out = lg(shard_batch(feats0, mesh), shard_batch(feats1, mesh))
+    return out["log_assignment"].float().cpu() if mesh.rank == 0 else None
+
+
+def _dp_ba(group, rank, world):
+    """`ba_solve` at tools/bench_ba.py's defaults, this rank holding a
+    contiguous 1/world of the observations: the cost trajectory."""
+    from ei_nexus_tpu_torch.parallel.ba import ba_solve
+
+    prob = ba_problem(np.random.default_rng(0), BA_KF, BA_LM, BA_OBS_PER)
+    O = prob.obs_pose.shape[0]
+    chunk = slice(rank * O // world, (rank + 1) * O // world)
+    prob = prob._replace(**{f: getattr(prob, f)[chunk] for f in (
+        "obs_pose", "obs_point", "obs_uv", "obs_valid")})
+    _, errs = ba_solve(prob, iters=BA_ITERS, cg_iters=BA_CG,
+                       huber_delta=BA_HUBER, z_min=BA_ZMIN, group=group)
+    return errs.cpu().numpy()
+
+
+def dp_cases(data, model, inputs):
+    """One rank's side of phase 14b (every case over its process group,
+    or alone at world size 1: the reference): the stage-2 step over
+    (data, 1), timed; the stage-1 step over (data, 1); LightGlue's forward
+    and the stage-2 step with its heads split over (1, model); BA with the
+    observations split over every rank."""
+    import torch.distributed as dist
+    from ei_nexus_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tp = make_mesh(1, model, "cuda")
+    out = {"stage2": _dp_stage2(data, 1, *inputs["stage2"], timed=True),
+           "stage1": _dp_stage1(data, *inputs["stage1"]),
+           "lightglue": _dp_lightglue(tp, *inputs["lightglue"]),
+           "lightglue32": _dp_lightglue(tp, *inputs["lightglue32"]),
+           "shard_stage2": _dp_stage2(1, model, *inputs["shard_stage2"],
+                                      timed=False)}
+    world = tp.world
+    out["ba"] = _dp_ba(dist.group.WORLD if world > 1 else None, tp.rank,
+                       world)
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_inputs():
+    """Phase 14b's inputs on the host, seeded: the stage-2 flagship's
+    weights and a global batch of 8 (bursty events, 95% of 131,072 slots);
+    the stage-1 flagship's weights and a batch of 8 whose rows keep from 5%
+    to 95% of their events, so the ranks' rows (strided) carry unequal
+    event masks; the flagship's LightGlue (shard_heads) with
+    random keypoints of 8 pairs of 1024 slots, about 30% invalid, in
+    bfloat16 and in float32; the stage-2 flagship with shard_heads."""
+    from ei_nexus_tpu_torch.data.synth import bursty_event_batch, stage2_batch
+    from ei_nexus_tpu_torch.flagship import stage1_config, stage2_config
+    from ei_nexus_tpu_torch.models.eim import EIM
+    from ei_nexus_tpu_torch.models.layers import init_parameters
+    from ei_nexus_tpu_torch.models.lightglue import LightGlue
+
+    def weights(module):
+        init_parameters(module, torch.Generator().manual_seed(0))
+        return {k: v.clone() for k, v in module.state_dict().items()}
+
+    B, L = 8, 1 << 17
+    cfg2, (H, W, _) = stage2_config(dtype="bfloat16")
+    sd2 = weights(EIM(cfg2, training_heads=True))
+    batch2 = stage2_batch(np.random.default_rng(0), B, int(L * 0.95), L, H,
+                          W)
+    cfg1, _ = stage1_config(dtype="bfloat16")
+    sd1 = weights(EIM(cfg1))
+    rng = np.random.default_rng(1)
+    view = bursty_event_batch(rng, B, int(L * 0.95), L, H, W)
+    for i, share in enumerate((0.95, 0.2, 0.6, 0.1, 0.8, 0.3, 0.5, 0.05)):
+        view["events_valid"][i, int(L * share):] = False
+    view["image"] = rng.uniform(0, 255, (B, H, W, 1)).astype(np.float32)
+    cfg_s, _ = stage2_config(dtype="bfloat16", shard_heads=True)
+    lg_cfg = cfg_s.matcher.lightglue
+    lg_sd = weights(LightGlue(lg_cfg))
+    rng = np.random.default_rng(2)
+    N, D = MAIN_N, lg_cfg.descriptor_dim
+
+    def feats():
+        desc = rng.normal(size=(B, N, D)).astype(np.float32)
+        desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
+        pos = np.stack([rng.uniform(0, H, (B, N)), rng.uniform(0, W, (B, N)),
+                        rng.uniform(0, 1, (B, N))], -1).astype(np.float32)
+        return {"sparse_positions": torch.from_numpy(pos),
+                "sparse_descriptors": torch.from_numpy(desc),
+                "sparse_valid": torch.from_numpy(rng.uniform(size=(B, N))
+                                                 > 0.3),
+                "image_size": torch.tensor([[H, W]] * B, dtype=torch.float32)}
+
+    f0, f1 = feats(), feats()
+    lg32 = dataclasses.replace(lg_cfg, dtype="float32",
+                               score_dtype="float32")
+    return {"stage2": (cfg2, sd2, batch2), "stage1": (cfg1, sd1, (view,)),
+            "lightglue": (lg_cfg, lg_sd, f0, f1),
+            "lightglue32": (lg32, lg_sd, f0, f1),
+            "shard_stage2": (cfg_s, sd2, batch2)}
+
+
+def phase_dp_entry(data: str, tmp: str, s1_final: str) -> dict:
+    """(14a) `python -m torch.distributed.run --standalone --nproc_per_node
+    <cards> -m ei_nexus_tpu_torch.train_matcher` (NCCL, a card a rank) over
+    phase 11's mini-EC, 4 steps of the homography route at a global batch
+    of 8: exit 0, every rank printing its NCCL place, one run directory
+    (rank 0's) with a `final` checkpoint at step 4. Returns the ranks and
+    the process wall seconds."""
+    count = torch.cuda.device_count()
+    out = os.path.join(tmp, "dp_entry_runs")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(count), "-m",
+           "ei_nexus_tpu_torch.train_matcher", "--config", STAGE2_CONFIG,
+           "--stage1-ckpt", s1_final, "--max-steps", "4", "dataset=ec",
+           f"dataset.data_path={data}", f"logger.output_dir={out}",
+           "logger.status_freq=1"]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+    require(proc.returncode == 0, f"torchrun exited {proc.returncode}")
+    for r in range(count):
+        line = f"rank {r} of {count}: backend nccl, device cuda:{r}"
+        require(line in proc.stdout, f"no {line!r} in the ranks' output")
+    runs = [p for p in os.listdir(out)
+            if os.path.isdir(os.path.join(out, p))]
+    require(len(runs) == 1, f"run directories {runs}: rank 0 alone writes")
+    ck = torch.load(os.path.join(out, runs[0], "checkpoints", "final",
+                                 "state.pt"), map_location="cpu",
+                    weights_only=True)
+    require(ck["step"] == 4, f"final checkpoint at step {ck['step']}")
+    with open(os.path.join(out, runs[0], "log.txt")) as f:
+        log = f.read()
+    require(f"rank 0 of {count}: backend nccl" in log, "no NCCL in the log")
+    print(f"[dp-entry] torchrun, {count} rank(s) over NCCL: exit 0, 4 "
+          f"steps in {wall:.1f} s (process wall), rank 0's run and final "
+          f"checkpoint alone")
+    return {"ranks": count, "wall_s": wall}
+
+
+def phase_dp(world: int = DP_WORLD, backend: str = "gloo") -> dict:
+    """(14b) Gloo with CUDA tensors, 2 ranks on the one card
+    (`parallel/dryrun.py:launch`, spawned after the kernels were built;
+    `world` ranks over `backend`, e.g. NCCL a rank a card on a host with
+    `world` cards), against one process running the same cases
+    (`dp_cases`): the stage-2 step at full width, global batch 8 (per rank
+    D 36, F 36, C 2 and no other kernel, each then held against its plain
+    version on the tensors the rank's step hands it), loss, grad_norm, the
+    gradient leaf by leaf and the matcher's parameters; the stage-1 step
+    with global BatchNorm statistics (unequal event masks on the ranks):
+    loss, running statistics and gradient; LightGlue's forward and the
+    stage-2 step with the heads split over (1, world), against the heads
+    computed whole (the einsum path: C 2, no attention kernel); BA at
+    tools/bench_ba.py's size over the ranks: the cost trajectory within
+    phase 13b's 1e-4 of the initial cost. Every rank's gradient equals
+    rank 0's. Prints steps/s at world size 1 and `world` and the
+    collectives' share of the step."""
+    from ei_nexus_tpu_torch.flagship import STAGE2_LR
+    from ei_nexus_tpu_torch.parallel.dryrun import launch
+
+    inputs = dp_inputs()
+    t = time.perf_counter()
+    two = launch(dp_cases, world, (world, world, inputs), device="cuda",
+                 backend=backend, timeout_s=900)
+    wall = time.perf_counter() - t
+    one = dp_cases(1, 1, inputs)
+    r0 = two[0]
+
+    # the data-parallel stage-2 step
+    want = {n: 0 for n in kernel_counters()}
+    want.update(nms_rounds=2, attention_fwd=36, attention_bwd=36)
+    for r, got in enumerate(two):
+        require(got["stage2"]["launches"] == want,
+                f"rank {r} launches {got['stage2']['launches']} != {want}")
+        require(got["stage2"]["info"] == r0["stage2"]["info"],
+                f"rank {r}'s info differs from rank 0's")
+        require(set(got["stage2"]["path_kernels"]) == {
+            "attention_fwd", "attention_bwd", "nms_rounds"},
+            f"rank {r} checked {sorted(got['stage2']['path_kernels'])}")
+    for case in ("stage2", "stage1", "shard_stage2"):
+        for r, got in enumerate(two):
+            require(all(torch.equal(g, r0[case]["grads"][k])
+                        for k, g in got[case]["grads"].items()),
+                    f"rank {r}'s {case} gradient differs from rank 0's")
+    a, b = r0["stage2"]["info"], one["stage2"]["info"]
+    dl = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    dg = abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+    gl, gn = grad_gap(r0["stage2"]["grads"], one["stage2"]["grads"])
+    dp = max(float((r0["stage2"]["state_dict"][k] - v).abs().max())
+             for k, v in one["stage2"]["state_dict"].items())
+    print(f"[dp] stage-2 step, {world} {backend} ranks x {8 // world} rows "
+          f"against 1 x 8: loss "
+          f"{a['loss']:.6f} / {b['loss']:.6f} (rel {dl:.2e}), grad_norm "
+          f"{a['grad_norm']:.6f} / {b['grad_norm']:.6f} (rel {dg:.2e}), "
+          f"gradient: largest leaf error {gl:.3e} of the leaf's largest, "
+          f"relative norm {gn:.3e}; max |param diff| {dp:.2e} "
+          f"({dp / STAGE2_LR:.2f} lr); launches a rank "
+          f"{r0['stage2']['launches']}")
+    for r, got in enumerate(two):
+        print(f"[dp] rank {r}: the path's kernels on its own tensors "
+              f"against their plain versions (shape, max|err|): "
+              + json.dumps(got["stage2"]["path_kernels"]))
+    require(dl <= DP_LOSS_REL and dg <= DP_GNORM_REL
+            and gl <= DP_GRAD_LEAF and gn <= DP_GRAD_NORM
+            and dp <= DP_PARAM_LRS * STAGE2_LR, "stage-2 world 2 != world 1")
+
+    # the stage-1 step: global BatchNorm statistics
+    counts = [got["stage1"]["mask_count"] for got in two]
+    a, b = r0["stage1"]["info"], one["stage1"]["info"]
+    terms = {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in b
+             if k.endswith("loss")}
+    ds = max(float(((r0["stage1"]["stats"][k] - v).abs()
+                    / v.abs().clamp(min=1)).max())
+             for k, v in one["stage1"]["stats"].items())
+    gl1, gn1 = grad_gap(r0["stage1"]["grads"], one["stage1"]["grads"])
+    print(f"[dp] stage-1 step, event masks of {counts} pixels on the "
+          f"ranks: loss {a['loss']:.6f} / {b['loss']:.6f}; relative "
+          f"differences " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                      terms.items())
+          + f"; running statistics max diff {ds:.2e} x max(1, |r|) over "
+          f"{len(one['stage1']['stats'])} tensors; gradient: largest leaf "
+          f"error {gl1:.3e} of the leaf's largest, relative norm {gn1:.3e}")
+    require(len(set(counts)) > 1, f"equal mask counts {counts}")
+    require(max(terms.values()) <= DP_S1_LOSS_REL and ds <= DP_STAT_TOL
+            and gl1 <= DP_S1_GRAD_LEAF and gn1 <= DP_S1_GRAD_NORM,
+            "stage-1 world 2 != world 1")
+
+    # the heads split over (1, world): LightGlue's forward in float32 (TF32
+    # off) within 1e-3 of the largest value of the whole heads' (float32
+    # products summed in another order, compounded through 9 layers and
+    # the log-softmaxes); in bfloat16, nine layers of rounding part any two
+    # bf16 forwards, so the split is held to bf16's own error instead: the
+    # sharded bf16 forward's RMS distance from the float32 forward at most
+    # 1.5 times the whole-heads bf16 forward's
+    fin = torch.isfinite(one["lightglue32"])
+    for key in ("lightglue", "lightglue32"):
+        for got in (r0[key], one[key]):
+            require(torch.equal(fin, torch.isfinite(got)),
+                    "non-finite pattern")
+    la32 = one["lightglue32"][fin]
+    err32 = float((r0["lightglue32"][fin] - la32).abs().max())
+    tol32 = 1e-3 * max(1.0, float(la32.abs().max()))
+
+    def rms(a):
+        return float(a.square().mean().sqrt())
+
+    err = float((r0["lightglue"][fin] - one["lightglue"][fin]).abs().max())
+    rms_split = rms(r0["lightglue"][fin] - la32)
+    rms_whole = rms(one["lightglue"][fin] - la32)
+    a, b = r0["shard_stage2"]["info"], one["shard_stage2"]["info"]
+    dl = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    dg = abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+    gl, gn = grad_gap(r0["shard_stage2"]["grads"],
+                      one["shard_stage2"]["grads"])
+    dp = max(float((r0["shard_stage2"]["state_dict"][k] - v).abs().max())
+             for k, v in one["shard_stage2"]["state_dict"].items())
+    want_tp = {n: 0 for n in kernel_counters()}
+    want_tp.update(nms_rounds=2)
+    print(f"[dp] shard_heads over (1, {world}): LightGlue log-assignment "
+          f"in float32 max err {err32:.3e} (bound {tol32:.3e}); in bfloat16 "
+          f"max err {err:.3e} from the whole heads', RMS from float32 "
+          f"{rms_split:.4e} split against {rms_whole:.4e} whole (bound "
+          f"1.5x); stage-2 step loss rel {dl:.2e}, grad_norm rel {dg:.2e}, "
+          f"gradient: largest leaf error {gl:.3e}, relative norm "
+          f"{gn:.3e}; max |param diff| {dp:.2e}; launches a rank "
+          f"{r0['shard_stage2']['launches']}; C on its own tensors "
+          + json.dumps(r0["shard_stage2"]["path_kernels"]))
+    require(err32 <= tol32 and rms_split <= 1.5 * rms_whole,
+            "sharded LightGlue forward != whole")
+    require(all(got["shard_stage2"]["launches"] == want_tp for got in two),
+            "shard_heads step launches")
+    require(dl <= DP_LOSS_REL and dg <= DP_GNORM_REL
+            and gl <= DP_GRAD_LEAF and gn <= DP_GRAD_NORM
+            and dp <= DP_PARAM_LRS * STAGE2_LR, "shard_heads step != whole")
+
+    # BA over the ranks
+    e2, e1 = two[0]["ba"], one["ba"]
+    dba = float(np.abs(e2 - e1).max())
+    print(f"[dp] BA over {world} ranks: cost {e2[0]:.4f} -> {e2[-1]:.4f} "
+          f"(one "
+          f"process {e1[0]:.4f} -> {e1[-1]:.4f}), max diff {dba:.3e} "
+          f"(bound {1e-4 * e1[0]:.3e})")
+    require(all(np.array_equal(got["ba"], e2) for got in two),
+            "the ranks' BA costs differ")
+    require(dba <= 1e-4 * e1[0], f"BA over {world} ranks != 1")
+
+    s2, s1 = r0["stage2"], one["stage2"]
+    return {"launches": r0["stage2"]["launches"], "wall_s": wall,
+            "path_kernels": {n: max(got["stage2"]["path_kernels"][n][1]
+                                    for got in two)
+                             for n in r0["stage2"]["path_kernels"]},
+            "ms_1": s1["ms"], "ms_2": max(g["stage2"]["ms"] for g in two),
+            "collective_ms": s2["collective_ms"],
+            "ms_synced": s2["ms_synced"]}
+
+
 def _steady_rate(log: str) -> float:
     m = re.search(r"steady rate: .* ([0-9.]+) steps/s", log)
     require(m is not None, "no steady rate in the entry's log")
@@ -3547,6 +4092,9 @@ def main() -> int:
         # phase 12a: reference .pth checkpoints (over phase 11's mini-EC)
         pth_launches, pth_walls = timed("reference .pth", phase_pth, data,
                                         tmp)
+        # phase 14a: the stage-2 entry under torchrun, NCCL
+        dp_entry = timed("data-parallel entry (NCCL)", phase_dp_entry, data,
+                         tmp, s1_final)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rep_ms = timed("representations", phase_representations)
@@ -3556,6 +4104,8 @@ def main() -> int:
     ba = timed("bundle adjustment", phase_ba)
     timed("cpu vs card, BA and pose graph", phase_ba_cpu_vs_gpu)
     slam = timed("SLAM assembly", phase_slam)
+    # phase 14b: 2 gloo ranks on the card against one process
+    dp = timed("multi-process (gloo, 2 ranks)", phase_dp)
     for r in rows:
         r["launches_silk_lg_forward"] = silk_launches[r["name"]]
         r["launches_silk_stage2_step"] = silk_s2_launches[r["name"]]
@@ -3564,6 +4114,10 @@ def main() -> int:
         r["launches_pth_eval_forward"] = pth_launches[r["name"]]
         r["launches_adaptive_forward"] = {
             k: v[r["name"]] for k, v in adaptive_launches.items()}
+        r["launches_dp_stage2_step_per_rank"] = dp["launches"][r["name"]]
+        if r["name"] in dp["path_kernels"]:
+            # the largest error over the ranks, each on its own tensors
+            r["max_abs_err_dp_rank"] = dp["path_kernels"][r["name"]]
 
     print(json.dumps({"kernels": rows}))
     for tag, ms in (("flagship forward", fwd_ms),
@@ -3651,6 +4205,18 @@ def main() -> int:
           f"{slam['cost'][1]:.4f}, ATE {slam['ate'][0]:.4f} -> "
           f"{slam['ate'][1]:.4f}, {slam['wall_s']:.2f} s; front end "
           f"{slam['front_end_tracks']} tracks, on {smi}")
+    print(f"data-parallel stage-2 step (flagship, global batch {B}): "
+          f"{1e3 / dp['ms_1']:.3f} steps/s in one process ({dp['ms_1']:.3f} "
+          f"ms), {1e3 / dp['ms_2']:.3f} steps/s over 2 gloo ranks on this one "
+          f"card ({dp['ms_2']:.3f} ms; 4 rows a rank); collectives "
+          f"{dp['collective_ms']:.3f} ms of a {dp['ms_synced']:.3f} ms step "
+          f"with the card synchronised around them "
+          f"({100 * dp['collective_ms'] / dp['ms_synced']:.1f}%); not a "
+          f"scaling figure: the two ranks share the card's SMs and gloo "
+          f"stages every all-reduce through the host; on {smi}")
+    print(f"data-parallel entry: torchrun over {dp_entry['ranks']} NCCL "
+          f"rank(s), 4 steps in {dp_entry['wall_s']:.1f} s (process wall), "
+          f"on {smi}")
     print(f"wall seconds by phase: {json.dumps(walls)}")
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -68,10 +68,13 @@ STAGE1_LOSSES = {
 
 
 def flagship_config(tiny: bool = False, dtype: str = "bfloat16",
-                    attention_impl: str = "auto", block_q: int = 0
+                    attention_impl: str = "auto", block_q: int = 0,
+                    shard_heads: bool = False
                     ) -> Tuple[EIMConfig, Tuple[int, int, int]]:
     """(EIMConfig, (H, W, bins)) of the flagship, LightGlue's attention
-    taken as `attention_impl` with q blocks of `block_q` rows."""
+    taken as `attention_impl` with q blocks of `block_q` rows, its heads
+    split over a mesh's model group with `shard_heads` (as
+    `_flagship(shard_heads=)`)."""
     if tiny:
         H, W, bins, K, feat, desc, layers = 32, 48, 4, 32, 16, 32, 2
     else:
@@ -90,7 +93,8 @@ def flagship_config(tiny: bool = False, dtype: str = "bfloat16",
             lightglue=LightGlueConfig(
                 input_dim=desc, descriptor_dim=desc, n_layers=layers,
                 num_heads=4, dtype=dtype, score_dtype=dtype,
-                attention_impl=attention_impl, block_q=block_q)))
+                attention_impl=attention_impl, block_q=block_q,
+                shard_heads=shard_heads)))
     return cfg, (H, W, bins)
 
 
@@ -115,11 +119,11 @@ def build_flagship(tiny: bool = False, dtype: str = "bfloat16",
 
 
 def stage2_config(tiny: bool = False, dtype: str = "bfloat16",
-                  pad_mode: str = "random"
+                  pad_mode: str = "random", shard_heads: bool = False
                   ) -> Tuple[EIMConfig, Tuple[int, int, int]]:
     """The flagship with its event extractor frozen (both extractors
     frozen, LightGlue trained): stage 2."""
-    cfg, shape = flagship_config(tiny, dtype)
+    cfg, shape = flagship_config(tiny, dtype, shard_heads=shard_heads)
     return dataclasses.replace(
         cfg,
         event_extractor=dataclasses.replace(cfg.event_extractor, freeze=True),

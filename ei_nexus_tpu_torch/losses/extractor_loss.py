@@ -7,6 +7,15 @@ with its quirks of the reference: masked means are sum(x * m) / max(sum(m),
 1); the triplet leg of "mae+triplet" takes both sides from the student;
 dual-softmax divides its mean by B a second time. Maps are NHWC; each loss
 returns (loss, info) as 0-d tensors.
+
+Under a mesh with a data group (`parallel.mesh.use_mesh`, the
+data-parallel step) the normalisers are global, as XLA computes them over
+the JAX mesh's global batch: a masked mean divides by the mask's count
+over every rank's rows, dual-softmax by the global pair count and the
+global B. Each rank's value is then the data size times its share of the
+global mean, so that averaging the ranks' values, and their gradients,
+gives the global loss and its gradient. The plain means are over
+equal-sized local shards: their average is exact as it is.
 """
 
 from __future__ import annotations
@@ -17,8 +26,21 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import depth_to_space
+from ..parallel.collectives import global_sum
+from ..parallel.mesh import active_mesh
 
 Loss = Tuple[torch.Tensor, Dict[str, torch.Tensor]]
+
+
+def _global_mean(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """total / max(count, 1); under a data group the count is the global
+    one and the value the data size times this rank's share (see the
+    module's docstring)."""
+    mesh = active_mesh()
+    if mesh is None or mesh.data_group is None:
+        return total / count.clamp(min=1)
+    count = global_sum(count, mesh.data_group)
+    return total * mesh.data / count.clamp(min=1)
 
 
 def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]
@@ -26,7 +48,7 @@ def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]
     if mask is None:
         return x.mean()
     m = mask.to(x.dtype).expand(x.shape)
-    return (x * m).sum() / m.sum().clamp(min=1.0)
+    return _global_mean((x * m).sum(), m.sum())
 
 
 def _plane(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -137,15 +159,16 @@ def _flat(pred: torch.Tensor, gt: torch.Tensor,
 def _dual_softmax_loss(pred: torch.Tensor, gt: torch.Tensor,
                        mask: Optional[torch.Tensor]) -> torch.Tensor:
     """-log of the dual-softmax confidence over pairs of masked pixels;
-    the mean is divided by B a second time, as the reference does."""
-    B = pred.shape[0]
+    the mean is divided by B (the global batch's) a second time, as the
+    reference does."""
+    mesh = active_mesh()
+    B = pred.shape[0] * (1 if mesh is None else mesh.data)
     p, g, m = _flat(pred, gt, mask)
     sim = torch.einsum("bnd,bmd->bnm", p, g)
     conf = F.softmax(sim, -1) * F.softmax(sim, -2)
     pairs = (m[..., :, None] * m[..., None, :]) > 0
     ll = -torch.log(conf + 1e-8)
-    loss = (ll * pairs).sum() / pairs.sum().clamp(min=1)
-    return loss / B
+    return _global_mean((ll * pairs).sum(), pairs.sum()) / B
 
 
 def _triplet_loss(pred: torch.Tensor, gt: torch.Tensor,

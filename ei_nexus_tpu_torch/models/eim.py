@@ -38,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..parallel.mesh import active_mesh, local_rows
 from .extractor import KeypointExtractorConfig, VGGExtractor
 from .lightglue import LightGlue, LightGlueConfig
 from .mnn import mnn_match
@@ -145,16 +146,23 @@ def random_fill(feats: Dict[str, torch.Tensor], length: int,
     zero third column; descriptors (B, length, D), normal, L2-normalised,
     times `scale`. Drawn on the features' device from `generator` (a
     generator of that device; torch's default when None), positions
-    first."""
+    first. Under a mesh with a data group the draws are the global
+    batch's (B times the data size rows), as the JAX package draws the
+    fill for the global batch and shards it, and this rank keeps its
+    `local_rows`: the same generator state gives every sample the fill
+    it takes at world size 1."""
     pos = feats["sparse_positions"]
     desc = feats["sparse_descriptors"]
     B, D = pos.shape[0], desc.shape[-1]
-    u = torch.rand(B, length, 2, generator=generator, dtype=pos.dtype,
-                   device=pos.device)
+    mesh = active_mesh()
+    Bg = B if mesh is None else B * mesh.data
+    rows = slice(None) if mesh is None else local_rows(Bg, mesh)
+    u = torch.rand(Bg, length, 2, generator=generator, dtype=pos.dtype,
+                   device=pos.device)[rows]
     yx = u * feats["image_size"][:, None, :].to(pos.dtype)
     rand_pos = torch.cat([yx, yx.new_zeros(B, length, 1)], dim=-1)
-    n = torch.randn(B, length, D, generator=generator, dtype=desc.dtype,
-                    device=desc.device)
+    n = torch.randn(Bg, length, D, generator=generator, dtype=desc.dtype,
+                    device=desc.device)[rows]
     n = n / n.norm(dim=-1, keepdim=True).clamp(min=1e-12)
     return rand_pos, n * scale
 
@@ -211,17 +219,24 @@ class Matcher(nn.Module):
                 ) -> Optional[Dict[str, torch.Tensor]]:
         """In training with pad_mode="random" the invalid slots are filled:
         from `fill` = (fill0, fill1) when given (each as `random_fill`
-        returns it), else drawn with `random_fill` from `generator`, side 0
-        first. The filled slots come back in input_feats0/1."""
+        returns it; under a mesh, the global batch's, of which this rank
+        keeps its `local_rows`), else drawn with `random_fill` from
+        `generator`, side 0 first. The filled slots come back in
+        input_feats0/1."""
         cfg = self.config
         if cfg.type is None:
             return None
+        mesh = active_mesh()
         if not (training and cfg.pad_mode == "random"):
             fill = (None, None)
         elif fill is None:
             fill = tuple(random_fill(f, cfg.max_points_num,
                                      cfg.desc_scale_factor, generator)
                          for f in (feats0, feats1))
+        elif mesh is not None:
+            rows = local_rows(feats0["sparse_positions"].shape[0]
+                              * mesh.data, mesh)
+            fill = tuple((p[rows], d[rows]) for p, d in fill)
         f0 = self._fit_slots(feats0, fill[0])
         f1 = self._fit_slots(feats1, fill[1])
         if cfg.type == "MNN":

@@ -15,6 +15,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.collectives import all_reduce_sum
+from ..parallel.mesh import data_group
+
 
 def _lecun_normal_(w: torch.Tensor, generator=None) -> None:
     """flax's default kernel init: variance_scaling(1, fan_in,
@@ -86,7 +89,15 @@ class BatchNorm(nn.Module):
     E[x]^2 clipped at 0, the output cast back to the input's dtype; and it
     updates the running statistics as r <- 0.9 r + 0.1 batch, the biased
     variance too. (torch's F.batch_norm(training=True) would update the
-    running variance with the unbiased one, n / (n - 1) larger.)"""
+    running variance with the unbiased one, n / (n - 1) larger, and so
+    would torch.nn.SyncBatchNorm.)
+
+    Under a mesh with a data group (`parallel.mesh.use_mesh`) the batch is
+    the global one, as under the JAX package's data-parallel mesh: the
+    per-channel sums of x and x^2 and the element count are all-reduced
+    in float32 (`all_reduce_sum`: the gradient reaches every rank's rows)
+    before the mean and E[x^2], so the running statistics stay equal on
+    every rank."""
 
     MOMENTUM = 0.9   # the JAX package's (models/vgg.py)
 
@@ -103,8 +114,18 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dim=(0, 2, 3))
-        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+        group = data_group()
+        if group is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            mean2 = (xf * xf).mean(dim=(0, 2, 3))
+        else:
+            C = xf.shape[1]
+            count = xf.new_full((1,), xf.numel() // C)
+            sums = all_reduce_sum(torch.cat([
+                xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), count]),
+                group)
+            mean, mean2 = sums[:C] / sums[-1], sums[C:2 * C] / sums[-1]
+        var = (mean2 - mean * mean).clamp(min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(self.MOMENTUM).add_(
                 mean.detach() * (1.0 - self.MOMENTUM))

@@ -46,8 +46,24 @@ package's `lax.cond` on the batch's `done` becomes a host read of it, one
 sync a layer until the batch stops (at most L - 1). `scan_layers=True`
 runs the unrolled loop (the JAX package's scanned layers are the same
 math); its parameters are every layer's assignment head, as the scanned
-tree holds them (`port_jax.load_jax_variables` unstacks that tree). Not
-ported, and refused at construction: shard_heads.
+tree holds them (`port_jax.load_jax_variables` unstacks that tree).
+
+`shard_heads` (tensor-parallel heads, the JAX package's sharding of the
+head axis over the mesh's "model" axis) takes the einsum path, as the JAX
+package's dispatch does (`attention_impl` "xla"), and, under a mesh whose
+model group holds more than one rank (`parallel.mesh.use_mesh`), splits
+each attention block's heads over it: the parameters stay whole on every
+rank (the JAX package replicates them), and a rank computes its heads'
+rows of Wqkv (to_qk and to_v in the cross-attention) and its heads'
+columns of out_proj (to_out); the input (and the rotary tables) enter
+through `copy_to_group`, the partial product leaves through
+`reduce_from_group`, and the bias is added once after it. The
+head-sliced parameters (`head_sliced_parameters`) take a gradient in
+their rank's slice only, which the training step sums over the model
+group; every other parameter carries its whole gradient on every rank,
+which the step averages there (the card's atomic adds round the ranks
+apart). Outside a mesh, or at model size 1, the blocks compute every
+head. The head count must divide by the model size.
 """
 
 from __future__ import annotations
@@ -63,6 +79,8 @@ import torch.nn.functional as F
 from ..ops.attention_kernels import (cross_attention_bidir, fused_attention,
                                      rotate_half, self_attention)
 from ..ops.flash_kernel import flash_attention, segment_ids_from_mask
+from ..parallel.collectives import copy_to_group, reduce_from_group
+from ..parallel.mesh import active_mesh, use_mesh
 from .layers import LayerNorm, Linear
 
 _MASK_BIAS = -1e9
@@ -159,6 +177,41 @@ def _attention_xla(q, k, v, kv_mask: Optional[torch.Tensor],
     return torch.matmul(attn.float(), v.float()).to(v.dtype)
 
 
+def _head_split(num_heads: int):
+    """(model group, heads a rank, first head) of this rank under the
+    active mesh's model group, or None where every head is computed here
+    (no mesh, or model size 1). Raises when the heads do not divide."""
+    mesh = active_mesh()
+    if mesh is None or mesh.model == 1:
+        return None
+    if num_heads % mesh.model:
+        raise ValueError(f"{num_heads} heads do not divide over "
+                         f"{mesh.model} model ranks")
+    per = num_heads // mesh.model
+    return mesh.model_group, per, per * mesh.model_index
+
+
+def _sliced_linear(layer: Linear, x: torch.Tensor, rows: slice
+                   ) -> torch.Tensor:
+    """`layer`'s output rows `rows` only (the features of some heads)."""
+    dt = layer.compute_dtype or x.dtype
+    return F.linear(x.to(dt), layer.weight[rows].to(dt),
+                    layer.bias[rows].to(dt))
+
+
+def _merged_out(layer: Linear, msg: torch.Tensor, cols: slice, group
+                ) -> torch.Tensor:
+    """`layer` over the heads' message split across `group`: this rank's
+    input columns `cols`, the partial products summed over the group,
+    then the bias, added once. The partial products of the compute dtype's
+    operands stay float32 until the sum, which is rounded once to the
+    compute dtype, as the whole product (float32 accumulation) is."""
+    dt = layer.compute_dtype or msg.dtype
+    part = F.linear(msg.to(dt).float(), layer.weight[:, cols].to(dt).float())
+    out = reduce_from_group(part, group) + layer.bias.to(dt).float()
+    return out.to(dt)
+
+
 def _ffn(dim: int, dtype) -> nn.Sequential:
     return nn.Sequential(Linear(2 * dim, 2 * dim, dtype=dtype),
                          LayerNorm(2 * dim, dtype=dtype), nn.GELU(),
@@ -168,23 +221,40 @@ def _ffn(dim: int, dtype) -> nn.Sequential:
 class SelfBlock(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int,
                  dtype=torch.float32, attn_impl: str = "xla",
-                 score_dtype=torch.float32, block_q: int = 0):
+                 score_dtype=torch.float32, block_q: int = 0,
+                 shard_heads: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.attn_impl = attn_impl
         self.score_dtype = score_dtype
         self.block_q = block_q
+        self.shard_heads = shard_heads
         self.Wqkv = Linear(embed_dim, 3 * embed_dim, dtype=dtype)
         self.out_proj = Linear(embed_dim, embed_dim, dtype=dtype)
         self.ffn = _ffn(embed_dim, dtype)
 
+    def head_sliced_parameters(self):
+        return [self.Wqkv.weight, self.Wqkv.bias, self.out_proj.weight]
+
     def forward(self, x, encoding, kv_mask=None, training: bool = False):
         B, N, D = x.shape
         h = self.num_heads
-        # (B, N, h, hd, 3): q, k, v interleaved at stride 3
-        qkv = self.Wqkv(x).unflatten(-1, (h, D // h, 3)).transpose(1, 2)
+        hd = D // h
+        split = _head_split(h) if self.shard_heads else None
+        if split is None:
+            # (B, N, h, hd, 3): q, k, v interleaved at stride 3
+            qkv = self.Wqkv(x)
+        else:
+            group, h, h0 = split
+            # this rank's heads: rows h0 * hd * 3 onwards of Wqkv; x and
+            # the rotary tables enter the rank's heads, so their gradients
+            # (and the positional encoder's) sum over the model group
+            qkv = _sliced_linear(self.Wqkv, copy_to_group(x, group),
+                                 slice(3 * hd * h0, 3 * hd * (h0 + h)))
+            encoding = tuple(copy_to_group(e, group) for e in encoding)
+        qkv = qkv.unflatten(-1, (h, hd, 3)).transpose(1, 2)
         q, k, v = qkv[..., 0], qkv[..., 1], qkv[..., 2]
-        kernels = self.attn_impl == "pallas" and _pallas_supported(N, D // h)
+        kernels = self.attn_impl == "pallas" and _pallas_supported(N, hd)
         if kernels and training:
             # kernels D/F: rotary outside, scale d^-0.5 on the product
             q = apply_rotary(encoding, q)
@@ -200,11 +270,16 @@ class SelfBlock(nn.Module):
             q = apply_rotary(encoding, q)
             k = apply_rotary(encoding, k)
             if self.attn_impl == "flash" and not training \
-                    and _flash_supported(N, D // h):
-                ctx = _flash(q, k, v, kv_mask, (D // h) ** -0.5).to(q.dtype)
+                    and _flash_supported(N, hd):
+                ctx = _flash(q, k, v, kv_mask, hd ** -0.5).to(q.dtype)
             else:
                 ctx = _attention_xla(q, k, v, kv_mask, self.score_dtype)
-        message = self.out_proj(ctx.transpose(1, 2).reshape(B, N, D))
+        message = ctx.transpose(1, 2).reshape(B, N, h * hd)
+        if split is None:
+            message = self.out_proj(message)
+        else:
+            message = _merged_out(self.out_proj, message,
+                                  slice(hd * h0, hd * (h0 + h)), group)
         y = self.ffn(torch.cat([x, message], dim=-1))
         return x + y.to(x.dtype)
 
@@ -214,16 +289,22 @@ class CrossBlock(nn.Module):
 
     def __init__(self, embed_dim: int, num_heads: int,
                  dtype=torch.float32, attn_impl: str = "xla",
-                 score_dtype=torch.float32, block_q: int = 0):
+                 score_dtype=torch.float32, block_q: int = 0,
+                 shard_heads: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.attn_impl = attn_impl
         self.score_dtype = score_dtype
         self.block_q = block_q
+        self.shard_heads = shard_heads
         self.to_qk = Linear(embed_dim, embed_dim, dtype=dtype)
         self.to_v = Linear(embed_dim, embed_dim, dtype=dtype)
         self.to_out = Linear(embed_dim, embed_dim, dtype=dtype)
         self.ffn = _ffn(embed_dim, dtype)
+
+    def head_sliced_parameters(self):
+        return [self.to_qk.weight, self.to_qk.bias, self.to_v.weight,
+                self.to_v.bias, self.to_out.weight]
 
     def forward(self, x0, x1, mask0=None, mask1=None, training: bool = False):
         B, N, D = x0.shape
@@ -231,16 +312,26 @@ class CrossBlock(nn.Module):
         h = self.num_heads
         hd = D // h
         scale = hd ** -0.5
+        sharded = _head_split(h) if self.shard_heads else None
+        if sharded is None:
+            def proj(layer, x):
+                return layer(x)
+        else:
+            group, h, h0 = sharded
+            heads = slice(hd * h0, hd * (h0 + h))
+
+            def proj(layer, x):
+                return _sliced_linear(layer, copy_to_group(x, group), heads)
 
         def split(t):
             return t.unflatten(-1, (h, hd)).transpose(1, 2)
 
-        qk0 = split(self.to_qk(x0))
-        qk1 = split(self.to_qk(x1))
+        qk0 = split(proj(self.to_qk, x0))
+        qk1 = split(proj(self.to_qk, x1))
         qk0 = qk0 * _scalar(scale ** 0.5, qk0)
         qk1 = qk1 * _scalar(scale ** 0.5, qk1)
-        v0 = split(self.to_v(x0))
-        v1 = split(self.to_v(x1))
+        v0 = split(proj(self.to_v, x0))
+        v1 = split(proj(self.to_v, x1))
 
         kernels = self.attn_impl == "pallas" \
             and _pallas_supported(N, hd, M) and M % 128 == 0
@@ -271,10 +362,13 @@ class CrossBlock(nn.Module):
             m1 = torch.matmul(attn10.float().mT, v0.float()).to(v0.dtype)
 
         def merge(t, n):
-            return t.transpose(1, 2).reshape(B, n, D)
+            t = t.transpose(1, 2).reshape(B, n, h * hd)
+            if sharded is None:
+                return self.to_out(t)
+            return _merged_out(self.to_out, t, heads, group)
 
-        m0 = self.to_out(merge(m0, N))
-        m1 = self.to_out(merge(m1, M))
+        m0 = merge(m0, N)
+        m1 = merge(m1, M)
 
         def ffn(x, m):
             return x + self.ffn(torch.cat([x, m], dim=-1)).to(x.dtype)
@@ -285,12 +379,12 @@ class CrossBlock(nn.Module):
 class TransformerLayer(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, dtype=torch.float32,
                  attn_impl: str = "xla", score_dtype=torch.float32,
-                 block_q: int = 0):
+                 block_q: int = 0, shard_heads: bool = False):
         super().__init__()
         self.self_attn = SelfBlock(embed_dim, num_heads, dtype, attn_impl,
-                                   score_dtype, block_q)
+                                   score_dtype, block_q, shard_heads)
         self.cross_attn = CrossBlock(embed_dim, num_heads, dtype, attn_impl,
-                                     score_dtype, block_q)
+                                     score_dtype, block_q, shard_heads)
 
     def forward(self, desc0, desc1, enc0, enc1, mask0=None, mask1=None,
                 training: bool = False):
@@ -377,24 +471,27 @@ class LightGlue(nn.Module):
         if cfg.attention_impl not in ("auto", "pallas", "xla", "flash"):
             raise NotImplementedError(
                 f"attention_impl={cfg.attention_impl!r} is not ported yet")
-        if cfg.shard_heads:
-            raise NotImplementedError(
-                "shard_heads (tensor-parallel heads) is not ported yet")
         self.config = cfg
         D = cfg.descriptor_dim
         dtype = getattr(torch, cfg.dtype)
         attn_impl = "pallas" if cfg.attention_impl == "auto" \
             else cfg.attention_impl
+        # as the JAX package: scanned layers take no adaptive path
+        self.adaptive = (cfg.depth_confidence > 0
+                         or cfg.width_confidence > 0) and not cfg.scan_layers
+        if cfg.shard_heads:
+            # tensor-parallel heads take the einsum path, as in the JAX
+            # package; the heads must divide over an active model group
+            attn_impl = "xla"
+            _head_split(cfg.num_heads)
         if cfg.input_dim != D:
             self.input_proj = Linear(cfg.input_dim, D)
         self.posenc = FourierPositionalEncoding(D // cfg.num_heads)
         self.transformers = nn.ModuleList(
             TransformerLayer(D, cfg.num_heads, dtype, attn_impl,
-                             getattr(torch, cfg.score_dtype), cfg.block_q)
+                             getattr(torch, cfg.score_dtype), cfg.block_q,
+                             cfg.shard_heads)
             for _ in range(cfg.n_layers))
-        # as the JAX package: scanned layers take no adaptive path
-        self.adaptive = (cfg.depth_confidence > 0
-                         or cfg.width_confidence > 0) and not cfg.scan_layers
         L = cfg.n_layers
         tokens = training_heads or self.adaptive
         heads = range(L) if tokens or cfg.scan_layers else [L - 1]
@@ -432,9 +529,13 @@ class LightGlue(nn.Module):
         adaptive = self.adaptive and not training
         all_scores, conf0, conf1 = [], [], []
         if adaptive:
-            # the masks become the surviving ones
-            scores, sim, mask0, mask1, exit_layer = self._adaptive_layers(
-                desc0, desc1, enc0, enc1, mask0, mask1)
+            # the masks become the surviving ones; every rank runs every
+            # head here, as the JAX package builds its adaptive layers with
+            # shard_heads=False
+            with use_mesh(None):
+                scores, sim, mask0, mask1, exit_layer = \
+                    self._adaptive_layers(desc0, desc1, enc0, enc1, mask0,
+                                          mask1)
         else:
             for i, layer in enumerate(self.transformers):
                 desc0, desc1 = layer(desc0, desc1, enc0, enc1, mask0, mask1,
@@ -551,3 +652,12 @@ class LightGlue(nn.Module):
 # host reads of the adaptive loop's stop decision (one a layer until the
 # batch stops)
 LightGlue.host_syncs = 0
+
+
+def head_sliced_parameters(model: nn.Module):
+    """The parameters of `model`'s head-sharded attention blocks that a
+    rank reads only in its heads' slice (under a model group, their
+    gradients are partial and must be summed over it)."""
+    return [p for m in model.modules()
+            if isinstance(m, (SelfBlock, CrossBlock)) and m.shard_heads
+            for p in m.head_sliced_parameters()]

@@ -1,6 +1,7 @@
 """Schur-complement bundle adjustment and pose-graph relaxation.
 
-Counterpart of `ei_nexus_tpu/parallel/ba.py`, on one device: M keyframes
+Counterpart of `ei_nexus_tpu/parallel/ba.py`, on one device or with the
+observations sharded over the ranks of a process group: M keyframes
 (se3 twists), L landmarks and O observations as flat index and
 measurement tensors with validity masks. Each Levenberg-Marquardt step
 builds the reduced camera system implicitly: the 3x3 landmark blocks are
@@ -11,6 +12,13 @@ the observations. The JAX package's `lax.scan` loops are Python loops of
 fixed length, and the LM accept is a `torch.where` over the problem's
 fields, so a solve reads nothing back to the host. Everything is float32.
 
+Sharded (`ba_solve(..., group=)`), as the JAX package's solve runs with
+the observation arrays sharded over a mesh: each rank holds its rows of
+the obs_* fields and the same poses, points, intrinsics and fixed_poses;
+every segment sum over the observations (Hpp, Hll, bp, bl, and the W and
+W^T products: two a CG step) and the cost's numerator and count are
+all-reduced, so the replicated fields stay equal on every rank.
+
 Conventions: twists are (rot, trans) 6-vectors mapping world -> camera as
 x_cam = R(w) x_world + t; pinhole projection with per-keyframe
 intrinsics (fx, fy, cx, cy).
@@ -18,9 +26,10 @@ intrinsics (fx, fy, cx, cy).
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..geometry.se3 import skew_symmetric, so3exp_map
 
@@ -128,6 +137,7 @@ def ba_solve(problem: BAProblem, iters: int = 10, cg_iters: int = 20,
              robust: str = "huber",
              prior_poses: Optional[torch.Tensor] = None,
              prior_weight: float = 1.0,
+             group: Any = None,
              ) -> Tuple[BAProblem, torch.Tensor]:
     """Levenberg-Marquardt BA with the Schur complement and matrix-free CG.
 
@@ -139,7 +149,9 @@ def ba_solve(problem: BAProblem, iters: int = 10, cg_iters: int = 20,
     z-clamp pole and its ~1e9 px residual dominates). prior_poses /
     prior_weight: a Gaussian pose prior, residuals prior_weight *
     log(P @ P_prior^-1) per free pose (Hpp += w^2 I, bp -= w^2 rel),
-    scored by the accept test too.
+    scored by the accept test too. group: a process group over which the
+    observations are sharded (see the module's docstring); None solves
+    the problem this rank holds alone.
 
     Returns (refined problem, the mean cost before and after each
     iteration (iters + 1,): squared-px MSE, or the mean robust cost)."""
@@ -152,6 +164,13 @@ def ba_solve(problem: BAProblem, iters: int = 10, cg_iters: int = 20,
     dev, f32 = problem.poses.device, problem.poses.dtype
     eye6 = torch.eye(6, dtype=f32, device=dev)
     eye3 = torch.eye(3, dtype=f32, device=dev)
+
+    def seg(idx, values, n):
+        """A segment sum over every rank's observations."""
+        out = _segment_sum(idx, values, n)
+        if group is not None:
+            dist.all_reduce(out, group=group)
+        return out
 
     def gate(prob, dtype):
         g = prob.obs_valid.to(dtype)
@@ -172,10 +191,10 @@ def ba_solve(problem: BAProblem, iters: int = 10, cg_iters: int = 20,
         Jp = Jp * w[:, None, None]
         Jx = Jx * w[:, None, None]
 
-        Hpp = _segment_sum(op, torch.einsum("oik,oil->okl", Jp, Jp), M)
-        Hll = _segment_sum(ox, torch.einsum("oik,oil->okl", Jx, Jx), L)
-        bp = _segment_sum(op, -torch.einsum("oik,oi->ok", Jp, r), M)
-        bl = _segment_sum(ox, -torch.einsum("oik,oi->ok", Jx, r), L)
+        Hpp = seg(op, torch.einsum("oik,oil->okl", Jp, Jp), M)
+        Hll = seg(ox, torch.einsum("oik,oil->okl", Jx, Jx), L)
+        bp = seg(op, -torch.einsum("oik,oi->ok", Jp, r), M)
+        bl = seg(ox, -torch.einsum("oik,oi->ok", Jx, r), L)
         if prior_poses is not None:
             Hpp = Hpp + (prior_weight ** 2) * eye6
             bp = bp - (prior_weight ** 2) * prior_rel(prob)
@@ -187,11 +206,11 @@ def ba_solve(problem: BAProblem, iters: int = 10, cg_iters: int = 20,
 
         def W_apply(y_l):
             """x_m = sum over observations of Jp^T Jx y[landmark]."""
-            return _segment_sum(
+            return seg(
                 op, torch.einsum("oik,oil,ol->ok", Jp, Jx, y_l[ox]), M)
 
         def Wt_apply(x_m):
-            return _segment_sum(
+            return seg(
                 ox, torch.einsum("oik,oil,ok->ol", Jp, Jx, x_m[op]), L)
 
         b_red = bp - W_apply(torch.einsum("lij,lj->li", Hll_inv, bl))
@@ -236,9 +255,8 @@ def ba_solve(problem: BAProblem, iters: int = 10, cg_iters: int = 20,
     def cost(prob: BAProblem) -> torch.Tensor:
         r = residuals(prob)
         g = gate(prob, r.dtype)
-        n = g.sum().clamp(min=1)
         if huber_delta is None:
-            c = (g[:, None] * r ** 2).sum() / n
+            total = (g[:, None] * r ** 2).sum()
         else:
             d = huber_delta
             n2 = (r * r).sum(-1) + 1e-12
@@ -247,7 +265,12 @@ def ba_solve(problem: BAProblem, iters: int = 10, cg_iters: int = 20,
             else:
                 nr = torch.sqrt(n2)
                 rho = torch.where(nr <= d, 0.5 * nr ** 2, d * (nr - 0.5 * d))
-            c = (g * rho).sum() / n
+            total = (g * rho).sum()
+        total_n = torch.stack([total, g.sum()])
+        if group is not None:
+            dist.all_reduce(total_n, group=group)
+        n = total_n[1].clamp(min=1)
+        c = total_n[0] / n
         if prior_poses is not None:
             rel = prior_rel(prob) * free
             c = c + (prior_weight ** 2) * (rel ** 2).sum() / n

@@ -10,6 +10,16 @@ the run stops early so that resuming from it continues the same
 trajectory. The log ends with the steady rate: from the first drain to
 the last (the steps up to the one enqueued at the first drain are not
 counted).
+
+Over a mesh of several ranks (the state's, `parallel.mesh.replicate`), as
+the JAX entries gate on process 0: rank 0 alone writes checkpoints,
+every rank waiting at a barrier after each write (the entries hand the
+other ranks a `QuietLogger`, so rank 0 alone logs); the status
+values, and so the plateau step's epoch loss, are the global batch's (the
+step averages them over the data group), equal on every rank; and a
+shutdown request is agreed by every rank each step (one all-reduce of the
+flag on the host group), so all stop after the same step and none waits
+in a collective that another left.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 
 from ..data import device_prefetch
+from ..parallel.mesh import agree, barrier
 from .checkpoint import save_checkpoint
 from .optim import set_learning_rate
 
@@ -56,6 +67,20 @@ def train_epochs(state, loader, step: Callable[[Any, int], Dict[str, Any]],
     makes a loader batch the step's (on a thread, one batch ahead). Saves
     the checkpoints into `ckpt_dir`; returns the global step reached."""
     shutdown = GracefulShutdown()
+    mesh = state.mesh
+    main = mesh is None or mesh.rank == 0
+
+    def save(epoch: int, name: Optional[str] = None,
+             sidecar: bool = False) -> Optional[str]:
+        path = None
+        if main:
+            path = save_checkpoint(ckpt_dir, state, epoch, name=name)
+            if sidecar and plateau is not None:
+                with open(os.path.join(path, "plateau.json"), "w") as f:
+                    json.dump(plateau.state_dict(), f)
+        barrier(mesh)
+        return path
+
     global_step = state.step
     start_step = global_step
     epochs = tcfg["epochs"]
@@ -87,6 +112,7 @@ def train_epochs(state, loader, step: Callable[[Any, int], Dict[str, Any]],
             if pending is not None:
                 drain(pending)
             pending = (global_step, info)
+            shutdown.requested = agree(shutdown.requested, mesh)
             if shutdown.requested or (max_steps and global_step >= max_steps):
                 break
         if pending is not None:
@@ -100,20 +126,17 @@ def train_epochs(state, loader, step: Callable[[Any, int], Dict[str, Any]],
             logger.log_info(f"plateau lr -> {new_lr:.2e}")
         if not shutdown.requested and (
                 (epoch + 1) % tcfg.get("checkpoint_freq", 5) == 0):
-            path = save_checkpoint(ckpt_dir, state, epoch + 1)
-            if plateau is not None:
-                with open(os.path.join(path, "plateau.json"), "w") as f:
-                    json.dump(plateau.state_dict(), f)
+            path = save(epoch + 1, sidecar=True)
             logger.log_info(f"checkpoint saved: {path}")
         if shutdown.requested:
-            path = save_checkpoint(ckpt_dir, state, epoch, name="preempted")
+            path = save(epoch, name="preempted")
             logger.log_info(f"shutdown requested; saved {path}")
             end_epoch = epoch
             break
         if max_steps and global_step >= max_steps:
             end_epoch = epoch
             break
-    path = save_checkpoint(ckpt_dir, state, end_epoch, name="final")
+    path = save(end_epoch, name="final")
     logger.log_info(f"final checkpoint: {path}")
     logger.log_info(f"stopped at step {global_step}, epoch "
                     f"{end_epoch}/{epochs}")

@@ -6,13 +6,15 @@ optimizer, the schedule, the frozen roots and the step count, and the
 training step updates it IN PLACE (parameters, BatchNorm statistics,
 optimizer moments, step). `host_lr` marks a host-driven schedule
 (ReduceLROnPlateau): the step then leaves the optimizer's lr as the
-trainer set it.
+trainer set it. `mesh` (set by `parallel.mesh.replicate`) is the mesh the
+steps run over: data-parallel over its data group, LightGlue's heads
+split over its model group; None runs on this process alone.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Iterable, List, Mapping, Set
+from typing import Any, Callable, Iterable, List, Mapping, Optional, Set
 
 import torch
 import torch.nn as nn
@@ -30,6 +32,7 @@ class TrainState:
     trainable: List[nn.Parameter]
     step: int = 0
     host_lr: bool = False
+    mesh: Optional[Any] = None
 
 
 def create_train_state(model: nn.Module, frozen_roots: Iterable[str],

@@ -14,6 +14,20 @@ time-separated pairs with ground-truth matches from pose and depth,
 perspective warp with ground-truth matches from the known homography
 (datasets without depth, EC), and `make_eval_step` is the inference
 forward of the evaluation loops.
+
+A training state with a mesh (`parallel.mesh.replicate`) makes its
+training steps run over it, as the JAX package's jitted steps run over
+its mesh: each rank takes its rows of the global batch (its data index's;
+the ranks of a model group share them), the forward, losses and backward
+run with the mesh active (`use_mesh`: BatchNorm's global statistics, the
+stage-1 losses' global normalisers, the global random fill and jitter,
+LightGlue's heads split over the model group), and `_apply_gradients`
+sums the head-sliced gradients over the model group (averaging the
+replicated ones there) and averages every gradient over the data group
+before the norm and the update, so the
+state stays equal on every rank and equal to one process's step on the
+global batch. The info scalars come back averaged over the data group:
+the global batch's values.
 """
 
 from __future__ import annotations
@@ -22,6 +36,7 @@ from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import native as native_ops
 from ..data import representations as reps
@@ -29,8 +44,10 @@ from ..device import resolve_device
 from ..geometry import (Camera, Pose, gt_matches_from_homography,
                         gt_matches_from_pose_depth)
 from ..losses.matcher_loss import lightglue_loss
+from ..models.lightglue import head_sliced_parameters
 from ..ops.homographic import (extract_crops_batched,
                                perspective_transform_from_points)
+from ..parallel.mesh import local_rows, use_mesh
 from .optim import set_learning_rate
 from .partition import check_frozen
 from .state import TrainState
@@ -201,13 +218,77 @@ def batch_representation(batch_view: Mapping[str, object], kind: str,
     return rep.permute(0, 2, 3, 1), acc > 0
 
 
+def _all_reduce_flat(grads, group, scale: Optional[float] = None) -> None:
+    """Sum `grads` over `group` in place, in one flattened all-reduce, then
+    multiply by `scale`."""
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    if scale is not None:
+        flat.mul_(scale)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def _reduce_gradients(state: TrainState) -> None:
+    """The global gradient on every rank of the state's mesh: over the
+    model group the head-sliced parameters' gradients (partial on each
+    rank) summed and the replicated ones (whole on each, and equal but
+    where the card's atomic adds round the ranks apart) averaged, in one
+    all-reduce, so every rank keeps bit-equal parameters; then every
+    trainable gradient averaged over the data group (each rank's loss is
+    its rows' mean, or for a global-normalised loss the data size times
+    its share: the average is the global loss's gradient either way). A
+    parameter without a gradient has none on any rank, and keeps none."""
+    mesh = state.mesh
+    params = [p for p in state.trainable if p.grad is not None]
+    if mesh.model_group is not None:
+        sliced = {id(p) for p in head_sliced_parameters(state.model)}
+        for p in params:
+            if id(p) not in sliced:
+                p.grad.div_(mesh.model)
+        _all_reduce_flat([p.grad for p in params], mesh.model_group)
+    if mesh.data_group is not None:
+        _all_reduce_flat([p.grad for p in params], mesh.data_group,
+                         1.0 / mesh.data)
+
+
+def _global_info(state: TrainState, info: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+    """`info`'s scalars averaged over the state's data group (grad_norm,
+    already the global gradient's, as it is), in one all-reduce."""
+    mesh = state.mesh
+    if mesh is None or mesh.data_group is None:
+        return info
+    keys = [k for k in info if k != "grad_norm"]
+    vals = torch.stack([info[k].float() for k in keys])
+    dist.all_reduce(vals, group=mesh.data_group)
+    mean = dict(zip(keys, (vals / mesh.data).unbind()))
+    return {k: info[k] if k == "grad_norm" else mean[k] for k in info}
+
+
+def _global_rows(state: TrainState, batch_size: int):
+    """(global batch size, this rank's rows of it) under the state's
+    mesh; (batch_size, every row) without one."""
+    mesh = state.mesh
+    if mesh is None:
+        return batch_size, slice(None)
+    return batch_size * mesh.data, local_rows(batch_size * mesh.data, mesh)
+
+
 def _apply_gradients(state: TrainState) -> torch.Tensor:
     """After the backward: check that no frozen parameter took a gradient,
-    take the global gradient norm over the trainable parameters, write
-    lr(step) into the optimizer (unless the schedule is host-driven), make
-    one update and count the step. Returns the norm, a 0-d tensor left on
-    the device."""
+    make the gradients global over the state's mesh (`_reduce_gradients`:
+    one or two flattened all-reduces, no host synchronisation over NCCL;
+    gloo, which takes CUDA tensors on one card, stages them through the
+    host), take the global gradient norm over the trainable parameters,
+    write lr(step) into the optimizer (unless the schedule is
+    host-driven), make one update and count the step. Returns the norm, a
+    0-d tensor left on the device."""
     check_frozen(state.model, state.frozen_roots)
+    if state.mesh is not None:
+        _reduce_gradients(state)
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in state.trainable]
     grad_norm = torch.nn.utils.get_total_norm(grads)
@@ -250,19 +331,23 @@ def make_stage1_train_step(
         image = torch.as_tensor(data0["image"]).to(dev)
 
         state.optimizer.zero_grad(set_to_none=True)
-        ev_feats, im_feats, _ = model(ev_rep, image, ev_mask, None,
-                                      training=True)
-        l_kp, i_kp = losses["keypoints_loss"](ev_feats, im_feats, ev_mask)
-        l_de, i_de = losses["descriptors_loss"](ev_feats, im_feats, ev_mask)
-        l_fe, i_fe = losses["feature_loss"](ev_feats, im_feats)
-        total = l_kp + l_de + l_fe
-        total.backward()
+        with use_mesh(state.mesh):
+            ev_feats, im_feats, _ = model(ev_rep, image, ev_mask, None,
+                                          training=True)
+            l_kp, i_kp = losses["keypoints_loss"](ev_feats, im_feats,
+                                                  ev_mask)
+            l_de, i_de = losses["descriptors_loss"](ev_feats, im_feats,
+                                                    ev_mask)
+            l_fe, i_fe = losses["feature_loss"](ev_feats, im_feats)
+            total = l_kp + l_de + l_fe
+            total.backward()
         grad_norm = _apply_gradients(state)
-        return {"loss": total.detach(),
-                **{k: v.detach() for i in (i_kp, i_de, i_fe)
-                   for k, v in i.items()},
-                "grad_norm": grad_norm,
-                "dropped_splat_weight": torch.zeros((), device=dev)}
+        return _global_info(state, {
+            "loss": total.detach(),
+            **{k: v.detach() for i in (i_kp, i_de, i_fe)
+               for k, v in i.items()},
+            "grad_norm": grad_norm,
+            "dropped_splat_weight": torch.zeros((), device=dev)})
 
     return step
 
@@ -309,24 +394,27 @@ def make_stage2_train_step(
         T_1to0 = Pose.from_4x4mat(get(T10).float())
 
         state.optimizer.zero_grad(set_to_none=True)
-        _, _, matches = model(ev_rep, get(data1["image"]), ev_mask, None,
-                              training=True, generator=generator, fill=fill)
-        with torch.no_grad():
-            kp0 = matches["input_feats0"]["sparse_positions"][..., :2]
-            kp1 = matches["input_feats1"]["sparse_positions"][..., :2]
-            gt = gt_matches_from_pose_depth(
-                kp0, kp1, cam, cam, depth0, depth1, T_0to1, T_1to0,
-                pos_th=pos_th, neg_th=neg_th, ordering="yx")
-        loss, info = lightglue_loss(matches, gt, gamma=gamma,
-                                    nll_balancing=nll_balancing,
-                                    training=True)
-        loss.backward()
+        with use_mesh(state.mesh):
+            _, _, matches = model(ev_rep, get(data1["image"]), ev_mask,
+                                  None, training=True, generator=generator,
+                                  fill=fill)
+            with torch.no_grad():
+                kp0 = matches["input_feats0"]["sparse_positions"][..., :2]
+                kp1 = matches["input_feats1"]["sparse_positions"][..., :2]
+                gt = gt_matches_from_pose_depth(
+                    kp0, kp1, cam, cam, depth0, depth1, T_0to1, T_1to0,
+                    pos_th=pos_th, neg_th=neg_th, ordering="yx")
+            loss, info = lightglue_loss(matches, gt, gamma=gamma,
+                                        nll_balancing=nll_balancing,
+                                        training=True)
+            loss.backward()
         grad_norm = _apply_gradients(state)
         n_gt = (gt["matches0"] > -1).sum(dim=-1).float().mean()
-        return {"loss": loss.detach(), "gt_matches": n_gt,
-                **{k: v.detach() for k, v in info.items()},
-                "grad_norm": grad_norm,
-                "dropped_splat_weight": torch.zeros((), device=dev)}
+        return _global_info(state, {
+            "loss": loss.detach(), "gt_matches": n_gt,
+            **{k: v.detach() for k, v in info.items()},
+            "grad_norm": grad_norm,
+            "dropped_splat_weight": torch.zeros((), device=dev)})
 
     return step
 
@@ -366,7 +454,9 @@ def make_stage2_homography_train_step(
     and "image" (B, h, w, 1), moved to the model's device. Per step the
     corner jitter U(-1, 1) * (W, H) * max_corner_jitter of shape (B, 4, 2)
     is drawn from `generator` (a generator of the model's device), or
-    handed in scaled (`jitter`); `homography_view` makes H and image1 at
+    handed in scaled (`jitter`; under a mesh both are the global batch's,
+    of which the rank keeps its rows); `homography_view` makes H and
+    image1 at
     (height, width); the matcher's random slot fill is drawn from
     `generator` after the jitter, or handed in (`fill`, see
     models/eim.py). `state` is updated in place. info holds 0-d tensors,
@@ -382,36 +472,39 @@ def make_stage2_homography_train_step(
         ev_rep, ev_mask = batch_representation(data0, rep_kind, bins,
                                                height, width, device=dev)
         image0 = torch.as_tensor(data0["image"]).to(dev)
+        Bg, rows = _global_rows(state, image0.shape[0])
         if jitter is None:
-            u = torch.rand(image0.shape[0], 4, 2, generator=generator,
-                           device=dev)
+            u = torch.rand(Bg, 4, 2, generator=generator, device=dev)
             scale = torch.tensor([width, height], dtype=torch.float32,
                                  device=dev) * max_corner_jitter
             jitter = (u * 2 - 1) * scale
-        Hmat, image1 = homography_view(image0, torch.as_tensor(jitter).to(
-            dev), height, width)
+        Hmat, image1 = homography_view(
+            image0, torch.as_tensor(jitter).to(dev)[rows], height, width)
 
         state.optimizer.zero_grad(set_to_none=True)
-        _, _, matches = model(ev_rep, image1, ev_mask, None, training=True,
-                              generator=generator, fill=fill)
-        with torch.no_grad():
-            # sparse positions are (y, x): the homography's GT takes xy
-            f0, f1 = matches["input_feats0"], matches["input_feats1"]
-            gt = gt_matches_from_homography(
-                f0["sparse_positions"][..., :2].flip(-1),
-                f1["sparse_positions"][..., :2].flip(-1), Hmat,
-                pos_th=pos_th, neg_th=neg_th, mask0=f0["sparse_valid"],
-                mask1=f1["sparse_valid"])
-        loss, info = lightglue_loss(matches, gt, gamma=gamma,
-                                    nll_balancing=nll_balancing,
-                                    training=True)
-        loss.backward()
+        with use_mesh(state.mesh):
+            _, _, matches = model(ev_rep, image1, ev_mask, None,
+                                  training=True, generator=generator,
+                                  fill=fill)
+            with torch.no_grad():
+                # sparse positions are (y, x): the homography's GT takes xy
+                f0, f1 = matches["input_feats0"], matches["input_feats1"]
+                gt = gt_matches_from_homography(
+                    f0["sparse_positions"][..., :2].flip(-1),
+                    f1["sparse_positions"][..., :2].flip(-1), Hmat,
+                    pos_th=pos_th, neg_th=neg_th, mask0=f0["sparse_valid"],
+                    mask1=f1["sparse_valid"])
+            loss, info = lightglue_loss(matches, gt, gamma=gamma,
+                                        nll_balancing=nll_balancing,
+                                        training=True)
+            loss.backward()
         grad_norm = _apply_gradients(state)
         n_gt = (gt["matches0"] > -1).sum(dim=-1).float().mean()
-        return {"loss": loss.detach(), "gt_matches": n_gt,
-                **{k: v.detach() for k, v in info.items()},
-                "grad_norm": grad_norm,
-                "dropped_splat_weight": torch.zeros((), device=dev)}
+        return _global_info(state, {
+            "loss": loss.detach(), "gt_matches": n_gt,
+            **{k: v.detach() for k, v in info.items()},
+            "grad_norm": grad_norm,
+            "dropped_splat_weight": torch.zeros((), device=dev)})
 
     return step
 

@@ -18,6 +18,16 @@ plateau step, checkpoints every `checkpoint_freq` epochs, then
 It runs on the card unless `--device` names another (`--device cpu` runs
 the kernels' plain versions on the CPU); the config's `device` key is the
 JAX package's and is not read.
+
+Under torchrun it trains data-parallel, one rank a process, as the JAX
+entry does over its mesh (`dataset.train.batch_size` is the global
+batch, each rank loading its shard of it):
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m ei_nexus_tpu_torch.train_extractor [options] [overrides]
+
+NCCL on the cards (cuda:<local rank>, a card a rank), gloo with
+`--device cpu`; rank 0 alone logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def parse_args(argv=None):
@@ -48,7 +59,7 @@ def main(argv=None):
     from .data import DataLoader, PinnedPut
     from .data.ec import fetch_ec_dataset
     from .data.mvsec import fetch_mvsec_dataset
-    from .device import resolve_device
+    from .parallel.mesh import distributed_init, make_mesh, replicate
     from .losses import build_losses
     from .models import build_model
     from .models.config_adapter import eim_config_from_dict
@@ -59,14 +70,29 @@ def main(argv=None):
     from .train.partition import frozen_roots_from_config
     from .train.steps import compact_stage1_batch, make_stage1_train_step
     from .utils import load_config, logger_from_config, save_config
+    from .utils.logger import QuietLogger
 
-    dev = resolve_device(args.device)
+    # under torchrun: one rank a process, data-parallel over all of them
+    dev = distributed_init(args.device)
+    mesh = make_mesh(device=dev)
+    main_rank = mesh.rank == 0
     cfg = load_config(args.config, args.overrides)
-    logger = logger_from_config(cfg, cfg.get("experiment", "stage1"))
-    save_config(cfg, os.path.join(logger.run_dir, "config.yaml"))
+    # rank 0 alone logs the run and writes its checkpoints
+    logger = (logger_from_config(cfg, cfg.get("experiment", "stage1"))
+              if main_rank else QuietLogger())
+    ckpt_dir = os.path.join(logger.run_dir, "checkpoints") \
+        if main_rank else None
+    if main_rank:
+        save_config(cfg, os.path.join(logger.run_dir, "config.yaml"))
     logger.log_info(f"device: {dev}"
                     + (f" ({torch.cuda.get_device_name(dev)})"
                        if dev.type == "cuda" else ""))
+    if dist.is_initialized():
+        # every rank says where it runs; rank 0 also logs it
+        where = (f"rank {mesh.rank} of {mesh.world}: backend "
+                 f"{dist.get_backend()}, device {dev}")
+        print(where, flush=True)
+        logger.log_info(where)
     np.random.seed(cfg.get("seed", 3407))
 
     # -- data --------------------------------------------------------------
@@ -86,7 +112,8 @@ def main(argv=None):
     loader = DataLoader(
         train_ds, batch_size=ds_cfg["train"]["batch_size"],
         shuffle=ds_cfg["train"].get("shuffle", True), drop_last=True,
-        seed=cfg.get("seed", 0),
+        seed=cfg.get("seed", 0), process_index=mesh.data_index,
+        process_count=mesh.data,
         num_workers=ds_cfg["train"].get("num_workers", 4))
     steps_per_epoch = max(len(loader), 1)
     logger.log_info(f"train dataset: {len(train_ds)} samples, "
@@ -130,15 +157,20 @@ def main(argv=None):
         logger.log_info(f"resumed from {args.resume} @ epoch {start_epoch}"
                         + (f" batch {resume_skip}" if resume_skip else ""))
         load_plateau(plateau, args.resume)
+    # rank 0's parameters, statistics and moments on every rank; the step
+    # then runs over the mesh
+    replicate(state, mesh)
 
     losses = build_losses(tcfg["loss"])
     step_fn = make_stage1_train_step(losses, rep, bins, H, W)
     put = PinnedPut(dev)
     train_epochs(state, loader, lambda batch, i: step_fn(state, batch),
                  lambda b: put(compact_stage1_batch(b)), logger, tcfg,
-                 plateau, os.path.join(logger.run_dir, "checkpoints"),
-                 start_epoch, resume_skip, args.max_steps, prefix="stage1")
+                 plateau, ckpt_dir, start_epoch, resume_skip, args.max_steps,
+                 prefix="stage1")
     logger.close()
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return state
 
 

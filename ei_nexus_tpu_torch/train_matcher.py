@@ -24,7 +24,11 @@ depth, and the epoch loop of `train/loop.py` (checkpoints, `preempted`,
 It runs on the card unless `--device` names another. The step's random
 draws (the homography's corner jitter, the matcher's slot fill) come from
 a generator reseeded from (seed, step) every step, so a resumed run draws
-what the uninterrupted one would have.
+what the uninterrupted one would have. Under torchrun it trains
+data-parallel as `train_extractor` does (`python -m
+torch.distributed.run --standalone --nproc_per_node N -m
+ei_nexus_tpu_torch.train_matcher ...`): every rank draws the global
+batch's jitter and fill from the same generator and keeps its rows.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def parse_args(argv=None):
@@ -61,7 +66,7 @@ def main(argv=None):
     from .data import DataLoader, PinnedPut
     from .data.ec import fetch_ec_dataset
     from .data.mvsec import fetch_mvsec_dataset
-    from .device import resolve_device
+    from .parallel.mesh import distributed_init, make_mesh, replicate
     from .models import build_model
     from .models.config_adapter import eim_config_from_dict
     from .models.layers import init_parameters
@@ -74,14 +79,29 @@ def main(argv=None):
                               make_stage2_homography_train_step,
                               make_stage2_train_step)
     from .utils import load_config, logger_from_config, save_config
+    from .utils.logger import QuietLogger
 
-    dev = resolve_device(args.device)
+    # under torchrun: one rank a process, data-parallel over all of them
+    dev = distributed_init(args.device)
+    mesh = make_mesh(device=dev)
+    main_rank = mesh.rank == 0
     cfg = load_config(args.config, args.overrides)
-    logger = logger_from_config(cfg, cfg.get("experiment", "stage2"))
-    save_config(cfg, os.path.join(logger.run_dir, "config.yaml"))
+    # rank 0 alone logs the run and writes its checkpoints
+    logger = (logger_from_config(cfg, cfg.get("experiment", "stage2"))
+              if main_rank else QuietLogger())
+    ckpt_dir = os.path.join(logger.run_dir, "checkpoints") \
+        if main_rank else None
+    if main_rank:
+        save_config(cfg, os.path.join(logger.run_dir, "config.yaml"))
     logger.log_info(f"device: {dev}"
                     + (f" ({torch.cuda.get_device_name(dev)})"
                        if dev.type == "cuda" else ""))
+    if dist.is_initialized():
+        # every rank says where it runs; rank 0 also logs it
+        where = (f"rank {mesh.rank} of {mesh.world}: backend "
+                 f"{dist.get_backend()}, device {dev}")
+        print(where, flush=True)
+        logger.log_info(where)
     np.random.seed(cfg.get("seed", 3407))
     seed = cfg.get("seed", 0)
 
@@ -96,7 +116,8 @@ def main(argv=None):
     loader = DataLoader(
         train_ds, batch_size=ds_cfg["train"]["batch_size"],
         shuffle=ds_cfg["train"].get("shuffle", True), drop_last=True,
-        seed=seed, num_workers=ds_cfg["train"].get("num_workers", 4))
+        seed=seed, process_index=mesh.data_index, process_count=mesh.data,
+        num_workers=ds_cfg["train"].get("num_workers", 4))
     steps_per_epoch = max(len(loader), 1)
     logger.log_info(f"train dataset: {len(train_ds)} samples, "
                     f"{len(loader)} steps/epoch, grid {H}x{W}")
@@ -133,6 +154,9 @@ def main(argv=None):
         logger.log_info(f"resumed from {args.resume} @ epoch {start_epoch}"
                         + (f" batch {resume_skip}" if resume_skip else ""))
         load_plateau(plateau, args.resume)
+    # rank 0's parameters, statistics and moments on every rank; the step
+    # then runs over the mesh
+    replicate(state, mesh)
 
     # -- the step: pose + depth where the samples carry depth, else the
     # homography of the frame (EC has no depth frames)
@@ -157,9 +181,11 @@ def main(argv=None):
 
     put = PinnedPut(dev)
     train_epochs(state, loader, step, lambda b: put(compact_fn(b)), logger,
-                 tcfg, plateau, os.path.join(logger.run_dir, "checkpoints"),
-                 start_epoch, resume_skip, args.max_steps, prefix="stage2")
+                 tcfg, plateau, ckpt_dir, start_epoch, resume_skip,
+                 args.max_steps, prefix="stage2")
     logger.close()
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return state
 
 

@@ -116,6 +116,23 @@ class Logger:
             h.close()
 
 
+class QuietLogger:
+    """The logger of a training rank other than 0: it keeps and prints
+    nothing (rank 0's Logger records the run)."""
+
+    run_dir = None
+
+    def log_info(self, msg: str) -> None:
+        pass
+
+    def maybe_status(self, step: int, scalars: Dict[str, float],
+                     prefix: str = "") -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 def logger_from_config(cfg, exp_name: str) -> Logger:
     """Build a Logger from a run config's optional `logger:` section
     (reference configs/defaults.yaml:5-8: status_freq, files_to_backup,

@@ -65,6 +65,9 @@ def test_importing_the_port_loads_no_jax():
             "ei_nexus_tpu_torch.models.pointnet, "
             "ei_nexus_tpu_torch.geometry.triangulation, "
             "ei_nexus_tpu_torch.parallel.ba, ei_nexus_tpu_torch.parallel.slam, "
+            "ei_nexus_tpu_torch.parallel.mesh, "
+            "ei_nexus_tpu_torch.parallel.collectives, "
+            "ei_nexus_tpu_torch.parallel.dryrun, "
             "ei_nexus_tpu_torch.data.rectify, ei_nexus_tpu_torch.utils.setup, "
             "ei_nexus_tpu_torch.utils.profiling, "
             "ei_nexus_tpu_torch.utils.image_io, "
@@ -142,6 +145,15 @@ def test_entry_points_default_to_the_card():
         Pose.identity()
     with pytest.raises(RuntimeError, match="CUDA"):
         Camera.from_params(8, 8, 1.0, 1.0, 4.0, 4.0)
+    from ei_nexus_tpu_torch.parallel import dryrun, mesh
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.distributed_init()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.main(["--world", "2", "--model", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.launch(print, 2)
     # asking for the CPU works
     model, _ = build_flagship(tiny=True, dtype="float32", device="cpu")
     assert next(model.parameters()).device.type == "cpu"
@@ -169,16 +181,24 @@ def test_unported_paths_raise():
 
     with pytest.raises(NotImplementedError):
         Matcher(MatcherConfig(type="SuperGlue"))
-    # adaptive inference and scanned layers are ported: they build, with
-    # the heads their JAX inits create; only tensor-parallel heads raise
+    # adaptive inference, scanned layers and tensor-parallel heads are
+    # ported: they build, with the heads their JAX inits create
     for ok, heads, tokens in ((dict(scan_layers=True), 9, 0),
                               (dict(depth_confidence=0.95), 9, 8),
-                              (dict(width_confidence=0.99), 9, 8)):
+                              (dict(width_confidence=0.99), 9, 8),
+                              (dict(shard_heads=True), 1, 0)):
         lg = LightGlue(LightGlueConfig(**ok))
         assert len(lg.log_assignment) == heads
         assert len(lg.token_confidence) == tokens
-    with pytest.raises(NotImplementedError):
-        LightGlue(LightGlueConfig(shard_heads=True))
+    # under a model group of 2 the heads must divide by 2 (the mesh's
+    # groups are not read at construction)
+    from ei_nexus_tpu_torch.parallel.mesh import Mesh, use_mesh
+    with use_mesh(Mesh(data=1, model=2, data_index=0, model_index=0,
+                       device=torch.device("cpu"))):
+        LightGlue(LightGlueConfig(shard_heads=True, num_heads=4))
+        with pytest.raises(ValueError, match="do not divide"):
+            LightGlue(LightGlueConfig(shard_heads=True, num_heads=3,
+                                      descriptor_dim=255, input_dim=255))
     cfg, _ = flagship_config(tiny=True, dtype="float32")
     with pytest.raises(ValueError, match="unknown extractor type"):
         EIM(dataclasses.replace(cfg, image_extractor=dataclasses.replace(
