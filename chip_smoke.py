@@ -192,6 +192,27 @@ Phases, each of which raises on failure:
     world size 1 and 2 and the collectives' share of the step, which are
     not scaling figures (two ranks share one card's SMs).
 
+15. the last slice's tools and functions: (a) `slam_mvsec.slam_chain` at
+    full width (260x346, 16 bins, VGG 128/256/256, top-k 512, 40
+    keyframes at stride 2, 12 LM iterations) with phase 9's stage-1
+    checkpoint on indoor_flying1 rendered in memory by
+    `data/mini_mvsec.py` and read through the MVSEC reader's windows (the
+    card's machine has no h5py): C once a keyframe and no other kernel, C
+    bit-exact on the chain's first map, the robust cost and the
+    reprojection median lower after BA, the matches measured against the
+    rendered truth, the ATE before and after; then the chain on exact
+    tracks (`ExactFrontEnd`): the ATE lower after BA, and
+    `--check-sharded`'s solve of that problem over 2 gloo ranks on the
+    card, its final cost within 1.5e-3 of one process's; (b) `eval_adaptive`'s `main`
+    over phase 11's mini-EC with phase 11's stage-2 checkpoint (16 pairs
+    at B=1, base then adaptive, then B=8 timed): the exit histogram, both
+    protocols' metrics, ms a batch of 8 both ways; launches a forward
+    (base A 18, B 9, C 2; adaptive as its exit layer says), A, B and C
+    against their plain versions on the adaptive forward's tensors, and
+    with depth and width -1 the forward equal to the base one bit for
+    bit; (c) the new geometry and detector functions on the card against
+    the CPU.
+
 Prints each phase's wall seconds, the kernels' JSON line (launches: A, B,
 C from the "auto" forward; D, F from the stage-2 step; E from the
 q-blocked forward; G from the flash forward; each row's
@@ -200,11 +221,14 @@ launches_silk_stage2_step from phase 10, launches_homography_step and
 launches_eval_forward from phase 11, launches_pth_eval_forward and
 launches_adaptive_forward by setting/regime from phase 12,
 launches_dp_stage2_step_per_rank from phase 14b, and for D, F and C
-max_abs_err_dp_rank on a rank's own tensors there; C's row also
+max_abs_err_dp_rank on a rank's own tensors there;
+launches_slam_mvsec_front_end and launches_eval_adaptive_forward (base,
+adaptive) from phase 15, and for A, B and C max_abs_err_eval_adaptive on
+the adaptive forward's tensors; C's row also
 its device ms and
 plans at the cell-1 shapes), the card's `nvidia-smi` line, the forward,
-serving, loader-fed, MNN, SiLK, step, entry and evaluation rates, and as
-its last line
+serving, loader-fed, MNN, SiLK, step, entry and evaluation rates, the
+SLAM and adaptive-evaluation lines of phase 15, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a card. Writes the nvcc/ptxas log to
 chiprun_out/chip_smoke_build.log.
@@ -3495,10 +3519,10 @@ def grad_gap(got: dict, want: dict) -> tuple:
 
 def check_path_kernels(run) -> dict:
     """One more step, run(), with the first inputs that D, F and C take on
-    it recorded (their wrappers called through a recorder); each of those
-    kernels then called again on those tensors and held against its plain
-    version at phase 2's tolerances (D and F 2e-2 x max(1, max|ref|) in
-    bfloat16; C bit-exact), F also within BWD_REL's relative norm of
+    it recorded (`record_kernel_inputs`); each of those kernels then called
+    again on those tensors and held against its plain version at phase 2's
+    tolerances (D and F 2e-2 x max(1, max|ref|) in bfloat16; C
+    bit-exact), F also within BWD_REL's relative norm of
     `attention_bwd_plain_from_out`, the plain version with c read from
     D's output as F reads it. These launches are made after the path's
     were counted. Returns {name: (shape, max abs err[, F's relative norm
@@ -3507,15 +3531,24 @@ def check_path_kernels(run) -> dict:
     from ei_nexus_tpu_torch.ops import attention_kernels as ak
     from ei_nexus_tpu_torch.ops import detector
 
+    seen = record_kernel_inputs(run, ((ak, "attention_fwd"),
+                                      (ak, "attention_bwd"),
+                                      (detector, "nms_rounds")))
+    with torch.no_grad():
+        return _hold_path_kernels(seen)
+
+
+def record_kernel_inputs(run, targets) -> dict:
+    """run() with each kernel wrapper of `targets` ((module, name): where
+    the path looks the wrapper up) called through a recorder; returns
+    {name: (args, kwargs) of its first call}."""
     seen = {}
-    real = {(ak, "attention_fwd"): ak.attention_fwd,
-            (ak, "attention_bwd"): ak.attention_bwd,
-            (detector, "nms_rounds"): detector.nms_rounds}
+    real = {(mod, name): getattr(mod, name) for mod, name in targets}
 
     def recorder(name, fn):
-        def rec(*args):
-            seen.setdefault(name, args)
-            return fn(*args)
+        def rec(*args, **kw):
+            seen.setdefault(name, (args, kw))
+            return fn(*args, **kw)
         # the real wrapper counts under its module's name: this one, now
         rec.launches = 0
         return rec
@@ -3528,8 +3561,19 @@ def check_path_kernels(run) -> dict:
     finally:
         for (mod, name), fn in real.items():
             setattr(mod, name, fn)
-    with torch.no_grad():
-        return _hold_path_kernels(seen)
+    return seen
+
+
+def _attention_gap(name: str, got, want, dtype) -> float:
+    """The largest error of a kernel's outputs against its plain
+    version's, each held to ATTN_TOL[dtype] x max(1, max|ref|)."""
+    e = 0.0
+    for g, w in zip(got, want):
+        err = max_err(g, w)
+        tol = ATTN_TOL[dtype] * max(1.0, float(w.float().abs().max()))
+        require(err <= tol, f"{name} disagrees: {err:.3e} > {tol:.3e}")
+        e = max(e, err)
+    return e
 
 
 def _hold_path_kernels(seen: dict) -> dict:
@@ -3538,16 +3582,13 @@ def _hold_path_kernels(seen: dict) -> dict:
 
     out = {}
     if "attention_fwd" in seen:
-        q, k, v, bias, scale = seen["attention_fwd"]
+        (q, k, v, bias, scale), _ = seen["attention_fwd"]
         got = ak.attention_fwd(q, k, v, bias, scale)[0]
         want = ak.fused_attention_plain(q, k, v, bias == 0, scale)
-        e = max_err(got, want)
-        tol = ATTN_TOL[q.dtype] * max(1.0, float(want.float().abs().max()))
-        require(e <= tol, f"attention_fwd at {tuple(q.shape)} disagrees: "
-                          f"{e:.3e} > {tol:.3e}")
-        out["attention_fwd"] = (list(q.shape), e)
+        out["attention_fwd"] = (list(q.shape), _attention_gap(
+            f"attention_fwd at {tuple(q.shape)}", (got,), (want,), q.dtype))
     if "attention_bwd" in seen:
-        q, k, v, o, do, bias, stats, scale = seen["attention_bwd"]
+        (q, k, v, o, do, bias, stats, scale), _ = seen["attention_bwd"]
         got = ak.attention_bwd(q, k, v, o, do, bias, stats, scale)
         plain = ak.fused_attention_bwd_plain(q, k, v, bias, do, scale)
         from_out = attention_bwd_plain_from_out(q, k, v, o, do, bias,
@@ -3566,8 +3607,26 @@ def _hold_path_kernels(seen: dict) -> dict:
             e, rel = max(e, err), max(rel, r)
             rel_plain = max(rel_plain, rel_err(a, c))
         out["attention_bwd"] = (list(q.shape), e, rel, rel_plain)
+    if "self_attention" in seen:
+        (q, k, v, *mask), kw = seen["self_attention"]
+        kv_mask = mask[0] if mask else kw.get("kv_mask")
+        got = ak.self_attention(q, k, v, kv_mask, rot=kw.get("rot"),
+                                block_q=kw.get("block_q", 0))
+        want = ak.self_attention_plain(q, k, v, kv_mask, kw.get("rot"))
+        out["self_attention_rot"] = (list(q.shape), _attention_gap(
+            f"self_attention at {tuple(q.shape)}", (got,), (want,),
+            q.dtype))
+    if "cross_attention_bidir" in seen:
+        (qk0, qk1, v0, v1, *masks), kw = seen["cross_attention_bidir"]
+        masks = (masks + [None, None])[:2]
+        got = ak.cross_attention_bidir(qk0, qk1, v0, v1, *masks,
+                                       block_q=kw.get("block_q", 0))
+        want = ak.cross_attention_bidir_plain(qk0, qk1, v0, v1, *masks)
+        out["cross_attention_bidir"] = (list(qk0.shape), _attention_gap(
+            f"cross_attention_bidir at {tuple(qk0.shape)}", got, want,
+            qk0.dtype))
     if "nms_rounds" in seen:
-        x, radius, rounds = seen["nms_rounds"]
+        (x, radius, rounds), _ = seen["nms_rounds"]
         require(torch.equal(nk.nms_rounds(x, radius, rounds),
                             nk.nms_rounds_plain(x, radius, rounds)),
                 f"nms_rounds at {tuple(x.shape)} is not bit-exact")
@@ -3979,6 +4038,399 @@ def phase_dp(world: int = DP_WORLD, backend: str = "gloo") -> dict:
             "ms_synced": s2["ms_synced"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the SLAM chain on rendered MVSEC, adaptive evaluation, geometry
+# ---------------------------------------------------------------------------
+
+# slam_mvsec.py's defaults: 40 keyframes 2 frames apart, 512 keypoints, 12
+# LM iterations; indoor_flying1 rendered at 84 frames (shorter than its
+# crop, so the reader keeps them all) and read from frame 4, the first
+# with a whole 0.4 s event window behind it
+SLAM_MVSEC_FRAMES, SLAM_MVSEC_FIRST, SLAM_MVSEC_STRIDE = 84, 4, 2
+SLAM_MVSEC_ITERS, SLAM_SHARDED_REL = 12, 1.5e-3
+ADAPTIVE_BATCHES, ADAPTIVE_ITERS = 16, 10
+
+
+class ExactFrontEnd(torch.nn.Module):
+    """A stand-in for the stage-1 extractor whose tracks are right by
+    construction: `n` points of the rendered scene's plane (z = 3 m, the
+    middle 2 x 1.4 m that every frame sees) projected through each frame's
+    true pose and K, with `noise_px` of Gaussian pixel noise, a one-hot
+    descriptor a point (so MNN matches every point seen twice). The
+    chain calls it once a frame, in order. It tests the chain's back end
+    (chaining, triangulation, drift, gate, BA, ATE) apart from what the
+    weights can find."""
+
+    def __init__(self, frames, n: int = SLAM_TOPK, noise_px: float = 0.5,
+                 seed: int = 15, device="cuda"):
+        super().__init__()
+        from ei_nexus_tpu_torch.models.extractor import \
+            KeypointExtractorConfig
+        rng = np.random.default_rng(seed)
+        X = np.stack([rng.uniform(-1.0, 1.0, n), rng.uniform(-0.7, 0.7, n),
+                      np.full(n, 3.0)], -1)
+        self.config = KeypointExtractorConfig(detection_top_k=n)
+        self.anchor = torch.nn.Parameter(torch.zeros(0, device=device))
+        self.views = []
+        for fr in frames:
+            Xc = X @ fr["pose"][:3, :3].T.astype(np.float64) \
+                + fr["pose"][:3, 3]
+            uv = Xc @ fr["K"].T.astype(np.float64)
+            uv = uv[:, :2] / uv[:, 2:] + rng.normal(0, noise_px, (n, 2))
+            valid = ((Xc[:, 2] > 0) & (uv[:, 0] >= 0) & (uv[:, 0] < 346)
+                     & (uv[:, 1] >= 0) & (uv[:, 1] < 260))
+            pos = np.concatenate([uv[:, ::-1], np.ones((n, 1))], 1)
+            self.views.append({
+                "sparse_positions": torch.as_tensor(
+                    pos[None], dtype=torch.float32, device=device),
+                "sparse_descriptors": torch.eye(
+                    n, device=device)[None],
+                "sparse_valid": torch.as_tensor(valid[None],
+                                                device=device)})
+        self.calls = 0
+
+    def forward(self, rep, mask):
+        out = self.views[self.calls]
+        self.calls += 1
+        return out
+
+
+def match_errors(frames, run) -> np.ndarray:
+    """Each match of the chain's front end against the truth: the pixel
+    distance between the matched keypoint and its partner projected
+    through the rendered depth and the true poses."""
+    errs = []
+    for i, m0 in enumerate(run["matches01"]):
+        kp0 = run["keypoints"][i][:, 1::-1].astype(np.float64)   # xy
+        kp1 = run["keypoints"][i + 1][:, 1::-1].astype(np.float64)
+        K, d = frames[i]["K"].astype(np.float64), frames[i]["depth"]
+        T01 = frames[i + 1]["pose"] @ np.linalg.inv(frames[i]["pose"])
+        sel = np.nonzero(m0 > -1)[0]
+        xy = kp0[sel]
+        z = d[np.clip(xy[:, 1].astype(int), 0, d.shape[0] - 1),
+              np.clip(xy[:, 0].astype(int), 0, d.shape[1] - 1)]
+        X = (np.concatenate([xy, np.ones((len(sel), 1))], 1)
+             @ np.linalg.inv(K).T) * z[:, None]
+        X1 = X @ T01[:3, :3].T + T01[:3, 3]
+        uv = X1 @ K.T
+        errs.append(np.linalg.norm(uv[:, :2] / uv[:, 2:] - kp1[m0[sel]],
+                                   axis=-1))
+    return np.concatenate(errs)
+
+
+def phase_slam_mvsec(s1_final: str) -> dict:
+    """(15a) `slam_mvsec.slam_chain` at full width (260x346, 16 bins, the
+    VGG 128/256/256 event extractor, top-k 512, 40 keyframes at stride 2,
+    12 LM iterations, the tool's drift, gate and prior) with phase 9's
+    stage-1 `final`, on indoor_flying1 rendered in memory by
+    `data/mini_mvsec.py` and read through the MVSEC reader's own windows
+    (`MVSECSequence.view` over `RenderedArchive`: the card's machine has
+    no h5py). Launches read around the chain (C once a keyframe, nothing
+    else), C held bit-exact on the first map the chain hands it, the
+    robust cost and the reprojection median lower after BA; each match
+    measured against the rendered depth and poses; the ATE before and
+    after BA printed. Then the same chain with `ExactFrontEnd` (tracks
+    right to 0.5 px): the ATE lower after BA than before; and
+    `--check-sharded`'s solve of that problem over 2 gloo ranks on the
+    card, its final cost within SLAM_SHARDED_REL of one process's. Phase
+    9's few steps leave the extractor's matches pixels off the truth,
+    which BA fits without bringing the trajectory closer to it, and the
+    Cauchy loss on such tracks has a flat valley of nearby optima that
+    float32 sums in another order reach apart (PERF.md §6): the ATE's
+    fall and the ranks' agreement are required of the back end on tracks
+    that allow them. Returns the numbers."""
+    from ei_nexus_tpu_torch import slam_mvsec as sm
+    from ei_nexus_tpu_torch.data import mini_mvsec
+    from ei_nexus_tpu_torch.data.mvsec import MVSECSequence
+    from ei_nexus_tpu_torch.ops import detector
+
+    t = time.perf_counter()
+    arrays = mini_mvsec.render_sequence(SLAM_MVSEC_FRAMES, 0.0, 10)
+    seq = MVSECSequence(mini_mvsec.RenderedArchive(
+        {"indoor_flying1": arrays}), "indoor_flying1")
+    frames = [seq.view(SLAM_MVSEC_FIRST + SLAM_MVSEC_STRIDE * i,
+                       sm.EVENT_DT, sm.MAX_EVENTS) for i in range(SLAM_KF)]
+    render_s = time.perf_counter() - t
+    events = [int(f["events_valid"].sum()) for f in frames]
+    print(f"[slam-mvsec] indoor_flying1 rendered ({SLAM_MVSEC_FRAMES} "
+          f"frames, {len(arrays['events'])} events) and read through the "
+          f"MVSEC reader in {render_s:.1f} s; {SLAM_KF} keyframes of "
+          f"{min(events)}-{max(events)} events")
+    extractor = sm.stage1_extractor(s1_final, SLAM_TOPK, "cuda")
+    sm.slam_chain(frames[:3], extractor, iters=1)           # warm
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = {}
+
+    def chain():
+        out["metrics"], out["run"] = sm.slam_chain(
+            frames, extractor, iters=SLAM_MVSEC_ITERS)
+
+    seen = record_kernel_inputs(chain, ((detector, "nms_rounds"),))
+    launches = {n: c.launches for n, c in counters.items()}
+    want = {n: 0 for n in counters}
+    want["nms_rounds"] = SLAM_KF
+    require(launches == want, f"[slam-mvsec] launches {launches} != {want}")
+    with torch.no_grad():
+        held = _hold_path_kernels(seen)
+    require("nms_rounds" in held, "the chain handed C no map")
+    m, run = out["metrics"], out["run"]
+
+    def ate(run):
+        return tuple(sm.umeyama_ate(sm.centers_from_poses6(
+            p.poses.cpu().numpy()), run["gt_centers"])
+            for p in (run["problem"], run["refined"]))
+
+    ate0, ate1 = ate(run)
+    errs = match_errors(frames, run)
+    within = {px: float((errs < px).mean()) for px in (1, 3)}
+    extract_ms = 1e3 * run["extract_seconds"] / SLAM_KF
+    rep0, rep1 = (m["reproj_median_px_and_frac3px_before"],
+                  m["reproj_median_px_and_frac3px_after"])
+    print(f"[slam-mvsec] C {launches['nms_rounds']} launches for {SLAM_KF} "
+          f"keyframes, held bit-exact at {held.get('nms_rounds')}; "
+          f"{m['mnn_matches_per_pair']} MNN matches a pair ({len(errs)} in "
+          f"all: {100 * within[1]:.1f}% within 1 px of the truth, "
+          f"{100 * within[3]:.1f}% within 3 px, median "
+          f"{np.median(errs):.2f} px), {run['tracks']} tracks -> "
+          f"{m['landmarks']} landmarks, {m['observations']} observations; "
+          f"robust cost by iteration {m['robust_cost']}; reprojection "
+          f"median px and share < 3 px {rep0} -> {rep1}; ATE {ate0:.5f} -> "
+          f"{ate1:.5f} m; extract {extract_ms:.3f} ms a frame; BA "
+          f"{m['ba_seconds']} s")
+    require(np.isfinite(run["costs"]).all()
+            and run["costs"][-1] < run["costs"][0],
+            f"BA's robust cost did not fall: {run['costs']}")
+    require(rep1[0] < rep0[0], f"the reprojection median rose {rep0} -> "
+                               f"{rep1}")
+    em, erun = sm.slam_chain(frames, ExactFrontEnd(frames),
+                             iters=SLAM_MVSEC_ITERS)
+    exact = ate(erun)
+    print(f"[slam-mvsec] the same chain on exact tracks (0.5 px noise): "
+          f"{em['landmarks']} landmarks, {em['observations']} "
+          f"observations, robust cost {em['robust_cost'][0]} -> "
+          f"{em['robust_cost'][-1]}, ATE {exact[0]:.5f} -> {exact[1]:.5f} m")
+    require(exact[1] < exact[0], f"BA on exact tracks left the ATE at "
+                                 f"{exact[1]} >= {exact[0]}")
+    t = time.perf_counter()
+    sharded = sm.check_sharded(erun)
+    sharded_s = time.perf_counter() - t
+    single, split = sharded["final_cost_single"], \
+        sharded["final_cost_sharded"]
+    gap = abs(split - single) / abs(single)
+    print(f"[slam-mvsec] --check-sharded over 2 gloo ranks on the card, on "
+          f"the exact tracks' problem: {json.dumps(sharded)}, relative gap "
+          f"{gap:.2e} (bound {SLAM_SHARDED_REL:.1e}), {sharded_s:.1f} s")
+    require(gap <= SLAM_SHARDED_REL, f"sharded BA {split} != {single}")
+    return {"launches": launches, "metrics": m, "ate": (ate0, ate1),
+            "exact_ate": exact, "within": within,
+            "extract_ms": extract_ms, "render_s": render_s,
+            "sharded": sharded, "held": held}
+
+
+def phase_eval_adaptive(data: str, s2_final: str) -> dict:
+    """(15b) `python -m ei_nexus_tpu_torch.eval_adaptive`'s path (its
+    `main`, in this process) over phase 11's mini-EC with phase 11's
+    stage-2 `final`: the RPE protocol at B=1 over ADAPTIVE_BATCHES pairs,
+    base then adaptive (depth 0.95, width 0.99), then the B=8 timing
+    (ADAPTIVE_ITERS forwards, CUDA events). Launches read around one
+    forward of each model, the adaptive one's held to its exit layer (A
+    2 (e + 1), B e + 1, C 2); A, B and C held against their plain versions
+    on the tensors the adaptive forward hands them; with depth and width
+    -1 the "adaptive" forward equal to the base one bit for bit
+    (deterministic algorithms, one voxel grid for both)."""
+    from ei_nexus_tpu_torch import eval_adaptive as ea
+    from ei_nexus_tpu_torch.data import DataLoader
+    from ei_nexus_tpu_torch.models import lightglue
+    from ei_nexus_tpu_torch.ops import detector
+    from ei_nexus_tpu_torch.train.evaluate import val_dataset
+    from ei_nexus_tpu_torch.train.steps import batch_representation
+    from ei_nexus_tpu_torch.utils import load_config
+
+    overrides = ["dataset=test_ec", f"dataset.data_path={data}"]
+    t = time.perf_counter()
+    result = ea.main(["--config", STAGE2_CONFIG, "--ckpt", s2_final,
+                      "--max-batches", str(ADAPTIVE_BATCHES), "--iters",
+                      str(ADAPTIVE_ITERS), "--device", "cuda"] + overrides)
+    wall = time.perf_counter() - t
+    require(sum(result["exit_layer_hist"]) == ADAPTIVE_BATCHES,
+            f"exit histogram {result['exit_layer_hist']}")
+    for part in ("base", "adaptive"):
+        aucs = [result[part][f"auc@{t}"] for t in (5, 10, 20)]
+        require(all(np.isfinite(aucs)), f"{part} AUCs {aucs}")
+
+    cfg = load_config(STAGE2_CONFIG, overrides)
+    ds = cfg.dataset.to_dict()
+    (H, W), bins, rep = ds["resolution"], ds["channel"], \
+        ds["representation_type"]
+    ad_cfg = load_config(STAGE2_CONFIG, overrides + [
+        "model.matcher.LightGlue.depth_confidence=0.95",
+        "model.matcher.LightGlue.width_confidence=0.99"])
+    model, model_ad = ea.build_models(cfg, ad_cfg, s2_final, "cuda")
+    data0, data1 = next(iter(DataLoader(val_dataset(ds), batch_size=1)))[:2]
+    counters = kernel_counters()
+    with torch.no_grad():
+        ev_rep, ev_mask = batch_representation(data0, rep, bins, H, W,
+                                               device="cuda")
+        image = torch.as_tensor(data1["image"]).cuda()
+        launches = {}
+        for name, net in (("base", model), ("adaptive", model_ad)):
+            for c in counters.values():
+                c.launches = 0
+            out = net(ev_rep, image, ev_mask)[2]
+            torch.cuda.synchronize()
+            launches[name] = {n: c.launches for n, c in counters.items()}
+        e = int(out["exit_layer"])
+        L = model.config.matcher.lightglue.n_layers
+        for name, layers in (("base", L), ("adaptive", e + 1)):
+            want = {n: 0 for n in counters}
+            want.update(self_attention_rot=2 * layers,
+                        cross_attention_bidir=layers, nms_rounds=2)
+            require(launches[name] == want,
+                    f"[eval-adaptive] {name} launches {launches[name]} != "
+                    f"{want}")
+        seen = record_kernel_inputs(
+            lambda: model_ad(ev_rep, image, ev_mask),
+            ((lightglue, "self_attention"),
+             (lightglue, "cross_attention_bidir"),
+             (detector, "nms_rounds")))
+        held = _hold_path_kernels(seen)
+        require(set(held) == {"self_attention_rot", "cross_attention_bidir",
+                              "nms_rounds"},
+                f"[eval-adaptive] held {sorted(held)}")
+        off_cfg = load_config(STAGE2_CONFIG, overrides + [
+            "model.matcher.LightGlue.depth_confidence=-1",
+            "model.matcher.LightGlue.width_confidence=-1"])
+        _, model_off = ea.build_models(cfg, off_cfg, s2_final, "cuda")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            want = model(ev_rep, image, ev_mask)[2]
+            got = model_off(ev_rep, image, ev_mask)[2]
+        finally:
+            torch.use_deterministic_algorithms(False)
+    require(sorted(got) == sorted(want) and "exit_layer" not in got,
+            "adaptive off: the outputs' keys differ from the base's")
+    for k, v in want.items():
+        if torch.is_tensor(v):
+            require(torch.equal(got[k], v), f"adaptive off: {k} != base's")
+    print(f"[eval-adaptive] {ADAPTIVE_BATCHES} pairs of EC's test protocol, "
+          f"phase 11's stage-2 checkpoint: exit histogram "
+          f"{result['exit_layer_hist']} (mean {result['exit_layer_mean']}); "
+          f"base {json.dumps(result['base'])}; adaptive "
+          f"{json.dumps(result['adaptive'])}; a batch of 8: "
+          f"{result['ms_per_batch8_base']} ms base, "
+          f"{result['ms_per_batch8_adaptive']} ms adaptive, speed-up "
+          f"{result['speedup']}; {wall:.1f} s")
+    print(f"[eval-adaptive] launches a forward: base {launches['base']}, "
+          f"adaptive (exit after layer {e}) {launches['adaptive']}; "
+          f"against the plain versions on the adaptive forward's tensors "
+          f"(shape, max|err|): {json.dumps(held)}; depth and width -1: "
+          f"equal to the base forward bit for bit")
+    return {"result": result, "launches": launches, "held": held,
+            "exit_layer": e}
+
+
+def phase_geometry() -> None:
+    """(15c) The geometry and detector functions this slice ported, on
+    CUDA tensors against the CPU, float32: values to 1e-5 relative (with
+    an absolute floor of 1e-5 of the largest value where a value cancels
+    larger terms), angles to 1e-3 degree (rotations ~0.5 rad and vectors
+    apart, where float32's arccos is well conditioned; near 0 and 180
+    degrees the CPU tests hold them in float64), masks and `as_4x4mat`
+    exactly, E's decomposition as a set (each device's SVD signs are its
+    own)."""
+    from ei_nexus_tpu_torch.geometry import Camera, Pose
+    from ei_nexus_tpu_torch.geometry import depthproj, epipolar as ep
+    from ei_nexus_tpu_torch.geometry.se3 import so3exp_map
+    from ei_nexus_tpu_torch.ops import space_to_depth
+
+    g = torch.Generator().manual_seed(15)
+    B, N = 4, 64
+    wh = torch.tensor([346.0, 260.0])
+    x = {"R": so3exp_map(0.3 * torch.randn(B, 3, generator=g)),
+         "t": torch.randn(B, 3, generator=g) + 0.5,
+         "K": torch.tensor([[199.0, 0, 173.0], [0, 199.0, 130.0],
+                            [0, 0, 1.0]]).expand(B, 3, 3),
+         "p0": torch.rand(B, N, 2, generator=g) * wh,
+         "p1": torch.rand(B, N, 2, generator=g) * wh,
+         "depth": 3.0 + torch.rand(2, B, 26, 34, generator=g),
+         "R_s": so3exp_map(0.05 * torch.randn(B, 3, generator=g)),
+         "t_s": 0.05 * torch.randn(B, 3, generator=g),
+         "dR": so3exp_map(0.3 * torch.randn(B, 3, generator=g)),
+         "t2": torch.randn(B, 3, generator=g),
+         "score": torch.rand(2, 24, 32, generator=g) / 32}
+    x["depth"][torch.rand(x["depth"].shape, generator=g) < 0.1] = 0.0
+    x["K_s"] = x["K"] * torch.tensor([0.1, 0.1, 1.0])[:, None]
+
+    def run(dev):
+        v = {k: t.to(dev) for k, t in x.items()}
+        T = Pose.from_Rt(v["R"], v["t"])
+        cam = Camera.from_calibration_matrix(v["K"], wh.to(dev))
+        cam_s = Camera.from_calibration_matrix(v["K_s"], (wh / 10).to(dev))
+        E = ep.T_to_E(T)
+        F = ep.T_to_F(cam, cam, T)
+        out = {"E_to_F": ep.E_to_F(cam, cam, E), "T_to_F": F,
+               "F_to_E": ep.F_to_E(cam, cam, F),
+               "sym_sq": ep.sym_epipolar_distance(v["p0"], v["p1"], F),
+               "sym": ep.sym_epipolar_distance(v["p0"], v["p1"], F, False)}
+        for ess in (True, False):
+            for allp in (True, False):
+                out[f"epi_{ess}_{allp}"] = ep.generalized_epi_dist(
+                    v["p0"], v["p1"], cam, cam, T, allp, ess)
+        out["warp"], out["warp_valid"] = depthproj.dense_warp_consistency(
+            v["depth"][0], v["depth"][1], Pose.from_Rt(v["R_s"], v["t_s"]),
+            cam_s, cam_s, ccth=4.0)
+        out["s2d"] = space_to_depth(v["score"], 8)
+        out["mat"] = T.as_4x4mat()
+        R2 = T.R @ v["dR"]
+        out["ang_mat"] = ep.angle_error_mat(T.R, R2)
+        out["ang_vec"] = ep.angle_error_vec(T.t, v["t2"])
+        out["rpe"] = torch.stack(ep.relative_pose_error(T, R2, v["t2"]))
+        out["decomp"] = ep.decompose_essential_matrix(E)
+        return out
+
+    cpu = run("cpu")
+    valid = cpu["warp_valid"]
+    require(0 < int(valid.sum()) < valid.numel(), "a trivial warp mask")
+    gpu = {k: tuple(t.cpu() for t in v) if isinstance(v, tuple)
+           else v.cpu() for k, v in run("cuda").items()}
+    worst = {}
+    for k, want in cpu.items():
+        got = gpu[k]
+        if k == "decomp":
+            for b in range(B):
+                pairs = [(got[0][b], want[0][b]), (got[1][b], want[1][b])]
+                crossed = [(got[0][b], want[1][b]), (got[1][b], want[0][b])]
+                e_r = min(max(max_err(a, c) for a, c in pairs),
+                          max(max_err(a, c) for a, c in crossed))
+                e_t = min(max_err(got[2][b], want[2][b]),
+                          max_err(got[2][b], -want[2][b]))
+                require(e_r <= 1e-5 and e_t <= 1e-5,
+                        f"decompose_essential_matrix: R {e_r:.2e}, t {e_t:.2e}")
+                worst[k] = max(worst.get(k, 0.0), e_r, e_t)
+        elif k in ("warp_valid", "mat"):
+            require(torch.equal(got, want), f"{k} differs")
+            worst[k] = 0.0
+        elif k.startswith(("ang", "rpe")):
+            e = max_err(got, want)
+            require(e <= 1e-3, f"{k}: {e:.2e} degree")
+            worst[k] = e
+        elif k == "s2d":
+            require(torch.equal(got[..., :-1], want[..., :-1])
+                    and max_err(got[..., -1], want[..., -1]) <= 1e-6,
+                    "space_to_depth differs")
+            worst[k] = max_err(got, want)
+        else:
+            floor = 1e-5 * float(want.abs().max())
+            bad = ((got - want).abs() > 1e-5 * want.abs() + floor).sum()
+            require(int(bad) == 0, f"{k}: {int(bad)} values beyond 1e-5")
+            worst[k] = max_err(got, want)
+    print("[geometry] the new functions on the card against the CPU, max "
+          "abs err: " + json.dumps({k: float(f"{v:.3g}")
+                                    for k, v in worst.items()}))
+
+
 def _steady_rate(log: str) -> float:
     m = re.search(r"steady rate: .* ([0-9.]+) steps/s", log)
     require(m is not None, "no steady rate in the entry's log")
@@ -4095,6 +4547,16 @@ def main() -> int:
         # phase 14a: the stage-2 entry under torchrun, NCCL
         dp_entry = timed("data-parallel entry (NCCL)", phase_dp_entry, data,
                          tmp, s1_final)
+        # phase 15: the SLAM chain on rendered MVSEC (phase 9's stage-1
+        # checkpoint), adaptive evaluation (phase 11's mini-EC and stage-2
+        # checkpoint), the new geometry functions
+        t15 = time.perf_counter()
+        slam15 = timed("SLAM on rendered MVSEC", phase_slam_mvsec, s1_final)
+        adaptive15 = timed("adaptive evaluation", phase_eval_adaptive, data,
+                           s2_final)
+        timed("geometry on the card", phase_geometry)
+        walls["phase 15"] = time.perf_counter() - t15
+        print(f"[wall] phase 15: {walls['phase 15']:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rep_ms = timed("representations", phase_representations)
@@ -4118,6 +4580,12 @@ def main() -> int:
         if r["name"] in dp["path_kernels"]:
             # the largest error over the ranks, each on its own tensors
             r["max_abs_err_dp_rank"] = dp["path_kernels"][r["name"]]
+        r["launches_slam_mvsec_front_end"] = slam15["launches"][r["name"]]
+        r["launches_eval_adaptive_forward"] = {
+            k: v[r["name"]] for k, v in adaptive15["launches"].items()}
+        if r["name"] in adaptive15["held"]:
+            r["max_abs_err_eval_adaptive"] = \
+                adaptive15["held"][r["name"]][1]
 
     print(json.dumps({"kernels": rows}))
     for tag, ms in (("flagship forward", fwd_ms),
@@ -4217,6 +4685,30 @@ def main() -> int:
     print(f"data-parallel entry: torchrun over {dp_entry['ranks']} NCCL "
           f"rank(s), 4 steps in {dp_entry['wall_s']:.1f} s (process wall), "
           f"on {smi}")
+    m15, res15 = slam15["metrics"], adaptive15["result"]
+    print(f"SLAM on rendered MVSEC (indoor_flying1, {SLAM_KF} keyframes at "
+          f"stride {SLAM_MVSEC_STRIDE}, top-k {SLAM_TOPK}, phase 9's "
+          f"stage-1 checkpoint): C {slam15['launches']['nms_rounds']} "
+          f"launches, extract {slam15['extract_ms']:.3f} ms a frame, "
+          f"{m15['mnn_matches_per_pair']} matches a pair, "
+          f"{m15['landmarks']} landmarks / {m15['observations']} "
+          f"observations, robust cost {m15['robust_cost'][0]} -> "
+          f"{m15['robust_cost'][-1]} in {SLAM_MVSEC_ITERS} LM iterations, "
+          f"BA {m15['ba_seconds']} s, ATE {slam15['ate'][0]:.5f} -> "
+          f"{slam15['ate'][1]:.5f} m ({100 * slam15['within'][1]:.1f}% of "
+          f"the matches within 1 px of the truth; on exact tracks "
+          f"{slam15['exact_ate'][0]:.5f} -> {slam15['exact_ate'][1]:.5f} "
+          f"m); sharded over 2 gloo ranks (exact tracks) "
+          f"{slam15['sharded']['final_cost_sharded']} against "
+          f"{slam15['sharded']['final_cost_single']}, on {smi}")
+    print(f"adaptive evaluation (EC test protocol, {ADAPTIVE_BATCHES} pairs, "
+          f"phase 11's stage-2 checkpoint): exit histogram "
+          f"{res15['exit_layer_hist']}, AUC@5/10/20 base "
+          f"{[res15['base'][f'auc@{t}'] for t in (5, 10, 20)]} adaptive "
+          f"{[res15['adaptive'][f'auc@{t}'] for t in (5, 10, 20)]}; a batch "
+          f"of 8: {res15['ms_per_batch8_base']} ms base, "
+          f"{res15['ms_per_batch8_adaptive']} ms adaptive (speed-up "
+          f"{res15['speedup']}), on {smi}")
     print(f"wall seconds by phase: {json.dumps(walls)}")
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -84,10 +84,12 @@ def pose_at(t: float, phase: float) -> np.ndarray:
     return T
 
 
-def pixel_rays() -> np.ndarray:
-    """K^-1 (u + 0.5, v + 0.5, 1) for every pixel, (H, W, 3) float32."""
-    u, v = np.meshgrid(np.arange(W), np.arange(H))
-    return np.stack([(u + 0.5 - CX) / FX, (v + 0.5 - CY) / FY,
+def pixel_rays(w: int = W, h: int = H, fx: float = FX, fy: float = FY,
+               cx: float = CX, cy: float = CY) -> np.ndarray:
+    """K^-1 (u + 0.5, v + 0.5, 1) for every pixel, (h, w, 3) float32 (the
+    EC camera by default)."""
+    u, v = np.meshgrid(np.arange(w), np.arange(h))
+    return np.stack([(u + 0.5 - cx) / fx, (v + 0.5 - cy) / fy,
                      np.ones_like(u, np.float32)], -1).astype(np.float32)
 
 

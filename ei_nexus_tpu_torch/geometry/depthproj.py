@@ -1,4 +1,4 @@
-"""Depth sampling and cross-view keypoint reprojection.
+"""Depth sampling, cross-view keypoint reprojection and dense warps.
 
 Counterpart of `ei_nexus_tpu/geometry/depthproj.py`: fixed-shape gathers
 with half-pixel centres (the value of pixel (i, j) lives at (j + 0.5,
@@ -82,3 +82,24 @@ def project(kpi: torch.Tensor, di: torch.Tensor,
         T_itoj.inv().transform(kpi_j_3d_j))
     consistent = ((kpi - kpi_j_i) ** 2).sum(dim=-1) < ccth
     return kpi_j, valid & consistent & validj_i & validdj
+
+
+def dense_warp_consistency(depthi: torch.Tensor, depthj: torch.Tensor,
+                           T_itoj: Pose, camera_i: Camera, camera_j: Camera,
+                           **kwargs):
+    """Warp every pixel centre of view i, with its depth, into view j:
+    depthi, depthj (..., H, W) -> (points in view j (..., H, W, 2) xy,
+    valid (..., H, W)); `kwargs` go to `project` (`ccth`: the round-trip
+    consistency check through view j's depth)."""
+    H, W = depthi.shape[-2:]
+    ys, xs = torch.meshgrid(
+        torch.arange(H, dtype=depthi.dtype, device=depthi.device),
+        torch.arange(W, dtype=depthi.dtype, device=depthi.device),
+        indexing="ij")
+    kpi = torch.stack([xs, ys], dim=-1).reshape(1, H * W, 2) + 0.5
+    kpi = kpi.expand(depthi.shape[:-2] + (H * W, 2))
+    di = depthi.reshape(depthi.shape[:-2] + (H * W,))
+    kpir, validir = project(kpi, di, depthj, camera_i, camera_j, T_itoj,
+                            di > 0, **kwargs)
+    return (kpir.reshape(depthi.shape[:-2] + (H, W, 2)),
+            validir.reshape(depthi.shape[:-2] + (H, W)))

@@ -89,6 +89,14 @@ class Pose:
     def dtype(self):
         return self.t.dtype
 
+    def as_4x4mat(self) -> torch.Tensor:
+        """(..., 4, 4): [R | t] over the row (0, 0, 0, 1)."""
+        bottom = torch.zeros(self.shape + (1, 4), dtype=self.dtype,
+                             device=self.t.device)
+        bottom[..., 0, 3] = 1.0
+        top = torch.cat([self.R, self.t[..., None]], dim=-1)
+        return torch.cat([top, bottom], dim=-2)
+
     def inv(self) -> "Pose":
         Rinv = self.R.mT
         return Pose(R=Rinv, t=-(Rinv @ self.t[..., None])[..., 0])

@@ -17,6 +17,11 @@ submodule such as one extractor or LightGlue):
    ffn.3. A training init's variables (every layer's assignment head and
    the token confidences) load into a model built with
    `training_heads=True`.
+An `.npz` of a JAX run's checkpoint (`tools/export_jax_checkpoint.py`
+writes one where JAX is installed: each leaf of `params` and
+`batch_stats` under its flattened flax path, "params/event_extractor/
+backbone/...") is read back into those variables by `read_jax_npz`, and
+`load_jax_npz` gives its state dict.
 A scanned LightGlue tree (the JAX package's `scan_layers=True`:
 `layers/layer`, `log_assignment` and `token_confidence`, each leaf with a
 leading (L,) axis) is unstacked onto `transformers.{i}`,
@@ -103,3 +108,26 @@ def load_jax_variables(variables: Mapping[str, Any]
                            + [_LEAVES[(col, name)]])
             state[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return state
+
+
+NPZ_SEP = "/"   # joins a leaf's flax path in an exported .npz
+
+
+def read_jax_npz(path: str) -> Dict[str, Any]:
+    """An exported JAX checkpoint (.npz of flattened flax paths) -> its
+    variables {"params": ..., "batch_stats": ...} as nested dicts of numpy
+    arrays."""
+    variables: Dict[str, Any] = {}
+    with np.load(path) as f:
+        for key in f.files:
+            *mods, leaf = key.split(NPZ_SEP)
+            node = variables
+            for m in mods:
+                node = node.setdefault(m, {})
+            node[leaf] = f[key]
+    return variables
+
+
+def load_jax_npz(path: str) -> Dict[str, torch.Tensor]:
+    """The port's state dict of an exported JAX checkpoint."""
+    return load_jax_variables(read_jax_npz(path))

@@ -8,6 +8,7 @@ from .pad import Padder
 from .detector import (
     logits_to_prob,
     depth_to_space,
+    space_to_depth,
     remove_border_scores,
     nms,
     select_topk_keypoints,
@@ -26,7 +27,8 @@ from .flash_kernel import flash_attention, segment_ids_from_mask
 
 __all__ = [
     "Padder",
-    "logits_to_prob", "depth_to_space", "remove_border_scores", "nms",
+    "logits_to_prob", "depth_to_space", "space_to_depth",
+    "remove_border_scores", "nms",
     "select_topk_keypoints", "smooth_score_mask", "dense_positions",
     "normalize_descriptors", "sample_descriptors_lowres",
     "sample_descriptors_fullres", "upsample_descriptors",

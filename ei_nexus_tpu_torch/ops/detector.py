@@ -42,6 +42,17 @@ def depth_to_space(prob: torch.Tensor, cell_size: int = 8) -> torch.Tensor:
     return p.reshape(B, h * cell_size, w * cell_size)
 
 
+def space_to_depth(score: torch.Tensor, cell_size: int = 8) -> torch.Tensor:
+    """(B, H, W) full-res map -> (B, h, w, cell^2+1) cells, the inverse of
+    `depth_to_space`, with a dustbin channel 1 - sum(cell) clamped at 0."""
+    B, H, W = score.shape
+    h, w = H // cell_size, W // cell_size
+    p = score.reshape(B, h, cell_size, w, cell_size).permute(0, 1, 3, 2, 4)
+    p = p.reshape(B, h, w, cell_size * cell_size)
+    dustbin = (1.0 - p.sum(dim=-1, keepdim=True)).clamp(min=0.0)
+    return torch.cat([p, dustbin], dim=-1)
+
+
 def remove_border_scores(score: torch.Tensor, border: int) -> torch.Tensor:
     """Zero the outer `border` pixels of a (B, H, W) score map."""
     if border <= 0:

@@ -1,4 +1,5 @@
-"""Checkpoints with `torch.save`, and the surgery between stages.
+"""Checkpoints with `torch.save`, the import of other formats, and the
+surgery between stages.
 
 Counterpart of `ei_nexus_tpu/train/checkpoint.py` (orbax there). A
 checkpoint is a directory holding `state.pt`: the model's state dict
@@ -64,12 +65,18 @@ def restore_checkpoint(path: str, state, params_only: bool = False
 
 
 def restore_any_checkpoint(path: str, state, model_config):
-    """A checkpoint directory of this package, or a reference `.pth` /
-    `.pt` state dict of a whole EIM (the released-checkpoint layout),
-    read through `models/port_torch.py` into `state.model` as the
-    reference's `strict=False` load does; returns (state, epoch), epoch 0
-    for a `.pth` (it carries no trainer state). `model_config` is the
-    model's `EIMConfig`."""
+    """A checkpoint directory of this package; a reference `.pth` / `.pt`
+    state dict of a whole EIM (the released-checkpoint layout), read
+    through `models/port_torch.py` into `state.model` as the reference's
+    `strict=False` load does; or an `.npz` exported from a JAX run
+    (`tools/export_jax_checkpoint.py`), carried across by
+    `models/port_jax.py` and loaded with `strict=True`. Returns (state,
+    epoch), epoch 0 for a `.pth` or `.npz` (they carry no trainer state).
+    `model_config` is the model's `EIMConfig`."""
+    if str(path).endswith(".npz"):
+        from ..models.port_jax import load_jax_npz
+        state.model.load_state_dict(load_jax_npz(path), strict=True)
+        return state, 0
     if str(path).endswith((".pth", ".pt")):
         from ..models.port_torch import load_eim_checkpoint_file
         cfg = model_config

@@ -71,7 +71,9 @@ def test_importing_the_port_loads_no_jax():
             "ei_nexus_tpu_torch.data.rectify, ei_nexus_tpu_torch.utils.setup, "
             "ei_nexus_tpu_torch.utils.profiling, "
             "ei_nexus_tpu_torch.utils.image_io, "
-            "ei_nexus_tpu_torch.utils.visualize; "
+            "ei_nexus_tpu_torch.utils.visualize, "
+            "ei_nexus_tpu_torch.data.mini_mvsec, "
+            "ei_nexus_tpu_torch.slam_mvsec, ei_nexus_tpu_torch.eval_adaptive; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -105,6 +107,13 @@ def test_entry_points_default_to_the_card():
         with pytest.raises(RuntimeError, match="CUDA"):
             entry.main(["--config", str(
                 ROOT / "configs" / "train_EIM_stage1_EC_SP_MNN.yaml")])
+    # the tools: the SLAM chain on MVSEC and the adaptive evaluation
+    from ei_nexus_tpu_torch import eval_adaptive, slam_mvsec
+    with pytest.raises(RuntimeError, match="CUDA"):
+        slam_mvsec.main(["--ckpt", "unread"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        eval_adaptive.main(["--config", str(
+            ROOT / "configs" / "train_EIM_stage2.yaml"), "--ckpt", "unread"])
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model("EIM", flagship_config(tiny=True)[0])
     ev = bursty_event_batch(np.random.default_rng(0), 1, 10, 16, 8, 8)
