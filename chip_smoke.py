@@ -27,8 +27,9 @@ Phases, each of which raises on failure:
     and G with the pack pass's own share (D also on the cross layout, read
     in place), F split into its c pass, pack pass and its two block kinds
     (each run alone); F's gradients are also held to a
-    relative norm, which planted faults (c = 0, c or the row statistics of
-    the neighbouring row) must break; kernel C (fixed-round NMS, one
+    relative norm, which planted faults of its inputs (the neighbouring
+    row's statistics, the row sum doubled, the neighbouring batch row's
+    key bias) must break; kernel C (fixed-round NMS, one
     launch of independent thread-block clusters of 8 blocks, each map or
     tile of a map held in one cluster's distributed shared memory for all
     rounds): its ptxas line at radius 4 and, for all 16 instances, the
@@ -54,8 +55,11 @@ Phases, each of which raises on failure:
     passes, D's self-attention v, which F reads in place), finite
     loss, grad_norm > 0, frozen parameters and BatchNorm statistics
     bit-unchanged, matcher parameters changed, the loss lower after 10
-    steps on the same batch and fill, then steps/s over 24 steps back to
-    back with the spread of single steps, and peak memory;
+    steps on the same batch and fill, D, F and C held against their plain
+    versions on the tensors one more step hands them (F's dq, dk, dv
+    within 1e-2 relative norm of `fused_attention_bwd_plain`), then
+    steps/s over 24 steps back to back with the spread of single steps,
+    and peak memory;
  5. one small float32 model on the CPU (plain versions) and on the card
     (kernels), same weights and inputs: the inference forward and one
     stage-2 step (same batch and fill), agreement bounded;
@@ -341,7 +345,10 @@ def _sum_ms(times: dict, fragment: str = "") -> float:
 # csrc/attention_bwd.cu) and their pack pass
 HOPPER_LIBS = ("self_attention", "qblock_attention", "cross_attention",
                "attention_fwd", "attention_bwd", "flash_segment")
-HOPPER_KERNELS = ("sm90_kernel", "attention_pack_kernel")
+# their kernels, by a fragment of the name: the loops, the pack pass and
+# F's c pass
+HOPPER_KERNELS = ("sm90_kernel", "attention_pack_kernel",
+                  "attention_bwd_rowsum_kernel")
 
 
 def check_hopper_build(logs: dict) -> dict:
@@ -467,8 +474,8 @@ def fused_bound_ms(kind: str, q: torch.Tensor, k: torch.Tensor) -> tuple:
     (B, h, N, d) queries and (B, h, M, d) keys. D: QK^T and PV (4BhNMd
     operations); reads q, k, v and the float32 bias, writes the output and
     the float32 row statistics (max and sum). F: the five products of the
-    TPU backward (10BhNMd); reads q, k, v, the output, dO, the bias and the
-    row statistics, writes dq, dk, dv."""
+    TPU backward (10BhNMd); reads q, k, v, dO, the bias and the row
+    statistics, writes dq, dk, dv."""
     B, h, N, d = q.shape
     M = k.shape[2]
     es = q.element_size()
@@ -477,7 +484,7 @@ def fused_bound_ms(kind: str, q: torch.Tensor, k: torch.Tensor) -> tuple:
         nbytes = (2 * N + 2 * M) * B * h * d * es + B * M * 4 + B * h * N * 8
     else:
         flops = 10.0 * B * h * N * M * d
-        nbytes = ((4 * N + 4 * M) * B * h * d * es + B * M * 4
+        nbytes = ((3 * N + 4 * M) * B * h * d * es + B * M * 4
                   + B * h * N * 8)
     return _bound(flops, PEAK_BF16_FLOPS, nbytes)
 
@@ -500,9 +507,9 @@ def check_fused(x, dtype, tol, gen):
     """Kernels D and F against their plain versions on both cases, with the
     last batch row's keys all masked (held alone too: a uniform softmax), F
     reading the v D read (its packed copy where D packed it, as
-    `fused_attention` hands it on), and planted faults of F (c = 0, c or
-    the row statistics of the neighbouring row) that F's relative-norm
-    check must catch; returns the largest errors (D, F), each case's
+    `fused_attention` hands it on), and planted faults of F's inputs (the
+    neighbouring row's statistics, the row sum doubled, the neighbouring
+    batch row's key bias) that F's relative-norm check must catch; returns the largest errors (D, F), each case's
     tensors for timing and F's largest relative norm."""
     from ei_nexus_tpu_torch.ops import attention_kernels as ak
     err_d = err_f = rel_f = 0.0
@@ -523,7 +530,7 @@ def check_fused(x, dtype, tol, gen):
         # dO as autograd hands it: a (B, h, N, d) view of (B, N, h, d)
         do = torch.randn(B, N, h, d, generator=gen, device="cuda").to(
             dtype).permute(0, 2, 1, 3)
-        got = ak.attention_bwd(q, k, v_read, out, do, bias, stats, scale)
+        got = ak.attention_bwd(q, k, v_read, do, bias, stats, scale)
         want = ak.fused_attention_bwd_plain(q, k, v, bias, do, scale)
         torch.cuda.synchronize()
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
@@ -539,14 +546,18 @@ def check_fused(x, dtype, tol, gen):
                         f"{dtype}: relative norm {r:.3e} > "
                         f"{BWD_REL[dtype]:g}")
                 err_f, rel_f = max(err_f, e), max(rel_f, r)
-        # F reads c = rowsum(dO o O) from the output: a zero output plants
-        # c = 0, a rolled one the neighbouring row's c
-        for o, st in ((torch.zeros_like(out), stats), (out.roll(1, 2), stats),
-                      (out, stats.roll(1, -1))):
-            bad = ak.attention_bwd(q, k, v_read, o, do, bias, st, scale)
-            caught = min(caught, max(rel_err(a, b)
-                                     for a, b in zip(bad, want)))
-        kept[case] = (q, k, v, mask, scale, bias, out, stats, do, v_read)
+        # F's inputs besides the operands: the neighbouring query row's
+        # statistics, the row sum doubled, the neighbouring batch row's bias
+        doubled = stats.clone()
+        doubled[1] *= 2
+        for b_, st in ((bias, stats.roll(1, -1)), (bias, doubled),
+                       (bias.roll(1, 0), stats)):
+            bad = ak.attention_bwd(q, k, v_read, do, b_, st, scale)
+            # NaN (a live row's bias on the masked row's statistics) is
+            # caught as well
+            caught = min(caught, max(float(np.nan_to_num(
+                rel_err(a, b), nan=np.inf)) for a, b in zip(bad, want)))
+        kept[case] = (q, k, v, mask, scale, bias, stats, do, v_read)
     torch.cuda.synchronize()
     require(caught > 5 * BWD_REL[dtype],
             f"a planted fault of attention_bwd moves the relative norm only "
@@ -852,13 +863,13 @@ def phase_kernels(logs: dict):
     # masked; SDPA's yardsticks take the unmasked rows of x["mask0"], as a
     # fully masked bool row is NaN there); F reads the v D packed, as in
     # the training step. D also on the cross layout (read in place)
-    q, k, v, mask, scale, bias, out, stats, do, v_read = \
+    q, k, v, mask, scale, bias, stats, do, v_read = \
         fused_errs[torch.bfloat16][2]["self"]
     t_d = cuda_ms(lambda: ak.attention_fwd(q, k, v, bias, scale))
     t_d_plain = cuda_ms(lambda: ak.fused_attention_plain(q, k, v, mask,
                                                          scale), iters=5)
-    t_f = cuda_ms(lambda: ak.attention_bwd(q, k, v_read, out, do, bias,
-                                           stats, scale))
+    t_f = cuda_ms(lambda: ak.attention_bwd(q, k, v_read, do, bias, stats,
+                                           scale))
     t_f_plain = cuda_ms(lambda: ak.fused_attention_bwd_plain(
         q, k, v, bias, do, scale), iters=5)
     qg, kg, vg = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
@@ -885,17 +896,17 @@ def phase_kernels(logs: dict):
           f"{_sum_ms(dev_d_all, 'sm90_kernel'):.4f}, pack "
           f"{_sum_ms(dev_d_all, 'attention_pack'):.4f}, all {dev_d:.4f}; "
           f"cross (in place) {dev_d_cross:.4f}")
-    dev_f_all = device_ms(lambda: ak.attention_bwd(q, k, v_read, out, do,
-                                                   bias, stats, scale))
+    dev_f_all = device_ms(lambda: ak.attention_bwd(q, k, v_read, do, bias,
+                                                   stats, scale))
     dev_f = _sum_ms(dev_f_all)
     # F's split: the c pass and the pack pass from the whole call; each
     # block kind from a call that runs it alone
-    f_split = {"c pass": _sum_ms(dev_f_all, "row_dot_kernel"),
+    f_split = {"c pass": _sum_ms(dev_f_all, "bwd_rowsum_kernel"),
                "pack": _sum_ms(dev_f_all, "attention_pack_kernel"),
                "loop": _sum_ms(dev_f_all, "sm90_kernel")}
     for blocks, kind in ((1, "dK/dV blocks alone"), (2, "dQ blocks alone")):
         f_split[kind] = _sum_ms(device_ms(lambda: ak.attention_bwd(
-            q, k, v_read, out, do, bias, stats, scale, blocks=blocks)),
+            q, k, v_read, do, bias, stats, scale, blocks=blocks)),
             "sm90_kernel")
     with torch.no_grad():
         dev_d_lib = _sum_ms(device_ms(sdpa_fwd))
@@ -1012,13 +1023,14 @@ def phase_kernels(logs: dict):
              rel_err_f32=fused_errs[torch.float32][3],
              ms=t_f, plain_ms=t_f_plain, bound_ms=b_f, bound_by=by_f,
              library_ms=t_f_lib,
-             design="bf16: c pass, pack pass (what the plan packs; none "
-                    "on the main path, where F reads the v D packed), then "
-                    "one TMA + wgmma warp-specialised launch of dK/dV "
-                    "blocks "
-                    "(64 keys, K and V resident, Q and dO streamed) and dQ "
-                    "blocks (64 queries, K and V streamed), no atomics, P "
-                    "from D's row max and sum; f32: one warp a row",
+             design="bf16: pack pass (what the plan packs; none on the "
+                    "main path, where F reads the v D packed), c pass "
+                    "(c = rowsum(dP o P) in float32, TMA + wgmma blocks of "
+                    "64 queries, K and V streamed), then one TMA + wgmma "
+                    "warp-specialised launch of dK/dV blocks (64 keys, K "
+                    "and V resident, Q and dO streamed) and dQ blocks (64 "
+                    "queries, K and V streamed), no atomics, P from D's "
+                    "row max and sum; f32: one warp a row",
              device_ms=dev_f, library_device_ms=dev_f_lib,
              c_pass_ms=f_split["c pass"], pack_ms=f_split["pack"],
              loop_ms=f_split["loop"],
@@ -1282,6 +1294,13 @@ def phase_stage2(tag: str = "stage2", built=None, homography=False):
           f"statistics) bit-unchanged; {moved} of {n_matcher} matcher "
           f"tensors changed")
     require(moved == n_matcher, "a matcher parameter did not change")
+
+    # D, F and C on the tensors one more step (the same batch and fill)
+    # hands them, against their plain versions
+    def one_more():
+        fill.manual_seed(1)
+        step(state, batch, fill)
+    print_path_kernels(tag, check_path_kernels(one_more))
 
     # steps back to back, an event between each: the window's mean rate
     # and the spread of single steps inside it
@@ -3522,12 +3541,10 @@ def check_path_kernels(run) -> dict:
     it recorded (`record_kernel_inputs`); each of those kernels then called
     again on those tensors and held against its plain version at phase 2's
     tolerances (D and F 2e-2 x max(1, max|ref|) in bfloat16; C
-    bit-exact), F also within BWD_REL's relative norm of
-    `attention_bwd_plain_from_out`, the plain version with c read from
-    D's output as F reads it. These launches are made after the path's
-    were counted. Returns {name: (shape, max abs err[, F's relative norm
-    against that version and against the plain one])} of the kernels the
-    step ran."""
+    bit-exact), F's dq, dk and dv also within BWD_REL's relative norm of
+    `fused_attention_bwd_plain`. These launches are made after the path's
+    were counted. Returns {name: (shape, max abs err[, F's relative
+    norm])} of the kernels the step ran."""
     from ei_nexus_tpu_torch.ops import attention_kernels as ak
     from ei_nexus_tpu_torch.ops import detector
 
@@ -3536,6 +3553,15 @@ def check_path_kernels(run) -> dict:
                                       (detector, "nms_rounds")))
     with torch.no_grad():
         return _hold_path_kernels(seen)
+
+
+def print_path_kernels(tag: str, held: dict) -> None:
+    """One line for each kernel `check_path_kernels` held."""
+    for name, (shape, err, *rel) in held.items():
+        print(f"[{tag}] {name} on the step's own tensors {shape} against "
+              f"its plain version: max|err| {err:.3e}"
+              + (f", relative norm of dq, dk, dv at most {rel[0]:.3e} "
+                 f"(bound {BWD_REL[torch.bfloat16]:g})" if rel else ""))
 
 
 def record_kernel_inputs(run, targets) -> dict:
@@ -3588,25 +3614,19 @@ def _hold_path_kernels(seen: dict) -> dict:
         out["attention_fwd"] = (list(q.shape), _attention_gap(
             f"attention_fwd at {tuple(q.shape)}", (got,), (want,), q.dtype))
     if "attention_bwd" in seen:
-        (q, k, v, o, do, bias, stats, scale), _ = seen["attention_bwd"]
-        got = ak.attention_bwd(q, k, v, o, do, bias, stats, scale)
-        plain = ak.fused_attention_bwd_plain(q, k, v, bias, do, scale)
-        from_out = attention_bwd_plain_from_out(q, k, v, o, do, bias,
-                                                    scale)
-        e = rel = rel_plain = 0.0
-        for name, a, b, c in zip(("dq", "dk", "dv"), got, from_out, plain):
-            bound = ATTN_TOL[q.dtype] * max(1.0,
-                                            float(b.float().abs().max()))
-            err, r = max_err(a, b), rel_err(a, b)
-            err_plain = max_err(a, c)
-            require(err <= bound and r <= BWD_REL[q.dtype]
-                    and err_plain <= bound,
+        (q, k, v, do, bias, stats, scale), _ = seen["attention_bwd"]
+        got = ak.attention_bwd(q, k, v, do, bias, stats, scale)
+        want = ak.fused_attention_bwd_plain(q, k, v, bias, do, scale)
+        e = _attention_gap(f"attention_bwd at {tuple(q.shape)}", got, want,
+                           q.dtype)
+        rel = 0.0
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            r = rel_err(a, b)
+            require(r <= BWD_REL[q.dtype],
                     f"attention_bwd {name} at {tuple(q.shape)} disagrees: "
-                    f"{err:.3e} (bound {bound:.3e}), relative norm {r:.3e}; "
-                    f"against the plain version {err_plain:.3e}")
-            e, rel = max(e, err), max(rel, r)
-            rel_plain = max(rel_plain, rel_err(a, c))
-        out["attention_bwd"] = (list(q.shape), e, rel, rel_plain)
+                    f"relative norm {r:.3e} > {BWD_REL[q.dtype]:g}")
+            rel = max(rel, r)
+        out["attention_bwd"] = (list(q.shape), e, rel)
     if "self_attention" in seen:
         (q, k, v, *mask), kw = seen["self_attention"]
         kv_mask = mask[0] if mask else kw.get("kv_mask")
@@ -3632,24 +3652,6 @@ def _hold_path_kernels(seen: dict) -> dict:
                 f"nms_rounds at {tuple(x.shape)} is not bit-exact")
         out["nms_rounds"] = (list(x.shape), 0.0)
     return out
-
-
-def attention_bwd_plain_from_out(q, k, v, out, do, bias, scale):
-    """Kernel F's function as `attention_kernels` states it: the plain
-    version's (dq, dk, dv) with c = rowsum(dO o O) read from D's output
-    `out`, as F reads it, where the plain version takes rowsum(dP o P).
-    The two agree but for O's rounding, which rules dQ and dK where a row's
-    softmax is near one-hot and dP - c cancels."""
-    do = do.to(q.dtype)
-    s = torch.matmul(q.float(), k.float().mT) * scale + bias[:, None, None]
-    p = torch.softmax(s, dim=-1)
-    dp = torch.matmul(do.float(), v.float().mT)
-    c = (do.float() * out.float()).sum(dim=-1, keepdim=True)
-    ds = (p * (dp - c)).to(q.dtype).float()
-    dq = (torch.matmul(ds, k.float()) * scale).to(q.dtype)
-    dv = torch.matmul(p.to(do.dtype).float().mT, do.float()).to(v.dtype)
-    dk = (torch.matmul(ds.mT, q.float()) * scale).to(k.dtype)
-    return dq, dk, dv
 
 
 def _dp_stage2(data, model, cfg, sd, batch, timed):
@@ -3941,9 +3943,7 @@ def phase_dp(world: int = DP_WORLD, backend: str = "gloo") -> dict:
           f"({dp / STAGE2_LR:.2f} lr); launches a rank "
           f"{r0['stage2']['launches']}")
     for r, got in enumerate(two):
-        print(f"[dp] rank {r}: the path's kernels on its own tensors "
-              f"against their plain versions (shape, max|err|): "
-              + json.dumps(got["stage2"]["path_kernels"]))
+        print_path_kernels(f"dp rank {r}", got["stage2"]["path_kernels"])
     require(dl <= DP_LOSS_REL and dg <= DP_GNORM_REL
             and gl <= DP_GRAD_LEAF and gn <= DP_GRAD_NORM
             and dp <= DP_PARAM_LRS * STAGE2_LR, "stage-2 world 2 != world 1")

@@ -8,29 +8,39 @@
 //   S = scale QK^T + bias,  P = softmax_row(S),
 //   dP = dO V^T,  c = rowsum(dP o P),  dS = P o (dP - c),
 //   dQ = scale dS K,  dV = P^T dO,  dK = scale dS^T Q,
-// rounding dS and P^T to the operand type before their products.
+// rounding dS and P^T to the operand type before their products. Like the
+// TPU kernel it takes (q, k, v, bias, dO) and the forward's row statistics,
+// not the forward's output.
 //
 // What bounds it on an H100: at the flagship shapes (B=8, h=4, N=M=1024,
 // d=64, bf16) the five products are 21.5 GFLOP against ~34 MB of inputs and
 // outputs, so it is compute-bound (~22 us at 989 TFLOP/s).
 //
 // Design. Hopper blocks run in no order, so nothing carries from one block
-// to the next, and the TPU kernel's per-problem sums become two kinds of
-// block in one launch, each owning its outputs (no atomics, so the sums
-// are the same from run to run):
-//  - dK/dV blocks own 64 keys and loop over 64-query tiles: S^T = K Q^T
-//    and dP^T = V dO^T, P^T = exp(S^T - m) / l from the forward's row
-//    statistics (the TPU's pass-1 m and Z, not a softmax of S^T),
-//    dV += P^T dO, dK += dS^T Q;
-//  - dQ blocks own 64 queries and loop over 64-key tiles: S, P, dP, dS as
+// to the next, and the TPU kernel's per-problem sums become blocks that
+// each own their outputs (no atomics, so the sums are the same from run to
+// run), in two launches:
+//  - the c pass: blocks own 64 queries and loop over 64-key tiles: S = Q
+//    K^T and dP = dO V^T, P = exp(S - m) / l from the forward's row
+//    statistics (the TPU's pass-1 m and Z), c += P o dP in float32, summed
+//    over the row's threads and written once a row. c is the TPU kernel's
+//    rowsum(dP o P) from these same P and dP; FlashAttention-2's
+//    rowsum(dO o O) would read O rounded to bf16, and where a row's value
+//    rows nearly coincide (or its softmax is one-hot) dP - c cancels below
+//    that rounding, which then rules dQ and dK;
+//  - the main launch, two kinds of block: dK/dV blocks own 64 keys and
+//    loop over 64-query tiles: S^T = K Q^T and dP^T = V dO^T, P^T =
+//    exp(S^T - m) / l (not a softmax of S^T), dV += P^T dO, dK += dS^T Q;
+//    dQ blocks own 64 queries and loop over 64-key tiles: S, P, dP, dS as
 //    above, dQ += dS K.
-// So S and dP are computed twice (seven products instead of five), the
-// price of independent blocks. c is rowsum(dO o O) (FlashAttention-2),
-// equal to rowsum(dP o P) up to the rounding of O to the operand type; a
-// small first launch computes it once per row. P is rebuilt from the row
-// max m and the row sum l that kernel D saves, with s - m formed before
-// anything else, so a fully masked row (every score -1e9) gets P = 1/M as
-// the plain version does.
+// So S and dP are computed three times (nine products instead of five),
+// the price of independent blocks: every dK/dV block needs the c of all
+// queries before its first tile. (The other order, dQ blocks taking c in a
+// first sweep of their keys and the dK/dV blocks in a launch of their
+// own, costs the same products and serialises the two block kinds.) P is
+// rebuilt from the row max m and the row sum l that kernel D saves, with
+// s - m formed before anything else, so a fully masked row (every score
+// -1e9) gets P = 1/M as the plain version does.
 //  - bfloat16 (the main path): the Hopper machinery of flash_sm90.cuh. A
 //    block is one consumer warpgroup on wgmma and a producer warpgroup
 //    that gives its registers back; the producer loads the block's two
@@ -43,21 +53,27 @@
 //    rounded to bf16 where the plain version rounds them, and enter
 //    dV += P^T dO, dK += dS^T Q and dQ += dS K as the register A operand,
 //    the streamed tile serving as the transposed (MN-major) B operand, as V
-//    does in the forward loop. Operands the TMA cannot read in place (the
-//    stride-3 v of SelfBlock's Wqkv split) are packed first; the rotated q
-//    and k, dO and the output (read by the c pass) are read in place.
-//  - float32 (comparisons): one warp per output row on the CUDA cores.
+//    does in the forward loop. The c pass is a dQ block without the dQ
+//    product. Operands the TMA cannot read in place (the stride-3 v of
+//    SelfBlock's Wqkv split) are packed first, once for both launches; the
+//    rotated q and k and dO are read in place.
+//    D's row max and sum fit P here: S comes from the same wgmma
+//    products as in D's loop, so sum_j P_ij is 1 to l's rounding.
+//  - float32 (comparisons): one warp per row on the CUDA cores, each score
+//    summed in kernel D's order, c in a first sweep of each query row's
+//    keys (its own launch), then dQ rows sweeping them again and dK/dV
+//    rows sweeping the queries.
 #include "flash_attention.cuh"
 #include "flash_sm90.cuh"
 
 namespace ei {
 
 struct BwdProblem {
-  Operand q, k, v, o, dout;  // (B, h, N|M, d) through strides
-  const float* bias;         // (B, nk) additive key-side bias
-  const float* m;            // (B, heads, nq) forward row max
-  const float* l;            // (B, heads, nq) forward row sum of exp(s - m)
-  float* c;                  // (B, heads, nq) scratch: rowsum(dO o O)
+  Operand q, k, v, dout;  // (B, h, N|M, d) through strides
+  const float* bias;      // (B, nk) additive key-side bias
+  const float* m;         // (B, heads, nq) forward row max
+  const float* l;         // (B, heads, nq) forward row sum of exp(s - m)
+  float* c;               // (B, heads, nq) scratch: rowsum(dP o P)
   Output dq, dk, dv;
   int heads, nq, nk;
   float scale;
@@ -81,41 +97,80 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// c[b, h, n] = sum_d dO[n, d] O[n, d] in float32, one warp a row.
-template <typename T>
-__global__ void __launch_bounds__(256) row_dot_kernel(const BwdProblem p,
-                                                      long long rows) {
+// The warp lane's d of the float32 rows: lane (i = 0) and lane + 32 (i = 1).
+__device__ __forceinline__ int lane_d(int i) {
+  return threadIdx.x % 32 + 32 * i;
+}
+
+// ---------------------------------------------------------------------------
+// float32 instance: one warp per row, lane l holding d = l, l + 32
+// ---------------------------------------------------------------------------
+
+// The score q . k of two rows summed as kernel D's float32 loop sums it
+// (fused multiply-adds over d = 0 .. 63 in order; every lane alike), so
+// that D's row max and row sum fit these scores bit for bit: in another
+// order the scores move by ~1e-5 and sum_j P_ij leaves 1 by as much, which
+// c = rowsum(dP o P) carries into dP - c, more than dP - c itself where a
+// softmax row is one-hot.
+__device__ __forceinline__ float score(const float* q, long long qd,
+                                       const float* k, long long kd) {
+  float s = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < 64; ++d) s = fmaf(q[d * qd], k[d * kd], s);
+  return s;
+}
+
+// P and dP of query row q (b, h) at key j (the lanes' dO values g0, g1; the
+// row's statistics m, l); the key's lane values back in k0, k1.
+__device__ __forceinline__ float2 p_dp(const BwdProblem& p, int b, int h,
+                                       int j, const float* q, float g0,
+                                       float g1, float m, float l, float& k0,
+                                       float& k1) {
+  const float* k = row_ptr<float>(p.k, b, h, j);
+  const float* v = row_ptr<float>(p.v, b, h, j);
+  k0 = k[lane_d(0) * p.k.sd];
+  k1 = k[lane_d(1) * p.k.sd];
+  const float s = score(q, p.q.sd, k, p.k.sd);
+  const float dp = warp_sum(g0 * v[lane_d(0) * p.v.sd] +
+                            g1 * v[lane_d(1) * p.v.sd]);
+  const float x =
+      __fadd_rn(__fmul_rn(s, p.scale), p.bias[(long long)b * p.nk + j]);
+  return make_float2(__fdiv_rn(expf(__fsub_rn(x, m)), l), dp);
+}
+
+// The c pass: c[b, h, i] = sum_j P_ij dP_ij in float32, one warp a query
+// row sweeping its keys. The sum is compensated (Kahan): dP - c cancels on
+// the inputs where c matters, and a running sum over M keys would carry
+// ~sqrt(M) roundings into it.
+__global__ void __launch_bounds__(256) bwd_rowsum_kernel(const BwdProblem p,
+                                                         int B) {
   const long long w = (long long)blockIdx.x * 8 + threadIdx.x / 32;
-  if (w >= rows) return;
-  const int lane = threadIdx.x % 32;
-  const int n = (int)(w % p.nq);
+  if (w >= (long long)B * p.heads * p.nq) return;
+  const int i = (int)(w % p.nq);
   const int h = (int)((w / p.nq) % p.heads);
   const int b = (int)(w / ((long long)p.nq * p.heads));
-  const T* o = row_ptr<T>(p.o, b, h, n);
-  const T* g = row_ptr<T>(p.dout, b, h, n);
-  float s = to_f(g[lane * p.dout.sd]) * to_f(o[lane * p.o.sd]) +
-            to_f(g[(lane + 32) * p.dout.sd]) * to_f(o[(lane + 32) * p.o.sd]);
-  s = warp_sum(s);
-  if (lane == 0) p.c[w] = s;
+  const float* q = row_ptr<float>(p.q, b, h, i);
+  const float* g = row_ptr<float>(p.dout, b, h, i);
+  const float g0 = g[lane_d(0) * p.dout.sd], g1 = g[lane_d(1) * p.dout.sd];
+  const float m = p.m[w], l = p.l[w];
+  float c = 0.f, lost = 0.f, k0, k1;
+  for (int j = 0; j < p.nk; ++j) {
+    const float2 pd = p_dp(p, b, h, j, q, g0, g1, m, l, k0, k1);
+    const float y = __fsub_rn(__fmul_rn(pd.x, pd.y), lost);
+    const float t = __fadd_rn(c, y);
+    lost = __fsub_rn(__fsub_rn(t, c), y);
+    c = t;
+  }
+  if (threadIdx.x % 32 == 0) p.c[w] = c;
 }
 
-template <typename T>
-static int launch_row_dot(const BwdProblem& p, int B, cudaStream_t stream) {
-  const long long rows = (long long)B * p.heads * p.nq;
-  row_dot_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p, rows);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// float32 instance: one warp per output row, lane l holding d = l, l + 32
-// ---------------------------------------------------------------------------
-
+// dQ rows (a second sweep of the keys), then dK and dV rows (a sweep of
+// the queries), reading the c pass's c.
 __global__ void __launch_bounds__(256) bwd_rows_kernel(const BwdProblem p,
                                                        int B) {
   using T = float;
   long long w = (long long)blockIdx.x * 8 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int d0 = lane, d1 = lane + 32;
+  const int d0 = lane_d(0), d1 = lane_d(1);
   const long long q_rows = (long long)B * p.heads * p.nq;
   const long long k_rows = (long long)B * p.heads * p.nk;
   if (w < q_rows) {
@@ -125,21 +180,12 @@ __global__ void __launch_bounds__(256) bwd_rows_kernel(const BwdProblem p,
     const int b = (int)(w / ((long long)p.nq * p.heads));
     const T* q = row_ptr<T>(p.q, b, h, i);
     const T* g = row_ptr<T>(p.dout, b, h, i);
-    const float q0 = q[d0 * p.q.sd], q1 = q[d1 * p.q.sd];
     const float g0 = g[d0 * p.dout.sd], g1 = g[d1 * p.dout.sd];
-    const long long r = ((long long)b * p.heads + h) * p.nq + i;
-    const float m = p.m[r], l = p.l[r], c = p.c[r];
-    float a0 = 0.f, a1 = 0.f;
+    const float m = p.m[w], l = p.l[w], c = p.c[w];
+    float a0 = 0.f, a1 = 0.f, k0, k1;
     for (int j = 0; j < p.nk; ++j) {
-      const T* k = row_ptr<T>(p.k, b, h, j);
-      const T* v = row_ptr<T>(p.v, b, h, j);
-      const float k0 = k[d0 * p.k.sd], k1 = k[d1 * p.k.sd];
-      const float s = warp_sum(q0 * k0 + q1 * k1);
-      const float dp = warp_sum(g0 * v[d0 * p.v.sd] + g1 * v[d1 * p.v.sd]);
-      const float x = __fadd_rn(__fmul_rn(s, p.scale),
-                                p.bias[(long long)b * p.nk + j]);
-      const float pr = __fdiv_rn(expf(__fsub_rn(x, m)), l);
-      const float ds = __fmul_rn(pr, __fsub_rn(dp, c));
+      const float2 pd = p_dp(p, b, h, j, q, g0, g1, m, l, k0, k1);
+      const float ds = __fmul_rn(pd.x, __fsub_rn(pd.y, c));
       a0 = fmaf(ds, k0, a0);
       a1 = fmaf(ds, k1, a1);
     }
@@ -156,7 +202,6 @@ __global__ void __launch_bounds__(256) bwd_rows_kernel(const BwdProblem p,
   const int b = (int)(w / ((long long)p.nk * p.heads));
   const T* k = row_ptr<T>(p.k, b, h, j);
   const T* v = row_ptr<T>(p.v, b, h, j);
-  const float k0 = k[d0 * p.k.sd], k1 = k[d1 * p.k.sd];
   const float v0 = v[d0 * p.v.sd], v1 = v[d1 * p.v.sd];
   const float bias = p.bias[(long long)b * p.nk + j];
   const long long r0 = ((long long)b * p.heads + h) * p.nq;
@@ -166,7 +211,7 @@ __global__ void __launch_bounds__(256) bwd_rows_kernel(const BwdProblem p,
     const T* g = row_ptr<T>(p.dout, b, h, i);
     const float q0 = q[d0 * p.q.sd], q1 = q[d1 * p.q.sd];
     const float g0 = g[d0 * p.dout.sd], g1 = g[d1 * p.dout.sd];
-    const float s = warp_sum(k0 * q0 + k1 * q1);
+    const float s = score(q, p.q.sd, k, p.k.sd);
     const float dp = warp_sum(v0 * g0 + v1 * g1);
     const float x = __fadd_rn(__fmul_rn(s, p.scale), bias);
     const float pr = __fdiv_rn(expf(__fsub_rn(x, p.m[r0 + i])), p.l[r0 + i]);
@@ -198,12 +243,17 @@ struct BwdConfig {
   static constexpr int nwg = 1, threads = 256, min_blocks = 2,
                        consumer_regs = 232;
 };
+// The c pass's blocks are dQ blocks without the dQ product, at the same
+// counts; a type of its own, as `configure` keeps one kernel's result a
+// type.
+struct BwdRowsumConfig : BwdConfig {};
 
 struct BwdShared {
   __nv_bfloat16 res[2][64 * kD];       // resident: K, V or Q, dO (1024-
   __nv_bfloat16 a[kStages][64 * kD];   // byte aligned tiles); streamed:
   __nv_bfloat16 b[kStages][64 * kD];   // Q, dO (dK/dV) or K, V (dQ)
-  // dK/dV: the streamed queries' m, 1/l and c; dQ: the keys' bias in [0]
+  // dK/dV: the streamed queries' m, 1/l and c; dQ and c pass: the keys'
+  // bias in [0]
   float row[kStages][3][64];
   uint64_t full[kStages], empty[kStages], resbar;
 };
@@ -213,7 +263,8 @@ struct BwdArgs {
   const float* bias;  // (B, nk) float32
   const float* m;     // (B, H, nq) float32 row max
   const float* l;     // (B, H, nq) float32 row sum of exp(s - m)
-  const float* c;     // (B, H, nq) float32 rowsum(dO o O)
+  float* c;           // (B, H, nq) float32 rowsum(dP o P): the c pass
+                      // writes it, the main launch reads it
   __nv_bfloat16* out[3];  // dq (B, H, nq, 64), dk, dv (B, H, nk, 64)
   long long os[3][3];     // their (b, h, n) element strides; d unit
   int H, nq, nk, nkb;     // nkb: the dK/dV blocks of a (b, h) problem
@@ -293,15 +344,19 @@ __device__ __forceinline__ void bwd_keys(BwdShared& S, const BwdArgs& a,
   store_tile(dk, {a.scale, a.scale}, a.out[1], a.os[1], b, h, k0, a.nk);
 }
 
-// dQ block: the warpgroup owns queries q0 .. q0 + 63 (Q, dO resident) and
-// loops over the ntiles streamed 64-key tiles of K and V.
+// dQ block (kC false): the warpgroup owns queries q0 .. q0 + 63 (Q, dO
+// resident) and loops over the ntiles streamed 64-key tiles of K and V.
+// The c pass (kC true) is the same block without the dQ product: it sums
+// P o dP over each row's keys in float32 and writes the row's c.
+template <bool kC>
 __device__ __forceinline__ void bwd_queries(BwdShared& S, const BwdArgs& a,
                                             int q0, int h, int b,
                                             int ntiles) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   // the statistics of the thread's queries, rows g and g + 8 of the warp;
-  // past the last query P = 0
+  // past the last query P = 0. The c pass starts c at 0 and sums the
+  // thread's part of the row into it
   float m[2], il[2], c[2];
   const long long row0 = ((long long)b * a.H + h) * a.nq;
 #pragma unroll
@@ -310,7 +365,7 @@ __device__ __forceinline__ void bwd_queries(BwdShared& S, const BwdArgs& a,
     const bool in = n < a.nq;
     m[hr] = in ? a.m[row0 + n] : INFINITY;
     il[hr] = in ? 1.f / a.l[row0 + n] : 0.f;
-    c[hr] = in ? a.c[row0 + n] : 0.f;
+    c[hr] = in && !kC ? a.c[row0 + n] : 0.f;
   }
   const uint64_t dq_t = smem_desc(S.res[0]), ddo_t = smem_desc(S.res[1]);
   float dq[32];
@@ -342,36 +397,53 @@ __device__ __forceinline__ void bwd_queries(BwdShared& S, const BwdArgs& a,
         const float x = __fadd_rn(__fmul_rn(s[4 * j + e], a.scale),
                                   (e & 1) ? bb.y : bb.x);
         const float p = __fmul_rn(exp_diff(x, m[hr]), il[hr]);
-        s[4 * j + e] = __fmul_rn(p, __fsub_rn(dp[4 * j + e], c[hr]));  // dS
+        if constexpr (kC)
+          c[hr] = fmaf(p, dp[4 * j + e], c[hr]);
+        else
+          s[4 * j + e] = __fmul_rn(p, __fsub_rn(dp[4 * j + e], c[hr]));  // dS
       }
     }
-    uint32_t da[4][4];
-    a_operand(s, da);
+    if constexpr (!kC) {
+      uint32_t da[4][4];
+      a_operand(s, da);
 
-    fence_acc(dq);
-    wgmma_fence();
-    product_rs(dq, da, dk_t);  // dQ += dS K
-    wgmma_commit();
-    wgmma_wait();
-    fence_acc(dq);
+      fence_acc(dq);
+      wgmma_fence();
+      product_rs(dq, da, dk_t);  // dQ += dS K
+      wgmma_commit();
+      wgmma_wait();
+      fence_acc(dq);
+    }
     __syncwarp();
     if (lane == 0) mbar_arrive(&S.empty[st]);
   }
-  store_tile(dq, {a.scale, a.scale}, a.out[0], a.os[0], b, h, q0, a.nq);
+  if constexpr (kC) {
+    // a row's keys live in the four lanes of a quad
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      c[hr] += __shfl_xor_sync(0xffffffffu, c[hr], 1);
+      c[hr] += __shfl_xor_sync(0xffffffffu, c[hr], 2);
+      const int n = q0 + 16 * warp + g + 8 * hr;
+      if (t == 0 && n < a.nq) a.c[row0 + n] = c[hr];
+    }
+  } else {
+    store_tile(dq, {a.scale, a.scale}, a.out[0], a.os[0], b, h, q0, a.nq);
+  }
 }
 
-// Block x = a.x0 + blockIdx.x: a dK/dV block if x < a.nkb, otherwise a dQ
-// block, of problem (blockIdx.z, blockIdx.y). tq, tdo: (64, nq, H, B)
+// Block x = a.x0 + blockIdx.x of problem (blockIdx.z, blockIdx.y): in the
+// main launch (kC false) a dK/dV block if x < a.nkb, otherwise a dQ block;
+// in the c pass (kC true, a.x0 = a.nkb) a c block. tq, tdo: (64, nq, H, B)
 // maps; tk, tv: (64, nk, H, B).
-__global__ void __launch_bounds__(BwdConfig::threads, BwdConfig::min_blocks)
-    attention_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
-                              const __grid_constant__ CUtensorMap tk,
-                              const __grid_constant__ CUtensorMap tv,
-                              const __grid_constant__ CUtensorMap tdo,
-                              const BwdArgs a) {
+template <bool kC>
+__device__ __forceinline__ void bwd_block(const CUtensorMap& tq,
+                                          const CUtensorMap& tk,
+                                          const CUtensorMap& tv,
+                                          const CUtensorMap& tdo,
+                                          const BwdArgs& a) {
   auto& S = shared_as<BwdShared>();
   const int x = a.x0 + (int)blockIdx.x;
-  const bool keys = x < a.nkb;
+  const bool keys = !kC && x < a.nkb;
   const int r0 = 64 * (keys ? x : x - a.nkb);
   const int h = blockIdx.y, b = blockIdx.z;
   const int ntiles = ((keys ? a.nq : a.nk) + 63) / 64;
@@ -434,23 +506,41 @@ __global__ void __launch_bounds__(BwdConfig::threads, BwdConfig::min_blocks)
     if (keys)
       bwd_keys(S, a, r0, h, b, ntiles);
     else
-      bwd_queries(S, a, r0, h, b, ntiles);
+      bwd_queries<kC>(S, a, r0, h, b, ntiles);
   }
+}
+
+__global__ void __launch_bounds__(BwdConfig::threads, BwdConfig::min_blocks)
+    attention_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const BwdArgs a) {
+  bwd_block<false>(tq, tk, tv, tdo, a);
+}
+
+__global__ void __launch_bounds__(BwdConfig::threads, BwdConfig::min_blocks)
+    attention_bwd_rowsum_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tdo,
+                                const BwdArgs a) {
+  bwd_block<true>(tq, tk, tv, tdo, a);
 }
 
 }  // namespace sm90
 }  // namespace ei
 
-// float32: q, o, dout: (B, H, N, 64); k, v: (B, H, M, 64), through
-// `in_strides` (20 element strides: q, k, v, o, dout, each (b, h, n, d));
+// float32: q, dout: (B, H, N, 64); k, v: (B, H, M, 64), through
+// `in_strides` (16 element strides: q, k, v, dout, each (b, h, n, d));
 // bias: (B, M) float32 contiguous; stats: (2, B, H, N) float32 contiguous,
 // kernel D's row max then row sum; c: (B, H, N) float32 scratch; dq:
 // (B, H, N, 64), dk, dv: (B, H, M, 64) through `out_strides` (12: dq, dk,
 // dv). Returns the CUDA error code of the launches (0 on success); bfloat16
 // takes ei_attention_bwd_sm90.
 extern "C" int ei_attention_bwd(int dtype, const void* q, const void* k,
-                                const void* v, const void* o,
-                                const void* dout, const long long* in_strides,
+                                const void* v, const void* dout,
+                                const long long* in_strides,
                                 const float* bias, const float* stats,
                                 float* c, void* dq, void* dk, void* dv,
                                 const long long* out_strides, int B, int H,
@@ -460,8 +550,7 @@ extern "C" int ei_attention_bwd(int dtype, const void* q, const void* k,
   p.q = ei::make_operand(q, in_strides);
   p.k = ei::make_operand(k, in_strides + 4);
   p.v = ei::make_operand(v, in_strides + 8);
-  p.o = ei::make_operand(o, in_strides + 12);
-  p.dout = ei::make_operand(dout, in_strides + 16);
+  p.dout = ei::make_operand(dout, in_strides + 12);
   p.bias = bias;
   p.m = stats;
   p.l = stats + (long long)B * H * N;
@@ -474,56 +563,53 @@ extern "C" int ei_attention_bwd(int dtype, const void* q, const void* k,
   p.nk = M;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = ei::launch_row_dot<float>(p, B, s);
+  const long long rows = (long long)B * H * N;
+  ei::bwd_rowsum_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(p, B);
+  const int err = (int)cudaGetLastError();
   if (err != 0) return err;
   const long long all = (long long)B * H * (N + M);
   ei::bwd_rows_kernel<<<(unsigned)((all + 7) / 8), 256, 0, s>>>(p, B);
   return (int)cudaGetLastError();
 }
 
-// bfloat16: the c pass, the pack pass (where the operand plan asks for it)
+// bfloat16: the pack pass (where the operand plan asks for it), the c pass
 // and the Hopper loop. ops: q, k, v, dO as 4 x 8 long longs
-// (ei::sm90::read_operand); o, dout: the output and dO for the c pass,
-// through `c_strides` (8: o, dout, each (b, h, n, d)); bias: (B, M) float32
-// contiguous; stats: (2, B, H, N) float32 contiguous (row max, row sum);
-// c: (B, H, N) float32 scratch; dq: (B, H, N, 64), dk, dv: (B, H, M, 64)
-// bf16 through `out_strides` (9: dq, dk, dv, each (b, h, n); d unit);
-// blocks: the block kinds to run (bit 0 the dK/dV blocks, bit 1 the dQ
-// blocks; 3 for the gradients, one alone to time it). Returns 0, a CUDA
-// error code or one of ei::sm90's kErr* codes.
-extern "C" int ei_attention_bwd_sm90(const long long* ops, const void* o,
-                                     const void* dout,
-                                     const long long* c_strides,
-                                     const float* bias, const float* stats,
-                                     float* c, void* dq, void* dk, void* dv,
+// (ei::sm90::read_operand); bias: (B, M) float32 contiguous; stats:
+// (2, B, H, N) float32 contiguous (row max, row sum); c: (B, H, N) float32
+// scratch; dq: (B, H, N, 64), dk, dv: (B, H, M, 64) bf16 through
+// `out_strides` (9: dq, dk, dv, each (b, h, n); d unit); blocks: the block
+// kinds of the main launch to run (bit 0 the dK/dV blocks, bit 1 the dQ
+// blocks; 3 for the gradients, one alone to time it; the c pass runs
+// always). Returns 0, a CUDA error code or one of ei::sm90's kErr* codes.
+extern "C" int ei_attention_bwd_sm90(const long long* ops, const float* bias,
+                                     const float* stats, float* c, void* dq,
+                                     void* dk, void* dv,
                                      const long long* out_strides, int B,
                                      int H, int N, int M, float scale,
                                      int blocks, void* stream) {
   using namespace ei::sm90;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ei::BwdProblem p{};
-  p.o = ei::make_operand(o, c_strides);
-  p.dout = ei::make_operand(dout, c_strides + 4);
-  p.c = c;
-  p.heads = H;
-  p.nq = N;
-  p.nk = M;
-  int err = ei::launch_row_dot<__nv_bfloat16>(p, B, s);
-  if (err != 0) return err;
+  BwdArgs a{};
+  a.nkb = (M + 63) / 64;
+  const int nqb = (N + 63) / 64;
+  const int nx = ((blocks & 1) ? a.nkb : 0) + ((blocks & 2) ? nqb : 0);
+  if (nx == 0) return (int)cudaErrorInvalidValue;
 
   Operand90 op[4];
   const int rows[4] = {N, M, M, N};
-  err = pack_operands(op, ops, rows, 4, 0, nullptr, nullptr, B, H, s);
+  int err = pack_operands(op, ops, rows, 4, 0, nullptr, nullptr, B, H, s);
   if (err != 0) return err;
   CUtensorMap maps[4];
   for (int i = 0; i < 4; ++i) {
     err = operand_map(&maps[i], op[i], rows[i], H, B);
     if (err != 0) return err;
   }
+  err = configure<BwdRowsumConfig>(
+      reinterpret_cast<const void*>(attention_bwd_rowsum_kernel), kBwdSmem);
+  if (err != 0) return err;
   err = configure<BwdConfig>(
       reinterpret_cast<const void*>(attention_bwd_sm90_kernel), kBwdSmem);
   if (err != 0) return err;
-  BwdArgs a{};
   a.bias = bias;
   a.m = stats;
   a.l = stats + (long long)B * H * N;
@@ -536,15 +622,17 @@ extern "C" int ei_attention_bwd_sm90(const long long* ops, const void* o,
   a.H = H;
   a.nq = N;
   a.nk = M;
-  a.nkb = (M + 63) / 64;
-  a.x0 = (blocks & 1) ? 0 : a.nkb;
   a.scale = scale;
-  const int nx =
-      ((blocks & 1) ? a.nkb : 0) + ((blocks & 2) ? (N + 63) / 64 : 0);
-  if (nx == 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(nx, H, B);
-  attention_bwd_sm90_kernel<<<grid, BwdConfig::threads, kBwdSmem, s>>>(
-      maps[0], maps[1], maps[2], maps[3], a);
+  // the c pass: one block a 64-query tile, block x = nkb + blockIdx.x
+  a.x0 = a.nkb;
+  attention_bwd_rowsum_kernel<<<dim3(nqb, H, B), BwdConfig::threads,
+                                kBwdSmem, s>>>(maps[0], maps[1], maps[2],
+                                               maps[3], a);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  a.x0 = (blocks & 1) ? 0 : a.nkb;
+  attention_bwd_sm90_kernel<<<dim3(nx, H, B), BwdConfig::threads, kBwdSmem,
+                              s>>>(maps[0], maps[1], maps[2], maps[3], a);
   return (int)cudaGetLastError();
 }
 

@@ -669,12 +669,26 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled works in the calling thread's current context, which
+// a thread that has made no runtime call yet does not have: autograd's
+// device thread running a backward whose first node is kernel F. So the
+// first encode of each thread has the runtime bind its primary context
+// (cudaFree of nullptr frees nothing).
+inline void bind_context() {
+  static thread_local bool bound = false;
+  if (!bound) {
+    cudaFree(nullptr);
+    bound = true;
+  }
+}
+
 // 4-D (d, rows, h, B) map of bf16 rows, 64x64 boxes, 128-byte swizzle;
 // element strides of rows, heads and batches.
 inline int encode_map(CUtensorMap* map, const void* ptr, int rows, int H,
                       int B, long long sn, long long sh, long long sb) {
   auto encode = tensor_map_encoder();
   if (encode == nullptr) return kErrNoEncoder;
+  bind_context();
   cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)rows, (cuuint64_t)H,
                         (cuuint64_t)B};
   cuuint64_t strides[3] = {(cuuint64_t)sn * 2, (cuuint64_t)sh * 2,

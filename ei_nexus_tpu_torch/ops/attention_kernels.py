@@ -46,11 +46,15 @@ reads it in place.
 The backward's plain version reproduces the TPU kernel's rounding points:
 dO in the operand dtype, dS = P o (dP - c) and P^T rounded to it before
 their products, c = rowsum(dP o P), P^T from the forward's row statistics.
-Kernel F takes c = rowsum(dO o O) instead (equal up to the rounding of O)
-and P = exp(s - m) / l from the row max m and row sum l kernel D saves
-(`attention_fwd`'s `stats`), as the plain version forms it: s - m before
-anything else, so a fully masked row (every s = -1e9) gets P = 1/M. The
-mask gets no gradient.
+Kernel F computes the same c, in float32 from the P and dP it forms (a c
+pass before its gradient loop), and reads no output of the forward, as the
+TPU kernel takes (q, k, v, bias, dO): FlashAttention-2's rowsum(dO o O)
+would read O rounded to the operand type, and where a row's value rows
+nearly coincide, or its softmax is one-hot, dP - c cancels below that
+rounding. F forms P = exp(s - m) / l from the row max m and row sum l
+kernel D saves (`attention_fwd`'s `stats`), as the plain version forms
+it: s - m before anything else, so a fully masked row (every s = -1e9)
+gets P = 1/M. The mask gets no gradient.
 """
 
 from __future__ import annotations
@@ -542,32 +546,30 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  out: torch.Tensor, do: torch.Tensor, bias: torch.Tensor,
-                  stats: torch.Tensor, scale: float, blocks: int = 3
+                  do: torch.Tensor, bias: torch.Tensor, stats: torch.Tensor,
+                  scale: float, blocks: int = 3
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel F: (dq, dk, dv) of kernel D, given its output `out` and row
-    statistics `stats` (2, B, h, N) and the output gradient `do` (cast to
-    q's dtype).
+    """Kernel F: (dq, dk, dv) of kernel D, given its row statistics
+    `stats` (2, B, h, N) and the output gradient `do` (cast to q's dtype).
 
     CPU tensors: the plain version (which recomputes the row statistics
     and c = rowsum(dP o P) as the TPU kernel does). CUDA tensors: the CUDA
-    kernel (bfloat16: the Hopper loop, q, k, v and dO as `operand_plan`
+    kernel, a c pass (c = rowsum(dP o P) in float32) and then the gradient
+    loop (bfloat16: the Hopper loop, q, k, v and dO as `operand_plan`
     takes them; dO as autograd hands it may be any layout, and one the plan
     refuses is copied contiguous first), or an exception. `blocks` (bf16 on
-    the card only) runs one of the loop's block kinds alone to time it: 1
-    the dK/dV blocks, 2 the dQ blocks; the other gradients are then left
-    unwritten."""
+    the card only) runs one of the loop's block kinds alone, after the c
+    pass, to time it: 1 the dK/dV blocks, 2 the dQ blocks; the other
+    gradients are then left unwritten."""
     do = do.to(q.dtype)
     if q.device.type == "cpu":
         return fused_attention_bwd_plain(q, k, v, bias, do, scale)
     if q.device.type != "cuda":
         raise ValueError(f"attention_bwd: unsupported device {q.device}")
-    code = _check_cuda("attention_bwd", q, k, v, out, do,
-                       differentiable=True)
+    code = _check_cuda("attention_bwd", q, k, v, do, differentiable=True)
     B, h, N, d = q.shape
     M = k.shape[2]
-    if k.shape[:2] != (B, h) or v.shape != k.shape or out.shape != q.shape \
-            or do.shape != q.shape:
+    if k.shape[:2] != (B, h) or v.shape != k.shape or do.shape != q.shape:
         raise ValueError("attention_bwd: mismatched shapes")
     bias = _check_rows("attention_bwd bias", bias, (B, M))
     stats = _check_rows("attention_bwd stats", stats, (2, B, h, N))
@@ -590,19 +592,17 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         if q.dtype == torch.bfloat16:
             err = lib.ei_attention_bwd_sm90(
-                ops, out.data_ptr(), do.data_ptr(),
-                int64_array(out.stride() + do.stride()), bias.data_ptr(),
-                stats.data_ptr(), c.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(),
+                ops, bias.data_ptr(), stats.data_ptr(), c.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 int64_array(dq.stride()[:3] + dk.stride()[:3]
                             + dv.stride()[:3]),
                 B, h, N, M, float(scale), blocks, stream)
         else:
             err = lib.ei_attention_bwd(
                 code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), do.data_ptr(),
+                do.data_ptr(),
                 int64_array(q.stride() + k.stride() + v.stride()
-                            + out.stride() + do.stride()),
+                            + do.stride()),
                 bias.data_ptr(), stats.data_ptr(), c.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 int64_array(dq.stride() + dk.stride() + dv.stride()),
@@ -614,21 +614,21 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class _FusedAttention(torch.autograd.Function):
-    """Forward: kernel D (saving q, k, the v it read, the bias, the output
-    and the row statistics); backward: kernel F, which reads D's packed v
-    in place. The bias gets no gradient."""
+    """Forward: kernel D (saving q, k, the v it read, the bias and the row
+    statistics); backward: kernel F, which reads D's packed v in place.
+    The bias gets no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale):
         out, stats, v_read = attention_fwd(q, k, v, bias, scale)
-        ctx.save_for_backward(q, k, v_read, bias, out, stats)
+        ctx.save_for_backward(q, k, v_read, bias, stats)
         ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, bias, out, stats = ctx.saved_tensors
-        dq, dk, dv = attention_bwd(q, k, v, out, do, bias, stats, ctx.scale)
+        q, k, v, bias, stats = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, do, bias, stats, ctx.scale)
         return dq, dk, dv, None, None
 
 

@@ -71,10 +71,10 @@ SIGNATURES = {
     },
     "attention_bwd": {
         "ei_attention_bwd": (
-            [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
              _I, _I, _I, _I, ctypes.c_float, _P], _I),
         "ei_attention_bwd_sm90": (
-            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            [_P, _P, _P, _P, _P, _P, _P, _P,
              _I, _I, _I, _I, ctypes.c_float, _I, _P], _I),
         "ei_bwd_sm90_smem_bytes": ([], ctypes.c_longlong),
     },

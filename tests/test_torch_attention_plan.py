@@ -145,9 +145,9 @@ def _capture_bwd(monkeypatch):
     from ei_nexus_tpu_torch.ops import attention_kernels as ak
     seen, real = [], ak.attention_bwd
 
-    def spy(q, k, v, out, do, *rest, **kw):
-        seen.append(dict(q=q, k=k, v=v, out=out, do=do))
-        return real(q, k, v, out, do, *rest, **kw)
+    def spy(q, k, v, do, *rest, **kw):
+        seen.append(dict(q=q, k=k, v=v, do=do))
+        return real(q, k, v, do, *rest, **kw)
     monkeypatch.setattr(ak, "attention_bwd", spy)
     return seen
 
@@ -201,8 +201,8 @@ def test_selfblock_hands_d_its_v_packed_q_and_k_in_place(monkeypatch):
 
 def test_selfblock_hands_f_its_v_packed_the_rest_in_place(monkeypatch):
     """SelfBlock in training (kernels D/F): F gets the v D returns, D's
-    packed copy, which it reads in place with the rotated q and k, the
-    output and dO; so F packs nothing."""
+    packed copy, which it reads in place with the rotated q and k and dO;
+    so F packs nothing."""
     fwd = _capture_fwd(monkeypatch)
     seen = _capture_bwd(monkeypatch)
     _self_block_step("pallas", torch.Generator().manual_seed(0), True)
@@ -210,13 +210,13 @@ def test_selfblock_hands_f_its_v_packed_the_rest_in_place(monkeypatch):
     ops = seen[0]
     assert ops["v"] is fwd[0]["v_read"]
     assert ops["v"].is_contiguous()
-    for name in ("q", "k", "v", "out", "do"):
+    for name in ("q", "k", "v", "do"):
         assert operand_plan(ops[name]).mode == "direct", name
 
 
 def test_crossblock_hands_f_its_operands_in_place(monkeypatch):
     """CrossBlock in training: both directions' q, k, v (pre-scaled head
-    views), output and dO are read in place, by D and by F."""
+    views) and dO are read in place, by D and by F."""
     fwd = _capture_fwd(monkeypatch)
     seen = _capture_bwd(monkeypatch)
     _cross_block_step("pallas", torch.Generator().manual_seed(1), True)

@@ -12,16 +12,25 @@ normalised ones), times max(1, max|ref|) for E and G and the Hopper loop
 of A and E (bf16: `hopper_attention`, with its pack pass); NMS bit-exact. The
 pose tail on the card is held to the CPU in float64 (R, t to 1e-4). The backward (kernel F) is held to
 1e-4 * max(1, max|ref|) in float32 and 2e-2 * max(1, max|ref|) in bfloat16:
-its c = rowsum(dO o O) reads the output rounded to the operand type where
-the plain version sums dP o P, and its P = exp(s - m) / l uses the
-forward's row max and row sum; no atomics, so it repeats exactly from run
-to run. A typical gradient entry is far below 1, so each gradient is also
-held to a relative norm, ||got - want|| / ||want|| <= 1e-4 (float32) or
-1e-2 (bfloat16, whose rounding of the outputs alone gives ~2e-3); planted
-faults (c = 0, c or the row statistics read from the neighbouring row)
-move it by 6e-2 or more. A batch row whose keys are all masked is in the
-D, F and B cases: its softmax is uniform, 1/M a key.
+it takes c = rowsum(dP o P) in float32 as the plain version does (summed
+in another order), and its P = exp(s - m) / l uses the forward's row max
+and row sum; no atomics, so it repeats exactly from run to run. A typical
+gradient entry is far below 1, so each gradient is also held to a
+relative norm, ||got - want|| / ||want|| <= 1e-4 (float32) or 1e-2
+(bfloat16, whose rounding of the outputs alone gives ~2e-3), also on the
+inputs where dP - c cancels (`tests/torch_bwd_cases.py`: collapsed value
+rows, one-hot softmax rows), where c = rowsum(dO o O) from an output
+rounded to bfloat16 departs by 0.4 or more; planted faults of F's inputs
+(the neighbouring row's statistics, the row sum doubled, the neighbouring
+batch row's key bias) move it by 5e-2 or more. A batch row whose keys are
+all masked is in the D, F and B cases: its softmax is uniform, 1/M a key.
 """
+
+import math
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import pytest
 import torch
@@ -29,6 +38,9 @@ import torch
 from ei_nexus_tpu_torch.ops import attention_kernels as ak
 from ei_nexus_tpu_torch.ops import cuda_build
 from ei_nexus_tpu_torch.ops import nms_kernel as nk
+# tests/ itself, as pytest puts it on sys.path: on the card's machine an
+# installed package named `tests` shadows this directory's
+from torch_bwd_cases import bwd_case  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -193,25 +205,54 @@ def test_attention_fwd_kernel(cuda, dtype, tol, N, M, scale):
     assert ((stats[1] - l).abs() <= 1e-4 * l).all()
 
 
+def _in_wqkv_slab(t: torch.Tensor, which: int) -> torch.Tensor:
+    """The (B, h, n, d) values of `t` as the stride-3 view (phase `which`)
+    of a (B, n, h, d, 3) buffer, as SelfBlock's Wqkv split lays them out."""
+    B, h, n, d = t.shape
+    buf = torch.zeros(B, n, h, d, 3, dtype=t.dtype, device=t.device)
+    buf[..., which] = t.transpose(1, 2)
+    return buf.transpose(1, 2)[..., which]
+
+
+def _bwd_operands(cuda, values, B, h, N, M, d, dtype):
+    """F's (q, k, v, do, mask) on the card, q, k, v stride-3 views (packed
+    first in bfloat16): "normal" random values with the last batch row's
+    keys all masked, or a case of `tests/torch_bwd_cases.py` (dP - c
+    cancels), made with numpy from seed 0."""
+    if values == "normal":
+        q = _strided_heads(cuda, B, N, h, d, dtype)
+        k = _strided_heads(cuda, B, M, h, d, dtype, 1)
+        v = _strided_heads(cuda, B, M, h, d, dtype, 2)
+        mask = torch.rand(B, M, generator=cuda, device="cuda") > 0.2
+        mask[-1] = False
+        do = torch.randn(B, h, N, d, generator=cuda, device="cuda").to(dtype)
+        return q, k, v, do, mask
+    q, k, v, do, mask = (torch.from_numpy(a).cuda()
+                         for a in bwd_case(values, B, h, N, M, d))
+    q, k, v = (_in_wqkv_slab(t.to(dtype), i) for i, t in enumerate((q, k, v)))
+    return q, k, v, do.to(dtype), mask
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("N,M,scale", [(200, 136, 0.125), (128, 256, 1.0)])
-def test_attention_bwd_kernel(cuda, dtype, tol, N, M, scale):
-    """F at ragged N != M on stride-3 operands (packed first in bfloat16),
-    the last batch row's keys all masked; each gradient against the plain
-    version, and per batch row (the masked row's alone too)."""
-    B, h, d = 3, 2, 64
-    q = _strided_heads(cuda, B, N, h, d, dtype)
-    k = _strided_heads(cuda, B, M, h, d, dtype, 1)
-    v = _strided_heads(cuda, B, M, h, d, dtype, 2)
-    mask = torch.rand(B, M, generator=cuda, device="cuda") > 0.2
-    mask[-1] = False
+@pytest.mark.parametrize("B,h,N,M,scale,values", [
+    (3, 2, 200, 136, 0.125, "normal"), (3, 2, 128, 256, 1.0, "normal"),
+    (2, 4, 1024, 1024, 0.125, "collapsed"),
+    (2, 4, 1024, 1024, 0.125, "one-hot")])
+def test_attention_bwd_kernel(cuda, dtype, tol, B, h, N, M, scale, values):
+    """F on stride-3 operands (packed first in bfloat16): at ragged N != M
+    with random values, the last batch row's keys all masked; and on the
+    (2, 4, 1024, 64) inputs where dP - c cancels (collapsed value rows,
+    one-hot softmax rows), where c taken from the rounded output fails.
+    Each gradient against the plain version, and the last batch row's
+    alone too."""
+    d = 64
+    q, k, v, do, mask = _bwd_operands(cuda, values, B, h, N, M, d, dtype)
     bias = ak.key_bias(mask, B, M, "cuda")
-    out, stats, _ = ak.attention_fwd(q, k, v, bias, scale)
-    do = torch.randn(B, h, N, d, generator=cuda, device="cuda").to(dtype)
+    _, stats, _ = ak.attention_fwd(q, k, v, bias, scale)
     before = ak.attention_bwd.launches
     packs = ak.hopper_attention.packs
-    got = ak.attention_bwd(q, k, v, out, do, bias, stats, scale)
+    got = ak.attention_bwd(q, k, v, do, bias, stats, scale)
     assert ak.attention_bwd.launches == before + 1
     assert ak.hopper_attention.packs == packs + (dtype == torch.bfloat16)
     want = ak.fused_attention_bwd_plain(q, k, v, bias, do, scale)
@@ -221,33 +262,50 @@ def test_attention_bwd_kernel(cuda, dtype, tol, N, M, scale):
             a_, b_ = a[rows], b[rows]
             bound = tol * max(1.0, float(b_.float().abs().max()))
             assert (a_.float() - b_.float()).abs().max() <= bound, name
-            assert _rel(a_, b_) <= BWD_REL[dtype], name
+            assert _rel(a_, b_) <= BWD_REL[dtype], (name, _rel(a_, b_))
     # the same inputs give the same bits: no atomics in the sums
-    again = ak.attention_bwd(q, k, v, out, do, bias, stats, scale)
+    again = ak.attention_bwd(q, k, v, do, bias, stats, scale)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _bwd_faults(bias: torch.Tensor, stats: torch.Tensor):
+    """Planted faults of F's inputs: (name, bias, stats) with the
+    neighbouring query row's statistics, the row sum l doubled, or the
+    neighbouring batch row's key bias."""
+    doubled = stats.clone()
+    doubled[1] *= 2
+    return (("stats of the next row", bias, stats.roll(1, -1)),
+            ("l doubled", bias, doubled),
+            ("bias of the next batch row", bias.roll(1, 0), stats))
+
+
+def _fault_gap(got, want) -> float:
+    """The largest relative norm of a planted fault's gradients against
+    the plain version's; NaN, which a live row's bias on a fully masked
+    row's statistics gives and the check also catches, counts as inf."""
+    rels = (_rel(a, w) for a, w in zip(got, want))
+    return max(math.inf if math.isnan(r) else r for r in rels)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_bwd_check_catches_planted_faults(cuda, dtype):
     """The relative-norm check of test_attention_bwd_kernel fails when F
-    drops c (a zero output zeroes c = rowsum(dO o O)), or reads c or the
-    row statistics (max and sum) of the neighbouring row, at the flagship's
-    self-attention statistics (scale d^-0.5, ~80% of 1024 keys live)."""
-    B, h, N, M, d = 1, 2, 1024, 1024, 64
+    reads the row statistics (max and sum) of the neighbouring row, a row
+    sum doubled, or the neighbouring batch row's key bias, at the
+    flagship's self-attention statistics (scale d^-0.5, ~80% of 1024 keys
+    live)."""
+    B, h, N, M, d = 2, 2, 1024, 1024, 64
     q = _strided_heads(cuda, B, N, h, d, dtype)
     k = _strided_heads(cuda, B, M, h, d, dtype, 1)
     v = _strided_heads(cuda, B, M, h, d, dtype, 2)
     mask = torch.rand(B, M, generator=cuda, device="cuda") > 0.2
     bias = ak.key_bias(mask, B, M, "cuda")
-    out, stats, _ = ak.attention_fwd(q, k, v, bias, d ** -0.5)
+    _, stats, _ = ak.attention_fwd(q, k, v, bias, d ** -0.5)
     do = torch.randn(B, h, N, d, generator=cuda, device="cuda").to(dtype)
     want = ak.fused_attention_bwd_plain(q, k, v, bias, do, d ** -0.5)
-    for fault, o, st in (("c = 0", torch.zeros_like(out), stats),
-                         ("c of the next row", out.roll(1, 2), stats),
-                         ("stats of the next row", out, stats.roll(1, -1))):
-        got = ak.attention_bwd(q, k, v, o, do, bias, st, d ** -0.5)
-        worst = max(_rel(a, b) for a, b in zip(got, want))
-        assert worst > 5 * BWD_REL[dtype], fault
+    for fault, b, st in _bwd_faults(bias, stats):
+        got = ak.attention_bwd(q, k, v, do, b, st, d ** -0.5)
+        assert _fault_gap(got, want) > 5 * BWD_REL[dtype], fault
 
 
 def test_fused_attention_shared_qk_gradient(cuda):
@@ -279,6 +337,29 @@ def test_fused_attention_shared_qk_gradient(cuda):
         before[0] + 2, before[1] + 2)
     for a, b in zip(got, grads("cpu")):
         assert (a - b).abs().max() <= 1e-4 * max(1.0, float(b.abs().max()))
+
+
+def test_fused_attention_backward_first_in_its_thread(cuda):
+    """F as the first node of a process's first backward: autograd's
+    device thread has made no CUDA runtime call yet, and F's tensor maps
+    must still encode (cuTensorMapEncodeTiled needs the thread's current
+    context). A process of its own, as the thread lives as long as the
+    process."""
+    code = textwrap.dedent("""
+        import torch
+        from ei_nexus_tpu_torch.ops import attention_kernels as ak
+        q, k, v = (torch.randn(1, 2, 128, 64, device="cuda").to(
+            torch.bfloat16).requires_grad_() for _ in range(3))
+        out = ak.fused_attention(q, k, v)
+        torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+        torch.cuda.synchronize()
+        print("launches", ak.attention_bwd.launches)
+    """)
+    run = subprocess.run([sys.executable, "-c", code],
+                         cwd=Path(__file__).resolve().parent.parent,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert run.stdout.split()[-2:] == ["launches", "1"], run.stdout
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -633,31 +714,29 @@ def test_attention_fwd_hopper_loop(cuda, N, M, layout):
 def test_attention_fwd_hands_f_its_packed_v(cuda):
     """D then F with the v D packed: F reads it in place (no pack launch)
     and its gradients keep the relative-norm bound, which the three planted
-    faults (c = 0, c or the row statistics of the neighbouring row) still
-    break; the last batch row's keys all masked."""
+    faults (the neighbouring row's statistics, the row sum doubled, the
+    neighbouring batch row's bias) still break; the last batch row's keys
+    all masked."""
     B, h, N, d = 2, 2, 1024, 64
     q, k, v = _d_operands(cuda, B, h, N, N, d, "self")
     mask = torch.rand(B, N, generator=cuda, device="cuda") > 0.2
     mask[-1] = False
     bias = ak.key_bias(mask, B, N, "cuda")
     scale = d ** -0.5
-    out, stats, v_read = ak.attention_fwd(q, k, v, bias, scale)
+    _, stats, v_read = ak.attention_fwd(q, k, v, bias, scale)
     do = torch.randn(B, N, h, d, generator=cuda, device="cuda").to(
         torch.bfloat16).permute(0, 2, 1, 3)
     want = ak.fused_attention_bwd_plain(q, k, v, bias, do, scale)
     packs = ak.hopper_attention.packs
-    got = ak.attention_bwd(q, k, v_read, out, do, bias, stats, scale)
+    got = ak.attention_bwd(q, k, v_read, do, bias, stats, scale)
     assert ak.hopper_attention.packs == packs
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         for rows in (slice(None), slice(-1, None)):
             assert _close(a[rows], b[rows]), name
             assert _rel(a[rows], b[rows]) <= BWD_REL[torch.bfloat16], name
-    for fault, o, st in (("c = 0", torch.zeros_like(out), stats),
-                         ("c of the next row", out.roll(1, 2), stats),
-                         ("stats of the next row", out, stats.roll(1, -1))):
-        bad = ak.attention_bwd(q, k, v_read, o, do, bias, st, scale)
-        worst = max(_rel(a, b) for a, b in zip(bad, want))
-        assert worst > 5 * BWD_REL[torch.bfloat16], fault
+    for fault, b_, st in _bwd_faults(bias, stats):
+        bad = ak.attention_bwd(q, k, v_read, do, b_, st, scale)
+        assert _fault_gap(bad, want) > 5 * BWD_REL[torch.bfloat16], fault
 
 
 def test_selfblock_training_packs_once_a_call(cuda):

@@ -65,7 +65,7 @@ GROUPS = (
     ("qblock_attention_kernel", "E qblock_attention"),
     ("flash_segment_kernel", "G flash_attention"),
     ("bwd_rows_kernel", "F attention_bwd"),
-    ("row_dot_kernel", "F attention_bwd"),
+    ("bwd_rowsum_kernel", "F attention_bwd"),
     ("multi_tensor_apply", "optimizer (AdamW, foreach)"),
     ("upsample", "descriptor upsampling (bilinear)"),
     ("geqrf", "pose: QR and SVD (cuSOLVER, cuBLAS)"),
