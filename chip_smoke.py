@@ -26,7 +26,11 @@ Phases, each of which raises on failure:
     paced by the host where a call costs it more than the card), A, D, E
     and G with the pack pass's own share (D also on the cross layout, read
     in place), F split into its c pass, pack pass and its two block kinds
-    (each run alone); F's gradients are also held to a
+    (each run alone); one table of A, B, D, E, F and G (`kernel_table`:
+    the call, SDPA's call, the bound) timed by device time in each dtype,
+    the float32 instances (the float32 configs' path) against their bound
+    at float32's peak and SDPA's float32 call; F's ptxas lines of its
+    float32 kernels too (no spill); F's gradients are also held to a
     relative norm, which planted faults of its inputs (the neighbouring
     row's statistics, the row sum doubled, the neighbouring batch row's
     key bias) must break; kernel C (fixed-round NMS, one
@@ -59,7 +63,10 @@ Phases, each of which raises on failure:
     versions on the tensors one more step hands them (F's dq, dk, dv
     within 1e-2 relative norm of `fused_attention_bwd_plain`), then
     steps/s over 24 steps back to back with the spread of single steps,
-    and peak memory;
+    and peak memory; then all of it again for the step built in float32,
+    the type the `train_matcher` entry takes from its configs (D and F
+    36 each, C 2, no pack pass; F within 1e-4 relative norm on its own
+    tensors);
  5. one small float32 model on the CPU (plain versions) and on the card
     (kernels), same weights and inputs: the inference forward and one
     stage-2 step (same batch and fill), agreement bounded;
@@ -191,8 +198,11 @@ Phases, each of which raises on failure:
     and gradient); the flagship's LightGlue forward (bf16 and float32)
     and the stage-2 step with the heads split over (1, 2) (C 2, no
     attention kernel); BA at tools/bench_ba.py's size with the
-    observations split over the 2 ranks (costs within 1e-4 of the
-    initial cost); steps/s at
+    observations split over the 2 ranks (`ba_dp_check`: the ranks'
+    costs, poses and points equal, the initial costs within 1e-5
+    relative, the final costs within 1e-4 of the initial cost; a rank's
+    observations dropped and the 3-D segment sums left un-reduced each
+    fail it); steps/s at
     world size 1 and 2 and the collectives' share of the step, which are
     not scaling figures (two ranks share one card's SMs).
 
@@ -346,13 +356,14 @@ def _sum_ms(times: dict, fragment: str = "") -> float:
 HOPPER_LIBS = ("self_attention", "qblock_attention", "cross_attention",
                "attention_fwd", "attention_bwd", "flash_segment")
 # their kernels, by a fragment of the name: the loops, the pack pass and
-# F's c pass
+# F's c pass; and F's float32 query and key kernels (CUDA cores)
 HOPPER_KERNELS = ("sm90_kernel", "attention_pack_kernel",
-                  "attention_bwd_rowsum_kernel")
+                  "attention_bwd_rowsum_kernel", "attention_bwd_f32")
 
 
 def check_hopper_build(logs: dict) -> dict:
-    """Print ptxas's lines for the Hopper kernels (registers, spills, stack;
+    """Print ptxas's lines for the Hopper kernels and F's float32 kernels
+    (registers, spills, stack;
     their dynamic shared memory from the library; any C75xx remark such as
     C7508, setmaxnreg ignored) and require no spill and no C7508; where
     the toolkit has cuobjdump, count HGMMA (wgmma) and UTMALDG (TMA load)
@@ -444,10 +455,16 @@ def _bound(ops: float, peak: float, nbytes: float) -> tuple:
                                  else "bytes")
 
 
+def peak_flops(dtype: torch.dtype) -> float:
+    """The card's peak rate for the products of an attention kernel in
+    `dtype`: bfloat16 on the tensor cores, float32 on the CUDA cores."""
+    return PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+
+
 def attention_bound_ms(kind: str, q: torch.Tensor, k: torch.Tensor) -> tuple:
-    """Bound of one bf16 call on (B, h, N, d) queries and (B, h, M, d)
-    keys: each input read once (q, k, v, the rotary tables, the float32
-    biases), each output written once."""
+    """Bound of one call in q's dtype on (B, h, N, d) queries and
+    (B, h, M, d) keys: each input read once (q, k, v, the rotary tables,
+    the float32 biases), each output written once."""
     B, h, N, d = q.shape
     M = k.shape[2]
     es = q.element_size()
@@ -457,7 +474,7 @@ def attention_bound_ms(kind: str, q: torch.Tensor, k: torch.Tensor) -> tuple:
     else:
         flops = 6.0 * B * h * N * M * d           # S once, two PV products
         nbytes = 3 * B * h * (N + M) * d * es + B * (N + M) * 4
-    return _bound(flops, PEAK_BF16_FLOPS, nbytes)
+    return _bound(flops, peak_flops(q.dtype), nbytes)
 
 
 def nms_bound_ms(score: torch.Tensor) -> tuple:
@@ -470,7 +487,7 @@ def nms_bound_ms(score: torch.Tensor) -> tuple:
 
 
 def fused_bound_ms(kind: str, q: torch.Tensor, k: torch.Tensor) -> tuple:
-    """Bound of one bf16 call of kernel D ("fwd") or F ("bwd") on
+    """Bound of one call in q's dtype of kernel D ("fwd") or F ("bwd") on
     (B, h, N, d) queries and (B, h, M, d) keys. D: QK^T and PV (4BhNMd
     operations); reads q, k, v and the float32 bias, writes the output and
     the float32 row statistics (max and sum). F: the five products of the
@@ -486,7 +503,7 @@ def fused_bound_ms(kind: str, q: torch.Tensor, k: torch.Tensor) -> tuple:
         flops = 10.0 * B * h * N * M * d
         nbytes = ((3 * N + 4 * M) * B * h * d * es + B * M * 4
                   + B * h * N * 8)
-    return _bound(flops, PEAK_BF16_FLOPS, nbytes)
+    return _bound(flops, peak_flops(q.dtype), nbytes)
 
 
 def fused_cases(x):
@@ -646,17 +663,17 @@ def check_flash(dtype, tol, gen):
 
 
 def flash_bound_ms(q: torch.Tensor, k: torch.Tensor) -> tuple:
-    """Bound of one bf16 call of kernel G: QK^T and PV (4BhNMd); reads q,
-    k, v and the int32 segment ids, writes the output."""
+    """Bound of one call in q's dtype of kernel G: QK^T and PV (4BhNMd);
+    reads q, k, v and the int32 segment ids, writes the output."""
     B, h, N, d = q.shape
     M = k.shape[2]
     nbytes = (2 * N + 2 * M) * B * h * d * q.element_size() + 4 * B * (N + M)
-    return _bound(4.0 * B * h * N * M * d, PEAK_BF16_FLOPS, nbytes)
+    return _bound(4.0 * B * h * N * M * d, peak_flops(q.dtype), nbytes)
 
 
-def sdpa_segment_ms(x) -> tuple:
+def sdpa_segment(x):
     """SDPA on the same operands with the same mask as a (B, 1, N, M) bool
-    tensor, the yardstick of kernel G: (CUDA-event ms, device ms)."""
+    tensor, the yardstick of kernel G: the call."""
     q, k, v, q_seg, kv_seg = x
     am = q_seg[:, None, :, None] == kv_seg[:, None, None, :]
     qc, kc, vc = (t.contiguous() for t in (q, k, v))
@@ -664,7 +681,7 @@ def sdpa_segment_ms(x) -> tuple:
     def call():
         return F.scaled_dot_product_attention(qc, kc, vc, attn_mask=am,
                                               scale=MAIN_D ** -0.5)
-    return cuda_ms(call), _sum_ms(device_ms(call))
+    return call
 
 
 def check_nms_build(logs: dict) -> None:
@@ -783,6 +800,105 @@ def check_nms(gen) -> dict:
                 strips_shape=list(NMS_STRIP_SHAPE))
 
 
+def kernel_table(x, fused, qblock, flash) -> dict:
+    """Kernels A, B, D, E, F and G on one dtype's operands of phase 2 (`x`
+    and what `check_fused`, `check_qblock` and `check_flash` return), at
+    the paths' shapes: {name: (the kernel's call, SDPA's call on the same
+    operands with the same bool mask, (bound ms, bound by))}. D and F take
+    the self case as the training step hands it (F reading the v D read),
+    E the rot call at block_q 64, G 1024 tokens. SDPA gets the rotary
+    applied beforehand and contiguous operands (its fused paths want a
+    unit stride on d), D and F's the unmasked rows of x["mask0"] (a fully
+    masked bool row is NaN there); B's is two calls, E's is A's, G's its
+    segment mask, and F's the pair (forward + backward, forward), whose
+    difference is its yardstick."""
+    from ei_nexus_tpu_torch.ops import attention_kernels as ak
+    from ei_nexus_tpu_torch.ops import flash_kernel as fk
+    cos, sin = (t[:, None] for t in x["rot"])
+    qr, kr = ((t * cos + ak.rotate_half(t) * sin).contiguous()
+              for t in (x["q"], x["k"]))
+    vc = x["v"].contiguous()
+    am0 = x["mask0"][:, None, None, :]
+    am1 = x["mask1"][:, None, None, :]
+
+    def sdpa_self():
+        F.scaled_dot_product_attention(qr, kr, vc, attn_mask=am0)
+
+    def sdpa_bidir():
+        F.scaled_dot_product_attention(x["qk0"], x["qk1"], x["v1"],
+                                       attn_mask=am1, scale=1.0)
+        F.scaled_dot_product_attention(x["qk1"], x["qk0"], x["v0"],
+                                       attn_mask=am0, scale=1.0)
+
+    q, k, v, _, scale, bias, stats, do, v_read = fused[2]["self"]
+    qg, kg, vg = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
+    dog = do.contiguous()
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=am0,
+                                              scale=scale)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), dog)
+
+    def sdpa_fwd_only():
+        with torch.no_grad():
+            sdpa_fwd()
+
+    eq, ek, ev, ebias, escale, erot = qblock[1]["rot"]
+    xg = flash[1][FLASH_TOKENS[0]]
+    return {
+        "self_attention_rot": (
+            lambda: ak.self_attention(x["q"], x["k"], x["v"], x["mask0"],
+                                      rot=x["rot"]),
+            sdpa_self, attention_bound_ms("self", x["q"], x["k"])),
+        "cross_attention_bidir": (
+            lambda: ak.cross_attention_bidir(x["qk0"], x["qk1"], x["v0"],
+                                             x["v1"], x["mask0"],
+                                             x["mask1"]),
+            sdpa_bidir, attention_bound_ms("cross", x["qk0"], x["qk1"])),
+        "attention_fwd": (lambda: ak.attention_fwd(q, k, v, bias, scale),
+                          sdpa_fwd_only, fused_bound_ms("fwd", q, k)),
+        "attention_bwd": (
+            lambda: ak.attention_bwd(q, k, v_read, do, bias, stats, scale),
+            (sdpa_fwd_bwd, sdpa_fwd), fused_bound_ms("bwd", q, k)),
+        "qblock_attention": (
+            lambda: ak.qblock_attention(eq, ek, ev, ebias, escale, 64, erot),
+            sdpa_self, attention_bound_ms("self", eq, ek)),
+        "flash_attention": (
+            lambda: fk.flash_attention(*xg, MAIN_D ** -0.5),
+            sdpa_segment(xg), flash_bound_ms(xg[0], xg[1])),
+    }
+
+
+def library_call_ms(lib, timer) -> float:
+    """`timer`'s ms of a `kernel_table` SDPA entry: F's is the difference
+    of its pair."""
+    if isinstance(lib, tuple):
+        return timer(lib[0]) - timer(lib[1])
+    return timer(lib)
+
+
+def time_kernels(dtype, table) -> dict:
+    """Device ms a call (`device_ms`) of each kernel of `kernel_table` and
+    of its SDPA call; prints a line a kernel and returns {name: {"kernels":
+    the call's device ms by kernel, "device_ms", "bound_ms", "bound_by",
+    "library_device_ms"}}."""
+    out = {}
+    for name, (call, lib, (bound, by)) in table.items():
+        dev_all = device_ms(call)
+        dev = _sum_ms(dev_all)
+        lib_ms = library_call_ms(lib, lambda f: _sum_ms(device_ms(f)))
+        out[name] = dict(kernels=dev_all, device_ms=dev, bound_ms=bound,
+                         bound_by=by, library_device_ms=lib_ms)
+        print(f"[kernels] {dtype} {name}: device {dev:.4f} ms a call ("
+              + ", ".join(f"{n[:40]} {ms:.4f}" for n, ms in dev_all.items())
+              + f"); bound {bound:.4f} by {by}, share {bound / dev:.1%}; "
+              f"SDPA {lib_ms:.4f} (kernel / SDPA "
+              f"{dev / max(lib_ms, 1e-9):.3f})")
+    return out
+
+
 def phase_kernels(logs: dict):
     from ei_nexus_tpu_torch.ops import attention_kernels as ak
 
@@ -790,7 +906,7 @@ def phase_kernels(logs: dict):
     check_nms_build(logs)
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
-    fused_errs, qblock_errs, flash_errs = {}, {}, {}
+    fused_errs, qblock_errs, flash_errs, tables = {}, {}, {}, {}
     for dtype, tol in ATTN_TOL.items():
         x = attention_inputs(dtype, gen)
         got = ak.self_attention(x["q"], x["k"], x["v"], x["mask0"],
@@ -814,93 +930,41 @@ def phase_kernels(logs: dict):
         fused_errs[dtype] = check_fused(x, dtype, tol, gen)
         qblock_errs[dtype] = check_qblock(x, dtype, tol)
         flash_errs[dtype] = check_flash(dtype, tol, gen)
-    # bfloat16 (the main path's type) timings; x holds the bf16 operands
-    t_a = cuda_ms(lambda: ak.self_attention(x["q"], x["k"], x["v"],
-                                            x["mask0"], rot=x["rot"]))
+        # device ms of each kernel and its SDPA call, bound at the dtype's
+        # peak (float32: the CUDA-core loops of the float32 configs)
+        calls = kernel_table(x, fused_errs[dtype], qblock_errs[dtype],
+                             flash_errs[dtype])
+        tables[dtype] = time_kernels(dtype, calls)
+    # bfloat16 (the bf16 configs' type; x and calls hold its operands):
+    # CUDA-event ms a call back to back, host-paced where the wrapper costs
+    # the host more than the card, of each kernel and its SDPA call
+    tab = tables[torch.bfloat16]
+    t_of = {name: cuda_ms(call) for name, (call, _, _) in calls.items()}
+    lib_of = {name: library_call_ms(lib, cuda_ms)
+              for name, (_, lib, _) in calls.items()}
     t_a_plain = cuda_ms(lambda: ak.self_attention_plain(
         x["q"], x["k"], x["v"], x["mask0"], rot=x["rot"]), iters=5)
-    # SDPA's yardstick gets the rotary applied beforehand and contiguous
-    # operands (its fused paths want a unit stride on d), outside the timing
-    qr, kr = (
-        (t * x["rot"][0][:, None] + ak.rotate_half(t) * x["rot"][1][:, None])
-        .contiguous() for t in (x["q"], x["k"]))
-    vc = x["v"].contiguous()
-    am0 = x["mask0"][:, None, None, :]
-    am1 = x["mask1"][:, None, None, :]
-    t_a_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qr, kr, vc, attn_mask=am0))
-    # device time alone (the calls above are paced by the host when its
-    # share of a call is the larger): A's loop and pack pass, SDPA's kernels
-    dev_a = device_ms(lambda: ak.self_attention(
-        x["q"], x["k"], x["v"], x["mask0"], rot=x["rot"]))
-    dev_a_lib = device_ms(lambda: F.scaled_dot_product_attention(
-        qr, kr, vc, attn_mask=am0))
-    print(f"[kernels] self_attention_rot device ms a call: loop "
-          f"{_sum_ms(dev_a, 'sm90_kernel'):.4f}, pack "
-          f"{_sum_ms(dev_a, 'attention_pack'):.4f}, all "
-          f"{_sum_ms(dev_a):.4f}; SDPA {_sum_ms(dev_a_lib):.4f} "
-          + json.dumps({n[:48]: round(v, 4) for n, v in dev_a_lib.items()}))
-    t_b = cuda_ms(lambda: ak.cross_attention_bidir(
-        x["qk0"], x["qk1"], x["v0"], x["v1"], x["mask0"], x["mask1"]))
     t_b_plain = cuda_ms(lambda: ak.cross_attention_bidir_plain(
         x["qk0"], x["qk1"], x["v0"], x["v1"], x["mask0"], x["mask1"]),
         iters=5)
 
-    def sdpa_bidir():
-        F.scaled_dot_product_attention(x["qk0"], x["qk1"], x["v1"],
-                                       attn_mask=am1, scale=1.0)
-        F.scaled_dot_product_attention(x["qk1"], x["qk0"], x["v0"],
-                                       attn_mask=am0, scale=1.0)
-    t_b_lib = cuda_ms(sdpa_bidir)
-    dev_b_all = device_ms(lambda: ak.cross_attention_bidir(
-        x["qk0"], x["qk1"], x["v0"], x["v1"], x["mask0"], x["mask1"]))
-    dev_b, dev_b_lib = _sum_ms(dev_b_all), _sum_ms(device_ms(sdpa_bidir))
-    print(f"[kernels] cross_attention_bidir device ms a call: loop "
-          f"{_sum_ms(dev_b_all, 'sm90_kernel'):.4f}, all {dev_b:.4f}; SDPA "
-          f"(two calls) {dev_b_lib:.4f}")
-
-    # D and F on the bf16 self-attention case (its last batch row fully
-    # masked; SDPA's yardsticks take the unmasked rows of x["mask0"], as a
-    # fully masked bool row is NaN there); F reads the v D packed, as in
-    # the training step. D also on the cross layout (read in place)
+    # D and F on the self case (its last batch row fully masked); F reads
+    # the v D packed, as in the training step. D also on the cross layout
+    # (read in place); F split into its c pass, pack pass and loop, and
+    # each block kind alone
     q, k, v, mask, scale, bias, stats, do, v_read = \
         fused_errs[torch.bfloat16][2]["self"]
-    t_d = cuda_ms(lambda: ak.attention_fwd(q, k, v, bias, scale))
     t_d_plain = cuda_ms(lambda: ak.fused_attention_plain(q, k, v, mask,
                                                          scale), iters=5)
-    t_f = cuda_ms(lambda: ak.attention_bwd(q, k, v_read, do, bias, stats,
-                                           scale))
     t_f_plain = cuda_ms(lambda: ak.fused_attention_bwd_plain(
         q, k, v, bias, do, scale), iters=5)
-    qg, kg, vg = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
-    dog = do.contiguous()
-    am = x["mask0"][:, None, None, :]
-    with torch.no_grad():
-        t_d_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qg, kg, vg, attn_mask=am, scale=scale))
-
-    def sdpa_fwd():
-        return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=am,
-                                              scale=scale)
-
-    def sdpa_fwd_bwd():
-        torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), dog)
-    t_f_lib = cuda_ms(sdpa_fwd_bwd) - cuda_ms(sdpa_fwd)
-    dev_d_all = device_ms(lambda: ak.attention_fwd(q, k, v, bias, scale))
-    dev_d = _sum_ms(dev_d_all)
     xq, xk, xv, _, xscale, xbias = fused_errs[torch.bfloat16][2]["cross"][:6]
     t_d_cross = cuda_ms(lambda: ak.attention_fwd(xq, xk, xv, xbias, xscale))
     dev_d_cross = _sum_ms(device_ms(
         lambda: ak.attention_fwd(xq, xk, xv, xbias, xscale)))
-    print(f"[kernels] attention_fwd device ms a call: self loop "
-          f"{_sum_ms(dev_d_all, 'sm90_kernel'):.4f}, pack "
-          f"{_sum_ms(dev_d_all, 'attention_pack'):.4f}, all {dev_d:.4f}; "
-          f"cross (in place) {dev_d_cross:.4f}")
-    dev_f_all = device_ms(lambda: ak.attention_bwd(q, k, v_read, do, bias,
-                                                   stats, scale))
-    dev_f = _sum_ms(dev_f_all)
-    # F's split: the c pass and the pack pass from the whole call; each
-    # block kind from a call that runs it alone
+    print(f"[kernels] attention_fwd cross (in place) device ms a call "
+          f"{dev_d_cross:.4f}")
+    dev_f_all = tab["attention_bwd"]["kernels"]
     f_split = {"c pass": _sum_ms(dev_f_all, "bwd_rowsum_kernel"),
                "pack": _sum_ms(dev_f_all, "attention_pack_kernel"),
                "loop": _sum_ms(dev_f_all, "sm90_kernel")}
@@ -908,92 +972,85 @@ def phase_kernels(logs: dict):
         f_split[kind] = _sum_ms(device_ms(lambda: ak.attention_bwd(
             q, k, v_read, do, bias, stats, scale, blocks=blocks)),
             "sm90_kernel")
-    with torch.no_grad():
-        dev_d_lib = _sum_ms(device_ms(sdpa_fwd))
-    dev_f_lib = _sum_ms(device_ms(sdpa_fwd_bwd)) - _sum_ms(device_ms(sdpa_fwd))
-    print(f"[kernels] attention_bwd device ms a call: all {dev_f:.4f}; "
-          + ", ".join(f"{k} {v:.4f}" for k, v in f_split.items())
-          + f"; SDPA's backward {dev_f_lib:.4f}")
+    print("[kernels] attention_bwd device ms a call: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in f_split.items()))
 
     row_c = check_nms(gen)
 
     # E as the q-blocked forward runs it (block_q 64; rot in the self
-    # layers, rot-free in the cross directions), and at block_q 128
+    # layers, rot-free in the cross directions), and at block_q 128; the
+    # rot call at 64 is the table's
     cases = qblock_errs[torch.bfloat16][1]
-    t_e = {}
+    t_e, dev_e = {("rot", 64): t_of["qblock_attention"]}, {
+        ("rot", 64): tab["qblock_attention"]["kernels"]}
     for block_q in QBLOCKS:
         for case, (q, k, v, bias, scale, rot) in cases.items():
+            if (case, block_q) in t_e:
+                continue
             t_e[case, block_q] = cuda_ms(
                 lambda: ak.qblock_attention(q, k, v, bias, scale, block_q,
                                             rot))
-    dev_e = {}
-    for block_q in QBLOCKS:
-        for case, (q, k, v, bias, scale, rot) in cases.items():
             dev_e[case, block_q] = device_ms(
                 lambda: ak.qblock_attention(q, k, v, bias, scale, block_q,
                                             rot))
             print(f"[kernels] qblock_attention ({case}, block_q {block_q}): "
                   f"{t_e[case, block_q]:.4f} ms a call (CUDA events), "
-                  f"device: loop "
-                  f"{_sum_ms(dev_e[case, block_q], 'sm90_kernel'):.4f}, "
-                  f"pack {_sum_ms(dev_e[case, block_q], 'pack_kernel'):.4f}")
+                  f"device {_sum_ms(dev_e[case, block_q]):.4f}")
     q, k, v, bias, scale, rot = cases["rot"]
     t_e_plain = cuda_ms(lambda: ak.qblock_attention_plain(
         q, k, v, bias, scale, rot), iters=5)
-    b_e, by_e = attention_bound_ms("self", q, k)
 
-    # G at the flagship's tokens and at 2048
+    # G at the flagship's tokens (the table's) and at 2048
     from ei_nexus_tpu_torch.ops import flash_kernel as fk
-    t_g, t_g_plain, t_g_lib, b_g, dev_g, dev_g_lib = {}, {}, {}, {}, {}, {}
-    g_split = {}
     n0, n1 = FLASH_TOKENS
-    for n, xg in flash_errs[torch.bfloat16][1].items():
-        t_g[n] = cuda_ms(lambda: fk.flash_attention(*xg, MAIN_D ** -0.5))
-        t_g_plain[n] = cuda_ms(lambda: fk.flash_attention_plain(
-            *xg, MAIN_D ** -0.5), iters=5)
-        t_g_lib[n], dev_g_lib[n] = sdpa_segment_ms(xg)
-        dev_g_all = device_ms(lambda: fk.flash_attention(*xg,
-                                                         MAIN_D ** -0.5))
-        dev_g[n] = _sum_ms(dev_g_all)
-        g_split[n] = (_sum_ms(dev_g_all, "sm90_kernel"),
-                      _sum_ms(dev_g_all, "attention_pack"))
-        b_g[n] = flash_bound_ms(xg[0], xg[1])
-        print(f"[kernels] flash_attention ({n} tokens) device ms a call: "
-              f"loop {g_split[n][0]:.4f}, pack {g_split[n][1]:.4f}, all "
-              f"{dev_g[n]:.4f}; SDPA {dev_g_lib[n]:.4f}")
+    g_plain = {}
+    for n, xn in flash_errs[torch.bfloat16][1].items():
+        g_plain[n] = cuda_ms(lambda: fk.flash_attention_plain(
+            *xn, MAIN_D ** -0.5), iters=5)
+    xg = flash_errs[torch.bfloat16][1][n1]
+    t_g2 = cuda_ms(lambda: fk.flash_attention(*xg, MAIN_D ** -0.5))
+    g2_all = device_ms(lambda: fk.flash_attention(*xg, MAIN_D ** -0.5))
+    g2_lib = sdpa_segment(xg)
+    t_g2_lib, dev_g2_lib = cuda_ms(g2_lib), _sum_ms(device_ms(g2_lib))
+    b_g2 = flash_bound_ms(xg[0], xg[1])[0]
+    print(f"[kernels] flash_attention ({n1} tokens) device ms a call: "
+          f"{_sum_ms(g2_all):.4f}; SDPA {dev_g2_lib:.4f}")
 
-    b_a, by_a = attention_bound_ms("self", x["q"], x["k"])
-    b_b, by_b = attention_bound_ms("cross", x["qk0"], x["qk1"])
-    b_d, by_d = fused_bound_ms("fwd", q, k)
-    b_f, by_f = fused_bound_ms("bwd", q, k)
+    def timing(name):
+        """The row's timing keys from the table and the CUDA-event ms."""
+        t = tab[name]
+        return dict(ms=t_of[name], bound_ms=t["bound_ms"],
+                    bound_by=t["bound_by"], library_ms=lib_of[name],
+                    device_ms=t["device_ms"],
+                    library_device_ms=t["library_device_ms"])
+
+    dev_a, dev_d_all = (tab[n]["kernels"] for n in ("self_attention_rot",
+                                                    "attention_fwd"))
+    dev_g_all = tab["flash_attention"]["kernels"]
     rows = [
         dict(name="self_attention_rot", route="cuda",
              source="ei_nexus_tpu_torch/csrc/self_attention.cu",
              replaces="ei_nexus_tpu/ops/pallas_attention.py:289",
              max_abs_err=errs[torch.bfloat16][0],
              max_abs_err_f32=errs[torch.float32][0],
-             ms=t_a, plain_ms=t_a_plain, bound_ms=b_a, bound_by=by_a,
-             library_ms=t_a_lib,
+             **timing("self_attention_rot"), plain_ms=t_a_plain,
              design="bf16: pack pass (rotary, de-interleave, once a token) "
                     "then a TMA + wgmma warp-specialised flash loop, 128 "
                     "rows a block in two consumer warpgroups; f32: "
                     "CUDA-core flash loop",
              pack_ms=_sum_ms(dev_a, "attention_pack"),
-             device_ms=_sum_ms(dev_a), library_device_ms=_sum_ms(dev_a_lib),
              sass=sass.get("self_attention")),
         dict(name="cross_attention_bidir", route="cuda",
              source="ei_nexus_tpu_torch/csrc/cross_attention.cu",
              replaces="ei_nexus_tpu/ops/pallas_attention.py:187",
              max_abs_err=errs[torch.bfloat16][1],
              max_abs_err_f32=errs[torch.float32][1],
-             ms=t_b, plain_ms=t_b_plain, bound_ms=b_b, bound_by=by_b,
-             library_ms=t_b_lib,
+             **timing("cross_attention_bidir"), plain_ms=t_b_plain,
              design="bf16: one launch of the TMA + wgmma warp-specialised "
                     "flash loop for both directions, 64 rows a block in one "
                     "consumer warpgroup, four tensor maps picked per "
                     "direction, head views read in place; f32: CUDA-core "
                     "flash loop",
-             device_ms=dev_b, library_device_ms=dev_b_lib,
              sass=sass.get("cross_attention")),
         row_c,
         dict(name="attention_fwd", route="cuda",
@@ -1001,8 +1058,7 @@ def phase_kernels(logs: dict):
              replaces="ei_nexus_tpu/ops/pallas_attention.py:274",
              max_abs_err=fused_errs[torch.bfloat16][0],
              max_abs_err_f32=fused_errs[torch.float32][0],
-             ms=t_d, plain_ms=t_d_plain, bound_ms=b_d, bound_by=by_d,
-             library_ms=t_d_lib,
+             **timing("attention_fwd"), plain_ms=t_d_plain,
              design="bf16: pack pass (the self-attention's stride-3 v, "
                     "handed on to F) then the TMA + wgmma warp-specialised "
                     "flash loop of A, 128 rows a block in two consumer "
@@ -1012,7 +1068,6 @@ def phase_kernels(logs: dict):
              loop_ms=_sum_ms(dev_d_all, "sm90_kernel"),
              pack_ms=_sum_ms(dev_d_all, "attention_pack"),
              ms_cross=t_d_cross, device_ms_cross=dev_d_cross,
-             device_ms=dev_d, library_device_ms=dev_d_lib,
              sass=sass.get("attention_fwd")),
         dict(name="attention_bwd", route="cuda",
              source="ei_nexus_tpu_torch/csrc/attention_bwd.cu",
@@ -1021,8 +1076,7 @@ def phase_kernels(logs: dict):
              max_abs_err_f32=fused_errs[torch.float32][1],
              rel_err=fused_errs[torch.bfloat16][3],
              rel_err_f32=fused_errs[torch.float32][3],
-             ms=t_f, plain_ms=t_f_plain, bound_ms=b_f, bound_by=by_f,
-             library_ms=t_f_lib,
+             **timing("attention_bwd"), plain_ms=t_f_plain,
              design="bf16: pack pass (what the plan packs; none on the "
                     "main path, where F reads the v D packed), c pass "
                     "(c = rowsum(dP o P) in float32, TMA + wgmma blocks of "
@@ -1030,8 +1084,10 @@ def phase_kernels(logs: dict):
                     "warp-specialised launch of dK/dV blocks (64 keys, K "
                     "and V resident, Q and dO streamed) and dQ blocks (64 "
                     "queries, K and V streamed), no atomics, P from D's "
-                    "row max and sum; f32: one warp a row",
-             device_ms=dev_f, library_device_ms=dev_f_lib,
+                    "row max and sum; f32: D's CUDA-core tiles, query "
+                    "blocks on 4 x 4 sub-tiles (c, then dQ) then key "
+                    "blocks in two halves on 4 x 8 sub-tiles (S^T, P, dV "
+                    "| dP^T, dS, dK), every score in D's order",
              c_pass_ms=f_split["c pass"], pack_ms=f_split["pack"],
              loop_ms=f_split["loop"],
              dkdv_blocks_ms=f_split["dK/dV blocks alone"],
@@ -1044,21 +1100,18 @@ def phase_kernels(logs: dict):
              replaces_also="ei_nexus_tpu/ops/pallas_attention.py:70",
              max_abs_err=qblock_errs[torch.bfloat16][0],
              max_abs_err_f32=qblock_errs[torch.float32][0],
-             ms=t_e["rot", 64], ms_rot_free=t_e["rot-free", 64],
+             **timing("qblock_attention"), ms_rot_free=t_e["rot-free", 64],
              ms_block_q128=t_e["rot", 128],
              ms_block_q128_rot_free=t_e["rot-free", 128],
-             plain_ms=t_e_plain, bound_ms=b_e, bound_by=by_e,
-             library_ms=t_a_lib,
+             plain_ms=t_e_plain,
              design="bf16: the Hopper loop of A with block_q 64 (one "
                     "consumer warpgroup) or 128 (two); the rotary calls "
                     "packed first, rot-free head views read by TMA in "
                     "place; f32: CUDA-core flash loop",
              pack_ms=_sum_ms(dev_e["rot", 64], "attention_pack"),
-             device_ms=_sum_ms(dev_e["rot", 64]),
              device_ms_rot_free=_sum_ms(dev_e["rot-free", 64]),
              device_ms_block_q128=_sum_ms(dev_e["rot", 128]),
              device_ms_block_q128_rot_free=_sum_ms(dev_e["rot-free", 128]),
-             library_device_ms=_sum_ms(dev_a_lib),
              sass=sass.get("qblock_attention")),
         # ms: (8, 4, 1024, 64), the flagship; *_2048: 2048 tokens
         dict(name="flash_attention", route="cuda",
@@ -1067,22 +1120,25 @@ def phase_kernels(logs: dict):
                       "758 (via ei_nexus_tpu/models/lightglue.py:141)",
              max_abs_err=flash_errs[torch.bfloat16][0],
              max_abs_err_f32=flash_errs[torch.float32][0],
-             ms=t_g[n0], plain_ms=t_g_plain[n0], bound_ms=b_g[n0][0],
-             bound_by=b_g[n0][1], library_ms=t_g_lib[n0],
+             **timing("flash_attention"), plain_ms=g_plain[n0],
              design="bf16: pack pass (the self-attention's stride-3 v) then "
                     "the TMA + wgmma warp-specialised flash loop of A in "
                     "its segment mode, 128 rows a block, the key ids "
                     "written beside each K/V tile by the producer, the "
                     "query ids in registers; f32: CUDA-core flash loop",
-             loop_ms=g_split[n0][0], pack_ms=g_split[n0][1],
-             device_ms=dev_g[n0], library_device_ms=dev_g_lib[n0],
-             ms_2048=t_g[n1], plain_ms_2048=t_g_plain[n1],
-             bound_ms_2048=b_g[n1][0], library_ms_2048=t_g_lib[n1],
-             device_ms_2048=dev_g[n1], loop_ms_2048=g_split[n1][0],
-             library_device_ms_2048=dev_g_lib[n1],
+             loop_ms=_sum_ms(dev_g_all, "sm90_kernel"),
+             pack_ms=_sum_ms(dev_g_all, "attention_pack"),
+             ms_2048=t_g2, plain_ms_2048=g_plain[n1], bound_ms_2048=b_g2,
+             library_ms_2048=t_g2_lib, device_ms_2048=_sum_ms(g2_all),
+             loop_ms_2048=_sum_ms(g2_all, "sm90_kernel"),
+             library_device_ms_2048=dev_g2_lib,
              sass=sass.get("flash_segment")),
     ]
     for r in rows:
+        if r["name"] in tables[torch.float32]:
+            r.update({k + "_f32": v for k, v in
+                      tables[torch.float32][r["name"]].items()
+                      if k != "kernels"})
         print(f"[kernels] {r['name']}: {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.4f}, library {r['library_ms']}, bound "
               f"{r['bound_ms']:.4f} by {r['bound_by']}); device "
@@ -1218,10 +1274,13 @@ def to_cuda(batch):
             torch.as_tensor(T01).cuda(), torch.as_tensor(T10).cuda())
 
 
-def phase_stage2(tag: str = "stage2", built=None, homography=False):
+def phase_stage2(tag: str = "stage2", built=None, homography=False,
+                 dtype: str = "bfloat16"):
     """The stage-2 step at full width, B=8: the flagship's
-    (`build_stage2_flagship`), or `built` = (model on the card with
-    LightGlue's training heads, (H, W, bins)); the pose + depth step, or
+    (`build_stage2_flagship` in `dtype`: bfloat16, or float32, the type
+    the `train_matcher` entry takes from its configs), or `built` = (model
+    on the card with LightGlue's training heads, (H, W, bins)); the pose +
+    depth step, or
     with `homography` the homography-supervised one (the frame warped by
     a random corner jitter, GT from the known H; the generator reseeded
     before each step gives the same jitter and fill, and it must find GT
@@ -1235,7 +1294,7 @@ def phase_stage2(tag: str = "stage2", built=None, homography=False):
 
     B, max_events = 8, 1 << 17
     model, (H, W, bins) = built or build_stage2_flagship(
-        dtype="bfloat16", generator=torch.Generator().manual_seed(0))
+        dtype=dtype, generator=torch.Generator().manual_seed(0))
     # 100 steps an epoch: the cosine schedule stays near its base lr here
     state = stage2_train_state(model, steps_per_epoch=100)
     rng = np.random.default_rng(0)
@@ -1264,10 +1323,13 @@ def phase_stage2(tag: str = "stage2", built=None, homography=False):
     want = {n: 0 for n in counters}
     want.update(nms_rounds=2, attention_fwd=36, attention_bwd=36)
     require(launches == want, f"launch counts {launches} != {want}")
-    # D packs the self-attention's stride-3 v (18 calls) and hands the copy
-    # to F; the rotated q, k, the cross-attention's head views and dO are
-    # read in place, so F packs nothing
-    require(packs == 18, f"{packs} pack passes in one step != 18")
+    # bf16: D packs the self-attention's stride-3 v (18 calls) and hands
+    # the copy to F; the rotated q, k, the cross-attention's head views and
+    # dO are read in place, so F packs nothing. The float32 loops read
+    # every operand through its strides
+    want_packs = 18 if dtype == "bfloat16" else 0
+    require(packs == want_packs,
+            f"{packs} pack passes in one step != {want_packs}")
     loss1, gnorm = float(info["loss"]), float(info["grad_norm"])
     require(np.isfinite(loss1) and np.isfinite(gnorm) and gnorm > 0,
             f"loss {loss1}, grad_norm {gnorm}")
@@ -1300,7 +1362,8 @@ def phase_stage2(tag: str = "stage2", built=None, homography=False):
     def one_more():
         fill.manual_seed(1)
         step(state, batch, fill)
-    print_path_kernels(tag, check_path_kernels(one_more))
+    print_path_kernels(tag, check_path_kernels(one_more),
+                       getattr(torch, dtype))
 
     # steps back to back, an event between each: the window's mean rate
     # and the spread of single steps inside it
@@ -3540,7 +3603,7 @@ def check_path_kernels(run) -> dict:
     """One more step, run(), with the first inputs that D, F and C take on
     it recorded (`record_kernel_inputs`); each of those kernels then called
     again on those tensors and held against its plain version at phase 2's
-    tolerances (D and F 2e-2 x max(1, max|ref|) in bfloat16; C
+    tolerances (D and F ATTN_TOL of their dtype x max(1, max|ref|); C
     bit-exact), F's dq, dk and dv also within BWD_REL's relative norm of
     `fused_attention_bwd_plain`. These launches are made after the path's
     were counted. Returns {name: (shape, max abs err[, F's relative
@@ -3555,13 +3618,15 @@ def check_path_kernels(run) -> dict:
         return _hold_path_kernels(seen)
 
 
-def print_path_kernels(tag: str, held: dict) -> None:
-    """One line for each kernel `check_path_kernels` held."""
+def print_path_kernels(tag: str, held: dict,
+                       dtype: torch.dtype = torch.bfloat16) -> None:
+    """One line for each kernel `check_path_kernels` held on a path in
+    `dtype`."""
     for name, (shape, err, *rel) in held.items():
         print(f"[{tag}] {name} on the step's own tensors {shape} against "
               f"its plain version: max|err| {err:.3e}"
               + (f", relative norm of dq, dk, dv at most {rel[0]:.3e} "
-                 f"(bound {BWD_REL[torch.bfloat16]:g})" if rel else ""))
+                 f"(bound {BWD_REL[dtype]:g})" if rel else ""))
 
 
 def record_kernel_inputs(run, targets) -> dict:
@@ -3748,19 +3813,108 @@ def _dp_lightglue(mesh, cfg, sd, feats0, feats1):
     return out["log_assignment"].float().cpu() if mesh.rank == 0 else None
 
 
-def _dp_ba(group, rank, world):
-    """`ba_solve` at tools/bench_ba.py's defaults, this rank holding a
-    contiguous 1/world of the observations: the cost trajectory."""
-    from ei_nexus_tpu_torch.parallel.ba import ba_solve
+# Phase 14b's BA check (`ba_dp_check`): the sharded solve's initial cost
+# within BA_DP_INIT_REL (relative) of one process's, the same problem
+# summed in another order, and its final cost within BA_DP_FINAL of the
+# initial cost. The iterations between are not held: a float32 sum in
+# another order (over the ranks, or `index_add_`'s run-dependent order on
+# the card) can flip one LM accept, and the two solves then part for a few
+# iterations before they meet again.
+BA_DP_INIT_REL, BA_DP_FINAL = 1e-5, 1e-4
+# planted faults the check must catch: the last rank's observations
+# dropped, or the 3-D segment sums (Hpp, Hll) left un-reduced
+BA_DP_FAULTS = ("dropped", "unreduced")
 
-    prob = ba_problem(np.random.default_rng(0), BA_KF, BA_LM, BA_OBS_PER)
+
+def ba_dp_solve(prob, group, rank: int, world: int, fault=None,
+                **kw) -> dict:
+    """`ba_solve(**kw)` over `group` (None: alone) with this rank holding
+    a contiguous 1/world of the observations of `prob`: the cost
+    trajectory and the refined poses and points on the CPU. `fault`
+    plants one of BA_DP_FAULTS."""
+    from ei_nexus_tpu_torch.parallel import ba
+
     O = prob.obs_pose.shape[0]
     chunk = slice(rank * O // world, (rank + 1) * O // world)
     prob = prob._replace(**{f: getattr(prob, f)[chunk] for f in (
         "obs_pose", "obs_point", "obs_uv", "obs_valid")})
-    _, errs = ba_solve(prob, iters=BA_ITERS, cg_iters=BA_CG,
-                       huber_delta=BA_HUBER, z_min=BA_ZMIN, group=group)
-    return errs.cpu().numpy()
+    if fault == "dropped" and rank == world - 1:
+        prob = prob._replace(obs_valid=torch.zeros_like(prob.obs_valid))
+    real = ba.dist
+    if fault == "unreduced":
+        ba.dist = type("Unreduced", (), {"all_reduce": staticmethod(
+            lambda t, group=None: None if t.ndim == 3
+            else real.all_reduce(t, group=group))})
+    try:
+        out, errs = ba.ba_solve(prob, group=group, **kw)
+    finally:
+        ba.dist = real
+    return {"errs": errs.cpu().numpy(), "poses": out.poses.cpu(),
+            "points": out.points.cpu()}
+
+
+def ba_dp_cases(group, rank: int, world: int, repeats: int = 1,
+                faults=(), device="cuda",
+                size=(BA_KF, BA_LM, BA_OBS_PER), iters: int = BA_ITERS
+                ) -> dict:
+    """`ba_problem(*size)` at tools/bench_ba.py's settings (Huber, z_min,
+    CG steps) solved `repeats` times and once with each planted fault of
+    `faults`, sharded over `group` (None at world size 1: the one-process
+    reference)."""
+    prob = ba_problem(np.random.default_rng(0), *size, device=device)
+    kw = dict(iters=iters, cg_iters=BA_CG, huber_delta=BA_HUBER,
+              z_min=BA_ZMIN)
+    return {"solves": [ba_dp_solve(prob, group, rank, world, **kw)
+                       for _ in range(repeats)],
+            "faults": {f: ba_dp_solve(prob, group, rank, world, fault=f,
+                                      **kw) for f in faults}}
+
+
+def ba_dp_rank(repeats: int = 1, faults=(), device="cuda",
+               size=(BA_KF, BA_LM, BA_OBS_PER), iters: int = BA_ITERS
+               ) -> dict:
+    """`ba_dp_cases` on one rank of the default process group (for
+    `parallel/dryrun.py:launch`)."""
+    import torch.distributed as dist
+
+    return ba_dp_cases(dist.group.WORLD, dist.get_rank(),
+                       dist.get_world_size(), repeats, faults, device, size,
+                       iters)
+
+
+def ba_dp_check(one: dict, ranks: list) -> dict:
+    """Phase 14b's check of BA sharded over the ranks (`ranks`: each
+    rank's `ba_dp_solve` result) against one process's (`one`): every
+    rank's costs, poses and points equal rank 0's bit for bit (the
+    replicated fields stay replicated), the initial costs within
+    BA_DP_INIT_REL relative and the final costs within BA_DP_FINAL of the
+    initial cost. Returns {"ok", "why" (the failed conditions),
+    "init_rel", "final_gap", "bound", "max_gap" (over the trajectory),
+    "parted" (the iterations where the costs differ by more than
+    BA_DP_INIT_REL of the initial cost)}."""
+    e1 = np.asarray(one["errs"], np.float64)
+    e2 = np.asarray(ranks[0]["errs"], np.float64)
+    why = [f"rank {r}'s costs, poses or points differ from rank 0's"
+           for r, got in enumerate(ranks[1:], 1)
+           if not (np.array_equal(got["errs"], ranks[0]["errs"])
+                   and torch.equal(got["poses"], ranks[0]["poses"])
+                   and torch.equal(got["points"], ranks[0]["points"]))]
+    init_rel = float(abs(e2[0] - e1[0]) / abs(e1[0]))
+    final_gap = float(abs(e2[-1] - e1[-1]))
+    bound = BA_DP_FINAL * float(abs(e1[0]))
+    if not init_rel <= BA_DP_INIT_REL:
+        why.append(f"initial costs {e2[0]:.6g} / {e1[0]:.6g}: relative "
+                   f"gap {init_rel:.3e} > {BA_DP_INIT_REL:g}")
+    if not final_gap <= bound:
+        why.append(f"final costs {e2[-1]:.6g} / {e1[-1]:.6g}: gap "
+                   f"{final_gap:.3e} > {bound:.3e}")
+    gap = np.abs(e2 - e1)
+    return {"ok": not why, "why": why, "init_rel": init_rel,
+            "final_gap": final_gap, "bound": bound,
+            "max_gap": float(np.nanmax(gap)) if np.isfinite(gap).any()
+            else float("inf"),
+            "parted": [int(i) for i in np.nonzero(
+                ~(gap <= BA_DP_INIT_REL * abs(e1[0])))[0]]}
 
 
 def dp_cases(data, model, inputs):
@@ -3782,8 +3936,9 @@ def dp_cases(data, model, inputs):
            "shard_stage2": _dp_stage2(1, model, *inputs["shard_stage2"],
                                       timed=False)}
     world = tp.world
-    out["ba"] = _dp_ba(dist.group.WORLD if world > 1 else None, tp.rank,
-                       world)
+    out["ba"] = ba_dp_cases(dist.group.WORLD if world > 1 else None,
+                            tp.rank, world,
+                            faults=BA_DP_FAULTS if world > 1 else ())
     torch.cuda.empty_cache()
     return out
 
@@ -3897,8 +4052,8 @@ def phase_dp(world: int = DP_WORLD, backend: str = "gloo") -> dict:
     loss, running statistics and gradient; LightGlue's forward and the
     stage-2 step with the heads split over (1, world), against the heads
     computed whole (the einsum path: C 2, no attention kernel); BA at
-    tools/bench_ba.py's size over the ranks: the cost trajectory within
-    phase 13b's 1e-4 of the initial cost. Every rank's gradient equals
+    tools/bench_ba.py's size over the ranks, held by `ba_dp_check`, which
+    each planted fault of BA_DP_FAULTS must fail. Every rank's gradient equals
     rank 0's. Prints steps/s at world size 1 and `world` and the
     collectives' share of the step."""
     from ei_nexus_tpu_torch.flagship import STAGE2_LR
@@ -4017,16 +4172,25 @@ def phase_dp(world: int = DP_WORLD, backend: str = "gloo") -> dict:
             and gl <= DP_GRAD_LEAF and gn <= DP_GRAD_NORM
             and dp <= DP_PARAM_LRS * STAGE2_LR, "shard_heads step != whole")
 
-    # BA over the ranks
-    e2, e1 = two[0]["ba"], one["ba"]
-    dba = float(np.abs(e2 - e1).max())
+    # BA over the ranks, and the planted faults the check must catch
+    ba1 = one["ba"]["solves"][0]
+    ba_ok = ba_dp_check(ba1, [got["ba"]["solves"][0] for got in two])
+    caught = {f: ba_dp_check(ba1, [got["ba"]["faults"][f] for got in two])
+              for f in BA_DP_FAULTS}
+    e2 = two[0]["ba"]["solves"][0]["errs"]
     print(f"[dp] BA over {world} ranks: cost {e2[0]:.4f} -> {e2[-1]:.4f} "
-          f"(one "
-          f"process {e1[0]:.4f} -> {e1[-1]:.4f}), max diff {dba:.3e} "
-          f"(bound {1e-4 * e1[0]:.3e})")
-    require(all(np.array_equal(got["ba"], e2) for got in two),
-            "the ranks' BA costs differ")
-    require(dba <= 1e-4 * e1[0], f"BA over {world} ranks != 1")
+          f"(one process {ba1['errs'][0]:.4f} -> {ba1['errs'][-1]:.4f}); "
+          f"initial costs rel {ba_ok['init_rel']:.3e} (bound "
+          f"{BA_DP_INIT_REL:g}), final gap {ba_ok['final_gap']:.3e} (bound "
+          f"{ba_ok['bound']:.3e}), largest gap on the way "
+          f"{ba_ok['max_gap']:.3e} (iterations {ba_ok['parted']} apart); "
+          f"the ranks' costs, poses and points equal; planted faults: "
+          + "; ".join(f"{f}: {'; '.join(c['why']) or 'NOT CAUGHT'}"
+                      for f, c in caught.items()))
+    require(ba_ok["ok"], f"BA over {world} ranks != 1: {ba_ok['why']}")
+    require(not any(c["ok"] for c in caught.values()),
+            f"a planted fault of the sharded BA passes its check: "
+            f"{[f for f, c in caught.items() if c['ok']]}")
 
     s2, s1 = r0["stage2"], one["stage2"]
     return {"launches": r0["stage2"]["launches"], "wall_s": wall,
@@ -4489,11 +4653,15 @@ def main() -> int:
         {"qblock_attention": 36, "nms_rounds": 2}, 18, block_q=64)
     timed("pose check", phase_pose_check)
     train_launches, step_ms, _ = timed("stage-2 step", phase_stage2)
+    f32_launches, f32_step_ms, f32_peak = timed(
+        "stage-2 step (float32)", phase_stage2, "stage2-f32",
+        dtype="float32")
     path_of = {"attention_fwd": train_launches, "attention_bwd":
                train_launches, "qblock_attention": qblock_launches,
                "flash_attention": flash_launches}
     for r in rows:
         r["launches"] = path_of.get(r["name"], launches)[r["name"]]
+        r["launches_stage2_step_f32"] = f32_launches[r["name"]]
     loader_rate, host_rate, host_share, buckets, stages = timed(
         "loader-fed forward (auto)", phase_loader_forward)
     mnn_ms, _ = timed("MNN forward", phase_mnn_forward)
@@ -4605,6 +4773,10 @@ def main() -> int:
           f"host syncs a call, on {smi}")
     print(f"stage-2 training step: {1e3 / step_ms:.3f} steps/s "
           f"({step_ms:.3f} ms per step of {B} pairs, back to back) on {smi}")
+    print(f"stage-2 training step in float32 (the train_matcher entry's "
+          f"type): {1e3 / f32_step_ms:.3f} steps/s ({f32_step_ms:.3f} ms per "
+          f"step of {B} pairs, back to back; peak {f32_peak:.2f} GB) on "
+          f"{smi}")
     print(f"stage-1 training step: {1e3 / s1_ms:.3f} steps/s ({s1_ms:.3f} "
           f"ms per step of {B} pairs, back to back; single steps min "
           f"{s1_spread[0]:.3f}, median {s1_spread[1]:.3f}, max "

@@ -13,56 +13,79 @@
 // not the forward's output.
 //
 // What bounds it on an H100: at the flagship shapes (B=8, h=4, N=M=1024,
-// d=64, bf16) the five products are 21.5 GFLOP against ~34 MB of inputs and
-// outputs, so it is compute-bound (~22 us at 989 TFLOP/s).
+// d=64) the five products are 21.5 GFLOP against ~34 MB of inputs and
+// outputs (bf16), so it is compute-bound in either type: ~22 us at 989
+// TFLOP/s in bf16, ~0.32 ms at float32's 67 TFLOP/s on the CUDA cores.
 //
 // Design. Hopper blocks run in no order, so nothing carries from one block
 // to the next, and the TPU kernel's per-problem sums become blocks that
 // each own their outputs (no atomics, so the sums are the same from run to
-// run), in two launches:
-//  - the c pass: blocks own 64 queries and loop over 64-key tiles: S = Q
-//    K^T and dP = dO V^T, P = exp(S - m) / l from the forward's row
-//    statistics (the TPU's pass-1 m and Z), c += P o dP in float32, summed
-//    over the row's threads and written once a row. c is the TPU kernel's
-//    rowsum(dP o P) from these same P and dP; FlashAttention-2's
-//    rowsum(dO o O) would read O rounded to bf16, and where a row's value
-//    rows nearly coincide (or its softmax is one-hot) dP - c cancels below
-//    that rounding, which then rules dQ and dK;
-//  - the main launch, two kinds of block: dK/dV blocks own 64 keys and
-//    loop over 64-query tiles: S^T = K Q^T and dP^T = V dO^T, P^T =
-//    exp(S^T - m) / l (not a softmax of S^T), dV += P^T dO, dK += dS^T Q;
-//    dQ blocks own 64 queries and loop over 64-key tiles: S, P, dP, dS as
-//    above, dQ += dS K.
-// So S and dP are computed three times (nine products instead of five),
-// the price of independent blocks: every dK/dV block needs the c of all
-// queries before its first tile. (The other order, dQ blocks taking c in a
-// first sweep of their keys and the dK/dV blocks in a launch of their
-// own, costs the same products and serialises the two block kinds.) P is
-// rebuilt from the row max m and the row sum l that kernel D saves, with
-// s - m formed before anything else, so a fully masked row (every score
-// -1e9) gets P = 1/M as the plain version does.
-//  - bfloat16 (the main path): the Hopper machinery of flash_sm90.cuh. A
-//    block is one consumer warpgroup on wgmma and a producer warpgroup
-//    that gives its registers back; the producer loads the block's two
-//    resident tiles once (K, V or Q, dO) and streams the other two by TMA
-//    in a 3-stage ring, writing each tile's per-row floats beside it: the
-//    streamed queries' m, 1/l and c (past the last query m = +inf, 1/l =
-//    0, so P = 0), or the streamed keys' bias (-inf past the last key).
-//    S^T, dP^T, S and dP are wgmma_ss products (both operands K-major from
-//    shared memory); P^T and dS^T (or dS) are formed in the accumulators,
-//    rounded to bf16 where the plain version rounds them, and enter
-//    dV += P^T dO, dK += dS^T Q and dQ += dS K as the register A operand,
-//    the streamed tile serving as the transposed (MN-major) B operand, as V
-//    does in the forward loop. The c pass is a dQ block without the dQ
-//    product. Operands the TMA cannot read in place (the stride-3 v of
-//    SelfBlock's Wqkv split) are packed first, once for both launches; the
-//    rotated q and k and dO are read in place.
-//    D's row max and sum fit P here: S comes from the same wgmma
+// run). c = rowsum(dP o P) is the TPU kernel's, from these same P and dP;
+// FlashAttention-2's rowsum(dO o O) would read O rounded to bf16, and where
+// a row's value rows nearly coincide (or its softmax is one-hot) dP - c
+// cancels below that rounding, which then rules dQ and dK. Every dK/dV
+// block needs the c of all queries before its first tile, so S and dP are
+// computed three times (nine products instead of five), the price of
+// independent blocks. P is rebuilt from the row max m and the row sum l
+// that kernel D saves, with s - m formed before anything else, so a fully
+// masked row (every score -1e9) gets P = 1/M as the plain version does.
+//  - bfloat16 (the main path of the bf16 configs), in two launches:
+//    - the c pass: blocks own 64 queries and loop over 64-key tiles: S = Q
+//      K^T and dP = dO V^T, P = exp(S - m) / l from the forward's row
+//      statistics (the TPU's pass-1 m and Z), c += P o dP in float32,
+//      summed over the row's threads and written once a row;
+//    - the main launch, two kinds of block: dK/dV blocks own 64 keys and
+//      loop over 64-query tiles: S^T = K Q^T and dP^T = V dO^T, P^T =
+//      exp(S^T - m) / l (not a softmax of S^T), dV += P^T dO, dK += dS^T
+//      Q; dQ blocks own 64 queries and loop over 64-key tiles: S, P, dP,
+//      dS as above, dQ += dS K.
+//    The Hopper machinery of flash_sm90.cuh: a block is one consumer
+//    warpgroup on wgmma and a producer warpgroup that gives its registers
+//    back; the producer loads the block's two resident tiles once (K, V or
+//    Q, dO) and streams the other two by TMA in a 3-stage ring, writing
+//    each tile's per-row floats beside it: the streamed queries' m, 1/l
+//    and c (past the last query m = +inf, 1/l = 0, so P = 0), or the
+//    streamed keys' bias (-inf past the last key). S^T, dP^T, S and dP are
+//    wgmma_ss products (both operands K-major from shared memory); P^T and
+//    dS^T (or dS) are formed in the accumulators, rounded to bf16 where the
+//    plain version rounds them, and enter dV += P^T dO, dK += dS^T Q and
+//    dQ += dS K as the register A operand, the streamed tile serving as the
+//    transposed (MN-major) B operand, as V does in the forward loop. The c
+//    pass is a dQ block without the dQ product. Operands the TMA cannot
+//    read in place (the stride-3 v of SelfBlock's Wqkv split) are packed
+//    first, once for both launches; the rotated q and k and dO are read in
+//    place. D's row max and sum fit P here: S comes from the same wgmma
 //    products as in D's loop, so sum_j P_ij is 1 to l's rounding.
-//  - float32 (comparisons): one warp per row on the CUDA cores, each score
-//    summed in kernel D's order, c in a first sweep of each query row's
-//    keys (its own launch), then dQ rows sweeping them again and dK/dV
-//    rows sweeping the queries.
+//  - float32 (the float32 configs: the `train_matcher` entry's LightGlue,
+//    whose configs set no dtype, and the float32 evaluation entries), on
+//    the CUDA cores with the operand tiles of kernel D's float32 loop
+//    (flash_attention.cuh): 64-row tiles d-major in shared memory, read
+//    through their strides as D reads them. Each score is D's float:
+//    fused multiply-adds over d = 0 .. 63 in order, then x scale and
+//    + bias rounded apart (D's row max and sum fit P only to ~1e-5 in
+//    another order, and c = rowsum(dP o P) carries that into dP - c, more
+//    than dP - c itself where a softmax row is one-hot). dP is summed the
+//    same way on both sides, so both launches form the same P, dP and dS
+//    of a (query, key) pair, bit for bit. Blocks of 256 threads; two
+//    launches:
+//    - query blocks: 64 queries, Q^T and dO^T resident, D's 16 x 16 grid
+//      of 4 x 4 sub-tiles, every thread forming S, P and dP of its own
+//      (the exponentials spread over the whole block). A first sweep of
+//      the 64-key tiles (K^T, V^T streamed) sums c: P o dP over the
+//      thread's keys, then over the row's 16 threads (a half-warp), then
+//      across tiles compensated (Kahan), and writes c. A second sweep
+//      forms them again, dS = P o (dP - c) as dS^T in a padded tile, and
+//      dQ^T += K^T dS^T. Both sweeps' tiles come in one stream, each
+//      fetched into registers while the block works on the one before;
+//    - key blocks: 64 keys, K^T and V^T resident, sweeping 64-query tiles
+//      (Q^T, dO^T and the queries' m, 1/l and c streamed) in two halves
+//      of 128 threads, each forming one 64 x 64 product at a time in
+//      4 x 8 sub-tiles (three 16-byte shared loads a d for 32 fused
+//      multiply-adds, where 4 x 4 takes two for 16): one half S^T and P,
+//      then dV^T += dO^T P; the other dP^T and dS, then dK^T += Q^T dS.
+//    Five products in the first launch, four in the second. Past the last
+//    key a score is -inf, past the last query m = +inf and 1/l = 0, so
+//    P = 0.
 #include "flash_attention.cuh"
 #include "flash_sm90.cuh"
 
@@ -80,153 +103,363 @@ struct BwdProblem {
 };
 
 template <typename T>
-__device__ __forceinline__ const T* row_ptr(const Operand& a, int b, int h,
-                                            int n) {
-  return static_cast<const T*>(a.ptr) + b * a.sb + h * a.sh + n * a.sn;
-}
-
-template <typename T>
 __device__ __forceinline__ T* out_row(const Output& a, int b, int h, int n) {
   return static_cast<T*>(a.ptr) + b * a.sb + h * a.sh + n * a.sn;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+// ---------------------------------------------------------------------------
+// float32 instance: kernel D's tiles on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kTileF = kHD * kBQ;  // floats of a d-major 64-row tile
+// dynamic shared memory (floats): query blocks Q^T, dO^T, K^T, V^T and the
+// padded dS^T; key blocks K^T, V^T, Q^T, dO^T, the padded P and dS and the
+// streamed queries' m, 1/l and c
+constexpr int kBwdQueryFloats = 4 * kTileF + kBK * kPad;
+constexpr int kBwdKeyFloats = 4 * kTileF + 2 * kBQ * kPad + 3 * kBQ;
+static_assert(kBQ == kBK, "the float32 backward's tiles are square");
+static_assert(kBQ * kHD == 16 * kThreads, "a tile is 4 pieces a thread");
+constexpr int kHalf = kThreads / 2;  // a half-block (key blocks)
+
+// A thread's share of rows [r0, r0 + 64) of operand `a` (load_tile's:
+// piece e = threadIdx.x + 256 u is row e % 64, d = 4 (e / 64) .. + 3;
+// zeros past n_rows) fetched into registers, so that the next tile's
+// loads are in flight while the block works on this one ...
+__device__ __forceinline__ void fetch_rows(const Operand& a, int b, int h,
+                                           int r0, int n_rows,
+                                           float (&t)[4][4]) {
+  const Problem none{};  // no rotary: fetch4 reads only `a`
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// The warp lane's d of the float32 rows: lane (i = 0) and lane + 32 (i = 1).
-__device__ __forceinline__ int lane_d(int i) {
-  return threadIdx.x % 32 + 32 * i;
-}
-
-// ---------------------------------------------------------------------------
-// float32 instance: one warp per row, lane l holding d = l, l + 32
-// ---------------------------------------------------------------------------
-
-// The score q . k of two rows summed as kernel D's float32 loop sums it
-// (fused multiply-adds over d = 0 .. 63 in order; every lane alike), so
-// that D's row max and row sum fit these scores bit for bit: in another
-// order the scores move by ~1e-5 and sum_j P_ij leaves 1 by as much, which
-// c = rowsum(dP o P) carries into dP - c, more than dP - c itself where a
-// softmax row is one-hot.
-__device__ __forceinline__ float score(const float* q, long long qd,
-                                       const float* k, long long kd) {
-  float s = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < 64; ++d) s = fmaf(q[d * qd], k[d * kd], s);
-  return s;
-}
-
-// P and dP of query row q (b, h) at key j (the lanes' dO values g0, g1; the
-// row's statistics m, l); the key's lane values back in k0, k1.
-__device__ __forceinline__ float2 p_dp(const BwdProblem& p, int b, int h,
-                                       int j, const float* q, float g0,
-                                       float g1, float m, float l, float& k0,
-                                       float& k1) {
-  const float* k = row_ptr<float>(p.k, b, h, j);
-  const float* v = row_ptr<float>(p.v, b, h, j);
-  k0 = k[lane_d(0) * p.k.sd];
-  k1 = k[lane_d(1) * p.k.sd];
-  const float s = score(q, p.q.sd, k, p.k.sd);
-  const float dp = warp_sum(g0 * v[lane_d(0) * p.v.sd] +
-                            g1 * v[lane_d(1) * p.v.sd]);
-  const float x =
-      __fadd_rn(__fmul_rn(s, p.scale), p.bias[(long long)b * p.nk + j]);
-  return make_float2(__fdiv_rn(expf(__fsub_rn(x, m)), l), dp);
-}
-
-// The c pass: c[b, h, i] = sum_j P_ij dP_ij in float32, one warp a query
-// row sweeping its keys. The sum is compensated (Kahan): dP - c cancels on
-// the inputs where c matters, and a running sum over M keys would carry
-// ~sqrt(M) roundings into it.
-__global__ void __launch_bounds__(256) bwd_rowsum_kernel(const BwdProblem p,
-                                                         int B) {
-  const long long w = (long long)blockIdx.x * 8 + threadIdx.x / 32;
-  if (w >= (long long)B * p.heads * p.nq) return;
-  const int i = (int)(w % p.nq);
-  const int h = (int)((w / p.nq) % p.heads);
-  const int b = (int)(w / ((long long)p.nq * p.heads));
-  const float* q = row_ptr<float>(p.q, b, h, i);
-  const float* g = row_ptr<float>(p.dout, b, h, i);
-  const float g0 = g[lane_d(0) * p.dout.sd], g1 = g[lane_d(1) * p.dout.sd];
-  const float m = p.m[w], l = p.l[w];
-  float c = 0.f, lost = 0.f, k0, k1;
-  for (int j = 0; j < p.nk; ++j) {
-    const float2 pd = p_dp(p, b, h, j, q, g0, g1, m, l, k0, k1);
-    const float y = __fsub_rn(__fmul_rn(pd.x, pd.y), lost);
-    const float t = __fadd_rn(c, y);
-    lost = __fsub_rn(__fsub_rn(t, c), y);
-    c = t;
+  for (int u = 0; u < 4; ++u) {
+    const int e = threadIdx.x + u * kThreads;
+    fetch4<float, false>(none, a, b, h, r0 + e % kBQ, n_rows,
+                         (e / kBQ) * 4, t[u]);
   }
-  if (threadIdx.x % 32 == 0) p.c[w] = c;
+}
+// ... and stored d-major (dst[d * 64 + r]), as kernel D keeps its Q^T
+// and K^T tiles.
+__device__ __forceinline__ void put_rows(const float (&t)[4][4],
+                                         float* dst) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int e = threadIdx.x + u * kThreads;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      dst[((e / kBQ) * 4 + j) * kBQ + e % kBQ] = t[u][j];
+  }
+}
+__device__ __forceinline__ void load_rows(const Operand& a, int b, int h,
+                                          int r0, int n_rows, float* dst) {
+  float t[4][4];
+  fetch_rows(a, b, h, r0, n_rows, t);
+  put_rows(t, dst);
 }
 
-// dQ rows (a second sweep of the keys), then dK and dV rows (a sweep of
-// the queries), reading the c pass's c.
-__global__ void __launch_bounds__(256) bwd_rows_kernel(const BwdProblem p,
-                                                       int B) {
-  using T = float;
-  long long w = (long long)blockIdx.x * 8 + threadIdx.x / 32;
-  const int d0 = lane_d(0), d1 = lane_d(1);
-  const long long q_rows = (long long)B * p.heads * p.nq;
-  const long long k_rows = (long long)B * p.heads * p.nk;
-  if (w < q_rows) {
-    // dQ row i: loop over the keys
-    const int i = (int)(w % p.nq);
-    const int h = (int)((w / p.nq) % p.heads);
-    const int b = (int)(w / ((long long)p.nq * p.heads));
-    const T* q = row_ptr<T>(p.q, b, h, i);
-    const T* g = row_ptr<T>(p.dout, b, h, i);
-    const float g0 = g[d0 * p.dout.sd], g1 = g[d1 * p.dout.sd];
-    const float m = p.m[w], l = p.l[w], c = p.c[w];
-    float a0 = 0.f, a1 = 0.f, k0, k1;
-    for (int j = 0; j < p.nk; ++j) {
-      const float2 pd = p_dp(p, b, h, j, q, g0, g1, m, l, k0, k1);
-      const float ds = __fmul_rn(pd.x, __fsub_rn(pd.y, c));
-      a0 = fmaf(ds, k0, a0);
-      a1 = fmaf(ds, k1, a1);
+// A thread (ry, rx) of a grid of 16 x 64 / NC owns rows 4 ry .. 4 ry + 3
+// and the NC columns col<NC>(rx, j) of a 64 x 64 product: 4 rx + j, and
+// with NC = 8 also 32 + 4 rx + j - 4, so that the eight threads of a
+// quarter-warp always read 128 contiguous bytes of a column tile.
+template <int NC>
+__device__ __forceinline__ int col(int rx, int j) {
+  return (j / 4) * 32 + 4 * rx + j % 4;
+}
+
+// x[i][j] = sum over d of A[d][4 ry + i] B[d][col(rx, j)] for two d-major
+// tiles, fused multiply-adds over d = 0 .. 63 in order: kernel D's loop,
+// so a score is D's float whichever side owns it (fmaf(q, k, s) and
+// fmaf(k, q, s) round the same product).
+template <int NC>
+__device__ __forceinline__ void tile_dot(const float* A, const float* Bm,
+                                         int ry, int rx,
+                                         float (&x)[4][NC]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) x[i][j] = 0.f;
+#pragma unroll (32 / NC)
+  for (int d = 0; d < kHD; ++d) {
+    const float4 a = *reinterpret_cast<const float4*>(&A[d * kBQ + ry * 4]);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    float cv[NC];
+#pragma unroll
+    for (int g = 0; g < NC / 4; ++g) {
+      const float4 c =
+          *reinterpret_cast<const float4*>(&Bm[d * kBQ + g * 32 + rx * 4]);
+      cv[4 * g] = c.x; cv[4 * g + 1] = c.y;
+      cv[4 * g + 2] = c.z; cv[4 * g + 3] = c.w;
     }
-    T* out = out_row<T>(p.dq, b, h, i);
-    out[d0 * p.dq.sd] = a0 * p.scale;
-    out[d1 * p.dq.sd] = a1 * p.scale;
-    return;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NC; ++j) x[i][j] = fmaf(av[i], cv[j], x[i][j]);
   }
-  w -= q_rows;
-  if (w >= k_rows) return;
-  // dK and dV row j: loop over the queries
-  const int j = (int)(w % p.nk);
-  const int h = (int)((w / p.nk) % p.heads);
-  const int b = (int)(w / ((long long)p.nk * p.heads));
-  const T* k = row_ptr<T>(p.k, b, h, j);
-  const T* v = row_ptr<T>(p.v, b, h, j);
-  const float v0 = v[d0 * p.v.sd], v1 = v[d1 * p.v.sd];
-  const float bias = p.bias[(long long)b * p.nk + j];
-  const long long r0 = ((long long)b * p.heads + h) * p.nq;
-  float dv0 = 0.f, dv1 = 0.f, dk0 = 0.f, dk1 = 0.f;
-  for (int i = 0; i < p.nq; ++i) {
-    const T* q = row_ptr<T>(p.q, b, h, i);
-    const T* g = row_ptr<T>(p.dout, b, h, i);
-    const float q0 = q[d0 * p.q.sd], q1 = q[d1 * p.q.sd];
-    const float g0 = g[d0 * p.dout.sd], g1 = g[d1 * p.dout.sd];
-    const float s = score(q, p.q.sd, k, p.k.sd);
-    const float dp = warp_sum(v0 * g0 + v1 * g1);
-    const float x = __fadd_rn(__fmul_rn(s, p.scale), bias);
-    const float pr = __fdiv_rn(expf(__fsub_rn(x, p.m[r0 + i])), p.l[r0 + i]);
-    dv0 = fmaf(pr, g0, dv0);
-    dv1 = fmaf(pr, g1, dv1);
-    const float ds = __fmul_rn(pr, __fsub_rn(dp, p.c[r0 + i]));
-    dk0 = fmaf(ds, q0, dk0);
-    dk1 = fmaf(ds, q1, dk1);
+}
+
+// T[col(rx, j)][4 ry + i] = x[i][j]: a product into a padded tile,
+// transposed (tile_acc reads it by rows; read_t gives a thread its own
+// elements back).
+template <int NC>
+__device__ __forceinline__ void store_t(float* T, const float (&x)[4][NC],
+                                        int ry, int rx) {
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+    *reinterpret_cast<float4*>(&T[col<NC>(rx, j) * kPad + ry * 4]) =
+        make_float4(x[0][j], x[1][j], x[2][j], x[3][j]);
+}
+template <int NC>
+__device__ __forceinline__ float4 read_t(const float* T, int ry, int rx,
+                                         int j) {
+  return *reinterpret_cast<const float4*>(
+      &T[col<NC>(rx, j) * kPad + ry * 4]);
+}
+
+// acc[i][j] += sum over r of A[4 ry + i][r] T[r][col(rx, j)], A d-major
+// (A[d * 64 + r], so output row 4 ry + i is a d) and T padded.
+template <int NC>
+__device__ __forceinline__ void tile_acc(const float* A, const float* T,
+                                         int ry, int rx,
+                                         float (&acc)[4][NC]) {
+#pragma unroll 2
+  for (int r = 0; r < kBQ; r += 4) {
+    float av[4][4], tv[4][NC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 t =
+          *reinterpret_cast<const float4*>(&A[(ry * 4 + i) * kBQ + r]);
+      av[i][0] = t.x; av[i][1] = t.y; av[i][2] = t.z; av[i][3] = t.w;
+    }
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+      for (int g = 0; g < NC / 4; ++g) {
+        const float4 t = *reinterpret_cast<const float4*>(
+            &T[(r + rr) * kPad + g * 32 + rx * 4]);
+        tv[rr][4 * g] = t.x; tv[rr][4 * g + 1] = t.y;
+        tv[rr][4 * g + 2] = t.z; tv[rr][4 * g + 3] = t.w;
+      }
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NC; ++j)
+          acc[i][j] = fmaf(av[i][rr], tv[rr][j], acc[i][j]);
   }
-  T* dvo = out_row<T>(p.dv, b, h, j);
-  T* dko = out_row<T>(p.dk, b, h, j);
-  dvo[d0 * p.dv.sd] = dv0;
-  dvo[d1 * p.dv.sd] = dv1;
-  dko[d0 * p.dk.sd] = dk0 * p.scale;
-  dko[d1 * p.dk.sd] = dk1 * p.scale;
+}
+
+// The scaled, biased score as masked_score forms it (no contraction; -inf
+// past the last key), and P = exp(s - m) / l from D's row statistics,
+// taken as exp(s - m) x (1/l) with 1/l rounded once a row (P = 0 past the
+// last query, where m = +inf).
+__device__ __forceinline__ float biased(float s, float scale, float bias,
+                                        bool in) {
+  return in ? __fadd_rn(__fmul_rn(s, scale), bias) : -INFINITY;
+}
+__device__ __forceinline__ float prob(float x, float m, float il) {
+  return __fmul_rn(expf(__fsub_rn(x, m)), il);
+}
+
+// The 128 threads of half-block `half` wait for each other alone.
+__device__ __forceinline__ void half_sync(int half) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + half), "n"(kHalf) : "memory");
+}
+
+// Query block x of problem (blockIdx.z, blockIdx.y): c, then dQ; every
+// thread forms S, P and dP of its 4 x 4 sub-tile (the exponentials shared
+// by the whole block).
+__global__ void __launch_bounds__(kThreads, 2)
+    attention_bwd_f32_queries_kernel(const BwdProblem p) {
+  extern __shared__ float4 smem4[];
+  float* Qt = reinterpret_cast<float*>(smem4);
+  float* Gt = Qt + kTileF;  // dO^T
+  float* Kt = Gt + kTileF;
+  float* Vt = Kt + kTileF;
+  float* Dt = Vt + kTileF;  // dS^T: [key][query]
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  load_rows(p.q, b, h, q0, p.nq, Qt);
+  load_rows(p.dout, b, h, q0, p.nq, Gt);
+  const long long row0 = ((long long)b * p.heads + h) * p.nq;
+  const float* bias_row = p.bias + (long long)b * p.nk;
+  float m[4], il[4], c[4], lost[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = q0 + ty * 4 + i;
+    m[i] = n < p.nq ? p.m[row0 + n] : INFINITY;
+    il[i] = n < p.nq ? __frcp_rn(p.l[row0 + n]) : 0.f;
+    c[i] = lost[i] = 0.f;
+  }
+  float s[4][4], dp[4][4], bias[4], dq[4][4];
+  bool in[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dq[i][j] = 0.f;
+
+  // sweep 1 (it < nt): c = sum over the keys of P o dP; sweep 2: dS =
+  // P o (dP - c), dQ^T += K^T dS^T. Both sweeps' K and V tiles in one
+  // stream, each fetched while the block works on the one before
+  const int nt = (p.nk + kBK - 1) / kBK;
+  float kr[4][4], vr[4][4];
+  fetch_rows(p.k, b, h, 0, p.nk, kr);
+  fetch_rows(p.v, b, h, 0, p.nk, vr);
+  for (int it = 0; it < 2 * nt; ++it) {
+    const int k0 = (it % nt) * kBK;
+    __syncthreads();  // the previous tile's K^T, V^T and dS^T are consumed
+    put_rows(kr, Kt);
+    put_rows(vr, Vt);
+    __syncthreads();
+    if (it + 1 < 2 * nt) {
+      fetch_rows(p.k, b, h, ((it + 1) % nt) * kBK, p.nk, kr);
+      fetch_rows(p.v, b, h, ((it + 1) % nt) * kBK, p.nk, vr);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      in[j] = k0 + tx * 4 + j < p.nk;
+      bias[j] = in[j] ? bias_row[k0 + tx * 4 + j] : 0.f;
+    }
+    tile_dot<4>(Qt, Kt, ty, tx, s);   // S: query 4 ty + i, key 4 tx + j
+    tile_dot<4>(Gt, Vt, ty, tx, dp);  // dP
+    if (it < nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float part = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          part = fmaf(prob(biased(s[i][j], p.scale, bias[j], in[j]), m[i],
+                           il[i]),
+                      dp[i][j], part);
+        // a row's 64 keys live in the 16 lanes of one half-warp; the
+        // butterfly leaves every lane the same sum
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1)
+          part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, off));
+        const float y = __fsub_rn(part, lost[i]);
+        const float t = __fadd_rn(c[i], y);
+        lost[i] = __fsub_rn(__fsub_rn(t, c[i]), y);
+        c[i] = t;
+      }
+      if (it == nt - 1 && tx == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (q0 + ty * 4 + i < p.nq) p.c[row0 + q0 + ty * 4 + i] = c[i];
+      }
+      continue;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        s[i][j] = __fmul_rn(
+            prob(biased(s[i][j], p.scale, bias[j], in[j]), m[i], il[i]),
+            __fsub_rn(dp[i][j], c[i]));
+    store_t<4>(Dt, s, ty, tx);
+    __syncthreads();
+    tile_acc<4>(Kt, Dt, ty, tx, dq);
+  }
+  // dq[i][j]: d = 4 ty + i of query q0 + 4 tx + j
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int n = q0 + tx * 4 + j;
+    if (n >= p.nq) continue;
+    float* out = out_row<float>(p.dq, b, h, n);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      out[(ty * 4 + i) * p.dq.sd] = dq[i][j] * p.scale;
+  }
+}
+
+// Key block x of problem (blockIdx.z, blockIdx.y): dK and dV, reading the
+// query blocks' c. Half 0 forms S^T and P, then dV; half 1 dP^T, dS,
+// then dK.
+__global__ void __launch_bounds__(kThreads, 2)
+    attention_bwd_f32_keys_kernel(const BwdProblem p) {
+  extern __shared__ float4 smem4[];
+  float* Kt = reinterpret_cast<float*>(smem4);
+  float* Vt = Kt + kTileF;
+  float* Qt = Vt + kTileF;
+  float* Gt = Qt + kTileF;      // dO^T
+  float* Pq = Gt + kTileF;      // P: [query][key]
+  float* Dq = Pq + kBQ * kPad;  // dS: [query][key]
+  float* rm = Dq + kBQ * kPad;  // the streamed queries' m, 1/l and c
+  float* rl = rm + kBQ;
+  float* rc = rl + kBQ;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kBK;
+  const int half = threadIdx.x / kHalf;
+  const int ry = threadIdx.x % kHalf / 8, rx = threadIdx.x % 8;
+  load_rows(p.k, b, h, k0, p.nk, Kt);
+  load_rows(p.v, b, h, k0, p.nk, Vt);
+  const long long row0 = ((long long)b * p.heads + h) * p.nq;
+  float bias[4];  // of the thread's keys 4 ry + i
+  bool in[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    in[i] = k0 + ry * 4 + i < p.nk;
+    bias[i] = in[i] ? p.bias[(long long)b * p.nk + k0 + ry * 4 + i] : 0.f;
+  }
+  // half 0: dV^T, half 1: dK^T; d = 4 ry + i, key col<8>(rx, j)
+  float acc[4][8], x[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int q0 = 0; q0 < p.nq; q0 += kBQ) {
+    __syncthreads();  // the previous tile's Q^T, dO^T, P and dS consumed
+    load_rows(p.q, b, h, q0, p.nq, Qt);
+    load_rows(p.dout, b, h, q0, p.nq, Gt);
+    if (threadIdx.x < kBQ) {
+      const int n = q0 + threadIdx.x;
+      rm[threadIdx.x] = n < p.nq ? p.m[row0 + n] : INFINITY;
+      rl[threadIdx.x] = n < p.nq ? __frcp_rn(p.l[row0 + n]) : 0.f;
+      rc[threadIdx.x] = n < p.nq ? p.c[row0 + n] : 0.f;
+    }
+    __syncthreads();
+    if (half == 0) {
+      // S^T: key 4 ry + i, query col<8>(rx, j)
+      tile_dot<8>(Kt, Qt, ry, rx, x);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float mq = rm[col<8>(rx, j)], lq = rl[col<8>(rx, j)];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          x[i][j] = prob(biased(x[i][j], p.scale, bias[i], in[i]), mq, lq);
+      }
+      store_t<8>(Pq, x, ry, rx);  // P[query][key]
+    } else {
+      tile_dot<8>(Vt, Gt, ry, rx, x);  // dP^T
+    }
+    __syncthreads();
+    if (half == 0) {
+      // dV^T[d][key] += dO^T[d][q] P[q][key]
+      tile_acc<8>(Gt, Pq, ry, rx, acc);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 t = read_t<8>(Pq, ry, rx, j);  // P^T[key][q]
+        const float pv[4] = {t.x, t.y, t.z, t.w};
+        const float cq = rc[col<8>(rx, j)];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          x[i][j] = __fmul_rn(pv[i], __fsub_rn(x[i][j], cq));
+      }
+      store_t<8>(Dq, x, ry, rx);  // dS[query][key]
+      half_sync(1);
+      // dK^T[d][key] += Q^T[d][q] dS[q][key]
+      tile_acc<8>(Qt, Dq, ry, rx, acc);
+    }
+  }
+  // acc[i][j]: d = 4 ry + i of key k0 + col<8>(rx, j); half 0 dV, half 1 dK
+  const Output& o = half == 0 ? p.dv : p.dk;
+  const float scale = half == 0 ? 1.f : p.scale;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int n = k0 + col<8>(rx, j);
+    if (n >= p.nk) continue;
+    float* out = out_row<float>(o, b, h, n);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) out[(ry * 4 + i) * o.sd] = acc[i][j] * scale;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -563,12 +796,23 @@ extern "C" int ei_attention_bwd(int dtype, const void* q, const void* k,
   p.nk = M;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long rows = (long long)B * H * N;
-  ei::bwd_rowsum_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(p, B);
-  const int err = (int)cudaGetLastError();
+  // the query blocks (c, dQ), then the key blocks (dK, dV), which read c
+  const size_t q_smem = ei::kBwdQueryFloats * sizeof(float);
+  const size_t k_smem = ei::kBwdKeyFloats * sizeof(float);
+  int err = (int)cudaFuncSetAttribute(
+      ei::attention_bwd_f32_queries_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q_smem);
   if (err != 0) return err;
-  const long long all = (long long)B * H * (N + M);
-  ei::bwd_rows_kernel<<<(unsigned)((all + 7) / 8), 256, 0, s>>>(p, B);
+  err = (int)cudaFuncSetAttribute(ei::attention_bwd_f32_keys_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)k_smem);
+  if (err != 0) return err;
+  ei::attention_bwd_f32_queries_kernel<<<
+      dim3((N + ei::kBQ - 1) / ei::kBQ, H, B), ei::kThreads, q_smem, s>>>(p);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  ei::attention_bwd_f32_keys_kernel<<<
+      dim3((M + ei::kBK - 1) / ei::kBK, H, B), ei::kThreads, k_smem, s>>>(p);
   return (int)cudaGetLastError();
 }
 

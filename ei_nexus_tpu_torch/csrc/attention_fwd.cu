@@ -30,9 +30,10 @@
 //    head views) are read in place; the self-attention's stride-3 v is
 //    packed first into contiguous scratch, which the wrapper hands on to
 //    kernel F, so F packs nothing;
-//  - float32 (the comparisons): the CUDA-core flash loop of
-//    flash_attention.cuh, 64 query rows a block, q/k/v read through
-//    strides.
+//  - float32 (the float32 configs, such as the `train_matcher` entry's
+//    LightGlue): the CUDA-core flash loop of flash_attention.cuh, 64 query
+//    rows a block, q/k/v read through strides; kernel F's float32
+//    instance forms every score on the same tiles in the same order.
 #include "flash_attention.cuh"
 #include "flash_sm90.cuh"
 

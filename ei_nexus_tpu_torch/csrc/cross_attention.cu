@@ -25,7 +25,7 @@
 //    TMA from four tensor maps picked per direction, (qk0 -> qk1, v1,
 //    bias1) and (qk1 -> qk0, v0, bias0); CrossBlock's head views are read
 //    in place, anything the operand plan refuses TMA is packed first.
-//  - float32 (comparisons): the CUDA-core loop of flash_attention.cuh.
+//  - float32 (the float32 configs): the CUDA-core loop of flash_attention.cuh.
 #include "flash_attention.cuh"
 #include "flash_sm90.cuh"
 

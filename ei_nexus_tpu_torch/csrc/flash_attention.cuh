@@ -5,8 +5,10 @@
 // (kernel E, csrc/qblock_attention.cu) and segment-masked flash attention
 // (kernel G, csrc/flash_segment.cu) kernels; the float32 backward (kernel
 // F, csrc/attention_bwd.cu) reads its operands through the same strides.
-// These instances are the comparison paths; the bfloat16 instances of all
-// six run the TMA + wgmma loop of flash_sm90.cuh.
+// These instances serve the float32 configs (LightGlue's dtype defaults to
+// float32 and no config under configs/ sets it, so the `train_matcher`
+// entry and the evaluation entries run them) and the comparisons; the
+// bfloat16 instances of all six run the TMA + wgmma loop of flash_sm90.cuh.
 //
 // One block computes ROWS query rows of one (batch, head) problem. The
 // query tile stays on chip; key/value tiles of BK rows stream through

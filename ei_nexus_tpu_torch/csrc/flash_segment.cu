@@ -34,7 +34,7 @@
 //    past M get -inf by their index. The rotated q and k and the cross
 //    directions' head views are read in place; the self-attention's
 //    stride-3 v is packed first into contiguous scratch;
-//  - float32 (the comparisons): the SEG instance of the CUDA-core flash
+//  - float32 (the float32 configs): the SEG instance of the CUDA-core flash
 //    loop of flash_attention.cuh, which reads each key's id beside its
 //    tile; q, k and v are read through strides.
 #include "flash_attention.cuh"

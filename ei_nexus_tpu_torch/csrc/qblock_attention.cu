@@ -28,7 +28,7 @@
 //    read (the rot-free cross directions' head views) are read in place;
 //    the rotary calls' q and k, and stride-3 views, are packed first into
 //    contiguous scratch, once per token.
-//  - float32 (the comparisons): flash_attention.cuh's CUDA-core loop, 64
+//  - float32 (the float32 configs): flash_attention.cuh's CUDA-core loop, 64
 //    rows a row group, two groups for block_q 128.
 #include "flash_attention.cuh"
 #include "flash_sm90.cuh"

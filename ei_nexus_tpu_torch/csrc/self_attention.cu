@@ -9,7 +9,7 @@
 // inputs and outputs, i.e. ~450 FLOP per byte, above the card's ~295
 // FLOP/byte ridge, so it is compute-bound (bound ~8.7 us at 989 TFLOP/s).
 //
-// Design, float32 (the comparisons): the 4 MB float32 similarity of a
+// Design, float32 (the float32 configs): the 4 MB float32 similarity of a
 // problem does not fit a block's 227 KB of shared memory, so the TPU's
 // whole-problem design becomes the flash loop of flash_attention.cuh: 64
 // query rows per block, 64-key tiles streamed, online float32 softmax on

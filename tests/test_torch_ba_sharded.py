@@ -11,7 +11,18 @@ trajectory is compared above the convergence floor), and every solve
 below 1e-6 after 4 iterations; and the replicated fields bit-equal on
 every rank. Poses and points are not compared across solves: with one
 pose fixed the scale stays free, and the summation order alone moves the
-converged solutions along it (~2e-4 relative)."""
+converged solutions along it (~2e-4 relative).
+
+Also `chip_smoke.py`'s phase 14b check of BA over 2 ranks against one
+process (`ba_dp_check`) on its own problem (`ba_problem`) cut to 32
+keyframes, 1024 landmarks and 6 observations each, on the CPU: it
+passes the correct sharded solve and fails each planted fault (the last
+rank's observations dropped, Hpp and Hll left un-reduced). At this size
+the float32 solve is chaotic from its first step (one process with its
+observations merely permuted takes another first step, where float64
+takes the same in either order), so the check, which compares final
+costs, runs 20 LM iterations, by which both solves have nearly
+converged."""
 
 import jax
 import jax.numpy as jnp
@@ -79,3 +90,40 @@ def test_sharded_matches_single_device(solves):
         assert torch.equal(r["points"], solves["ranks"][0]["points"])
     assert float(one["errs"][-1]) < 1e-6
     assert solves["jax_sharded"][-1] < 1e-6
+
+
+# phase 14b's BA case of chip_smoke.py, cut in size (see the docstring)
+DP_SIZE, DP_ITERS, DP_FAULTS = (32, 1024, 6), 20, ("dropped", "unreduced")
+
+
+@pytest.fixture(scope="module")
+def dp_solves():
+    import chip_smoke as cs
+    one = cs.ba_dp_cases(None, 0, 1, device="cpu", size=DP_SIZE,
+                         iters=DP_ITERS)["solves"][0]
+    ranks = launch(cs.ba_dp_rank, 2, (1, DP_FAULTS, "cpu", DP_SIZE,
+                                      DP_ITERS), device="cpu",
+                   timeout_s=240)
+    return cs, one, ranks
+
+
+def test_ba_dp_check_passes_a_sharded_solve(dp_solves):
+    cs, one, ranks = dp_solves
+    assert cs.BA_DP_FAULTS == DP_FAULTS
+    verdict = cs.ba_dp_check(one, [r["solves"][0] for r in ranks])
+    assert verdict["ok"], verdict["why"]
+    assert verdict["final_gap"] <= verdict["bound"]
+    assert one["errs"][-1] < 1e-2 * one["errs"][0]  # the solve converges
+
+
+@pytest.mark.parametrize("fault,why", [
+    ("dropped", ("initial costs",)),
+    ("unreduced", ("final costs", "differ from rank 0"))])
+def test_ba_dp_check_catches_planted_faults(dp_solves, fault, why):
+    """A rank's observations dropped change the initial cost; Hpp and
+    Hll left un-reduced give each rank its own steps, which either part
+    the ranks or, all refused, leave the cost where it began."""
+    cs, one, ranks = dp_solves
+    verdict = cs.ba_dp_check(one, [r["faults"][fault] for r in ranks])
+    assert not verdict["ok"]
+    assert any(r in w for w in verdict["why"] for r in why), verdict["why"]

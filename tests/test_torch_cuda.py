@@ -218,7 +218,25 @@ def _bwd_operands(cuda, values, B, h, N, M, d, dtype):
     """F's (q, k, v, do, mask) on the card, q, k, v stride-3 views (packed
     first in bfloat16): "normal" random values with the last batch row's
     keys all masked, or a case of `tests/torch_bwd_cases.py` (dP - c
-    cancels), made with numpy from seed 0."""
+    cancels), made with numpy from seed 0; or as the stage-2 step hands
+    them: "self" the stride-3 views, "cross" the head views of (B, n, h,
+    d) projections, q and k pre-scaled by d^-0.25 (read in place), each
+    with dO the (B, h, N, d) view of a (B, N, h, d) buffer that autograd
+    hands over and the last batch row's keys all masked."""
+    if values in ("self", "cross"):
+        if values == "self":
+            q, k, v = (_strided_heads(cuda, B, n, h, d, dtype, i)
+                       for i, n in enumerate((N, M, M)))
+        else:
+            q, k, v = (
+                (torch.randn(B, n, h, d, generator=cuda, device="cuda")
+                 * s).to(dtype).transpose(1, 2)
+                for n, s in ((N, d ** -0.25), (M, d ** -0.25), (M, 1.0)))
+        mask = torch.rand(B, M, generator=cuda, device="cuda") > 0.2
+        mask[-1] = False
+        do = torch.randn(B, N, h, d, generator=cuda, device="cuda").to(
+            dtype).permute(0, 2, 1, 3)
+        return q, k, v, do, mask
     if values == "normal":
         q = _strided_heads(cuda, B, N, h, d, dtype)
         k = _strided_heads(cuda, B, M, h, d, dtype, 1)
@@ -238,14 +256,16 @@ def _bwd_operands(cuda, values, B, h, N, M, d, dtype):
 @pytest.mark.parametrize("B,h,N,M,scale,values", [
     (3, 2, 200, 136, 0.125, "normal"), (3, 2, 128, 256, 1.0, "normal"),
     (2, 4, 1024, 1024, 0.125, "collapsed"),
-    (2, 4, 1024, 1024, 0.125, "one-hot")])
+    (2, 4, 1024, 1024, 0.125, "one-hot"),
+    (8, 4, 1024, 1024, 0.125, "self"), (8, 4, 1024, 1024, 1.0, "cross")])
 def test_attention_bwd_kernel(cuda, dtype, tol, B, h, N, M, scale, values):
     """F on stride-3 operands (packed first in bfloat16): at ragged N != M
-    with random values, the last batch row's keys all masked; and on the
+    with random values, the last batch row's keys all masked; on the
     (2, 4, 1024, 64) inputs where dP - c cancels (collapsed value rows,
-    one-hot softmax rows), where c taken from the rounded output fails.
-    Each gradient against the plain version, and the last batch row's
-    alone too."""
+    one-hot softmax rows), where c taken from the rounded output fails;
+    and at the stage-2 step's (8, 4, 1024, 64), self (stride-3 views) and
+    cross (head views read in place, scale 1). Each gradient against the
+    plain version, and the last batch row's alone too."""
     d = 64
     q, k, v, do, mask = _bwd_operands(cuda, values, B, h, N, M, d, dtype)
     bias = ak.key_bias(mask, B, M, "cuda")
@@ -254,7 +274,8 @@ def test_attention_bwd_kernel(cuda, dtype, tol, B, h, N, M, scale, values):
     packs = ak.hopper_attention.packs
     got = ak.attention_bwd(q, k, v, do, bias, stats, scale)
     assert ak.attention_bwd.launches == before + 1
-    assert ak.hopper_attention.packs == packs + (dtype == torch.bfloat16)
+    assert ak.hopper_attention.packs == packs + (
+        dtype == torch.bfloat16 and values != "cross")
     want = ak.fused_attention_bwd_plain(q, k, v, bias, do, scale)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.shape == b.shape and a.dtype == b.dtype, name
