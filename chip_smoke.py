@@ -9,12 +9,15 @@ Phases, each of which raises on failure:
     switched off for matmuls and convolutions so float32 comparisons are
     float32; the card's name and power limit are printed;
  2. the build of the Hopper loops of A, B, D, E, F and G
-    (csrc/flash_sm90.cuh, csrc/attention_bwd.cu): their kernels' ptxas
-    lines (no spill, no C7508 "setmaxnreg ignored"), shared memory, and
-    HGMMA and UTMALDG instructions in the SASS of each library where the
-    toolkit has cuobjdump; then every kernel (A-G) against its plain
-    PyTorch version at the paths' shapes, in float32 and bfloat16 (E at
-    block_q 64 and 128, with and without rot; G at 1024 and 2048 tokens
+    (csrc/flash_sm90.cuh, csrc/attention_bwd.cu) and of float32 A and B's
+    3xTF32 loops (csrc/flash_tf32.cuh): their kernels' ptxas lines (no
+    spill, no C7508 "setmaxnreg ignored"), shared memory, and HGMMA and
+    UTMALDG instructions in the SASS of each library, and of the two
+    3xTF32 loops alone, where the toolkit has cuobjdump; the float32 pack
+    pass of A and B bit-exact against its plain version; then every
+    kernel (A-G) against its plain PyTorch version at the paths' shapes,
+    in float32 and bfloat16 (E at block_q 64 and 128, with and without
+    rot; G at 1024 and 2048 tokens
     with random query and key segments and a fully masked batch row; D and
     F with a fully masked batch row, held alone too, F reading the v D
     packed), timed with CUDA events beside the plain
@@ -29,7 +32,9 @@ Phases, each of which raises on failure:
     (each run alone); one table of A, B, D, E, F and G (`kernel_table`:
     the call, SDPA's call, the bound) timed by device time in each dtype,
     the float32 instances (the float32 configs' path) against their bound
-    at float32's peak and SDPA's float32 call; F's ptxas lines of its
+    at float32's peak (A and B at the 3xTF32 peak of the tensor cores,
+    also reported at the CUDA cores', and split into the pack pass and
+    the loop) and SDPA's float32 call; F's ptxas lines of its
     float32 kernels too (no spill); F's gradients are also held to a
     relative norm, which planted faults of its inputs (the neighbouring
     row's statistics, the row sum doubled, the neighbouring batch row's
@@ -46,10 +51,11 @@ Phases, each of which raises on failure:
     9 LightGlue layers of 4x64, bfloat16, B=8) on bursty events, once for
     each attention setting of `build_flagship`: "auto" (A=18, B=9, C=2
     launches a forward), "flash" (G=36, C=2) and "auto" with block_q=64
-    (E=36, C=2), launch counts read around one forward (and the Hopper
-    loops' pack passes: 18 under "auto", 18 q-blocked, 18 "flash"), then
-    timed one forward at a time (latency) and back to back (throughput,
-    pairs/s);
+    (E=36, C=2), and "auto" in float32 (A=18, B=9, C=2; the eval entries'
+    type), launch counts read around one forward (and the pack passes: 18
+    under "auto", 18 q-blocked, 18 "flash", 27 under "auto" in float32),
+    then timed one forward at a time (latency) and back to back
+    (throughput, pairs/s);
     the flash forward is then chained with the pose tail as the JAX
     package's bench.py chains them (pairs/s with pose, the pose tail's ms
     per batch, its host syncs);
@@ -270,6 +276,9 @@ import torch.nn.functional as F
 # of their type.
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12        # CUDA cores, no tensor cores
+# float32 products as three TF32 products on the tensor cores (495 TFLOP/s
+# dense): the peak the 3xTF32 loops of float32 A and B are held to
+PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
 
 MAIN_B, MAIN_H, MAIN_N, MAIN_D = 8, 4, 1024, 64   # LightGlue attention
@@ -352,23 +361,30 @@ def _sum_ms(times: dict, fragment: str = "") -> float:
 # ---------------------------------------------------------------------------
 
 # the Hopper loops of A, B, D, E, F and G (csrc/flash_sm90.cuh; F's in
-# csrc/attention_bwd.cu) and their pack pass
+# csrc/attention_bwd.cu; float32 A and B's in csrc/flash_tf32.cuh) and
+# their pack passes
 HOPPER_LIBS = ("self_attention", "qblock_attention", "cross_attention",
                "attention_fwd", "attention_bwd", "flash_segment")
-# their kernels, by a fragment of the name: the loops, the pack pass and
-# F's c pass; and F's float32 query and key kernels (CUDA cores)
+# their kernels, by a fragment of the name: the loops, the pack passes and
+# F's c pass; F's float32 query and key kernels (CUDA cores); float32 A
+# and B's 3xTF32 loops and pack pass
 HOPPER_KERNELS = ("sm90_kernel", "attention_pack_kernel",
-                  "attention_bwd_rowsum_kernel", "attention_bwd_f32")
+                  "attention_bwd_rowsum_kernel", "attention_bwd_f32",
+                  "tf32_kernel")
+# the float32 3xTF32 loops, by library: their SASS is counted alone
+TF32_LOOPS = {"self_attention": "self_attention_tf32_kernel",
+              "cross_attention": "cross_attention_tf32_kernel"}
 
 
 def check_hopper_build(logs: dict) -> dict:
-    """Print ptxas's lines for the Hopper kernels and F's float32 kernels
-    (registers, spills, stack;
-    their dynamic shared memory from the library; any C75xx remark such as
-    C7508, setmaxnreg ignored) and require no spill and no C7508; where
-    the toolkit has cuobjdump, count HGMMA (wgmma) and UTMALDG (TMA load)
-    instructions in each library's SASS and require both. Returns
-    {library: {"HGMMA": n, "UTMALDG": n}}."""
+    """Print ptxas's lines for the Hopper kernels, F's float32 kernels and
+    float32 A and B's 3xTF32 loops and pack pass (registers, spills,
+    stack; their dynamic shared memory from the library; any C75xx remark
+    such as C7508, setmaxnreg ignored) and require no spill and no C7508;
+    where the toolkit has cuobjdump, count HGMMA (wgmma) and UTMALDG (TMA
+    load) instructions in each library's SASS, and in the 3xTF32 loops'
+    own functions, and require both. Returns {library: {"HGMMA": n,
+    "UTMALDG": n}} (the 3xTF32 loops under their function's name)."""
     from ei_nexus_tpu_torch.ops import cuda_build
     for name in HOPPER_LIBS:
         log = logs.get(name)
@@ -399,6 +415,10 @@ def check_hopper_build(logs: dict) -> dict:
             print(f"[kernels] {name}: loop's dynamic shared memory "
                   f"{lib.ei_sm90_smem_bytes(1)} bytes a block (64 rows), "
                   f"{lib.ei_sm90_smem_bytes(2)} (128 rows)")
+        if name in TF32_LOOPS:
+            print(f"[kernels] {name}: float32 3xTF32 loop's dynamic shared "
+                  f"memory {lib.ei_tf32_smem_bytes()} bytes a block (64 "
+                  f"rows)")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     counts = {}
     if not os.path.isfile(tool):
@@ -412,6 +432,14 @@ def check_hopper_build(logs: dict) -> dict:
         print(f"[kernels] {name} SASS: {counts[name]}")
         require(all(counts[name].values()),
                 f"{name}: no wgmma or no TMA load in the SASS")
+        if name in TF32_LOOPS:
+            fn = TF32_LOOPS[name]
+            part = next((p for p in sass.split("Function : ")[1:]
+                         if p.split()[0].find(fn) >= 0), "")
+            counts[fn] = {op: part.count(op) for op in ("HGMMA", "UTMALDG")}
+            print(f"[kernels] {name} SASS of {fn} (float32): {counts[fn]}")
+            require(all(counts[fn].values()),
+                    f"{fn}: no wgmma or no TMA load in its SASS")
     return counts
 
 
@@ -461,10 +489,12 @@ def peak_flops(dtype: torch.dtype) -> float:
     return PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
 
 
-def attention_bound_ms(kind: str, q: torch.Tensor, k: torch.Tensor) -> tuple:
+def attention_bound_ms(kind: str, q: torch.Tensor, k: torch.Tensor,
+                       peak: float = 0.0) -> tuple:
     """Bound of one call in q's dtype on (B, h, N, d) queries and
     (B, h, M, d) keys: each input read once (q, k, v, the rotary tables,
-    the float32 biases), each output written once."""
+    the float32 biases), each output written once; the operations at
+    `peak` (default: the dtype's, `peak_flops`)."""
     B, h, N, d = q.shape
     M = k.shape[2]
     es = q.element_size()
@@ -474,7 +504,7 @@ def attention_bound_ms(kind: str, q: torch.Tensor, k: torch.Tensor) -> tuple:
     else:
         flops = 6.0 * B * h * N * M * d           # S once, two PV products
         nbytes = 3 * B * h * (N + M) * d * es + B * (N + M) * 4
-    return _bound(flops, peak_flops(q.dtype), nbytes)
+    return _bound(flops, peak or peak_flops(q.dtype), nbytes)
 
 
 def nms_bound_ms(score: torch.Tensor) -> tuple:
@@ -811,9 +841,12 @@ def kernel_table(x, fused, qblock, flash) -> dict:
     unit stride on d), D and F's the unmasked rows of x["mask0"] (a fully
     masked bool row is NaN there); B's is two calls, E's is A's, G's its
     segment mask, and F's the pair (forward + backward, forward), whose
-    difference is its yardstick."""
+    difference is its yardstick. Float32 A and B are bound at the 3xTF32
+    peak of their tensor-core loops, the other float32 kernels at the CUDA
+    cores'."""
     from ei_nexus_tpu_torch.ops import attention_kernels as ak
     from ei_nexus_tpu_torch.ops import flash_kernel as fk
+    ab_peak = PEAK_TF32X3_FLOPS if x["q"].dtype == torch.float32 else 0.0
     cos, sin = (t[:, None] for t in x["rot"])
     qr, kr = ((t * cos + ak.rotate_half(t) * sin).contiguous()
               for t in (x["q"], x["k"]))
@@ -851,12 +884,13 @@ def kernel_table(x, fused, qblock, flash) -> dict:
         "self_attention_rot": (
             lambda: ak.self_attention(x["q"], x["k"], x["v"], x["mask0"],
                                       rot=x["rot"]),
-            sdpa_self, attention_bound_ms("self", x["q"], x["k"])),
+            sdpa_self, attention_bound_ms("self", x["q"], x["k"], ab_peak)),
         "cross_attention_bidir": (
             lambda: ak.cross_attention_bidir(x["qk0"], x["qk1"], x["v0"],
                                              x["v1"], x["mask0"],
                                              x["mask1"]),
-            sdpa_bidir, attention_bound_ms("cross", x["qk0"], x["qk1"])),
+            sdpa_bidir,
+            attention_bound_ms("cross", x["qk0"], x["qk1"], ab_peak)),
         "attention_fwd": (lambda: ak.attention_fwd(q, k, v, bias, scale),
                           sdpa_fwd_only, fused_bound_ms("fwd", q, k)),
         "attention_bwd": (
@@ -869,6 +903,55 @@ def kernel_table(x, fused, qblock, flash) -> dict:
             lambda: fk.flash_attention(*xg, MAIN_D ** -0.5),
             sdpa_segment(xg), flash_bound_ms(xg[0], xg[1])),
     }
+
+
+def check_f32_pack(x) -> None:
+    """The float32 pack pass of A and B on phase 2's float32 operands, bit
+    for bit against `pack_f32_plain`: A's stride-3 q and k rotated, its v
+    transposed; B's head views of both sides."""
+    from ei_nexus_tpu_torch.ops import attention_kernels as ak
+    rot = tuple(t.contiguous() for t in x["rot"])
+    cases = {"self_attention": ((x["q"], x["k"]), (x["v"],), rot),
+             "cross_attention": ((x["qk0"], x["qk1"]), (x["v0"], x["v1"]),
+                                 None)}
+    for kernel, args in cases.items():
+        got = ak.pack_f32(*args, kernel=kernel)
+        want = ak.pack_f32_plain(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(got[0] + got[1], want[0] + want[1]):
+            require(a.shape == b.shape and torch.equal(a, b),
+                    f"the float32 pack pass of {kernel} is not bit-exact: "
+                    f"{int((a != b).sum())} values differ")
+    print(f"[kernels] float32 pack pass of A and B: bit-exact against "
+          f"pack_f32_plain at ({MAIN_B}, {MAIN_H}, {MAIN_N}, {MAIN_D}) (A's "
+          f"q, k rotated and v transposed from the stride-3 views; B's "
+          f"head views of both sides)")
+
+
+def report_f32_ab(tab: dict, x) -> dict:
+    """Float32 A and B from phase 2's float32 table: device ms split into
+    the pack pass and the 3xTF32 loop, the bound at both peaks (3xTF32 on
+    the tensor cores, which they are held to, and the CUDA cores' 67
+    TFLOP/s), SDPA's float32 ms. Returns each one's extra JSON keys."""
+    out = {}
+    for name, kind, q, k in (("self_attention_rot", "self", x["q"], x["k"]),
+                             ("cross_attention_bidir", "cross", x["qk0"],
+                              x["qk1"])):
+        t = tab[name]
+        dev, lib = t["device_ms"], t["library_device_ms"]
+        pack = _sum_ms(t["kernels"], "pack_tf32")
+        loop = _sum_ms(t["kernels"], "attention_tf32_kernel")
+        tc, by = attention_bound_ms(kind, q, k, PEAK_TF32X3_FLOPS)
+        cc, _ = attention_bound_ms(kind, q, k, PEAK_F32_FLOPS)
+        print(f"[kernels] float32 {name}: device {dev:.4f} ms a call, pack "
+              f"{pack:.4f} + loop {loop:.4f} (the rest: the key bias); "
+              f"bound {tc:.4f} ms by {by} at 3xTF32 ({PEAK_TF32X3_FLOPS:.4g} "
+              f"FLOP/s, held to: share {tc / dev:.1%}), {cc:.4f} ms at the "
+              f"CUDA cores' {PEAK_F32_FLOPS:.4g} ({cc / dev:.1%}); SDPA "
+              f"float32 {lib:.4f} ms (kernel / SDPA {dev / lib:.3f})")
+        out[name] = dict(pack_ms_f32=pack, loop_ms_f32=loop,
+                         bound_ms_f32_cuda_cores=cc)
+    return out
 
 
 def library_call_ms(lib, timer) -> float:
@@ -927,6 +1010,8 @@ def phase_kernels(logs: dict):
         require(e_a <= tol and e_b <= tol,
                 f"attention kernel disagrees in {dtype}")
         errs[dtype] = (e_a, e_b)
+        if dtype == torch.float32:
+            check_f32_pack(x)
         fused_errs[dtype] = check_fused(x, dtype, tol, gen)
         qblock_errs[dtype] = check_qblock(x, dtype, tol)
         flash_errs[dtype] = check_flash(dtype, tol, gen)
@@ -935,6 +1020,8 @@ def phase_kernels(logs: dict):
         calls = kernel_table(x, fused_errs[dtype], qblock_errs[dtype],
                              flash_errs[dtype])
         tables[dtype] = time_kernels(dtype, calls)
+        if dtype == torch.float32:
+            f32_ab = report_f32_ab(tables[dtype], x)
     # bfloat16 (the bf16 configs' type; x and calls hold its operands):
     # CUDA-event ms a call back to back, host-paced where the wrapper costs
     # the host more than the card, of each kernel and its SDPA call
@@ -1036,8 +1123,10 @@ def phase_kernels(logs: dict):
              **timing("self_attention_rot"), plain_ms=t_a_plain,
              design="bf16: pack pass (rotary, de-interleave, once a token) "
                     "then a TMA + wgmma warp-specialised flash loop, 128 "
-                    "rows a block in two consumer warpgroups; f32: "
-                    "CUDA-core flash loop",
+                    "rows a block in two consumer warpgroups; f32: pack "
+                    "pass (rotary, TF32 hi/lo split, V transposed in the P "
+                    "fragments' key order) then a TMA + 3xTF32 wgmma flash "
+                    "loop, 64 rows a block in one consumer warpgroup",
              pack_ms=_sum_ms(dev_a, "attention_pack"),
              sass=sass.get("self_attention")),
         dict(name="cross_attention_bidir", route="cuda",
@@ -1049,8 +1138,10 @@ def phase_kernels(logs: dict):
              design="bf16: one launch of the TMA + wgmma warp-specialised "
                     "flash loop for both directions, 64 rows a block in one "
                     "consumer warpgroup, four tensor maps picked per "
-                    "direction, head views read in place; f32: CUDA-core "
-                    "flash loop",
+                    "direction, head views read in place; f32: pack pass "
+                    "(TF32 hi/lo split of both sides, V transposed) then "
+                    "one launch of the TMA + 3xTF32 wgmma flash loop for "
+                    "both directions, 64 rows a block",
              sass=sass.get("cross_attention")),
         row_c,
         dict(name="attention_fwd", route="cuda",
@@ -1139,6 +1230,7 @@ def phase_kernels(logs: dict):
             r.update({k + "_f32": v for k, v in
                       tables[torch.float32][r["name"]].items()
                       if k != "kernels"})
+        r.update(f32_ab.get(r["name"], {}))
         print(f"[kernels] {r['name']}: {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.4f}, library {r['library_ms']}, bound "
               f"{r['bound_ms']:.4f} by {r['bound_by']}); device "
@@ -1164,9 +1256,11 @@ def flagship_inputs(B: int = 8, max_events: int = 1 << 17):
 
 
 def phase_forward(tag: str, want: dict, want_packs: int,
-                  attention_impl: str = "auto", block_q: int = 0):
-    """The flagship EIM forward at full width with LightGlue's attention
-    taken as `attention_impl` / `block_q` (`build_flagship`'s options):
+                  attention_impl: str = "auto", block_q: int = 0,
+                  dtype: str = "bfloat16"):
+    """The flagship EIM forward at full width in `dtype` with LightGlue's
+    attention taken as `attention_impl` / `block_q` (`build_flagship`'s
+    options):
     launch counts (and the Hopper loops' pack passes) read around one forward
     and held to `want` and `want_packs`, output checks, then latency (one
     forward at a time) and back-to-back rate. Returns (launches, ms per
@@ -1176,7 +1270,7 @@ def phase_forward(tag: str, want: dict, want_packs: int,
     from ei_nexus_tpu_torch.train.steps import batch_representation
 
     model, (H, W, bins) = build_flagship(
-        dtype="bfloat16", generator=torch.Generator().manual_seed(0),
+        dtype=dtype, generator=torch.Generator().manual_seed(0),
         attention_impl=attention_impl, block_q=block_q)
     ev, image = flagship_inputs()
     B = image.shape[0]
@@ -4642,6 +4736,11 @@ def main() -> int:
         "forward (auto)", phase_forward, "main",
         {"self_attention_rot": 18, "cross_attention_bidir": 9,
          "nms_rounds": 2}, 18)
+    # float32 (the eval entries' type): A and B each pack once a call
+    f32_fwd_launches, f32_fwd_ms, _, _ = timed(
+        "forward (auto, float32)", phase_forward, "main-f32",
+        {"self_attention_rot": 18, "cross_attention_bidir": 9,
+         "nms_rounds": 2}, 27, dtype="float32")
     flash_launches, flash_ms, _, flash_fwd = timed(
         "forward (flash)", phase_forward, "flash",
         {"flash_attention": 36, "nms_rounds": 2}, 18, attention_impl="flash")
@@ -4662,6 +4761,7 @@ def main() -> int:
     for r in rows:
         r["launches"] = path_of.get(r["name"], launches)[r["name"]]
         r["launches_stage2_step_f32"] = f32_launches[r["name"]]
+        r["launches_forward_f32"] = f32_fwd_launches[r["name"]]
     loader_rate, host_rate, host_share, buckets, stages = timed(
         "loader-fed forward (auto)", phase_loader_forward)
     mnn_ms, _ = timed("MNN forward", phase_mnn_forward)
@@ -4757,6 +4857,9 @@ def main() -> int:
 
     print(json.dumps({"kernels": rows}))
     for tag, ms in (("flagship forward", fwd_ms),
+                    ("flagship forward in float32 (the eval entries' type; "
+                     f"{f32_fwd_ms / fwd_ms:.3f}x the bf16 forward's ms)",
+                     f32_fwd_ms),
                     ("flash forward", flash_ms),
                     ("q-blocked forward (block_q 64)", qblock_ms),
                     ("flash forward + pose", serve_ms)):

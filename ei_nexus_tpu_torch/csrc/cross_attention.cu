@@ -25,36 +25,35 @@
 //    TMA from four tensor maps picked per direction, (qk0 -> qk1, v1,
 //    bias1) and (qk1 -> qk0, v0, bias0); CrossBlock's head views are read
 //    in place, anything the operand plan refuses TMA is packed first.
-//  - float32 (the float32 configs): the CUDA-core loop of flash_attention.cuh.
-#include "flash_attention.cuh"
+//  - float32 (the float32 configs): the 3xTF32 Hopper loop of
+//    flash_tf32.cuh, 64 query rows a block in one consumer warpgroup, after
+//    a pack pass that splits qk0, qk1, v0 and v1 into
+//    TF32 hi/lo planes (v transposed) once per token; the Q planes of one
+//    direction are the K planes of the other, so each side is packed once,
+//    and four tensor maps are picked per direction as in bf16.
 #include "flash_sm90.cuh"
+#include "flash_tf32.cuh"
 
 namespace ei {
 
-struct CrossProblem {
-  Problem dir[2];
+struct CrossTf32Args {
+  tf32::Args dir[2];  // direction 0: side-0 queries; 1: side-1 queries
 };
 
-__global__ void __launch_bounds__(kThreads)
-    cross_attention_kernel(const CrossProblem cp) {
-  extern __shared__ float4 smem4[];
-  const int d = blockIdx.z & 1;
-  const Problem& p = d ? cp.dir[1] : cp.dir[0];
-  const int q0 = blockIdx.x * Tiles<float>::rows;
-  if (q0 >= p.nq) return;  // the shorter side's surplus blocks
-  flash_block<float, false>(p, blockIdx.z >> 1, blockIdx.y, q0, smem4);
-}
-
-static int launch(const CrossProblem& cp, int B, int H, cudaStream_t stream) {
-  using Tl = Tiles<float>;
-  cudaError_t err = cudaFuncSetAttribute(
-      cross_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)Tl::smem);
-  if (err != cudaSuccess) return (int)err;
-  const int rows = cp.dir[0].nq > cp.dir[1].nq ? cp.dir[0].nq : cp.dir[1].nq;
-  const dim3 grid((rows + Tl::rows - 1) / Tl::rows, H, 2 * B);
-  cross_attention_kernel<<<grid, Tl::threads, Tl::smem, stream>>>(cp);
-  return (int)cudaGetLastError();
+// float32: block (x, y, z): query rows 64x.. of direction z & 1, head y,
+// batch z / 2; tp0, tp1 the sides' row planes, tv0, tv1 their V^T planes.
+__global__ void __launch_bounds__(tf32::kThreads, 1)
+    cross_attention_tf32_kernel(const __grid_constant__ CUtensorMap tp0,
+                                const __grid_constant__ CUtensorMap tp1,
+                                const __grid_constant__ CUtensorMap tv0,
+                                const __grid_constant__ CUtensorMap tv1,
+                                const CrossTf32Args ca) {
+  const bool d1 = blockIdx.z & 1;
+  const tf32::Args a = d1 ? ca.dir[1] : ca.dir[0];
+  const int q0 = blockIdx.x * 64;
+  if (q0 >= a.nq) return;  // the shorter side's surplus blocks
+  tf32::attention_block(d1 ? tp1 : tp0, d1 ? tp0 : tp1, d1 ? tv0 : tv1, a,
+                        q0, blockIdx.y, blockIdx.z >> 1);
 }
 
 namespace sm90 {
@@ -81,45 +80,42 @@ __global__ void __launch_bounds__(Config<1>::threads, Config<1>::min_blocks)
 }  // namespace sm90
 }  // namespace ei
 
-// float32: qk0, v0: (B, H, N, 64); qk1, v1: (B, H, M, 64), through
-// `in_strides` (16 element strides: qk0, qk1, v0, v1, each (b, h, n, d));
-// bias0: (B, N) and bias1: (B, M) float32 contiguous; out0: (B, H, N, 64)
-// and out1: (B, H, M, 64) through `out_strides` (8). Returns the CUDA error
-// code of the launch (0 on success); bfloat16 takes
-// ei_cross_attention_sm90.
-extern "C" int ei_cross_attention_bidir(int dtype, const void* qk0,
-                                        const void* qk1, const void* v0,
-                                        const void* v1,
-                                        const long long* in_strides,
-                                        const float* bias0,
-                                        const float* bias1, void* out0,
-                                        void* out1,
-                                        const long long* out_strides, int B,
-                                        int H, int N, int M, void* stream) {
-  if (dtype != ei::kFloat32) return (int)cudaErrorInvalidValue;
-  ei::CrossProblem cp;
-  // direction 0: side-0 queries attend side-1 keys
-  cp.dir[0].q = ei::make_operand(qk0, in_strides);
-  cp.dir[0].k = ei::make_operand(qk1, in_strides + 4);
-  cp.dir[0].v = ei::make_operand(v1, in_strides + 12);
-  cp.dir[0].bias = bias1;
-  cp.dir[0].o = ei::make_output(out0, out_strides);
-  cp.dir[0].nq = N;
-  cp.dir[0].nk = M;
-  // direction 1: side-1 queries attend side-0 keys
-  cp.dir[1].q = ei::make_operand(qk1, in_strides + 4);
-  cp.dir[1].k = ei::make_operand(qk0, in_strides);
-  cp.dir[1].v = ei::make_operand(v0, in_strides + 8);
-  cp.dir[1].bias = bias0;
-  cp.dir[1].o = ei::make_output(out1, out_strides + 4);
-  cp.dir[1].nq = M;
-  cp.dir[1].nk = N;
-  for (int d = 0; d < 2; ++d) {
-    cp.dir[d].cos = nullptr;
-    cp.dir[d].sin = nullptr;
-    cp.dir[d].scale = 1.0f;
-  }
-  return ei::launch(cp, B, H, static_cast<cudaStream_t>(stream));
+// float32: the loop of both directions over the planes the pack pass
+// (ei_attention_pack_tf32) wrote: p0 (B, H, 2, N, 64) and p1
+// (B, H, 2, M, 64) the split qk0 and qk1, vt0 (B, H, 2, 64, N rounded up
+// to 64) and vt1 (B, H, 2, 64, M rounded up) the transposed, split v0 and
+// v1; bias0: (B, N), bias1: (B, M) float32 contiguous; out0: (B, H, N, 64),
+// out1: (B, H, M, 64) float32 through `out_strides` (6: out0, out1, each
+// (b, h, n); d unit). Returns 0, a CUDA error code or one of ei::sm90's
+// kErr* codes.
+extern "C" int ei_cross_attention_tf32(const float* p0, const float* p1,
+                                       const float* vt0, const float* vt1,
+                                       const float* bias0,
+                                       const float* bias1, void* out0,
+                                       void* out1,
+                                       const long long* out_strides, int B,
+                                       int H, int N, int M,
+                                       void* stream) {
+  using namespace ei::tf32;
+  CUtensorMap maps[4];
+  int err = row_map(&maps[0], p0, N, H, B);
+  if (err == 0) err = row_map(&maps[1], p1, M, H, B);
+  if (err == 0) err = value_map(&maps[2], vt0, N, H, B);
+  if (err == 0) err = value_map(&maps[3], vt1, M, H, B);
+  if (err != 0) return err;
+  const long long* os = out_strides;
+  const ei::CrossTf32Args ca{{Args{bias1, static_cast<float*>(out0),
+                                   {os[0], os[1], os[2]}, N, M, 1.f},
+                              Args{bias0, static_cast<float*>(out1),
+                                   {os[3], os[4], os[5]}, M, N, 1.f}}};
+  err = configure(
+      reinterpret_cast<const void*>(ei::cross_attention_tf32_kernel));
+  if (err != 0) return err;
+  const dim3 grid(((N > M ? N : M) + 63) / 64, H, 2 * B);
+  ei::cross_attention_tf32_kernel<<<grid, kThreads, kSmemBytes,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], ca);
+  return (int)cudaGetLastError();
 }
 
 // bfloat16: the pack pass (where the operand plan asks for it) and one

@@ -1,14 +1,14 @@
 // Flash-style row-softmax attention core of the float32 instances of the
-// self-attention (kernel A, csrc/self_attention.cu), bidirectional
-// cross-attention (kernel B, csrc/cross_attention.cu), differentiable
-// attention forward (kernel D, csrc/attention_fwd.cu), q-blocked attention
-// (kernel E, csrc/qblock_attention.cu) and segment-masked flash attention
-// (kernel G, csrc/flash_segment.cu) kernels; the float32 backward (kernel
-// F, csrc/attention_bwd.cu) reads its operands through the same strides.
-// These instances serve the float32 configs (LightGlue's dtype defaults to
-// float32 and no config under configs/ sets it, so the `train_matcher`
-// entry and the evaluation entries run them) and the comparisons; the
-// bfloat16 instances of all six run the TMA + wgmma loop of flash_sm90.cuh.
+// differentiable attention forward (kernel D, csrc/attention_fwd.cu),
+// q-blocked attention (kernel E, csrc/qblock_attention.cu) and
+// segment-masked flash attention (kernel G, csrc/flash_segment.cu)
+// kernels; the float32 backward (kernel F, csrc/attention_bwd.cu) reads
+// its operands through the same strides. D and F serve the float32
+// configs (LightGlue's dtype defaults to float32 and no config under
+// configs/ sets it, so the `train_matcher` entry runs them) and the
+// comparisons; the float32 instances of A and B run the 3xTF32 loop of
+// flash_tf32.cuh, and the bfloat16 instances of all six the TMA + wgmma
+// loop of flash_sm90.cuh.
 //
 // One block computes ROWS query rows of one (batch, head) problem. The
 // query tile stays on chip; key/value tiles of BK rows stream through
@@ -20,7 +20,7 @@
 // rounds where the bf16 loop does, through the storage type T: rotated
 // q/k and the probabilities P in T, S and O in float32.
 //
-// Masks: a float32 key-side bias row added after the scale (A, B, D, E),
+// Masks: a float32 key-side bias row added after the scale (D, E),
 // or, with SEG (G), jax's TPU flash-attention rule: -0.7 * FLT_MAX added
 // after the scale wherever the query's int32 segment id differs from the
 // key's. Keys past the end of the problem get -inf either way.

@@ -32,7 +32,12 @@ own block_q query rows instead of 128), so the plain versions are shared.
 The kernels read q/k/v through strides (no copy of the strided views the
 LightGlue blocks produce) and write their outputs as (B, h, N, d) views of
 (B, N, h, d) buffers, so the caller's merge of the heads is free. The
-bfloat16 instances of A, B, D, E, F and G (`hopper_attention`,
+float32 instances of A and B run a 3xTF32 loop on the tensor cores after a
+pack pass (`pack_f32`, plain version `pack_f32_plain`) that reads the
+operands through their strides, rotates A's q and k, splits each value x
+into TF32 hi = tf32(x) and lo = tf32(x - hi) (`tf32_split_plain`) and
+writes V transposed, each 8-key group in the order the loop's P fragments
+take. The bfloat16 instances of A, B, D, E, F and G (`hopper_attention`,
 `cross_attention_bidir`, `attention_fwd`, `attention_bwd`,
 `flash_kernel.flash_attention`) read their operands by TMA, which needs a
 unit d stride and 16-byte alignment: `operand_plan` decides for each
@@ -60,6 +65,7 @@ gets P = 1/M. The mask gets no gradient.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -133,6 +139,56 @@ def cross_attention_bidir_plain(qk0: torch.Tensor, qk1: torch.Tensor,
     bias1 = key_bias(mask1, B, M, qk0.device)
     return (_row_attention(qk0, qk1, v1, bias1, 1.0),
             _row_attention(qk1, qk0, v0, bias0, 1.0))
+
+
+def tf32_split_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of float32 `x` as the float32 pack pass splits it: hi =
+    tf32(x), lo = tf32(x - hi), where tf32 is cvt.rna.tf32.f32's rounding
+    (to 10 fraction bits, to nearest with ties away from zero, the 13 low
+    bits cleared), so x = hi + lo to 2^-22 |x|."""
+    def tf32(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    hi = tf32(x.float())
+    return hi, tf32(x.float() - hi)
+
+
+def vt_key_order(keys: int, device=None) -> torch.Tensor:
+    """The key at each position of a V^T plane of `keys` (a multiple of 8):
+    each 8-key group in the order 0, 2, 4, 6, 1, 3, 5, 7, so that column t
+    of the TF32 A fragment of P (which the loop fills from accumulator
+    columns 2t and 2t + 1) meets its key."""
+    p = torch.arange(keys, device=device)
+    return (p & ~7) | (2 * (p & 3) + ((p >> 2) & 1))
+
+
+def _padded_keys(n: int) -> int:
+    return -(-n // 64) * 64
+
+
+def pack_f32_plain(rows, values, rot: Optional[Tuple[torch.Tensor,
+                                                     torch.Tensor]] = None):
+    """Plain version of the float32 pack pass of kernels A and B: (the
+    (B, h, 2, n, 64) hi/lo planes of each (B, h, n, 64) operand of `rows`,
+    rotated first by rot = (cos, sin) (B, n, 64) tables when given; the
+    (B, h, 2, 64, keys) hi/lo planes of V^T of each operand of `values`,
+    keys = n rounded up to 64, positions in `vt_key_order`, zeros past
+    n)."""
+    planes = []
+    for t in rows:
+        t = t.float()
+        if rot is not None:
+            t = _rotate(t, (rot[0].float(), rot[1].float()))
+        planes.append(torch.stack(tf32_split_plain(t), dim=2))
+    vts = []
+    for v in values:
+        B, h, n, d = v.shape
+        keys = _padded_keys(n)
+        vp = torch.zeros(B, h, keys, d, dtype=torch.float32, device=v.device)
+        vp[:, :, :n] = v
+        vt = vp[:, :, vt_key_order(keys, v.device)].transpose(-1, -2)
+        vts.append(torch.stack(tf32_split_plain(vt), dim=2))
+    return planes, vts
 
 
 def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -296,6 +352,40 @@ def hopper_operands(tensors, rotate: int = 0):
     return int64_array(ops), scratch, packed
 
 
+def pack_f32(rows, values, rot: Optional[Tuple[torch.Tensor,
+                                               torch.Tensor]] = None,
+             kernel: str = "self_attention"):
+    """The float32 pack pass of kernels A and B on the card, one launch
+    (counted in `hopper_attention.packs`): what `pack_f32_plain` defines,
+    from (B, h, n, 64) float32 operands of any strides; rot = (cos, sin)
+    contiguous (B, n, 64) float32 tables, n the rows operands' count.
+    `kernel` names the library that launches it."""
+    B, h = rows[0].shape[:2]
+    shapes = ([(B, h, 2, t.shape[2], _HEAD_DIM) for t in rows]
+              + [(B, h, 2, _HEAD_DIM, _padded_keys(v.shape[2]))
+                 for v in values])
+    sizes = [math.prod(shape) for shape in shapes]
+    buf = torch.empty(sum(sizes), dtype=torch.float32, device=rows[0].device)
+    planes, jobs, at = [], [], 0
+    for i, (t, shape, size) in enumerate(zip((*rows, *values), shapes,
+                                             sizes)):
+        plane = buf[at:at + size].view(shape)
+        is_value = i >= len(rows)
+        jobs += [t.data_ptr(), *t.stride(), t.shape[2], int(is_value),
+                 int(rot is not None and not is_value), plane.data_ptr()]
+        planes.append(plane)
+        at += size
+    tables = (None, None) if rot is None else (rot[0].data_ptr(),
+                                               rot[1].data_ptr())
+    with _on_device(buf.device):
+        err = library(kernel).ei_attention_pack_tf32(
+            int64_array(jobs), len(jobs) // 9, *tables, B, h,
+            torch.cuda.current_stream().cuda_stream)
+    check(err, f"{kernel} pack")
+    hopper_attention.packs += 1
+    return planes[:len(rows)], planes[len(rows):]
+
+
 def hopper_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: torch.Tensor, scale: float, block_q: int,
                      rot: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -358,7 +448,7 @@ def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return qblock_attention(q, k, v, bias, d ** -0.5, block_q, rot)
     if rot is None:
         return attention_fwd(q, k, v, bias, d ** -0.5)[0]
-    code = _check_cuda("self_attention", q, k, v)
+    _check_cuda("self_attention", q, k, v)
     if bias.shape != (B, N):
         raise ValueError("self_attention: kv_mask must be (B, N)")
     if q.dtype == torch.bfloat16:
@@ -366,15 +456,15 @@ def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                kernel="self_attention")
         self_attention.launches += 1
         return out
-    cos, sin = _rot_tables("self_attention", rot, q)
+    # float32: the pack pass, then the 3xTF32 loop
+    (qp, kp), (vp,) = pack_f32((q, k), (v,), _rot_tables("self_attention",
+                                                          rot, q))
     out = _heads_out(B, h, N, d, q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = library("self_attention").ei_self_attention_rot(
-            code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            int64_array(q.stride() + k.stride() + v.stride()),
-            cos.data_ptr(), sin.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            int64_array(out.stride()), B, h, N, d ** -0.5, stream)
+    with _on_device(q.device):
+        err = library("self_attention").ei_self_attention_tf32(
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), int64_array(out.stride()[:3]), B, h, N,
+            d ** -0.5, torch.cuda.current_stream().cuda_stream)
     check(err, "self_attention")
     self_attention.launches += 1
     return out
@@ -441,13 +531,14 @@ def cross_attention_bidir(qk0: torch.Tensor, qk1: torch.Tensor,
     launches of kernel E at scale 1, (qk0 -> qk1, v1) and (qk1 -> qk0, v0),
     when block_q > 0 divides N and M (the TPU's q-blocked cross path),
     else kernel B (one launch for both directions; bfloat16 on the Hopper
-    loop, its operands as `operand_plan` takes them); or an exception."""
+    loop, its operands as `operand_plan` takes them; float32 on the 3xTF32
+    loop after `pack_f32`); or an exception."""
     if qk0.device.type == "cpu":
         return cross_attention_bidir_plain(qk0, qk1, v0, v1, mask0, mask1)
     if qk0.device.type != "cuda":
         raise ValueError(
             f"cross_attention_bidir: unsupported device {qk0.device}")
-    code = _check_cuda("cross_attention_bidir", qk0, qk1, v0, v1)
+    _check_cuda("cross_attention_bidir", qk0, qk1, v0, v1)
     B, h, N, d = qk0.shape
     M = qk1.shape[2]
     if v0.shape != qk0.shape or v1.shape != qk1.shape \
@@ -464,26 +555,25 @@ def cross_attention_bidir(qk0: torch.Tensor, qk1: torch.Tensor,
     scratch = None
     if qk0.dtype == torch.bfloat16:
         ops, scratch, _ = hopper_operands((qk0, qk1, v0, v1))
+    else:
+        # float32: the pack pass, then the 3xTF32 loop
+        (p0, p1), (vt0, vt1) = pack_f32((qk0, qk1), (v0, v1),
+                                        kernel="cross_attention")
     out0 = _heads_out(B, h, N, d, qk0)
     out1 = _heads_out(B, h, M, d, qk0)
+    ost = int64_array(out0.stride()[:3] + out1.stride()[:3])
     lib = library("cross_attention")
     with _on_device(qk0.device):
         stream = torch.cuda.current_stream().cuda_stream
         if qk0.dtype == torch.bfloat16:
             err = lib.ei_cross_attention_sm90(
                 ops, bias0.data_ptr(), bias1.data_ptr(), out0.data_ptr(),
-                out1.data_ptr(),
-                int64_array(out0.stride()[:3] + out1.stride()[:3]),
-                B, h, N, M, stream)
+                out1.data_ptr(), ost, B, h, N, M, stream)
         else:
-            err = lib.ei_cross_attention_bidir(
-                code, qk0.data_ptr(), qk1.data_ptr(), v0.data_ptr(),
-                v1.data_ptr(),
-                int64_array(qk0.stride() + qk1.stride() + v0.stride()
-                            + v1.stride()),
+            err = lib.ei_cross_attention_tf32(
+                p0.data_ptr(), p1.data_ptr(), vt0.data_ptr(), vt1.data_ptr(),
                 bias0.data_ptr(), bias1.data_ptr(), out0.data_ptr(),
-                out1.data_ptr(), int64_array(out0.stride() + out1.stride()),
-                B, h, N, M, stream)
+                out1.data_ptr(), ost, B, h, N, M, stream)
     check(err, "cross_attention_bidir")
     hopper_attention.packs += scratch is not None
     cross_attention_bidir.launches += 1

@@ -40,20 +40,22 @@ _I = ctypes.c_int
 # C signatures (argtypes, restype) of each library's entry points
 SIGNATURES = {
     "self_attention": {
-        "ei_self_attention_rot": (
-            [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-             ctypes.c_float, _P], _I),
+        "ei_self_attention_tf32": (
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P], _I),
         "ei_self_attention_sm90": (
             [_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P], _I),
+        "ei_attention_pack_tf32": ([_P, _I, _P, _P, _I, _I, _P], _I),
         "ei_sm90_smem_bytes": ([_I], ctypes.c_longlong),
+        "ei_tf32_smem_bytes": ([], ctypes.c_longlong),
     },
     "cross_attention": {
-        "ei_cross_attention_bidir": (
-            [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-            _I),
+        "ei_cross_attention_tf32": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         "ei_cross_attention_sm90": (
             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "ei_attention_pack_tf32": ([_P, _I, _P, _P, _I, _I, _P], _I),
         "ei_sm90_smem_bytes": ([_I], ctypes.c_longlong),
+        "ei_tf32_smem_bytes": ([], ctypes.c_longlong),
     },
     "nms": {
         "ei_nms_rounds": ([_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -678,6 +678,131 @@ def test_hopper_loop_refuses_what_the_plan_refuses(cuda):
 
 
 # ---------------------------------------------------------------------------
+# kernels A and B in float32: the pack pass and the 3xTF32 loop
+# ---------------------------------------------------------------------------
+
+
+def _f32_heads(gen, B, n, h, d, scale=1.0):
+    """(B, h, n, d) float32 head view of a (B, n, h * d) projection, as
+    CrossBlock splits heads."""
+    x = torch.randn(B, n, h * d, generator=gen, device="cuda") * scale
+    return x.unflatten(-1, (h, d)).transpose(1, 2)
+
+
+def _f32_wqkv(gen, B, n, h, d):
+    """q, k, v: the stride-3 views of one float32 (B, n, h, d, 3) Wqkv
+    output, as SelfBlock splits it."""
+    x = torch.randn(B, n, h * d * 3, generator=gen, device="cuda")
+    qkv = x.unflatten(-1, (h, d, 3)).transpose(1, 2)
+    return qkv[..., 0], qkv[..., 1], qkv[..., 2]
+
+
+@pytest.mark.parametrize("N", [64, 200, 1024])
+def test_f32_self_attention_loop(cuda, N):
+    """Float32 A on the 3xTF32 loop: the stride-3 Wqkv views, the last
+    batch row's keys all masked (the uniform average of v), against the
+    plain version to 1e-4 x max(1, max|ref|); one pack launch and one loop
+    launch a call; the same bits on a second call."""
+    B, h, d = 2, 3, 64
+    q, k, v = _f32_wqkv(cuda, B, N, h, d)
+    rot = _rot_tables(cuda, B, N, d, torch.float32)
+    mask = torch.rand(B, N, generator=cuda, device="cuda") > 0.2
+    mask[-1] = False
+    before, packs = ak.self_attention.launches, ak.hopper_attention.packs
+    got = ak.self_attention(q, k, v, mask, rot=rot)
+    assert ak.self_attention.launches == before + 1
+    assert ak.hopper_attention.packs == packs + 1
+    want = ak.self_attention_plain(q, k, v, mask, rot=rot)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert _close(got, want, 1e-4)
+    mean = v[-1].mean(dim=1, keepdim=True).expand(-1, N, -1)
+    assert _close(got[-1], mean, 1e-4)
+    assert torch.equal(ak.self_attention(q, k, v, mask, rot=rot), got)
+
+
+@pytest.mark.parametrize("N,M", [(200, 136), (64, 320), (1024, 1024)])
+@pytest.mark.parametrize("masked", [0, 1])
+def test_f32_cross_attention_loop(cuda, N, M, masked):
+    """Float32 B on the 3xTF32 loop, both directions in one launch, at
+    N != M on CrossBlock's head views, one side's keys all masked in batch
+    row 1; against the plain version to 1e-4 x max(1, max|ref|), one pack
+    launch and one loop launch, the same bits on a second call; stride-3
+    views give the same results."""
+    B, h, d = 2, 3, 64
+    qk0 = _f32_heads(cuda, B, N, h, d, d ** -0.25)
+    qk1 = _f32_heads(cuda, B, M, h, d, d ** -0.25)
+    v0, v1 = _f32_heads(cuda, B, N, h, d), _f32_heads(cuda, B, M, h, d)
+    m0 = torch.rand(B, N, generator=cuda, device="cuda") > 0.2
+    m1 = torch.rand(B, M, generator=cuda, device="cuda") > 0.2
+    (m0, m1)[masked][1] = False
+    before, packs = ak.cross_attention_bidir.launches, ak.hopper_attention.packs
+    got = ak.cross_attention_bidir(qk0, qk1, v0, v1, m0, m1)
+    assert ak.cross_attention_bidir.launches == before + 1
+    assert ak.hopper_attention.packs == packs + 1
+    want = ak.cross_attention_bidir_plain(qk0, qk1, v0, v1, m0, m1)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+        assert _close(a, b, 1e-4)
+    mean = (v0, v1)[masked][1].mean(dim=1, keepdim=True)
+    other = got[1 - masked][1]
+    assert _close(other, mean.expand_as(other), 1e-4)
+    again = ak.cross_attention_bidir(qk0, qk1, v0, v1, m0, m1)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    s0, _, _ = _f32_wqkv(cuda, B, N, h, d)
+    _, s1, _ = _f32_wqkv(cuda, B, M, h, d)
+    got = ak.cross_attention_bidir(s0, s1, v0, v1, m0, m1)
+    want = ak.cross_attention_bidir_plain(s0, s1, v0, v1, m0, m1)
+    assert all(_close(a, b, 1e-4) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("kernel", ["self_attention", "cross_attention"])
+@pytest.mark.parametrize("N,M", [(200, 136), (64, 320)])
+def test_f32_pack_pass_bit_exact(cuda, kernel, N, M):
+    """The float32 pack pass equals `pack_f32_plain` bit for bit: A's
+    rotated stride-3 q and k and its v, B's head views of both sides
+    (ragged N and M: V^T's zero-padded last tile, its permuted key
+    order)."""
+    B, h, d = 2, 3, 64
+    if kernel == "self_attention":
+        q, k, v = _f32_wqkv(cuda, B, N, h, d)
+        rot = tuple(t.contiguous() for t in
+                    _rot_tables(cuda, B, N, d, torch.float32))
+        args = ((q, k), (v,), rot)
+    else:
+        sides = [(_f32_heads(cuda, B, n, h, d, d ** -0.25),
+                  _f32_heads(cuda, B, n, h, d)) for n in (N, M)]
+        args = ((sides[0][0], sides[1][0]), (sides[0][1], sides[1][1]),
+                None)
+    packs = ak.hopper_attention.packs
+    got = ak.pack_f32(*args, kernel=kernel)
+    assert ak.hopper_attention.packs == packs + 1
+    want = ak.pack_f32_plain(*args)
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+def test_f32_loop_refuses_before_launch(cuda):
+    """What the float32 A and B cannot take raises before any launch: a
+    head dim other than 64, rotary tables of another shape or type; no
+    path falls back to another kernel or the plain version."""
+    B, h, N, d = 1, 2, 128, 64
+    q, k, v = _f32_wqkv(cuda, B, N, h, d)
+    rot = _rot_tables(cuda, B, N, d, torch.float32)
+    counts = lambda: (ak.self_attention.launches,  # noqa: E731
+                      ak.cross_attention_bidir.launches,
+                      ak.attention_fwd.launches, ak.hopper_attention.packs)
+    before = counts()
+    with pytest.raises(ValueError):
+        ak.self_attention(q, k, v, rot=(rot[0][:, :64], rot[1][:, :64]))
+    with pytest.raises(ValueError):
+        ak.self_attention(q, k, v, rot=tuple(t.double() for t in rot))
+    x = torch.zeros(B, h, N, 32, device="cuda")
+    with pytest.raises(ValueError):
+        ak.cross_attention_bidir(x, x, x, x)
+    assert counts() == before
+
+
+# ---------------------------------------------------------------------------
 # kernels D and G on the Hopper loop (bf16)
 # ---------------------------------------------------------------------------
 
