@@ -9,12 +9,13 @@ Phases, each of which raises on failure:
     switched off for matmuls and convolutions so float32 comparisons are
     float32; the card's name and power limit are printed;
  2. the build of the Hopper loops of A, B, D, E, F and G
-    (csrc/flash_sm90.cuh, csrc/attention_bwd.cu) and of float32 A and B's
-    3xTF32 loops (csrc/flash_tf32.cuh): their kernels' ptxas lines (no
-    spill, no C7508 "setmaxnreg ignored"), shared memory, and HGMMA and
-    UTMALDG instructions in the SASS of each library, and of the two
-    3xTF32 loops alone, where the toolkit has cuobjdump; the float32 pack
-    pass of A and B bit-exact against its plain version; then every
+    (csrc/flash_sm90.cuh, csrc/attention_bwd.cu) and of float32 A, B, D
+    and F's 3xTF32 loops (csrc/flash_tf32.cuh, csrc/attention_bwd.cu):
+    their kernels' ptxas lines (no spill, no C7508 "setmaxnreg
+    ignored"), shared memory, and HGMMA and UTMALDG instructions in the
+    SASS of each library, and of each 3xTF32 loop alone (F's c pass too),
+    where the toolkit has cuobjdump; the float32 pack pass of A, B, D and
+    F bit-exact against its plain version; then every
     kernel (A-G) against its plain PyTorch version at the paths' shapes,
     in float32 and bfloat16 (E at block_q 64 and 128, with and without
     rot; G at 1024 and 2048 tokens
@@ -26,16 +27,21 @@ Phases, each of which raises on failure:
     mask; SDPA's backward, (forward + backward) - forward, for F) and the
     card's bound; each kernel and its library call also by device time
     alone (torch.profiler: the CUDA-event time of calls back to back is
-    paced by the host where a call costs it more than the card), A, D, E
-    and G with the pack pass's own share (D also on the cross layout, read
+    paced by the host where a call costs it more than the card; the calls
+    are traced in the profiler's warm-up cycle and read in an active one,
+    and a trace that still lost kernel events, fewer than the launch calls
+    it recorded or a kernel seen a number of times that is not a multiple
+    of the calls, is taken again, the run failing after three such), A,
+    D, E and G with the pack pass's own share (D also on the cross layout, read
     in place), F split into its c pass, pack pass and its two block kinds
     (each run alone); one table of A, B, D, E, F and G (`kernel_table`:
     the call, SDPA's call, the bound) timed by device time in each dtype,
     the float32 instances (the float32 configs' path) against their bound
-    at float32's peak (A and B at the 3xTF32 peak of the tensor cores,
-    also reported at the CUDA cores', and split into the pack pass and
-    the loop) and SDPA's float32 call; F's ptxas lines of its
-    float32 kernels too (no spill); F's gradients are also held to a
+    at float32's peak (A, B, D and F at the 3xTF32 peak of the tensor
+    cores, also reported at the CUDA cores', and split into the pack pass
+    and the loop, F also into its c pass and each block kind alone; E and
+    G at the CUDA cores') and SDPA's float32 call; F's gradients are also
+    held to a
     relative norm, which planted faults of its inputs (the neighbouring
     row's statistics, the row sum doubled, the neighbouring batch row's
     key bias) must break; kernel C (fixed-round NMS, one
@@ -71,8 +77,9 @@ Phases, each of which raises on failure:
     steps/s over 24 steps back to back with the spread of single steps,
     and peak memory; then all of it again for the step built in float32,
     the type the `train_matcher` entry takes from its configs (D and F
-    36 each, C 2, no pack pass; F within 1e-4 relative norm on its own
-    tensors);
+    36 each, C 2, 72 pack passes: D's and F's 3xTF32 planes; F within
+    1e-4 relative norm on its own tensors), its steps/s and peak memory
+    printed beside bf16's;
  5. one small float32 model on the CPU (plain versions) and on the card
     (kernels), same weights and inputs: the inference forward and one
     stage-2 step (same batch and fill), agreement bounded;
@@ -277,7 +284,7 @@ import torch.nn.functional as F
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12        # CUDA cores, no tensor cores
 # float32 products as three TF32 products on the tensor cores (495 TFLOP/s
-# dense): the peak the 3xTF32 loops of float32 A and B are held to
+# dense): the peak the 3xTF32 loops of float32 A, B, D and F are held to
 PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
 
@@ -332,23 +339,79 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def device_ms(fn, iters: int = 20) -> dict:
-    """{kernel name: device ms per call} of the kernels one call of `fn`
-    launches, traced by torch.profiler over `iters` calls after a warm-up
-    (what the card spends, without the host's pace)."""
-    from torch.profiler import ProfilerActivity, profile
+# the runtime and driver calls that launch a kernel, as the profiler names
+# them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaLaunchCooperativeKernel")
+
+
+def trace_gaps(events) -> list:
+    """What shows that a trace lost kernel events: fewer kernels than
+    launch calls recorded. `events` are (name, on the device, device
+    us)."""
+    kernels, launches = 0, 0
+    for name, on_device, _ in events:
+        if on_device:
+            kernels += not name.startswith(("Memcpy", "Memset"))
+        elif name in LAUNCH_CALLS:
+            launches += 1
+    if kernels < launches:
+        return [f"{kernels} kernel events for {launches} launches"]
+    return []
+
+
+def trace_events(fn, iters: int, pause: float = 0.05) -> list:
+    """(name, on the device, device us) of the events torch.profiler
+    records over `iters` calls of `fn`, after a warm-up. The profiler loses
+    kernel events at the start of a trace (two kernels once read 20-85%
+    low so): the calls are traced in its warm-up cycle and again in an
+    active one, whose events alone are returned, with `pause` seconds
+    between the active cycle's start and end and its kernels."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for cycle in range(2):
+            if cycle == 1:
+                time.sleep(pause)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            if cycle == 0:
+                prof.step()
+        time.sleep(pause)
+    # the active cycle's ProfilerStep* range is an annotation, not work
+    return [(e.name, e.device_type == torch.autograd.DeviceType.CUDA,
+             e.device_time if hasattr(e, "device_time") else e.cuda_time)
+            for e in prof.events() if not e.name.startswith("ProfilerStep")]
+
+
+def device_ms(fn, iters: int = 20, tries: int = 3) -> dict:
+    """{kernel name: device ms per call} of the kernels one call of `fn`
+    launches, traced by torch.profiler over `iters` calls (`trace_events`:
+    what the card spends, without the host's pace). Without its pause a
+    trace of a few short calls now and then lost some or all of its
+    kernels, and one of bundle adjustment's lacked 152 of 6564
+    (`tools/trace_loss.py` counts such traces): a trace that `trace_gaps`
+    finds short is taken again, up to `tries` traces, and the reading
+    fails if none is whole. A short trace is never read."""
+    found = []
+    for _ in range(tries):
+        events = trace_events(fn, iters)
+        gaps = trace_gaps(events)
+        if not gaps:
+            break
+        found += gaps
+        print(f"[trace] short trace, taken again: {'; '.join(gaps)}")
+    else:
+        raise RuntimeError(f"device_ms: {tries} traces lost events ("
+                           + "; ".join(found) + ")")
     out = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = e.device_time if hasattr(e, "device_time") else e.cuda_time
-            out[e.name] = out.get(e.name, 0.0) + us / 1e3 / iters
+    for name, on_device, us in events:
+        if on_device:
+            out[name] = out.get(name, 0.0) + us / 1e3 / iters
     return out
 
 
@@ -361,30 +424,32 @@ def _sum_ms(times: dict, fragment: str = "") -> float:
 # ---------------------------------------------------------------------------
 
 # the Hopper loops of A, B, D, E, F and G (csrc/flash_sm90.cuh; F's in
-# csrc/attention_bwd.cu; float32 A and B's in csrc/flash_tf32.cuh) and
-# their pack passes
+# csrc/attention_bwd.cu; float32 A, B, D and F's in csrc/flash_tf32.cuh
+# and csrc/attention_bwd.cu) and their pack passes
 HOPPER_LIBS = ("self_attention", "qblock_attention", "cross_attention",
                "attention_fwd", "attention_bwd", "flash_segment")
 # their kernels, by a fragment of the name: the loops, the pack passes and
-# F's c pass; F's float32 query and key kernels (CUDA cores); float32 A
-# and B's 3xTF32 loops and pack pass
+# F's c pass; float32 A, B, D and F's 3xTF32 loops, F's c pass and the
+# pack pass
 HOPPER_KERNELS = ("sm90_kernel", "attention_pack_kernel",
-                  "attention_bwd_rowsum_kernel", "attention_bwd_f32",
-                  "tf32_kernel")
+                  "attention_bwd_rowsum_kernel", "tf32_kernel")
 # the float32 3xTF32 loops, by library: their SASS is counted alone
-TF32_LOOPS = {"self_attention": "self_attention_tf32_kernel",
-              "cross_attention": "cross_attention_tf32_kernel"}
+TF32_LOOPS = {"self_attention": ("self_attention_tf32_kernel",),
+              "cross_attention": ("cross_attention_tf32_kernel",),
+              "attention_fwd": ("attention_fwd_tf32_kernel",),
+              "attention_bwd": ("attention_bwd_rowsum_tf32_kernel",
+                                "attention_bwd_tf32_kernel")}
 
 
 def check_hopper_build(logs: dict) -> dict:
-    """Print ptxas's lines for the Hopper kernels, F's float32 kernels and
-    float32 A and B's 3xTF32 loops and pack pass (registers, spills,
+    """Print ptxas's lines for the Hopper kernels and the float32 3xTF32
+    loops of A, B, D and F, F's c pass and the pack pass (registers, spills,
     stack; their dynamic shared memory from the library; any C75xx remark
     such as C7508, setmaxnreg ignored) and require no spill and no C7508;
     where the toolkit has cuobjdump, count HGMMA (wgmma) and UTMALDG (TMA
     load) instructions in each library's SASS, and in the 3xTF32 loops'
     own functions, and require both. Returns {library: {"HGMMA": n,
-    "UTMALDG": n}} (the 3xTF32 loops under their function's name)."""
+    "UTMALDG": n}} (the 3xTF32 loops under their functions' names)."""
     from ei_nexus_tpu_torch.ops import cuda_build
     for name in HOPPER_LIBS:
         log = logs.get(name)
@@ -410,12 +475,13 @@ def check_hopper_build(logs: dict) -> dict:
         if name == "attention_bwd":
             print(f"[kernels] {name}: loop's dynamic shared memory "
                   f"{lib.ei_bwd_sm90_smem_bytes()} bytes a block (64 keys "
-                  f"or 64 queries)")
+                  f"or 64 queries); float32 3xTF32 blocks "
+                  f"{lib.ei_bwd_tf32_smem_bytes()}")
         else:
             print(f"[kernels] {name}: loop's dynamic shared memory "
                   f"{lib.ei_sm90_smem_bytes(1)} bytes a block (64 rows), "
                   f"{lib.ei_sm90_smem_bytes(2)} (128 rows)")
-        if name in TF32_LOOPS:
+        if name in TF32_LOOPS and name != "attention_bwd":
             print(f"[kernels] {name}: float32 3xTF32 loop's dynamic shared "
                   f"memory {lib.ei_tf32_smem_bytes()} bytes a block (64 "
                   f"rows)")
@@ -432,8 +498,7 @@ def check_hopper_build(logs: dict) -> dict:
         print(f"[kernels] {name} SASS: {counts[name]}")
         require(all(counts[name].values()),
                 f"{name}: no wgmma or no TMA load in the SASS")
-        if name in TF32_LOOPS:
-            fn = TF32_LOOPS[name]
+        for fn in TF32_LOOPS.get(name, ()):
             part = next((p for p in sass.split("Function : ")[1:]
                          if p.split()[0].find(fn) >= 0), "")
             counts[fn] = {op: part.count(op) for op in ("HGMMA", "UTMALDG")}
@@ -516,9 +581,11 @@ def nms_bound_ms(score: torch.Tensor) -> tuple:
     return _bound(ops, PEAK_F32_FLOPS, nbytes)
 
 
-def fused_bound_ms(kind: str, q: torch.Tensor, k: torch.Tensor) -> tuple:
+def fused_bound_ms(kind: str, q: torch.Tensor, k: torch.Tensor,
+                   peak: float = 0.0) -> tuple:
     """Bound of one call in q's dtype of kernel D ("fwd") or F ("bwd") on
-    (B, h, N, d) queries and (B, h, M, d) keys. D: QK^T and PV (4BhNMd
+    (B, h, N, d) queries and (B, h, M, d) keys, the operations at `peak`
+    (default: the dtype's, `peak_flops`). D: QK^T and PV (4BhNMd
     operations); reads q, k, v and the float32 bias, writes the output and
     the float32 row statistics (max and sum). F: the five products of the
     TPU backward (10BhNMd); reads q, k, v, dO, the bias and the row
@@ -533,7 +600,7 @@ def fused_bound_ms(kind: str, q: torch.Tensor, k: torch.Tensor) -> tuple:
         flops = 10.0 * B * h * N * M * d
         nbytes = ((3 * N + 4 * M) * B * h * d * es + B * M * 4
                   + B * h * N * 8)
-    return _bound(flops, peak_flops(q.dtype), nbytes)
+    return _bound(flops, peak or peak_flops(q.dtype), nbytes)
 
 
 def fused_cases(x):
@@ -841,12 +908,12 @@ def kernel_table(x, fused, qblock, flash) -> dict:
     unit stride on d), D and F's the unmasked rows of x["mask0"] (a fully
     masked bool row is NaN there); B's is two calls, E's is A's, G's its
     segment mask, and F's the pair (forward + backward, forward), whose
-    difference is its yardstick. Float32 A and B are bound at the 3xTF32
-    peak of their tensor-core loops, the other float32 kernels at the CUDA
+    difference is its yardstick. Float32 A, B, D and F are bound at the
+    3xTF32 peak of their tensor-core loops, float32 E and G at the CUDA
     cores'."""
     from ei_nexus_tpu_torch.ops import attention_kernels as ak
     from ei_nexus_tpu_torch.ops import flash_kernel as fk
-    ab_peak = PEAK_TF32X3_FLOPS if x["q"].dtype == torch.float32 else 0.0
+    tc_peak = PEAK_TF32X3_FLOPS if x["q"].dtype == torch.float32 else 0.0
     cos, sin = (t[:, None] for t in x["rot"])
     qr, kr = ((t * cos + ak.rotate_half(t) * sin).contiguous()
               for t in (x["q"], x["k"]))
@@ -884,18 +951,18 @@ def kernel_table(x, fused, qblock, flash) -> dict:
         "self_attention_rot": (
             lambda: ak.self_attention(x["q"], x["k"], x["v"], x["mask0"],
                                       rot=x["rot"]),
-            sdpa_self, attention_bound_ms("self", x["q"], x["k"], ab_peak)),
+            sdpa_self, attention_bound_ms("self", x["q"], x["k"], tc_peak)),
         "cross_attention_bidir": (
             lambda: ak.cross_attention_bidir(x["qk0"], x["qk1"], x["v0"],
                                              x["v1"], x["mask0"],
                                              x["mask1"]),
             sdpa_bidir,
-            attention_bound_ms("cross", x["qk0"], x["qk1"], ab_peak)),
+            attention_bound_ms("cross", x["qk0"], x["qk1"], tc_peak)),
         "attention_fwd": (lambda: ak.attention_fwd(q, k, v, bias, scale),
-                          sdpa_fwd_only, fused_bound_ms("fwd", q, k)),
+                          sdpa_fwd_only, fused_bound_ms("fwd", q, k, tc_peak)),
         "attention_bwd": (
             lambda: ak.attention_bwd(q, k, v_read, do, bias, stats, scale),
-            (sdpa_fwd_bwd, sdpa_fwd), fused_bound_ms("bwd", q, k)),
+            (sdpa_fwd_bwd, sdpa_fwd), fused_bound_ms("bwd", q, k, tc_peak)),
         "qblock_attention": (
             lambda: ak.qblock_attention(eq, ek, ev, ebias, escale, 64, erot),
             sdpa_self, attention_bound_ms("self", eq, ek)),
@@ -906,14 +973,24 @@ def kernel_table(x, fused, qblock, flash) -> dict:
 
 
 def check_f32_pack(x) -> None:
-    """The float32 pack pass of A and B on phase 2's float32 operands, bit
-    for bit against `pack_f32_plain`: A's stride-3 q and k rotated, its v
-    transposed; B's head views of both sides."""
+    """The float32 pack pass of A, B, D and F on phase 2's float32
+    operands, bit for bit against `pack_f32_plain`: A's stride-3 q and k
+    rotated, its v transposed; B's head views of both sides; D's rotated q
+    and k and stride-3 v (transposed), as the training step hands them; F's
+    seven planes of those and of dO (autograd's (B, h, N, d) view of a
+    (B, N, h, d) buffer): q, k, v, dO split, q, k, dO transposed."""
     from ei_nexus_tpu_torch.ops import attention_kernels as ak
     rot = tuple(t.contiguous() for t in x["rot"])
+    q, k, v, _, _ = fused_cases(x)["self"]
+    B, h, N, d = q.shape
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    do = torch.randn(B, N, h, d, generator=gen, device="cuda").permute(
+        0, 2, 1, 3)
     cases = {"self_attention": ((x["q"], x["k"]), (x["v"],), rot),
              "cross_attention": ((x["qk0"], x["qk1"]), (x["v0"], x["v1"]),
-                                 None)}
+                                 None),
+             "attention_fwd": ((q, k), (v,), None),
+             "attention_bwd": ((q, k, v, do), (q, k, do), None)}
     for kernel, args in cases.items():
         got = ak.pack_f32(*args, kernel=kernel)
         want = ak.pack_f32_plain(*args)
@@ -922,35 +999,54 @@ def check_f32_pack(x) -> None:
             require(a.shape == b.shape and torch.equal(a, b),
                     f"the float32 pack pass of {kernel} is not bit-exact: "
                     f"{int((a != b).sum())} values differ")
-    print(f"[kernels] float32 pack pass of A and B: bit-exact against "
-          f"pack_f32_plain at ({MAIN_B}, {MAIN_H}, {MAIN_N}, {MAIN_D}) (A's "
-          f"q, k rotated and v transposed from the stride-3 views; B's "
-          f"head views of both sides)")
+    print(f"[kernels] float32 pack pass of A, B, D and F: bit-exact "
+          f"against pack_f32_plain at ({MAIN_B}, {MAIN_H}, {MAIN_N}, "
+          f"{MAIN_D}) (A's q, k rotated and v transposed from the stride-3 "
+          f"views; B's head views of both sides; D's q, k and transposed "
+          f"stride-3 v; F's q, k, v, dO and transposed q, k, dO)")
 
 
-def report_f32_ab(tab: dict, x) -> dict:
-    """Float32 A and B from phase 2's float32 table: device ms split into
-    the pack pass and the 3xTF32 loop, the bound at both peaks (3xTF32 on
-    the tensor cores, which they are held to, and the CUDA cores' 67
-    TFLOP/s), SDPA's float32 ms. Returns each one's extra JSON keys."""
+def report_f32_loops(tab: dict, x, fused: tuple) -> dict:
+    """Float32 A, B, D and F from phase 2's float32 table: device ms split
+    into the pack pass and the 3xTF32 loop (F: the pack pass, the c pass
+    and the loop, and each block kind alone on `fused`, the self case's
+    tensors of `check_fused`), the bound at both peaks (3xTF32 on the
+    tensor cores, which they are held to, and the CUDA cores' 67 TFLOP/s),
+    SDPA's float32 ms. Returns each one's extra JSON keys."""
+    from ei_nexus_tpu_torch.ops import attention_kernels as ak
+    q, k, v, _, scale, bias, stats, do, v_read = fused
     out = {}
-    for name, kind, q, k in (("self_attention_rot", "self", x["q"], x["k"]),
-                             ("cross_attention_bidir", "cross", x["qk0"],
-                              x["qk1"])):
+    for name, loop_name, bound in (
+            ("self_attention_rot", "attention_tf32_kernel",
+             lambda pk: attention_bound_ms("self", x["q"], x["k"], pk)),
+            ("cross_attention_bidir", "attention_tf32_kernel",
+             lambda pk: attention_bound_ms("cross", x["qk0"], x["qk1"], pk)),
+            ("attention_fwd", "attention_fwd_tf32_kernel",
+             lambda pk: fused_bound_ms("fwd", q, k, pk)),
+            ("attention_bwd", "attention_bwd_tf32_kernel",
+             lambda pk: fused_bound_ms("bwd", q, k, pk))):
         t = tab[name]
         dev, lib = t["device_ms"], t["library_device_ms"]
-        pack = _sum_ms(t["kernels"], "pack_tf32")
-        loop = _sum_ms(t["kernels"], "attention_tf32_kernel")
-        tc, by = attention_bound_ms(kind, q, k, PEAK_TF32X3_FLOPS)
-        cc, _ = attention_bound_ms(kind, q, k, PEAK_F32_FLOPS)
-        print(f"[kernels] float32 {name}: device {dev:.4f} ms a call, pack "
-              f"{pack:.4f} + loop {loop:.4f} (the rest: the key bias); "
-              f"bound {tc:.4f} ms by {by} at 3xTF32 ({PEAK_TF32X3_FLOPS:.4g} "
-              f"FLOP/s, held to: share {tc / dev:.1%}), {cc:.4f} ms at the "
-              f"CUDA cores' {PEAK_F32_FLOPS:.4g} ({cc / dev:.1%}); SDPA "
-              f"float32 {lib:.4f} ms (kernel / SDPA {dev / lib:.3f})")
-        out[name] = dict(pack_ms_f32=pack, loop_ms_f32=loop,
-                         bound_ms_f32_cuda_cores=cc)
+        parts = {"pack_ms_f32": _sum_ms(t["kernels"], "pack_tf32"),
+                 "loop_ms_f32": _sum_ms(t["kernels"], loop_name)}
+        if name == "attention_bwd":
+            parts["c_pass_ms_f32"] = _sum_ms(t["kernels"], "rowsum_tf32")
+            for blocks, key in ((1, "dkdv_blocks_ms_f32"),
+                                (2, "dq_blocks_ms_f32")):
+                parts[key] = _sum_ms(device_ms(lambda: ak.attention_bwd(
+                    q, k, v_read, do, bias, stats, scale, blocks=blocks)),
+                    loop_name)
+        tc, by = bound(PEAK_TF32X3_FLOPS)
+        cc, _ = bound(PEAK_F32_FLOPS)
+        print(f"[kernels] float32 {name}: device {dev:.4f} ms a call ("
+              + ", ".join(f"{part[:-7]} {ms:.4f}"
+                          for part, ms in parts.items())
+              + f"; the rest: the key bias and copies); bound {tc:.4f} ms "
+              f"by {by} at 3xTF32 ({PEAK_TF32X3_FLOPS:.4g} FLOP/s, held to: "
+              f"share {tc / dev:.1%}), {cc:.4f} ms at the CUDA cores' "
+              f"{PEAK_F32_FLOPS:.4g} ({cc / dev:.1%}); SDPA float32 "
+              f"{lib:.4f} ms (kernel / SDPA {dev / lib:.3f})")
+        out[name] = dict(parts, bound_ms_f32_cuda_cores=cc)
     return out
 
 
@@ -1021,7 +1117,8 @@ def phase_kernels(logs: dict):
                              flash_errs[dtype])
         tables[dtype] = time_kernels(dtype, calls)
         if dtype == torch.float32:
-            f32_ab = report_f32_ab(tables[dtype], x)
+            f32_loops = report_f32_loops(tables[dtype], x,
+                                         fused_errs[dtype][2]["self"])
     # bfloat16 (the bf16 configs' type; x and calls hold its operands):
     # CUDA-event ms a call back to back, host-paced where the wrapper costs
     # the host more than the card, of each kernel and its SDPA call
@@ -1154,8 +1251,11 @@ def phase_kernels(logs: dict):
                     "handed on to F) then the TMA + wgmma warp-specialised "
                     "flash loop of A, 128 rows a block in two consumer "
                     "warpgroups, with an epilogue writing each row's max "
-                    "and sum of exp(s - max) for F; f32: CUDA-core flash "
-                    "loop",
+                    "and sum of exp(s - max) for F; f32: pack pass (TF32 "
+                    "hi/lo split of q and k, v transposed in the P "
+                    "fragments' key order) then A's TMA + 3xTF32 wgmma "
+                    "flash loop with the same statistics epilogue, 64 rows "
+                    "a block",
              loop_ms=_sum_ms(dev_d_all, "sm90_kernel"),
              pack_ms=_sum_ms(dev_d_all, "attention_pack"),
              ms_cross=t_d_cross, device_ms_cross=dev_d_cross,
@@ -1175,10 +1275,12 @@ def phase_kernels(logs: dict):
                     "warp-specialised launch of dK/dV blocks (64 keys, K "
                     "and V resident, Q and dO streamed) and dQ blocks (64 "
                     "queries, K and V streamed), no atomics, P from D's "
-                    "row max and sum; f32: D's CUDA-core tiles, query "
-                    "blocks on 4 x 4 sub-tiles (c, then dQ) then key "
-                    "blocks in two halves on 4 x 8 sub-tiles (S^T, P, dV "
-                    "| dP^T, dS, dK), every score in D's order",
+                    "row max and sum; f32: pack pass (q, k, v, dO split "
+                    "into TF32 hi/lo row planes, q, k, dO into transposed "
+                    "planes in the fragments' token order), c pass and "
+                    "one launch of dK/dV and dQ blocks on TMA + 3xTF32 "
+                    "wgmma (S and S^T in D's order, P and dS split in "
+                    "registers), two 64 KB slots a tile",
              c_pass_ms=f_split["c pass"], pack_ms=f_split["pack"],
              loop_ms=f_split["loop"],
              dkdv_blocks_ms=f_split["dK/dV blocks alone"],
@@ -1230,7 +1332,7 @@ def phase_kernels(logs: dict):
             r.update({k + "_f32": v for k, v in
                       tables[torch.float32][r["name"]].items()
                       if k != "kernels"})
-        r.update(f32_ab.get(r["name"], {}))
+        r.update(f32_loops.get(r["name"], {}))
         print(f"[kernels] {r['name']}: {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.4f}, library {r['library_ms']}, bound "
               f"{r['bound_ms']:.4f} by {r['bound_by']}); device "
@@ -1419,9 +1521,9 @@ def phase_stage2(tag: str = "stage2", built=None, homography=False,
     require(launches == want, f"launch counts {launches} != {want}")
     # bf16: D packs the self-attention's stride-3 v (18 calls) and hands
     # the copy to F; the rotated q, k, the cross-attention's head views and
-    # dO are read in place, so F packs nothing. The float32 loops read
-    # every operand through its strides
-    want_packs = 18 if dtype == "bfloat16" else 0
+    # dO are read in place, so F packs nothing. float32: D and F each pack
+    # their 3xTF32 planes once a call (36 + 36)
+    want_packs = 18 if dtype == "bfloat16" else 72
     require(packs == want_packs,
             f"{packs} pack passes in one step != {want_packs}")
     loss1, gnorm = float(info["loss"]), float(info["grad_norm"])
@@ -4751,7 +4853,7 @@ def main() -> int:
         "forward (q-blocked)", phase_forward, "qblock",
         {"qblock_attention": 36, "nms_rounds": 2}, 18, block_q=64)
     timed("pose check", phase_pose_check)
-    train_launches, step_ms, _ = timed("stage-2 step", phase_stage2)
+    train_launches, step_ms, step_peak = timed("stage-2 step", phase_stage2)
     f32_launches, f32_step_ms, f32_peak = timed(
         "stage-2 step (float32)", phase_stage2, "stage2-f32",
         dtype="float32")
@@ -4875,11 +4977,13 @@ def main() -> int:
           f"({100 * pose_ms / serve_ms:.1f}% of the served batch), {syncs} "
           f"host syncs a call, on {smi}")
     print(f"stage-2 training step: {1e3 / step_ms:.3f} steps/s "
-          f"({step_ms:.3f} ms per step of {B} pairs, back to back) on {smi}")
+          f"({step_ms:.3f} ms per step of {B} pairs, back to back; peak "
+          f"{step_peak:.2f} GB) on {smi}")
     print(f"stage-2 training step in float32 (the train_matcher entry's "
           f"type): {1e3 / f32_step_ms:.3f} steps/s ({f32_step_ms:.3f} ms per "
-          f"step of {B} pairs, back to back; peak {f32_peak:.2f} GB) on "
-          f"{smi}")
+          f"step of {B} pairs, back to back; peak {f32_peak:.2f} GB) against "
+          f"bf16's {1e3 / step_ms:.3f} steps/s and {step_peak:.2f} GB in this "
+          f"run, on {smi}")
     print(f"stage-1 training step: {1e3 / s1_ms:.3f} steps/s ({s1_ms:.3f} "
           f"ms per step of {B} pairs, back to back; single steps min "
           f"{s1_spread[0]:.3f}, median {s1_spread[1]:.3f}, max "

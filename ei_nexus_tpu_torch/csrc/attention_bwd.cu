@@ -15,7 +15,8 @@
 // What bounds it on an H100: at the flagship shapes (B=8, h=4, N=M=1024,
 // d=64) the five products are 21.5 GFLOP against ~34 MB of inputs and
 // outputs (bf16), so it is compute-bound in either type: ~22 us at 989
-// TFLOP/s in bf16, ~0.32 ms at float32's 67 TFLOP/s on the CUDA cores.
+// TFLOP/s in bf16, ~0.13 ms at the 3xTF32 rate (495 / 3 TFLOP/s) in
+// float32.
 //
 // Design. Hopper blocks run in no order, so nothing carries from one block
 // to the next, and the TPU kernel's per-problem sums become blocks that
@@ -57,410 +58,366 @@
 //    place. D's row max and sum fit P here: S comes from the same wgmma
 //    products as in D's loop, so sum_j P_ij is 1 to l's rounding.
 //  - float32 (the float32 configs: the `train_matcher` entry's LightGlue,
-//    whose configs set no dtype, and the float32 evaluation entries), on
-//    the CUDA cores with the operand tiles of kernel D's float32 loop
-//    (flash_attention.cuh): 64-row tiles d-major in shared memory, read
-//    through their strides as D reads them. Each score is D's float:
-//    fused multiply-adds over d = 0 .. 63 in order, then x scale and
-//    + bias rounded apart (D's row max and sum fit P only to ~1e-5 in
-//    another order, and c = rowsum(dP o P) carries that into dP - c, more
-//    than dP - c itself where a softmax row is one-hot). dP is summed the
-//    same way on both sides, so both launches form the same P, dP and dS
-//    of a (query, key) pair, bit for bit. Blocks of 256 threads; two
-//    launches:
-//    - query blocks: 64 queries, Q^T and dO^T resident, D's 16 x 16 grid
-//      of 4 x 4 sub-tiles, every thread forming S, P and dP of its own
-//      (the exponentials spread over the whole block). A first sweep of
-//      the 64-key tiles (K^T, V^T streamed) sums c: P o dP over the
-//      thread's keys, then over the row's 16 threads (a half-warp), then
-//      across tiles compensated (Kahan), and writes c. A second sweep
-//      forms them again, dS = P o (dP - c) as dS^T in a padded tile, and
-//      dQ^T += K^T dS^T. Both sweeps' tiles come in one stream, each
-//      fetched into registers while the block works on the one before;
-//    - key blocks: 64 keys, K^T and V^T resident, sweeping 64-query tiles
-//      (Q^T, dO^T and the queries' m, 1/l and c streamed) in two halves
-//      of 128 threads, each forming one 64 x 64 product at a time in
-//      4 x 8 sub-tiles (three 16-byte shared loads a d for 32 fused
-//      multiply-adds, where 4 x 4 takes two for 16): one half S^T and P,
-//      then dV^T += dO^T P; the other dP^T and dS, then dK^T += Q^T dS.
-//    Five products in the first launch, four in the second. Past the last
-//    key a score is -inf, past the last query m = +inf and 1/l = 0, so
-//    P = 0.
-#include "flash_attention.cuh"
+//    whose configs set no dtype), on the tensor cores with the 3xTF32
+//    pieces of flash_tf32.cuh, in the same three kinds of block:
+//    - a pack pass (flash_tf32.cuh's, one launch, 7 jobs): q, k, v and dO
+//      split into TF32 hi/lo row planes, and q, k and dO into transposed
+//      planes, each 8-token group permuted as the A fragments take it
+//      (TF32 wgmma reads both shared-memory operands K-major only, so each
+//      product over tokens needs its B operand transposed: dV += P^T dO
+//      takes dO^T, dK += dS^T Q takes Q^T, dQ += dS K takes K^T);
+//    - the c pass: blocks of 64 queries (Q and dO resident) over 64-key
+//      tiles (K and V streamed): S and dP as three split products each,
+//      S in D's order (product_qk), so D's m and l fit P; c += P o dP in
+//      float32, a tile's part summed over the row's quad, the tiles'
+//      parts compensated (Kahan): where dP - c cancels, the error of c is
+//      what rules dS;
+//    - the main launch: dK/dV blocks own 64 keys (K, V resident) over
+//      64-query tiles: S^T = K Q^T with D's terms in D's order
+//      (product_st) and dP^T = V dO^T, P^T and dS^T = P^T o (dP^T - c) in
+//      float32, split in registers as the A operand of dV += P^T dO and
+//      dK += dS^T Q; dQ blocks own 64 queries over 64-key tiles: S, dP,
+//      dS split in registers, dQ += dS K. A streamed tile comes in two
+//      steps through two 64 KB slots: the row planes of the first two
+//      products (with the tile's per-row floats: the queries' m, 1/l and
+//      c, or the keys' bias), then the transposed planes of the last two,
+//      so each step's load overlaps the other's products; the resident
+//      planes take 64 KB, 192 KB in all, one block an SM.
+//    Nine split products, as bf16; no atomics, so the bits repeat. Past
+//    the last key a score is -inf, past the last query m = +inf and
+//    1/l = 0, so P = 0; TMA and the pack pass zero-fill rows past the end.
 #include "flash_sm90.cuh"
+#include "flash_tf32.cuh"
 
 namespace ei {
 
-struct BwdProblem {
-  Operand q, k, v, dout;  // (B, h, N|M, d) through strides
-  const float* bias;      // (B, nk) additive key-side bias
-  const float* m;         // (B, heads, nq) forward row max
-  const float* l;         // (B, heads, nq) forward row sum of exp(s - m)
-  float* c;               // (B, heads, nq) scratch: rowsum(dP o P)
-  Output dq, dk, dv;
-  int heads, nq, nk;
+// ---------------------------------------------------------------------------
+// float32 instance: the 3xTF32 blocks
+// ---------------------------------------------------------------------------
+
+namespace tf32 {
+
+// Resident planes (the first two products' A operands: K, V or Q, dO) and
+// two slots of streamed planes (a tile's first step: the row planes of
+// the first two products' B operands; its second step: the transposed
+// planes of the last products' B operands), all 1024-byte aligned.
+struct BwdShared {
+  float res[2][2][kPlane];      // [operand][hi, lo]
+  float str[2][2][2][kPlane];   // [slot][operand][hi, lo]
+  // a first step's per-row floats: dK/dV the streamed queries' m, 1/l and
+  // c; dQ and c pass the streamed keys' bias in [0]
+  float row[2][3][kBK];
+  uint64_t full[2], empty[2], resbar;
+};
+constexpr size_t kBwdSmemBytes = sizeof(BwdShared) + 1024;
+
+struct BwdArgs {
+  const float* bias;  // (B, nk) float32
+  const float* m;     // (B, H, nq) float32 row max
+  const float* l;     // (B, H, nq) float32 row sum of exp(s - m)
+  float* c;           // (B, H, nq) float32 rowsum(dP o P): the c pass
+                      // writes it, the main launch reads it
+  float* out[3];      // dq (B, H, nq, 64), dk, dv (B, H, nk, 64)
+  long long os[3][3]; // their (b, h, n) element strides; d unit
+  int H, nq, nk, nkb; // nkb: the dK/dV blocks of a (b, h) problem
+  int x0;             // block x0 + blockIdx.x is the block's index
   float scale;
 };
 
-template <typename T>
-__device__ __forceinline__ T* out_row(const Output& a, int b, int h, int n) {
-  return static_cast<T*>(a.ptr) + b * a.sb + h * a.sh + n * a.sn;
+// The planes' tensor maps: row planes (64, rows, 2, H, B) of q, k, v, dO;
+// transposed planes (rows rounded up to 64, 64, 2, H, B) of q, k, dO.
+struct BwdMaps {
+  CUtensorMap q, k, v, dout, qt, kt, dot;
+};
+
+// The scaled, biased score and P = exp(s - m) x (1/l) (0 past the last
+// query, where m = +inf and 1/l = 0).
+__device__ __forceinline__ float prob(float s, float scale, float bias,
+                                      float m, float il) {
+  return __fmul_rn(exp_diff(__fadd_rn(__fmul_rn(s, scale), bias), m), il);
 }
 
-// ---------------------------------------------------------------------------
-// float32 instance: kernel D's tiles on the CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int kTileF = kHD * kBQ;  // floats of a d-major 64-row tile
-// dynamic shared memory (floats): query blocks Q^T, dO^T, K^T, V^T and the
-// padded dS^T; key blocks K^T, V^T, Q^T, dO^T, the padded P and dS and the
-// streamed queries' m, 1/l and c
-constexpr int kBwdQueryFloats = 4 * kTileF + kBK * kPad;
-constexpr int kBwdKeyFloats = 4 * kTileF + 2 * kBQ * kPad + 3 * kBQ;
-static_assert(kBQ == kBK, "the float32 backward's tiles are square");
-static_assert(kBQ * kHD == 16 * kThreads, "a tile is 4 pieces a thread");
-constexpr int kHalf = kThreads / 2;  // a half-block (key blocks)
-
-// A thread's share of rows [r0, r0 + 64) of operand `a` (load_tile's:
-// piece e = threadIdx.x + 256 u is row e % 64, d = 4 (e / 64) .. + 3;
-// zeros past n_rows) fetched into registers, so that the next tile's
-// loads are in flight while the block works on this one ...
-__device__ __forceinline__ void fetch_rows(const Operand& a, int b, int h,
-                                           int r0, int n_rows,
-                                           float (&t)[4][4]) {
-  const Problem none{};  // no rotary: fetch4 reads only `a`
+// dK/dV block: the warpgroup owns keys k0 .. k0 + 63 (K, V resident) and
+// loops over the ntiles 64-query tiles: step 1 (slot 0) Q, dO and the
+// queries' m, 1/l, c; step 2 (slot 1) Q^T, dO^T.
+__device__ __forceinline__ void bwd_keys(BwdShared& S, const BwdArgs& a,
+                                         int k0, int h, int b, int ntiles) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  float bias[2];  // of the thread's keys, rows g and g + 8 of the warp
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int e = threadIdx.x + u * kThreads;
-    fetch4<float, false>(none, a, b, h, r0 + e % kBQ, n_rows,
-                         (e / kBQ) * 4, t[u]);
+  for (int hr = 0; hr < 2; ++hr) {
+    const int key = k0 + 16 * warp + g + 8 * hr;
+    bias[hr] = key < a.nk ? a.bias[(long long)b * a.nk + key] : -INFINITY;
   }
-}
-// ... and stored d-major (dst[d * 64 + r]), as kernel D keeps its Q^T
-// and K^T tiles.
-__device__ __forceinline__ void put_rows(const float (&t)[4][4],
-                                         float* dst) {
+  const uint64_t kh = smem_desc(S.res[0][0]), kl = smem_desc(S.res[0][1]);
+  const uint64_t vh = smem_desc(S.res[1][0]), vl = smem_desc(S.res[1][1]);
+  float dk[32], dv[32];
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int e = threadIdx.x + u * kThreads;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      dst[((e / kBQ) * 4 + j) * kBQ + e % kBQ] = t[u][j];
-  }
-}
-__device__ __forceinline__ void load_rows(const Operand& a, int b, int h,
-                                          int r0, int n_rows, float* dst) {
-  float t[4][4];
-  fetch_rows(a, b, h, r0, n_rows, t);
-  put_rows(t, dst);
-}
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(&S.resbar, 0);
 
-// A thread (ry, rx) of a grid of 16 x 64 / NC owns rows 4 ry .. 4 ry + 3
-// and the NC columns col<NC>(rx, j) of a 64 x 64 product: 4 rx + j, and
-// with NC = 8 also 32 + 4 rx + j - 4, so that the eight threads of a
-// quarter-warp always read 128 contiguous bytes of a column tile.
-template <int NC>
-__device__ __forceinline__ int col(int rx, int j) {
-  return (j / 4) * 32 + 4 * rx + j % 4;
-}
+  for (int it = 0; it < ntiles; ++it) {
+    mbar_wait(&S.full[0], it & 1);
+    float s[32], dp[32];  // S^T = K Q^T, dP^T = V dO^T: keys x queries
+    wgmma_fence();
+    product_st(s, kh, kl, smem_desc(S.str[0][0][0]),
+               smem_desc(S.str[0][0][1]));
+    product_st(dp, vh, vl, smem_desc(S.str[0][1][0]),
+               smem_desc(S.str[0][1][1]));
+    wgmma_commit();
+    wgmma_wait();
+    fence_acc(s);
+    fence_acc(dp);
 
-// x[i][j] = sum over d of A[d][4 ry + i] B[d][col(rx, j)] for two d-major
-// tiles, fused multiply-adds over d = 0 .. 63 in order: kernel D's loop,
-// so a score is D's float whichever side owns it (fmaf(q, k, s) and
-// fmaf(k, q, s) round the same product).
-template <int NC>
-__device__ __forceinline__ void tile_dot(const float* A, const float* Bm,
-                                         int ry, int rx,
-                                         float (&x)[4][NC]) {
+    // s[4j + e]: key row g + 8 (e >> 1), query 8j + 2t + (e & 1)
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      const float2 mm = *reinterpret_cast<const float2*>(&S.row[0][0][col]);
+      const float2 ll = *reinterpret_cast<const float2*>(&S.row[0][1][col]);
+      const float2 cc = *reinterpret_cast<const float2*>(&S.row[0][2][col]);
 #pragma unroll
-    for (int j = 0; j < NC; ++j) x[i][j] = 0.f;
-#pragma unroll (32 / NC)
-  for (int d = 0; d < kHD; ++d) {
-    const float4 a = *reinterpret_cast<const float4*>(&A[d * kBQ + ry * 4]);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    float cv[NC];
-#pragma unroll
-    for (int g = 0; g < NC / 4; ++g) {
-      const float4 c =
-          *reinterpret_cast<const float4*>(&Bm[d * kBQ + g * 32 + rx * 4]);
-      cv[4 * g] = c.x; cv[4 * g + 1] = c.y;
-      cv[4 * g + 2] = c.z; cv[4 * g + 3] = c.w;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NC; ++j) x[i][j] = fmaf(av[i], cv[j], x[i][j]);
-  }
-}
-
-// T[col(rx, j)][4 ry + i] = x[i][j]: a product into a padded tile,
-// transposed (tile_acc reads it by rows; read_t gives a thread its own
-// elements back).
-template <int NC>
-__device__ __forceinline__ void store_t(float* T, const float (&x)[4][NC],
-                                        int ry, int rx) {
-#pragma unroll
-  for (int j = 0; j < NC; ++j)
-    *reinterpret_cast<float4*>(&T[col<NC>(rx, j) * kPad + ry * 4]) =
-        make_float4(x[0][j], x[1][j], x[2][j], x[3][j]);
-}
-template <int NC>
-__device__ __forceinline__ float4 read_t(const float* T, int ry, int rx,
-                                         int j) {
-  return *reinterpret_cast<const float4*>(
-      &T[col<NC>(rx, j) * kPad + ry * 4]);
-}
-
-// acc[i][j] += sum over r of A[4 ry + i][r] T[r][col(rx, j)], A d-major
-// (A[d * 64 + r], so output row 4 ry + i is a d) and T padded.
-template <int NC>
-__device__ __forceinline__ void tile_acc(const float* A, const float* T,
-                                         int ry, int rx,
-                                         float (&acc)[4][NC]) {
-#pragma unroll 2
-  for (int r = 0; r < kBQ; r += 4) {
-    float av[4][4], tv[4][NC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 t =
-          *reinterpret_cast<const float4*>(&A[(ry * 4 + i) * kBQ + r]);
-      av[i][0] = t.x; av[i][1] = t.y; av[i][2] = t.z; av[i][3] = t.w;
-    }
-#pragma unroll
-    for (int rr = 0; rr < 4; ++rr)
-#pragma unroll
-      for (int g = 0; g < NC / 4; ++g) {
-        const float4 t = *reinterpret_cast<const float4*>(
-            &T[(r + rr) * kPad + g * 32 + rx * 4]);
-        tv[rr][4 * g] = t.x; tv[rr][4 * g + 1] = t.y;
-        tv[rr][4 * g + 2] = t.z; tv[rr][4 * g + 3] = t.w;
+      for (int e = 0; e < 4; ++e) {
+        const float p = prob(s[4 * j + e], a.scale, bias[e >> 1],
+                             (e & 1) ? mm.y : mm.x, (e & 1) ? ll.y : ll.x);
+        s[4 * j + e] = p;  // P^T
+        dp[4 * j + e] =
+            __fmul_rn(p, __fsub_rn(dp[4 * j + e], (e & 1) ? cc.y : cc.x));
       }
-#pragma unroll
-    for (int rr = 0; rr < 4; ++rr)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NC; ++j)
-          acc[i][j] = fmaf(av[i][rr], tv[rr][j], acc[i][j]);
-  }
-}
-
-// The scaled, biased score as masked_score forms it (no contraction; -inf
-// past the last key), and P = exp(s - m) / l from D's row statistics,
-// taken as exp(s - m) x (1/l) with 1/l rounded once a row (P = 0 past the
-// last query, where m = +inf).
-__device__ __forceinline__ float biased(float s, float scale, float bias,
-                                        bool in) {
-  return in ? __fadd_rn(__fmul_rn(s, scale), bias) : -INFINITY;
-}
-__device__ __forceinline__ float prob(float x, float m, float il) {
-  return __fmul_rn(expf(__fsub_rn(x, m)), il);
-}
-
-// The 128 threads of half-block `half` wait for each other alone.
-__device__ __forceinline__ void half_sync(int half) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + half), "n"(kHalf) : "memory");
-}
-
-// Query block x of problem (blockIdx.z, blockIdx.y): c, then dQ; every
-// thread forms S, P and dP of its 4 x 4 sub-tile (the exponentials shared
-// by the whole block).
-__global__ void __launch_bounds__(kThreads, 2)
-    attention_bwd_f32_queries_kernel(const BwdProblem p) {
-  extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);
-  float* Gt = Qt + kTileF;  // dO^T
-  float* Kt = Gt + kTileF;
-  float* Vt = Kt + kTileF;
-  float* Dt = Vt + kTileF;  // dS^T: [key][query]
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  load_rows(p.q, b, h, q0, p.nq, Qt);
-  load_rows(p.dout, b, h, q0, p.nq, Gt);
-  const long long row0 = ((long long)b * p.heads + h) * p.nq;
-  const float* bias_row = p.bias + (long long)b * p.nk;
-  float m[4], il[4], c[4], lost[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = q0 + ty * 4 + i;
-    m[i] = n < p.nq ? p.m[row0 + n] : INFINITY;
-    il[i] = n < p.nq ? __frcp_rn(p.l[row0 + n]) : 0.f;
-    c[i] = lost[i] = 0.f;
-  }
-  float s[4][4], dp[4][4], bias[4], dq[4][4];
-  bool in[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dq[i][j] = 0.f;
-
-  // sweep 1 (it < nt): c = sum over the keys of P o dP; sweep 2: dS =
-  // P o (dP - c), dQ^T += K^T dS^T. Both sweeps' K and V tiles in one
-  // stream, each fetched while the block works on the one before
-  const int nt = (p.nk + kBK - 1) / kBK;
-  float kr[4][4], vr[4][4];
-  fetch_rows(p.k, b, h, 0, p.nk, kr);
-  fetch_rows(p.v, b, h, 0, p.nk, vr);
-  for (int it = 0; it < 2 * nt; ++it) {
-    const int k0 = (it % nt) * kBK;
-    __syncthreads();  // the previous tile's K^T, V^T and dS^T are consumed
-    put_rows(kr, Kt);
-    put_rows(vr, Vt);
-    __syncthreads();
-    if (it + 1 < 2 * nt) {
-      fetch_rows(p.k, b, h, ((it + 1) % nt) * kBK, p.nk, kr);
-      fetch_rows(p.v, b, h, ((it + 1) % nt) * kBK, p.nk, vr);
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&S.empty[0]);
+    uint32_t ph[8][4], pl[8][4], dh[8][4], dl[8][4];  // P^T, dS^T split
+    split_a(s, ph, pl);
+    split_a(dp, dh, dl);
+
+    mbar_wait(&S.full[1], it & 1);
+    fence_acc(dv);
+    fence_acc(dk);
+    wgmma_fence();
+    // dV += P^T dO (B: dO^T), dK += dS^T Q (B: Q^T)
+    product_pv(dv, ph, pl, smem_desc(S.str[1][1][0]),
+               smem_desc(S.str[1][1][1]));
+    product_pv(dk, dh, dl, smem_desc(S.str[1][0][0]),
+               smem_desc(S.str[1][0][1]));
+    wgmma_commit();
+    wgmma_wait();
+    fence_acc(dv);
+    fence_acc(dk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&S.empty[1]);
+  }
+  store_tile(dv, {1.f, 1.f}, a.out[2], a.os[2], b, h, k0, a.nk);
+  store_tile(dk, {a.scale, a.scale}, a.out[1], a.os[1], b, h, k0, a.nk);
+}
+
+// dQ block (kC false): the warpgroup owns queries q0 .. q0 + 63 (Q, dO
+// resident) and loops over the ntiles 64-key tiles: step 1 (slot 0) K, V
+// and the keys' bias; step 2 (slot 1) K^T. The c pass (kC true) is the
+// same block without step 2: K, V tiles alternate between the slots, and
+// it sums P o dP over each row's keys and writes the row's c.
+template <bool kC>
+__device__ __forceinline__ void bwd_queries(BwdShared& S, const BwdArgs& a,
+                                            int q0, int h, int b,
+                                            int ntiles) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  // the statistics of the thread's queries, rows g and g + 8 of the warp;
+  // past the last query P = 0. The c pass sums into c, lost carrying the
+  // compensation
+  float m[2], il[2], c[2], lost[2] = {0.f, 0.f};
+  const long long row0 = ((long long)b * a.H + h) * a.nq;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      in[j] = k0 + tx * 4 + j < p.nk;
-      bias[j] = in[j] ? bias_row[k0 + tx * 4 + j] : 0.f;
-    }
-    tile_dot<4>(Qt, Kt, ty, tx, s);   // S: query 4 ty + i, key 4 tx + j
-    tile_dot<4>(Gt, Vt, ty, tx, dp);  // dP
-    if (it < nt) {
+  for (int hr = 0; hr < 2; ++hr) {
+    const int n = q0 + 16 * warp + g + 8 * hr;
+    const bool in = n < a.nq;
+    m[hr] = in ? a.m[row0 + n] : INFINITY;
+    il[hr] = in ? 1.f / a.l[row0 + n] : 0.f;
+    c[hr] = in && !kC ? a.c[row0 + n] : 0.f;
+  }
+  const uint64_t qh = smem_desc(S.res[0][0]), ql = smem_desc(S.res[0][1]);
+  const uint64_t oh = smem_desc(S.res[1][0]), ol = smem_desc(S.res[1][1]);
+  [[maybe_unused]] float dq[32];
+  if constexpr (!kC) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float part = 0.f;
+    for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  }
+  mbar_wait(&S.resbar, 0);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int u = kC ? it : 2 * it, st = u % 2;
+    mbar_wait(&S.full[st], (u / 2) & 1);
+    float s[32], dp[32];  // S = Q K^T (D's order), dP = dO V^T
+    wgmma_fence();
+    product_qk(s, qh, ql, smem_desc(S.str[st][0][0]),
+               smem_desc(S.str[st][0][1]));
+    product_qk(dp, oh, ol, smem_desc(S.str[st][1][0]),
+               smem_desc(S.str[st][1][1]));
+    wgmma_commit();
+    wgmma_wait();
+    fence_acc(s);
+    fence_acc(dp);
+
+    // s[4j + e]: query row g + 8 (e >> 1), key 8j + 2t + (e & 1)
+    [[maybe_unused]] float part[2] = {0.f, 0.f};
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          part = fmaf(prob(biased(s[i][j], p.scale, bias[j], in[j]), m[i],
-                           il[i]),
-                      dp[i][j], part);
-        // a row's 64 keys live in the 16 lanes of one half-warp; the
-        // butterfly leaves every lane the same sum
+    for (int j = 0; j < 8; ++j) {
+      const float2 bb =
+          *reinterpret_cast<const float2*>(&S.row[st][0][8 * j + 2 * t]);
 #pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-          part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, off));
-        const float y = __fsub_rn(part, lost[i]);
-        const float t = __fadd_rn(c[i], y);
-        lost[i] = __fsub_rn(__fsub_rn(t, c[i]), y);
-        c[i] = t;
+      for (int e = 0; e < 4; ++e) {
+        const int hr = e >> 1;
+        const float p = prob(s[4 * j + e], a.scale, (e & 1) ? bb.y : bb.x,
+                             m[hr], il[hr]);
+        if constexpr (kC)
+          part[hr] = fmaf(p, dp[4 * j + e], part[hr]);
+        else
+          s[4 * j + e] = __fmul_rn(p, __fsub_rn(dp[4 * j + e], c[hr]));  // dS
       }
-      if (it == nt - 1 && tx == 0) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (q0 + ty * 4 + i < p.nq) p.c[row0 + q0 + ty * 4 + i] = c[i];
-      }
-      continue;
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&S.empty[st]);
+    if constexpr (kC) {
+      // the tile's part of a row over its quad (every lane the same sum),
+      // added to c compensated
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        s[i][j] = __fmul_rn(
-            prob(biased(s[i][j], p.scale, bias[j], in[j]), m[i], il[i]),
-            __fsub_rn(dp[i][j], c[i]));
-    store_t<4>(Dt, s, ty, tx);
-    __syncthreads();
-    tile_acc<4>(Kt, Dt, ty, tx, dq);
-  }
-  // dq[i][j]: d = 4 ty + i of query q0 + 4 tx + j
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = q0 + tx * 4 + j;
-    if (n >= p.nq) continue;
-    float* out = out_row<float>(p.dq, b, h, n);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      out[(ty * 4 + i) * p.dq.sd] = dq[i][j] * p.scale;
-  }
-}
-
-// Key block x of problem (blockIdx.z, blockIdx.y): dK and dV, reading the
-// query blocks' c. Half 0 forms S^T and P, then dV; half 1 dP^T, dS,
-// then dK.
-__global__ void __launch_bounds__(kThreads, 2)
-    attention_bwd_f32_keys_kernel(const BwdProblem p) {
-  extern __shared__ float4 smem4[];
-  float* Kt = reinterpret_cast<float*>(smem4);
-  float* Vt = Kt + kTileF;
-  float* Qt = Vt + kTileF;
-  float* Gt = Qt + kTileF;      // dO^T
-  float* Pq = Gt + kTileF;      // P: [query][key]
-  float* Dq = Pq + kBQ * kPad;  // dS: [query][key]
-  float* rm = Dq + kBQ * kPad;  // the streamed queries' m, 1/l and c
-  float* rl = rm + kBQ;
-  float* rc = rl + kBQ;
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kBK;
-  const int half = threadIdx.x / kHalf;
-  const int ry = threadIdx.x % kHalf / 8, rx = threadIdx.x % 8;
-  load_rows(p.k, b, h, k0, p.nk, Kt);
-  load_rows(p.v, b, h, k0, p.nk, Vt);
-  const long long row0 = ((long long)b * p.heads + h) * p.nq;
-  float bias[4];  // of the thread's keys 4 ry + i
-  bool in[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    in[i] = k0 + ry * 4 + i < p.nk;
-    bias[i] = in[i] ? p.bias[(long long)b * p.nk + k0 + ry * 4 + i] : 0.f;
-  }
-  // half 0: dV^T, half 1: dK^T; d = 4 ry + i, key col<8>(rx, j)
-  float acc[4][8], x[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int q0 = 0; q0 < p.nq; q0 += kBQ) {
-    __syncthreads();  // the previous tile's Q^T, dO^T, P and dS consumed
-    load_rows(p.q, b, h, q0, p.nq, Qt);
-    load_rows(p.dout, b, h, q0, p.nq, Gt);
-    if (threadIdx.x < kBQ) {
-      const int n = q0 + threadIdx.x;
-      rm[threadIdx.x] = n < p.nq ? p.m[row0 + n] : INFINITY;
-      rl[threadIdx.x] = n < p.nq ? __frcp_rn(p.l[row0 + n]) : 0.f;
-      rc[threadIdx.x] = n < p.nq ? p.c[row0 + n] : 0.f;
-    }
-    __syncthreads();
-    if (half == 0) {
-      // S^T: key 4 ry + i, query col<8>(rx, j)
-      tile_dot<8>(Kt, Qt, ry, rx, x);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float mq = rm[col<8>(rx, j)], lq = rl[col<8>(rx, j)];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          x[i][j] = prob(biased(x[i][j], p.scale, bias[i], in[i]), mq, lq);
+      for (int hr = 0; hr < 2; ++hr) {
+        float x = part[hr];
+        x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 1));
+        x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 2));
+        const float y = __fsub_rn(x, lost[hr]);
+        const float sum = __fadd_rn(c[hr], y);
+        lost[hr] = __fsub_rn(__fsub_rn(sum, c[hr]), y);
+        c[hr] = sum;
       }
-      store_t<8>(Pq, x, ry, rx);  // P[query][key]
     } else {
-      tile_dot<8>(Vt, Gt, ry, rx, x);  // dP^T
-    }
-    __syncthreads();
-    if (half == 0) {
-      // dV^T[d][key] += dO^T[d][q] P[q][key]
-      tile_acc<8>(Gt, Pq, ry, rx, acc);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 t = read_t<8>(Pq, ry, rx, j);  // P^T[key][q]
-        const float pv[4] = {t.x, t.y, t.z, t.w};
-        const float cq = rc[col<8>(rx, j)];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          x[i][j] = __fmul_rn(pv[i], __fsub_rn(x[i][j], cq));
-      }
-      store_t<8>(Dq, x, ry, rx);  // dS[query][key]
-      half_sync(1);
-      // dK^T[d][key] += Q^T[d][q] dS[q][key]
-      tile_acc<8>(Qt, Dq, ry, rx, acc);
+      uint32_t dh[8][4], dl[8][4];  // dS split
+      split_a(s, dh, dl);
+      mbar_wait(&S.full[1], it & 1);
+      fence_acc(dq);
+      wgmma_fence();
+      // dQ += dS K (B: K^T)
+      product_pv(dq, dh, dl, smem_desc(S.str[1][0][0]),
+                 smem_desc(S.str[1][0][1]));
+      wgmma_commit();
+      wgmma_wait();
+      fence_acc(dq);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&S.empty[1]);
     }
   }
-  // acc[i][j]: d = 4 ry + i of key k0 + col<8>(rx, j); half 0 dV, half 1 dK
-  const Output& o = half == 0 ? p.dv : p.dk;
-  const float scale = half == 0 ? 1.f : p.scale;
+  if constexpr (kC) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int n = k0 + col<8>(rx, j);
-    if (n >= p.nk) continue;
-    float* out = out_row<float>(o, b, h, n);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) out[(ry * 4 + i) * o.sd] = acc[i][j] * scale;
+    for (int hr = 0; hr < 2; ++hr) {
+      const int n = q0 + 16 * warp + g + 8 * hr;
+      if (t == 0 && n < a.nq) a.c[row0 + n] = c[hr];
+    }
+  } else {
+    store_tile(dq, {a.scale, a.scale}, a.out[0], a.os[0], b, h, q0, a.nq);
   }
 }
+
+// Block x = a.x0 + blockIdx.x of problem (blockIdx.z, blockIdx.y): in the
+// main launch (kC false) a dK/dV block if x < a.nkb, otherwise a dQ block;
+// in the c pass (kC true, a.x0 = a.nkb) a c block.
+template <bool kC>
+__device__ __forceinline__ void bwd_block(const BwdMaps& t,
+                                          const BwdArgs& a) {
+  auto& S = sm90::shared_as<BwdShared>();
+  const int x = a.x0 + (int)blockIdx.x;
+  const bool keys = !kC && x < a.nkb;
+  const int r0 = 64 * (keys ? x : x - a.nkb);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int ntiles = ((keys ? a.nq : a.nk) + kBK - 1) / kBK;
+  const int nsteps = kC ? 1 : 2;  // loads a tile
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&S.full[s], 32);  // the producer warp's lanes
+      mbar_init(&S.empty[s], 4);  // one lane of each consumer warp
+    }
+    mbar_init(&S.resbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // ---- producer: the resident planes once, then each tile's steps
+    // through the two slots, the per-row floats with the first
+    if (lane == 0) {
+      mbar_arrive_tx(&S.resbar, 4 * kPlaneBytes);
+      for (int p = 0; p < 2; ++p) {
+        load_plane(S.res[0][p], keys ? t.k : t.q, 0, r0, p, h, b, &S.resbar);
+        load_plane(S.res[1][p], keys ? t.v : t.dout, 0, r0, p, h, b,
+                   &S.resbar);
+      }
+    }
+    const long long row0 = ((long long)b * a.H + h) * a.nq;
+    const float* bias = a.bias + (long long)b * a.nk;
+    for (int it = 0; it < ntiles; ++it) {
+      for (int step = 0; step < nsteps; ++step) {
+        const int u = it * nsteps + step, st = u % 2;
+        mbar_wait(&S.empty[st], ((u / 2) & 1) ^ 1);
+        if (step == 0) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 2 * lane + e, n = it * kBK + i;
+            if (keys) {
+              const bool in = n < a.nq;
+              S.row[st][0][i] = in ? a.m[row0 + n] : INFINITY;
+              S.row[st][1][i] = in ? 1.f / a.l[row0 + n] : 0.f;
+              S.row[st][2][i] = in ? a.c[row0 + n] : 0.f;
+            } else {
+              S.row[st][0][i] = n < a.nk ? bias[n] : -INFINITY;
+            }
+          }
+        }
+        if (lane == 0) {
+          // step 1: the row planes of Q, dO (dK/dV) or K, V; step 2: the
+          // transposed planes of Q, dO (dK/dV) or K alone
+          const int nops = step == 1 && !keys ? 1 : 2;
+          mbar_arrive_tx(&S.full[st], 2 * nops * kPlaneBytes);
+          for (int p = 0; p < 2; ++p) {
+            if (step == 0) {
+              load_plane(S.str[st][0][p], keys ? t.q : t.k, 0, it * kBK, p,
+                         h, b, &S.full[st]);
+              load_plane(S.str[st][1][p], keys ? t.dout : t.v, 0, it * kBK,
+                         p, h, b, &S.full[st]);
+            } else {
+              load_plane(S.str[st][0][p], keys ? t.qt : t.kt, it * kBK, 0, p,
+                         h, b, &S.full[st]);
+              if (keys)
+                load_plane(S.str[st][1][p], t.dot, it * kBK, 0, p, h, b,
+                           &S.full[st]);
+            }
+          }
+        } else {
+          mbar_arrive(&S.full[st]);
+        }
+      }
+    }
+  } else if (keys) {
+    bwd_keys(S, a, r0, h, b, ntiles);
+  } else {
+    bwd_queries<kC>(S, a, r0, h, b, ntiles);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    attention_bwd_tf32_kernel(const __grid_constant__ BwdMaps t,
+                              const BwdArgs a) {
+  bwd_block<false>(t, a);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    attention_bwd_rowsum_tf32_kernel(const __grid_constant__ BwdMaps t,
+                                     const BwdArgs a) {
+  bwd_block<true>(t, a);
+}
+
+}  // namespace tf32
 
 // ---------------------------------------------------------------------------
 // bfloat16 instance: the Hopper loop
@@ -764,55 +721,73 @@ __global__ void __launch_bounds__(BwdConfig::threads, BwdConfig::min_blocks)
 }  // namespace sm90
 }  // namespace ei
 
-// float32: q, dout: (B, H, N, 64); k, v: (B, H, M, 64), through
-// `in_strides` (16 element strides: q, k, v, dout, each (b, h, n, d));
-// bias: (B, M) float32 contiguous; stats: (2, B, H, N) float32 contiguous,
-// kernel D's row max then row sum; c: (B, H, N) float32 scratch; dq:
-// (B, H, N, 64), dk, dv: (B, H, M, 64) through `out_strides` (12: dq, dk,
-// dv). Returns the CUDA error code of the launches (0 on success); bfloat16
-// takes ei_attention_bwd_sm90.
-extern "C" int ei_attention_bwd(int dtype, const void* q, const void* k,
-                                const void* v, const void* dout,
-                                const long long* in_strides,
-                                const float* bias, const float* stats,
-                                float* c, void* dq, void* dk, void* dv,
-                                const long long* out_strides, int B, int H,
-                                int N, int M, float scale, void* stream) {
-  if (dtype != ei::kFloat32) return (int)cudaErrorInvalidValue;
-  ei::BwdProblem p;
-  p.q = ei::make_operand(q, in_strides);
-  p.k = ei::make_operand(k, in_strides + 4);
-  p.v = ei::make_operand(v, in_strides + 8);
-  p.dout = ei::make_operand(dout, in_strides + 12);
-  p.bias = bias;
-  p.m = stats;
-  p.l = stats + (long long)B * H * N;
-  p.c = c;
-  p.dq = ei::make_output(dq, out_strides);
-  p.dk = ei::make_output(dk, out_strides + 4);
-  p.dv = ei::make_output(dv, out_strides + 8);
-  p.heads = H;
-  p.nq = N;
-  p.nk = M;
-  p.scale = scale;
+// float32: the c pass and the 3xTF32 loop over the planes the pack pass
+// (ei_attention_pack_tf32) wrote: `planes` holds 7 pointers, the row
+// planes of q (B, H, 2, N, 64), k, v (B, H, 2, M, 64) and dO
+// (B, H, 2, N, 64), then the transposed planes of q (B, H, 2, 64, N
+// rounded up to 64), k (.., M rounded up) and dO (.., N rounded up);
+// bias: (B, M) float32 contiguous; stats: (2, B, H, N) float32 contiguous
+// (row max, row sum); c: (B, H, N) float32 scratch; dq: (B, H, N, 64),
+// dk, dv: (B, H, M, 64) float32 through `out_strides` (9: dq, dk, dv, each
+// (b, h, n); d unit); blocks: the block kinds of the main launch (bit 0
+// the dK/dV blocks, bit 1 the dQ blocks; 3 for the gradients, one alone
+// to time it; the c pass runs always). Returns 0, a CUDA error code or
+// one of ei::sm90's kErr* codes.
+extern "C" int ei_attention_bwd_tf32(const long long* planes,
+                                     const float* bias, const float* stats,
+                                     float* c, void* dq, void* dk, void* dv,
+                                     const long long* out_strides, int B,
+                                     int H, int N, int M, float scale,
+                                     int blocks, void* stream) {
+  using namespace ei::tf32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the query blocks (c, dQ), then the key blocks (dK, dV), which read c
-  const size_t q_smem = ei::kBwdQueryFloats * sizeof(float);
-  const size_t k_smem = ei::kBwdKeyFloats * sizeof(float);
-  int err = (int)cudaFuncSetAttribute(
-      ei::attention_bwd_f32_queries_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q_smem);
+  BwdArgs a{};
+  a.nkb = (M + kBK - 1) / kBK;
+  const int nqb = (N + kBK - 1) / kBK;
+  const int nx = ((blocks & 1) ? a.nkb : 0) + ((blocks & 2) ? nqb : 0);
+  if (nx == 0) return (int)cudaErrorInvalidValue;
+  const float* p[7];
+  for (int i = 0; i < 7; ++i) p[i] = reinterpret_cast<const float*>(planes[i]);
+  BwdMaps t;
+  int err = row_map(&t.q, p[0], N, H, B);
+  if (err == 0) err = row_map(&t.k, p[1], M, H, B);
+  if (err == 0) err = row_map(&t.v, p[2], M, H, B);
+  if (err == 0) err = row_map(&t.dout, p[3], N, H, B);
+  if (err == 0) err = value_map(&t.qt, p[4], N, H, B);
+  if (err == 0) err = value_map(&t.kt, p[5], M, H, B);
+  if (err == 0) err = value_map(&t.dot, p[6], N, H, B);
   if (err != 0) return err;
-  err = (int)cudaFuncSetAttribute(ei::attention_bwd_f32_keys_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)k_smem);
-  if (err != 0) return err;
-  ei::attention_bwd_f32_queries_kernel<<<
-      dim3((N + ei::kBQ - 1) / ei::kBQ, H, B), ei::kThreads, q_smem, s>>>(p);
+  // once a process: the two kernels' dynamic shared memory limit
+  static const int rowsum_status = (int)cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(attention_bwd_rowsum_tf32_kernel),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBwdSmemBytes);
+  static const int loop_status = (int)cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(attention_bwd_tf32_kernel),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBwdSmemBytes);
+  if (rowsum_status != 0) return rowsum_status;
+  if (loop_status != 0) return loop_status;
+  a.bias = bias;
+  a.m = stats;
+  a.l = stats + (long long)B * H * N;
+  a.c = c;
+  void* outs[3] = {dq, dk, dv};
+  for (int i = 0; i < 3; ++i) {
+    a.out[i] = static_cast<float*>(outs[i]);
+    for (int j = 0; j < 3; ++j) a.os[i][j] = out_strides[3 * i + j];
+  }
+  a.H = H;
+  a.nq = N;
+  a.nk = M;
+  a.scale = scale;
+  // the c pass: one block a 64-query tile, block x = nkb + blockIdx.x
+  a.x0 = a.nkb;
+  attention_bwd_rowsum_tf32_kernel<<<dim3(nqb, H, B), kThreads,
+                                     kBwdSmemBytes, s>>>(t, a);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  ei::attention_bwd_f32_keys_kernel<<<
-      dim3((M + ei::kBK - 1) / ei::kBK, H, B), ei::kThreads, k_smem, s>>>(p);
+  a.x0 = (blocks & 1) ? 0 : a.nkb;
+  attention_bwd_tf32_kernel<<<dim3(nx, H, B), kThreads, kBwdSmemBytes, s>>>(
+      t, a);
   return (int)cudaGetLastError();
 }
 
@@ -884,4 +859,10 @@ extern "C" int ei_attention_bwd_sm90(const long long* ops, const float* bias,
 // report.
 extern "C" long long ei_bwd_sm90_smem_bytes() {
   return (long long)ei::sm90::kBwdSmem;
+}
+
+// Dynamic shared memory of one block of the float32 backward, for the
+// build report.
+extern "C" long long ei_bwd_tf32_smem_bytes() {
+  return (long long)ei::tf32::kBwdSmemBytes;
 }

@@ -10,9 +10,10 @@
 // directions of the cross-attention (scale 1, pre-scaled operands).
 //
 // What bounds it on an H100: at the flagship shapes (B=8, h=4, N=M=1024,
-// d=64, bf16) one call does 8.6 GFLOP of products (QK^T and PV) against
-// ~17 MB of inputs and outputs, so it is compute-bound (~8.7 us at 989
-// TFLOP/s).
+// d=64) one call does 8.6 GFLOP of products (QK^T and PV) against ~17 MB
+// of inputs and outputs (bf16; ~34 MB in float32), so it is compute-bound
+// in either type: ~8.7 us at 989 TFLOP/s in bf16, ~52 us at the 3xTF32
+// rate (495 / 3 TFLOP/s) in float32.
 //
 // Design. For the backward it writes each row's float32 statistics, the
 // row max m and the row sum l of exp(s - m), so kernel F rebuilds
@@ -31,33 +32,30 @@
 //    packed first into contiguous scratch, which the wrapper hands on to
 //    kernel F, so F packs nothing;
 //  - float32 (the float32 configs, such as the `train_matcher` entry's
-//    LightGlue): the CUDA-core flash loop of flash_attention.cuh, 64 query
-//    rows a block, q/k/v read through strides; kernel F's float32
-//    instance forms every score on the same tiles in the same order.
-#include "flash_attention.cuh"
+//    LightGlue): the pack pass of flash_tf32.cuh (q and k split into TF32
+//    hi/lo row planes, v into permuted V^T planes, through any strides,
+//    no rotary), then the 3xTF32 Hopper loop of A with the statistics
+//    epilogue (StatsArgs), the scale a runtime argument, 64 query rows a
+//    block in one consumer warpgroup. Its score order, S = Qlo Khi^T +
+//    Qhi Klo^T + Qhi Khi^T over k8 slices in order, then fl(fl(S x scale)
+//    + bias), is the one kernel F's float32 blocks form, so that D's m and
+//    l fit F's P.
 #include "flash_sm90.cuh"
+#include "flash_tf32.cuh"
 
 namespace ei {
 
 // consumer warpgroups of the bf16 loop: 128 query rows a block, as A
 constexpr int kNwg = 2;
 
-__global__ void __launch_bounds__(kThreads)
-    attention_fwd_kernel(const Problem p) {
-  extern __shared__ float4 smem4[];
-  flash_block<float, false>(p, blockIdx.z, blockIdx.y,
-                            blockIdx.x * Tiles<float>::rows, smem4);
-}
-
-static int launch(const Problem& p, int B, cudaStream_t stream) {
-  using Tl = Tiles<float>;
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)Tl::smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.nq + Tl::rows - 1) / Tl::rows, p.heads, B);
-  attention_fwd_kernel<<<grid, Tl::threads, Tl::smem, stream>>>(p);
-  return (int)cudaGetLastError();
+// float32: rows 64x.. of head y, batch z.
+__global__ void __launch_bounds__(tf32::kThreads, 1)
+    attention_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const tf32::StatsArgs a) {
+  tf32::attention_block(tq, tk, tv, a, blockIdx.x * 64, blockIdx.y,
+                        blockIdx.z);
 }
 
 __global__ void __launch_bounds__(sm90::Config<kNwg>::threads,
@@ -72,34 +70,40 @@ __global__ void __launch_bounds__(sm90::Config<kNwg>::threads,
 
 }  // namespace ei
 
-// float32: q: (B, H, N, 64); k, v: (B, H, M, 64), through `qkv_strides`
-// (12 element strides: q, k, v, each (b, h, n, d)); bias: (B, M) float32
-// contiguous; out: (B, H, N, 64) through `out_strides` (4); stats:
-// (2, B, H, N) float32 contiguous, the row max m then the row sum l.
-// Returns the CUDA error code of the launch (0 on success); bfloat16 takes
-// ei_attention_fwd_sm90.
-extern "C" int ei_attention_fwd(int dtype, const void* q, const void* k,
-                                const void* v, const long long* qkv_strides,
-                                const float* bias, void* out,
-                                const long long* out_strides, float* stats,
-                                int B, int H, int N, int M, float scale,
-                                void* stream) {
-  if (dtype != ei::kFloat32) return (int)cudaErrorInvalidValue;
-  ei::Problem p;
-  p.q = ei::make_operand(q, qkv_strides);
-  p.k = ei::make_operand(k, qkv_strides + 4);
-  p.v = ei::make_operand(v, qkv_strides + 8);
-  p.cos = nullptr;
-  p.sin = nullptr;
-  p.bias = bias;
-  p.o = ei::make_output(out, out_strides);
-  p.nq = N;
-  p.nk = M;
-  p.scale = scale;
-  p.row_max = stats;
-  p.row_sum = stats + (long long)B * H * N;
-  p.heads = H;
-  return ei::launch(p, B, static_cast<cudaStream_t>(stream));
+// float32: the loop over the planes the pack pass (ei_attention_pack_tf32)
+// wrote: q_planes (B, H, 2, N, 64), k_planes (B, H, 2, M, 64) split,
+// v_planes (B, H, 2, 64, M rounded up to 64) transposed and split; bias:
+// (B, M) float32 contiguous; out: (B, H, N, 64) float32 through
+// `out_strides` (b, h, n; d unit); stats: (2, B, H, N) float32
+// contiguous, the row max m then the row sum l. Returns 0, a CUDA error
+// code or one of ei::sm90's kErr* codes.
+extern "C" int ei_attention_fwd_tf32(const float* q_planes,
+                                     const float* k_planes,
+                                     const float* v_planes, const float* bias,
+                                     void* out, const long long* out_strides,
+                                     float* stats, int B, int H, int N, int M,
+                                     float scale, void* stream) {
+  using namespace ei::tf32;
+  CUtensorMap maps[3];
+  int err = row_map(&maps[0], q_planes, N, H, B);
+  if (err == 0) err = row_map(&maps[1], k_planes, M, H, B);
+  if (err == 0) err = value_map(&maps[2], v_planes, M, H, B);
+  if (err != 0) return err;
+  StatsArgs a{};
+  static_cast<Args&>(a) =
+      Args{bias, static_cast<float*>(out),
+           {out_strides[0], out_strides[1], out_strides[2]}, N, M, scale};
+  a.row_max = stats;
+  a.row_sum = stats + (long long)B * H * N;
+  a.heads = H;
+  err = configure(
+      reinterpret_cast<const void*>(ei::attention_fwd_tf32_kernel));
+  if (err != 0) return err;
+  const dim3 grid((N + 63) / 64, H, B);
+  ei::attention_fwd_tf32_kernel<<<grid, kThreads, kSmemBytes,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], a);
+  return (int)cudaGetLastError();
 }
 
 // bfloat16: the pack pass (where the operand plan asks for it) and the

@@ -1,14 +1,10 @@
-// Flash-style row-softmax attention core of the float32 instances of the
-// differentiable attention forward (kernel D, csrc/attention_fwd.cu),
+// Flash-style row-softmax attention core of the float32 instances of
 // q-blocked attention (kernel E, csrc/qblock_attention.cu) and
-// segment-masked flash attention (kernel G, csrc/flash_segment.cu)
-// kernels; the float32 backward (kernel F, csrc/attention_bwd.cu) reads
-// its operands through the same strides. D and F serve the float32
-// configs (LightGlue's dtype defaults to float32 and no config under
-// configs/ sets it, so the `train_matcher` entry runs them) and the
-// comparisons; the float32 instances of A and B run the 3xTF32 loop of
-// flash_tf32.cuh, and the bfloat16 instances of all six the TMA + wgmma
-// loop of flash_sm90.cuh.
+// segment-masked flash attention (kernel G, csrc/flash_segment.cu), on the
+// CUDA cores; no path of configs/ runs them in float32 (the comparisons
+// and the card tests do). The float32 instances of A, B, D and F run the
+// 3xTF32 tensor-core pieces of flash_tf32.cuh, and the bfloat16 instances
+// of all six the TMA + wgmma loop of flash_sm90.cuh.
 //
 // One block computes ROWS query rows of one (batch, head) problem. The
 // query tile stays on chip; key/value tiles of BK rows stream through
@@ -76,13 +72,6 @@ struct Problem {
   Output o;
   int nq, nk;
   float scale;         // applied to the float32 product, before the bias
-  // optional (B, heads, nq) float32 row statistics of the scaled, biased
-  // scores s for the backward: the row max m and the row sum l of
-  // exp(s - m), so that P = exp(s - m) / l forms s - m before any large
-  // constant is added (a fully masked row's s and m are both -1e9, where
-  // m + log(l) loses log(l) to rounding)
-  float* row_max = nullptr;
-  float* row_sum = nullptr;
   int heads = 0;
   const int* q_seg = nullptr;   // SEG only: (B, nq) and (B, nk) int32
   const int* kv_seg = nullptr;  // segment ids, contiguous
@@ -277,11 +266,6 @@ __device__ void flash_block_fma(const Problem& p, int b, int h, int q0,
   for (int i = 0; i < 4; ++i) {
     const int n = q0 + ty * 4 + i;
     if (n >= p.nq) continue;
-    if (p.row_max != nullptr && tx == 0) {
-      const long long r = ((long long)b * p.heads + h) * p.nq + n;
-      p.row_max[r] = m[i];
-      p.row_sum[r] = l[i];
-    }
     const float inv = inv_safe(l[i]);
 #pragma unroll
     for (int j = 0; j < 4; ++j)

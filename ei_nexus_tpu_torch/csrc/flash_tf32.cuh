@@ -1,15 +1,21 @@
-// Hopper (sm_90a) flash loop of the float32 row-softmax attention with a
-// key-side bias, on the tensor cores: the float32 instances of kernel A
-// (csrc/self_attention.cu) and kernel B (csrc/cross_attention.cu, both
-// directions in one launch). The float32 instances of D, E, F and G keep
-// the CUDA-core loops of flash_attention.cuh.
+// Hopper (sm_90a) 3xTF32 machinery of the float32 row-softmax attention
+// with a key-side bias, on the tensor cores: the loop of the float32
+// instances of kernel A (csrc/self_attention.cu), kernel B
+// (csrc/cross_attention.cu, both directions in one launch) and kernel D
+// (csrc/attention_fwd.cu, with each row's statistics for F), the pack
+// pass, and the pieces of kernel F's float32 blocks (csrc/attention_bwd.cu:
+// the split products, the A fragments, the tensor maps). The float32
+// instances of E and G keep the CUDA-core loop of flash_attention.cuh.
 //
-// What it computes is what `self_attention_plain` and
-// `cross_attention_bidir_plain` define (ops/attention_kernels.py) in
-// float32: q and k rotated as t*cos + rotate_half(t)*sin with each product
-// and the sum rounded to float32; S = Q K^T to float32 accuracy, then
-// x scale, then + the float32 key bias, rounded apart; an online float32
-// softmax; O = P V to float32 accuracy, divided by the row sum at the end.
+// What the loop computes is what `self_attention_plain`,
+// `cross_attention_bidir_plain` and `fused_attention_plain` define
+// (ops/attention_kernels.py) in float32: q and k rotated (A) as
+// t*cos + rotate_half(t)*sin with each product and the sum rounded to
+// float32; S = Q K^T to float32 accuracy, then x scale, then + the float32
+// key bias, rounded apart; an online float32 softmax; O = P V to float32
+// accuracy, divided by the row sum at the end. With StatsArgs (D) it also
+// writes each row's max m and sum l of exp(s - m), m in natural units with
+// s - m formed first, so a fully masked row gets m = -1e9 and l = M.
 //
 // What bounds it: float32 products need not run on the CUDA cores (67
 // TFLOP/s). Each operand x is split into two TF32 values, hi = tf32(x) and
@@ -18,21 +24,22 @@
 // dense, ~165 TFLOP/s for the three) whose dropped lo*lo term and TF32
 // inputs leave ~2^-21 relative per product, far inside the float32
 // tolerance of 1e-4 x max(1, max|ref|). At the flagship shapes (B=8, h=4,
-// N=M=1024, d=64) A is 8.6 GFLOP of float32 products, 25.8 GFLOP of TF32
-// (~0.052 ms at 495 TFLOP/s); B computes S once a direction, 17.2 and 51.5
-// GFLOP (~0.104 ms).
+// N=M=1024, d=64) A and D are 8.6 GFLOP of float32 products, 25.8 GFLOP of
+// TF32 (~0.052 ms at 495 TFLOP/s); B computes S once a direction, 17.2 and
+// 51.5 GFLOP (~0.104 ms).
 //
 // Design:
 //  - a pack pass (attention_pack_tf32_kernel), once per token: it reads
-//    q, k, v (B: qk0, qk1, v0, v1) through their element strides (any
-//    strides: SelfBlock's stride-3 Wqkv views, CrossBlock's head views),
-//    applies A's rotary to q and k, splits every value into hi and lo
-//    (tf32_round: cvt.rna.tf32.f32's rounding, to nearest with ties away
-//    from zero, the 13 low bits cleared) and writes contiguous planes:
-//    Q and K as (B, h, 2, rows, 64) (hi, lo), V transposed as
-//    (B, h, 2, 64, keys rounded up to 64), zeros past the last key. TF32
-//    wgmma reads both shared-memory operands K-major only, so the PV
-//    product needs V^T: its K dimension (the keys) contiguous;
+//    each operand through its element strides (any strides: SelfBlock's
+//    stride-3 Wqkv views, CrossBlock's head views), applies A's rotary to
+//    q and k, splits every value into hi and lo (tf32_round: cvt.rna.
+//    tf32.f32's rounding, to nearest with ties away from zero, the 13 low
+//    bits cleared) and writes contiguous planes: row planes (B, h, 2,
+//    rows, 64) (hi, lo) and transposed planes (B, h, 2, 64, rows rounded
+//    up to 64), each 8-row group in the permuted order below, zeros past
+//    the last row. TF32 wgmma reads both shared-memory operands K-major
+//    only, so a product that sums over tokens (P V; F's P^T dO, dS^T Q and
+//    dS K) takes the transposed plane of its B operand;
 //  - the loop (attention_block) is warp specialised as the bf16 loop of
 //    flash_sm90.cuh: one producer warp keeps TMA loads (128-byte swizzle:
 //    a 64-float row is two 32-float atoms, so a 64 x 64 plane is two boxes
@@ -45,14 +52,15 @@
 //    s = fl(fl(S x scale) + bias), the online softmax in registers (exp
 //    as exp2 of the difference scaled by log2(e), as the bf16 loop takes
 //    it, faster than expf), and O += Plo Vhi + Phi Vlo + Phi Vhi with P
-//    split in registers as the A operand;
+//    split in registers as the A operand. F forms every score with these
+//    products in this order (k8 slices in order), so D's m and l fit its P;
 //  - fragment layouts: a k8 accumulator holds columns (2t, 2t + 1) of
 //    each 8-column group in lane t of a quad, the TF32 A fragment wants
-//    columns (t, t + 4). The pack pass writes each 8-key group of V^T in
-//    the order (0, 2, 4, 6, 1, 3, 5, 7), so that A column t is key 2t and
-//    column t + 4 key 2t + 1: permuting the keys of P's columns and V's
-//    rows alike leaves P V unchanged, and S, the bias and the mask keep
-//    the natural key order;
+//    columns (t, t + 4). The pack pass writes each 8-row group of a
+//    transposed plane in the order (0, 2, 4, 6, 1, 3, 5, 7), so that A
+//    column t is row 2t and column t + 4 row 2t + 1: permuting the
+//    contracted index of both operands alike leaves the product unchanged,
+//    and S, the bias and the mask keep the natural key order;
 //  - budgets: a 64 x 64 float32 plane is 16 KB; a stage (K hi/lo, V^T
 //    hi/lo) 64 KB and Q hi/lo 32 KB, so two stages and the block's one
 //    consumer warpgroup take 160 KB: one block an SM (three stages, 224
@@ -69,6 +77,8 @@
 //    s = -1e9 (|S x scale| < 32 rounds away), so P is uniform, as in the
 //    plain version.
 #pragma once
+
+#include <type_traits>
 
 #include "flash_sm90.cuh"
 
@@ -111,6 +121,15 @@ struct Args {
   long long os[3];
   int nq, nk;
   float scale;
+};
+
+// Kernel D: also each query row's statistics of the scaled, biased scores
+// s for kernel F, the row max m and the row sum l of exp(s - m), rows past
+// nq not written.
+struct StatsArgs : Args {
+  float* row_max;  // (B, heads, nq) float32, contiguous
+  float* row_sum;
+  int heads;
 };
 
 // cvt.rna.tf32.f32's rounding of x: to 10 fraction bits, to nearest with
@@ -201,8 +220,66 @@ __device__ __forceinline__ void product_qk(float (&s)[32], uint64_t qh,
   for (int kk = 0; kk < 8; ++kk) wgmma_ss(s, slice(qh, kk), slice(kh, kk), 1);
 }
 
+// S^T = K Q^T with the terms of product_qk(S, Q, K) in their order (Qlo
+// Khi^T, Qhi Klo^T, Qhi Khi^T, k8 slices in order), K as the A operand:
+// each TF32 product is exact in float32 and a slice sums the same
+// products, so S^T[j][i] is meant to be S[i][j] bit for bit (the card
+// tests hold F's P from D's statistics on the one-hot rows, where it
+// matters).
+__device__ __forceinline__ void product_st(float (&s)[32], uint64_t kh,
+                                           uint64_t kl, uint64_t qh,
+                                           uint64_t ql) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) wgmma_ss(s, slice(kh, kk), slice(ql, kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) wgmma_ss(s, slice(kl, kk), slice(qh, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) wgmma_ss(s, slice(kh, kk), slice(qh, kk), 1);
+}
+
+// The hi and lo A fragments of an accumulator x (x[4j + e]: row g + 8
+// (e >> 1) of the warp's 16, column 8j + 2t + (e & 1)), split in
+// registers: A column t of group c is x's column 8c + 2t, column t + 4 its
+// column 8c + 2t + 1, the order of the transposed planes.
+__device__ __forceinline__ void split_a(const float (&x)[32],
+                                        uint32_t (&hi)[8][4],
+                                        uint32_t (&lo)[8][4]) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float v[4] = {x[4 * c], x[4 * c + 2], x[4 * c + 1], x[4 * c + 3]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float h = tf32_round(v[e]);
+      hi[c][e] = __float_as_uint(h);
+      lo[c][e] = __float_as_uint(tf32_round(v[e] - h));
+    }
+  }
+}
+
+// A 64 x 64 accumulator times mul[row g (0) or g + 8 (1)] at rows r0 + 16 w
+// + g (+ 8) of `out` for the block's w-th consumer warp (rows past n_rows
+// not written); `out` through element strides os (b, h, n), d unit.
+__device__ __forceinline__ void store_tile(const float (&x)[32],
+                                           const float (&mul)[2], float* out,
+                                           const long long (&os)[3], int b,
+                                           int h, int r0, int n_rows) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int n = r0 + 16 * warp + g + 8 * hr;
+    if (n >= n_rows) continue;
+    float* row = out + b * os[0] + h * os[1] + n * os[2];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j + 2 * t) = make_float2(
+          x[4 * j + 2 * hr] * mul[hr], x[4 * j + 2 * hr + 1] * mul[hr]);
+  }
+}
+
 // O += P V to float32 accuracy, P's hi and lo fragments of the 8 key
-// groups against V^T's hi and lo planes.
+// groups against V^T's hi and lo planes (F: any A fragments against a
+// transposed plane).
 __device__ __forceinline__ void product_pv(float (&o)[32],
                                            const uint32_t (&ph)[8][4],
                                            const uint32_t (&pl)[8][4],
@@ -217,12 +294,15 @@ __device__ __forceinline__ void product_pv(float (&o)[32],
 
 // The loop over the query rows [q0, q0 + 64) of problem (b, h): tq, tk are
 // 5-D (64, rows, 2, h, B) maps of the Q and K planes, tv the
-// (keys, 64, 2, h, B) map of the V^T planes, all with 32 x 64 boxes.
+// (keys, 64, 2, h, B) map of the V^T planes, all with 32 x 64 boxes; A is
+// Args or StatsArgs.
+template <typename A>
 __device__ __forceinline__ void attention_block(const CUtensorMap& tq,
                                                 const CUtensorMap& tk,
                                                 const CUtensorMap& tv,
-                                                const Args& a, int q0, int h,
+                                                const A& a, int q0, int h,
                                                 int b) {
+  constexpr bool kStats = std::is_same<A, StatsArgs>::value;
   auto& S = sm90::shared_as<Shared>();
   const int ntiles = (a.nk + kBK - 1) / kBK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -264,7 +344,8 @@ __device__ __forceinline__ void attention_block(const CUtensorMap& tq,
     }
   } else {
     // ---- consumers: warp w owns rows q0 + 16 w .. + 15
-    const int g = lane / 4, t = lane % 4;
+    [[maybe_unused]] const int g = lane / 4;
+    const int t = lane % 4;
     const uint64_t qh = smem_desc(S.q[0]);
     const uint64_t ql = smem_desc(S.q[1]);
     float o[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -322,20 +403,9 @@ __device__ __forceinline__ void attention_block(const CUtensorMap& tq,
       }
 
       // P split as the A operand of key group c: A column t is key
-      // 8c + 2t (s[4c], row g; s[4c + 2], row g + 8), column t + 4 key
-      // 8c + 2t + 1 (s[4c + 1], s[4c + 3]): V^T's permuted order
+      // 8c + 2t, column t + 4 key 8c + 2t + 1: V^T's permuted order
       uint32_t ph[8][4], pl[8][4];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float x[4] = {s[4 * c], s[4 * c + 2], s[4 * c + 1],
-                            s[4 * c + 3]};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float hi = tf32_round(x[e]);
-          ph[c][e] = __float_as_uint(hi);
-          pl[c][e] = __float_as_uint(tf32_round(x[e] - hi));
-        }
-      }
+      split_a(s, ph, pl);
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
 
@@ -350,16 +420,21 @@ __device__ __forceinline__ void attention_block(const CUtensorMap& tq,
     }
 
     // O / l, float32, rows past nq not written
+    const float inv[2] = {l[0] == 0.f ? 1.f : 1.f / l[0],
+                          l[1] == 0.f ? 1.f : 1.f / l[1]};
+    store_tile(o, inv, a.out, a.os, b, h, q0, a.nq);
+    if constexpr (kStats) {
+      // m and l are whole-row values in every lane of the row's quad
+      if (t == 0) {
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int n = q0 + 16 * warp + g + 8 * hr;
-      if (n >= a.nq) continue;
-      const float inv = l[hr] == 0.f ? 1.f : 1.f / l[hr];
-      float* row = a.out + b * a.os[0] + h * a.os[1] + n * a.os[2];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<float2*>(row + 8 * j + 2 * t) =
-            make_float2(o[4 * j + 2 * hr] * inv, o[4 * j + 2 * hr + 1] * inv);
+        for (int hr = 0; hr < 2; ++hr) {
+          const int n = q0 + 16 * warp + g + 8 * hr;
+          if (n >= a.nq) continue;
+          const long long r = ((long long)b * a.heads + h) * a.nq + n;
+          a.row_max[r] = m[hr];
+          a.row_sum[r] = l[hr];
+        }
+      }
     }
   }
 }
@@ -370,10 +445,10 @@ __device__ __forceinline__ void attention_block(const CUtensorMap& tq,
 
 // One operand to pack: row (b, h, n) holds its 64 values at src + b*sb +
 // h*sh + n*sn + d*sd (elements). Rows: into the (B, h, 2, rows, 64) hi/lo
-// planes at dst, rotated with the (B, rows, 64) tables when rot; values
-// (transpose): into the (B, h, 2, 64, keys) V^T planes, keys = rows rounded
-// up to 64, each 8-key group in the order 0, 2, 4, 6, 1, 3, 5, 7, zeros
-// past the last row.
+// planes at dst, rotated with the (B, rows, 64) tables when rot;
+// transpose: into the (B, h, 2, 64, keys) transposed planes (V^T; F's Q^T,
+// K^T and dO^T), keys = rows rounded up to 64, each 8-row group in the
+// order 0, 2, 4, 6, 1, 3, 5, 7, zeros past the last row.
 struct PackJob {
   const float* src;
   long long sb, sh, sn, sd;
@@ -381,7 +456,7 @@ struct PackJob {
   float* dst;
 };
 
-constexpr int kMaxJobs = 4;  // B's qk0, qk1, v0, v1
+constexpr int kMaxJobs = 8;  // F's q, k, v, dO rows; q, k, dO transposed
 constexpr int kPackThreads = 256;
 
 struct PackArgs {
@@ -503,9 +578,9 @@ inline int configure(const void* kernel) {
 }  // namespace tf32
 }  // namespace ei
 
-// The float32 pack pass: njobs (1..4) operands, 9 long longs each: source
+// The float32 pack pass: njobs (1..8) operands, 9 long longs each: source
 // pointer, element strides b, h, n, d, rows, transpose (0: split row
-// planes, 1: split V^T planes), rot (rotate through the (B, rows, 64)
+// planes, 1: split transposed planes), rot (rotate through the (B, rows, 64)
 // float32 tables cos, sin), destination pointer (the wrapper's planes).
 // Returns the CUDA error code of the launch (0 on success).
 extern "C" int ei_attention_pack_tf32(const long long* jobs, int njobs,

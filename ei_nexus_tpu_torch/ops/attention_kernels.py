@@ -32,13 +32,15 @@ own block_q query rows instead of 128), so the plain versions are shared.
 The kernels read q/k/v through strides (no copy of the strided views the
 LightGlue blocks produce) and write their outputs as (B, h, N, d) views of
 (B, N, h, d) buffers, so the caller's merge of the heads is free. The
-float32 instances of A and B run a 3xTF32 loop on the tensor cores after a
-pack pass (`pack_f32`, plain version `pack_f32_plain`) that reads the
-operands through their strides, rotates A's q and k, splits each value x
-into TF32 hi = tf32(x) and lo = tf32(x - hi) (`tf32_split_plain`) and
-writes V transposed, each 8-key group in the order the loop's P fragments
-take. The bfloat16 instances of A, B, D, E, F and G (`hopper_attention`,
-`cross_attention_bidir`, `attention_fwd`, `attention_bwd`,
+float32 instances of A, B, D and F run 3xTF32 products on the tensor cores
+after a pack pass (`pack_f32`, plain version `pack_f32_plain`) that reads
+the operands through their strides, rotates A's q and k, splits each value
+x into TF32 hi = tf32(x) and lo = tf32(x - hi) (`tf32_split_plain`) and
+writes the operands a product sums over tokens with (V; F's q, k and dO)
+transposed, each 8-token group in the order the loops' register
+fragments take (`vt_key_order`). The bfloat16 instances of A, B, D, E, F
+and G (`hopper_attention`, `cross_attention_bidir`, `attention_fwd`,
+`attention_bwd`,
 `flash_kernel.flash_attention`) read their operands by TMA, which needs a
 unit d stride and 16-byte alignment: `operand_plan` decides for each
 operand whether the loop reads it in place or a pack pass first writes it
@@ -154,10 +156,11 @@ def tf32_split_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def vt_key_order(keys: int, device=None) -> torch.Tensor:
-    """The key at each position of a V^T plane of `keys` (a multiple of 8):
-    each 8-key group in the order 0, 2, 4, 6, 1, 3, 5, 7, so that column t
-    of the TF32 A fragment of P (which the loop fills from accumulator
-    columns 2t and 2t + 1) meets its key."""
+    """The key (token) at each position of a transposed plane of `keys` (a
+    multiple of 8; V^T, and F's Q^T, K^T, dO^T): each 8-token group in the
+    order 0, 2, 4, 6, 1, 3, 5, 7, so that column t of the TF32 A fragment
+    of P (or dS; the loops fill it from accumulator columns 2t and 2t + 1)
+    meets its token."""
     p = torch.arange(keys, device=device)
     return (p & ~7) | (2 * (p & 3) + ((p >> 2) & 1))
 
@@ -168,12 +171,12 @@ def _padded_keys(n: int) -> int:
 
 def pack_f32_plain(rows, values, rot: Optional[Tuple[torch.Tensor,
                                                      torch.Tensor]] = None):
-    """Plain version of the float32 pack pass of kernels A and B: (the
-    (B, h, 2, n, 64) hi/lo planes of each (B, h, n, 64) operand of `rows`,
-    rotated first by rot = (cos, sin) (B, n, 64) tables when given; the
-    (B, h, 2, 64, keys) hi/lo planes of V^T of each operand of `values`,
-    keys = n rounded up to 64, positions in `vt_key_order`, zeros past
-    n)."""
+    """Plain version of the float32 pack pass of kernels A, B, D and F:
+    (the (B, h, 2, n, 64) hi/lo planes of each (B, h, n, 64) operand of
+    `rows`, rotated first by rot = (cos, sin) (B, n, 64) tables when given;
+    the (B, h, 2, 64, keys) hi/lo planes of the transpose of each operand
+    of `values` (V^T; F's Q^T, K^T, dO^T), keys = n rounded up to 64,
+    positions in `vt_key_order`, zeros past n)."""
     planes = []
     for t in rows:
         t = t.float()
@@ -352,28 +355,26 @@ def hopper_operands(tensors, rotate: int = 0):
     return int64_array(ops), scratch, packed
 
 
-def pack_f32(rows, values, rot: Optional[Tuple[torch.Tensor,
-                                               torch.Tensor]] = None,
-             kernel: str = "self_attention"):
-    """The float32 pack pass of kernels A and B on the card, one launch
-    (counted in `hopper_attention.packs`): what `pack_f32_plain` defines,
-    from (B, h, n, 64) float32 operands of any strides; rot = (cos, sin)
-    contiguous (B, n, 64) float32 tables, n the rows operands' count.
-    `kernel` names the library that launches it."""
+def _pack_f32_launch(rows, values, rot=None, kernel: str = "self_attention"):
+    """One launch of the float32 pack pass (counted in
+    `hopper_attention.packs`) into one fresh buffer: (the buffer, and for
+    each operand of rows, then values, (its planes' pointer, shape, offset
+    in the buffer)). D's and F's wrappers pass the pointers on, so the host
+    makes no view of a plane; they hold the buffer until their loop is
+    launched."""
     B, h = rows[0].shape[:2]
     shapes = ([(B, h, 2, t.shape[2], _HEAD_DIM) for t in rows]
               + [(B, h, 2, _HEAD_DIM, _padded_keys(v.shape[2]))
                  for v in values])
     sizes = [math.prod(shape) for shape in shapes]
     buf = torch.empty(sum(sizes), dtype=torch.float32, device=rows[0].device)
-    planes, jobs, at = [], [], 0
+    base, placed, jobs, at = buf.data_ptr(), [], [], 0
     for i, (t, shape, size) in enumerate(zip((*rows, *values), shapes,
                                              sizes)):
-        plane = buf[at:at + size].view(shape)
         is_value = i >= len(rows)
         jobs += [t.data_ptr(), *t.stride(), t.shape[2], int(is_value),
-                 int(rot is not None and not is_value), plane.data_ptr()]
-        planes.append(plane)
+                 int(rot is not None and not is_value), base + 4 * at]
+        placed.append((base + 4 * at, shape, at))
         at += size
     tables = (None, None) if rot is None else (rot[0].data_ptr(),
                                                rot[1].data_ptr())
@@ -383,6 +384,20 @@ def pack_f32(rows, values, rot: Optional[Tuple[torch.Tensor,
             torch.cuda.current_stream().cuda_stream)
     check(err, f"{kernel} pack")
     hopper_attention.packs += 1
+    return buf, placed
+
+
+def pack_f32(rows, values, rot: Optional[Tuple[torch.Tensor,
+                                               torch.Tensor]] = None,
+             kernel: str = "self_attention"):
+    """The float32 pack pass of kernels A, B, D and F on the card, one
+    launch of up to 8 operands (counted in `hopper_attention.packs`): what
+    `pack_f32_plain` defines, from (B, h, n, 64) float32 operands of any
+    strides; rot = (cos, sin) contiguous (B, n, 64) float32 tables, n the
+    rows operands' count. `kernel` names the library that launches it."""
+    buf, placed = _pack_f32_launch(rows, values, rot, kernel)
+    planes = [buf[at:at + math.prod(shape)].view(shape)
+              for _, shape, at in placed]
     return planes[:len(rows)], planes[len(rows):]
 
 
@@ -592,8 +607,9 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     card; F then reads it in place), else v itself.
 
     CPU tensors: the plain version. CUDA tensors: the CUDA kernel
-    (bfloat16: the Hopper loop, its operands as `operand_plan` takes them),
-    or an exception (d must be 64)."""
+    (bfloat16: the Hopper loop, its operands as `operand_plan` takes them;
+    float32: the pack pass's Q, K and V^T planes, then the 3xTF32 loop), or
+    an exception (d must be 64)."""
     if q.device.type == "cpu":
         s = torch.matmul(q.float(), k.float().mT) * scale \
             + bias[:, None, None]
@@ -602,7 +618,7 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _row_attention(q, k, v, bias, scale), torch.stack([m, l]), v
     if q.device.type != "cuda":
         raise ValueError(f"attention_fwd: unsupported device {q.device}")
-    code = _check_cuda("attention_fwd", q, k, v, differentiable=True)
+    _check_cuda("attention_fwd", q, k, v, differentiable=True)
     B, h, N, d = q.shape
     M = k.shape[2]
     if k.shape[:2] != (B, h) or v.shape != k.shape:
@@ -613,6 +629,9 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ops, scratch, packed = hopper_operands((q, k, v))
         if packed[2] is not None:
             v_read = packed[2]
+    else:
+        buf, ((qp, *_), (kp, *_), (vp, *_)) = _pack_f32_launch(
+            (q, k), (v,), kernel="attention_fwd")
     out = _heads_out(B, h, N, d, q)
     stats = torch.empty(2, B, h, N, dtype=torch.float32, device=q.device)
     lib = library("attention_fwd")
@@ -624,11 +643,10 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 int64_array(out.stride()[:3]), stats.data_ptr(), B, h, N, M,
                 float(scale), stream)
         else:
-            err = lib.ei_attention_fwd(
-                code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                int64_array(q.stride() + k.stride() + v.stride()),
-                bias.data_ptr(), out.data_ptr(), int64_array(out.stride()),
-                stats.data_ptr(), B, h, N, M, float(scale), stream)
+            err = lib.ei_attention_fwd_tf32(
+                qp, kp, vp, bias.data_ptr(), out.data_ptr(),
+                int64_array(out.stride()[:3]), stats.data_ptr(), B, h, N, M,
+                float(scale), stream)
     check(err, "attention_fwd")
     hopper_attention.packs += scratch is not None
     attention_fwd.launches += 1
@@ -647,25 +665,27 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel, a c pass (c = rowsum(dP o P) in float32) and then the gradient
     loop (bfloat16: the Hopper loop, q, k, v and dO as `operand_plan`
     takes them; dO as autograd hands it may be any layout, and one the plan
-    refuses is copied contiguous first), or an exception. `blocks` (bf16 on
-    the card only) runs one of the loop's block kinds alone, after the c
-    pass, to time it: 1 the dK/dV blocks, 2 the dQ blocks; the other
-    gradients are then left unwritten."""
+    refuses is copied contiguous first; float32: the pack pass's row planes
+    of q, k, v, dO and transposed planes of q, k, dO, one launch, then the
+    3xTF32 loop), or an exception. `blocks` (on the card only) runs one of
+    the loop's block kinds alone, after the c pass, to time it: 1 the
+    dK/dV blocks, 2 the dQ blocks; the other gradients are then left
+    unwritten."""
     do = do.to(q.dtype)
     if q.device.type == "cpu":
         return fused_attention_bwd_plain(q, k, v, bias, do, scale)
     if q.device.type != "cuda":
         raise ValueError(f"attention_bwd: unsupported device {q.device}")
-    code = _check_cuda("attention_bwd", q, k, v, do, differentiable=True)
+    _check_cuda("attention_bwd", q, k, v, do, differentiable=True)
     B, h, N, d = q.shape
     M = k.shape[2]
     if k.shape[:2] != (B, h) or v.shape != k.shape or do.shape != q.shape:
         raise ValueError("attention_bwd: mismatched shapes")
     bias = _check_rows("attention_bwd bias", bias, (B, M))
     stats = _check_rows("attention_bwd stats", stats, (2, B, h, N))
-    if blocks != 3 and (q.dtype != torch.bfloat16 or blocks not in (1, 2)):
+    if blocks not in (1, 2, 3):
         raise ValueError(f"attention_bwd: blocks={blocks}; 1 or 2 time the "
-                         f"bfloat16 loop's block kinds, 3 runs both")
+                         f"loop's block kinds, 3 runs both")
     scratch = None
     if q.dtype == torch.bfloat16:
         try:
@@ -673,6 +693,10 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         except ValueError:
             do = do.contiguous()
         ops, scratch, _ = hopper_operands((q, k, v, do))
+    else:
+        buf, placed = _pack_f32_launch((q, k, v, do), (q, k, do),
+                                       kernel="attention_bwd")
+        planes = int64_array([ptr for ptr, _, _ in placed])
     dq = _heads_out(B, h, N, d, q)
     dk = _heads_out(B, h, M, d, q)
     dv = _heads_out(B, h, M, d, q)
@@ -688,15 +712,12 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             + dv.stride()[:3]),
                 B, h, N, M, float(scale), blocks, stream)
         else:
-            err = lib.ei_attention_bwd(
-                code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                do.data_ptr(),
-                int64_array(q.stride() + k.stride() + v.stride()
-                            + do.stride()),
-                bias.data_ptr(), stats.data_ptr(), c.data_ptr(),
+            err = lib.ei_attention_bwd_tf32(
+                planes, bias.data_ptr(), stats.data_ptr(), c.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                int64_array(dq.stride() + dk.stride() + dv.stride()),
-                B, h, N, M, float(scale), stream)
+                int64_array(dq.stride()[:3] + dk.stride()[:3]
+                            + dv.stride()[:3]),
+                B, h, N, M, float(scale), blocks, stream)
     check(err, "attention_bwd")
     hopper_attention.packs += scratch is not None
     attention_bwd.launches += 1
@@ -705,8 +726,9 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class _FusedAttention(torch.autograd.Function):
     """Forward: kernel D (saving q, k, the v it read, the bias and the row
-    statistics); backward: kernel F, which reads D's packed v in place.
-    The bias gets no gradient."""
+    statistics); backward: kernel F, which reads D's packed v in place
+    (bfloat16; in float32 F packs its own planes, so D's are freed with the
+    forward). The bias gets no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale):

@@ -64,21 +64,25 @@ SIGNATURES = {
         "ei_nms_active_clusters": ([_I, _I], _I),
     },
     "attention_fwd": {
-        "ei_attention_fwd": (
-            [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-             ctypes.c_float, _P], _I),
+        "ei_attention_fwd_tf32": (
+            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
+             _P], _I),
         "ei_attention_fwd_sm90": (
             [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P], _I),
+        "ei_attention_pack_tf32": ([_P, _I, _P, _P, _I, _I, _P], _I),
         "ei_sm90_smem_bytes": ([_I], ctypes.c_longlong),
+        "ei_tf32_smem_bytes": ([], ctypes.c_longlong),
     },
     "attention_bwd": {
-        "ei_attention_bwd": (
-            [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-             _I, _I, _I, _I, ctypes.c_float, _P], _I),
+        "ei_attention_bwd_tf32": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
+             _I, _P], _I),
         "ei_attention_bwd_sm90": (
             [_P, _P, _P, _P, _P, _P, _P, _P,
              _I, _I, _I, _I, ctypes.c_float, _I, _P], _I),
+        "ei_attention_pack_tf32": ([_P, _I, _P, _P, _I, _I, _P], _I),
         "ei_bwd_sm90_smem_bytes": ([], ctypes.c_longlong),
+        "ei_bwd_tf32_smem_bytes": ([], ctypes.c_longlong),
     },
     "qblock_attention": {
         "ei_qblock_attention": (

@@ -259,7 +259,8 @@ def _bwd_operands(cuda, values, B, h, N, M, d, dtype):
     (2, 4, 1024, 1024, 0.125, "one-hot"),
     (8, 4, 1024, 1024, 0.125, "self"), (8, 4, 1024, 1024, 1.0, "cross")])
 def test_attention_bwd_kernel(cuda, dtype, tol, B, h, N, M, scale, values):
-    """F on stride-3 operands (packed first in bfloat16): at ragged N != M
+    """F on stride-3 operands (packed first: bfloat16 by the operand plan,
+    float32 always, into its 3xTF32 planes): at ragged N != M
     with random values, the last batch row's keys all masked; on the
     (2, 4, 1024, 64) inputs where dP - c cancels (collapsed value rows,
     one-hot softmax rows), where c taken from the rounded output fails;
@@ -274,8 +275,9 @@ def test_attention_bwd_kernel(cuda, dtype, tol, B, h, N, M, scale, values):
     packs = ak.hopper_attention.packs
     got = ak.attention_bwd(q, k, v, do, bias, stats, scale)
     assert ak.attention_bwd.launches == before + 1
+    # bf16: the stride-3 views are packed; float32: F's planes, always
     assert ak.hopper_attention.packs == packs + (
-        dtype == torch.bfloat16 and values != "cross")
+        dtype == torch.float32 or values != "cross")
     want = ak.fused_attention_bwd_plain(q, k, v, bias, do, scale)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.shape == b.shape and a.dtype == b.dtype, name
@@ -799,6 +801,140 @@ def test_f32_loop_refuses_before_launch(cuda):
     x = torch.zeros(B, h, N, 32, device="cuda")
     with pytest.raises(ValueError):
         ak.cross_attention_bidir(x, x, x, x)
+    assert counts() == before
+
+
+# ---------------------------------------------------------------------------
+# float32 D and F on the 3xTF32 loop
+# ---------------------------------------------------------------------------
+
+
+def _f32_fused(gen, B, h, N, M, d, layout):
+    """Float32 D/F operands as the training blocks hand them: "self" q, k
+    the rotated (contiguous (B, n, h, d) buffers seen as head views) and v
+    the stride-3 view of a Wqkv output, scale d^-0.5; "cross" pre-scaled
+    head views, scale 1; the last batch row's keys all masked, dO the
+    (B, h, N, d) view of a (B, N, h, d) buffer."""
+    if layout == "self":
+        q = _f32_heads(gen, B, N, h, d)
+        k = _f32_heads(gen, B, M, h, d)
+        v = _f32_wqkv(gen, B, M, h, d)[2]
+        scale = d ** -0.5
+    else:
+        q = _f32_heads(gen, B, N, h, d, d ** -0.25)
+        k = _f32_heads(gen, B, M, h, d, d ** -0.25)
+        v = _f32_heads(gen, B, M, h, d)
+        scale = 1.0
+    mask = torch.rand(B, M, generator=gen, device="cuda") > 0.2
+    mask[-1] = False
+    do = torch.randn(B, N, h, d, generator=gen, device="cuda").permute(
+        0, 2, 1, 3)
+    return q, k, v, do, ak.key_bias(mask, B, M, "cuda"), scale
+
+
+@pytest.mark.parametrize("N,M", [(1024, 1024), (200, 136), (64, 1000)])
+@pytest.mark.parametrize("layout", ["self", "cross"])
+def test_f32_attention_fwd_loop(cuda, N, M, layout):
+    """Float32 D on the 3xTF32 loop: one pack launch and one loop launch a
+    call, v handed back as given (F packs its own planes); against the
+    plain version to 1e-4 x max(1, max|ref|); m and l to relative 1e-5 (m
+    against max(1, |m|)); the fully masked batch row's m = -1e9 and l = M
+    exactly (a uniform softmax); the same bits on a second call."""
+    B, h, d = 2, 3, 64
+    q, k, v, _, bias, scale = _f32_fused(cuda, B, h, N, M, d, layout)
+    before, packs = ak.attention_fwd.launches, ak.hopper_attention.packs
+    out, stats, v_read = ak.attention_fwd(q, k, v, bias, scale)
+    assert ak.attention_fwd.launches == before + 1
+    assert ak.hopper_attention.packs == packs + 1
+    assert v_read is v
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert _close(out, ak.fused_attention_plain(q, k, v, bias == 0, scale),
+                  1e-4)
+    s = torch.matmul(q, k.mT) * scale + bias[:, None, None]
+    m = s.amax(-1)
+    l = torch.exp(s - m[..., None]).sum(-1)
+    assert ((stats[0] - m).abs() <= 1e-5 * m.abs().clamp(min=1.0)).all()
+    assert ((stats[1] - l).abs() <= 1e-5 * l).all()
+    assert (stats[0][-1] == -1e9).all() and (stats[1][-1] == M).all()
+    again = ak.attention_fwd(q, k, v, bias, scale)
+    assert torch.equal(again[0], out) and torch.equal(again[1], stats)
+
+
+@pytest.mark.parametrize("N,M", [(200, 136), (64, 320)])
+def test_f32_fused_pack_pass_bit_exact(cuda, N, M):
+    """The pack launches of float32 D (q, k rows; v transposed) and F (q,
+    k, v, dO rows; q, k, dO transposed: seven operands in one launch) equal
+    `pack_f32_plain` bit for bit, from the training layouts' strides
+    (ragged N and M: the transposed planes' zero-padded last tile and
+    permuted order along the tokens)."""
+    B, h, d = 2, 3, 64
+    q, k, v, do, _, _ = _f32_fused(cuda, B, h, N, M, d, "self")
+    for kernel, args in (("attention_fwd", ((q, k), (v,))),
+                         ("attention_bwd", ((q, k, v, do), (q, k, do)))):
+        packs = ak.hopper_attention.packs
+        got = ak.pack_f32(*args, kernel=kernel)
+        assert ak.hopper_attention.packs == packs + 1
+        want = ak.pack_f32_plain(*args)
+        for a, b in zip(got[0] + got[1], want[0] + want[1]):
+            assert a.shape == b.shape and torch.equal(a, b), kernel
+
+
+@pytest.mark.parametrize("N,M", [(1024, 1024), (200, 136)])
+@pytest.mark.parametrize("layout", ["self", "cross"])
+def test_f32_attention_bwd_loop(cuda, N, M, layout):
+    """Float32 F on the 3xTF32 loop after float32 D: one pack launch (its
+    seven operands) and one F launch a call; dq, dk, dv against the plain
+    version to 1e-4 x max(1, max|ref|) and a relative norm of 1e-4, the
+    fully masked batch row alone too; the same bits on a second call; each
+    block kind alone (`blocks` 1: dK/dV, 2: dQ) gives its gradients' bits
+    of the whole call."""
+    B, h, d = 2, 3, 64
+    q, k, v, do, bias, scale = _f32_fused(cuda, B, h, N, M, d, layout)
+    _, stats, v_read = ak.attention_fwd(q, k, v, bias, scale)
+    before, packs = ak.attention_bwd.launches, ak.hopper_attention.packs
+    got = ak.attention_bwd(q, k, v_read, do, bias, stats, scale)
+    assert ak.attention_bwd.launches == before + 1
+    assert ak.hopper_attention.packs == packs + 1
+    want = ak.fused_attention_bwd_plain(q, k, v, bias, do, scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        for rows in (slice(None), slice(-1, None)):
+            assert _close(a[rows], b[rows], 1e-4), name
+            assert _rel(a[rows], b[rows]) <= BWD_REL[torch.float32], name
+    again = ak.attention_bwd(q, k, v_read, do, bias, stats, scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _, dk, dv = ak.attention_bwd(q, k, v_read, do, bias, stats, scale,
+                                 blocks=1)
+    dq, _, _ = ak.attention_bwd(q, k, v_read, do, bias, stats, scale,
+                                blocks=2)
+    assert torch.equal(dq, got[0]) and torch.equal(dk, got[1]) \
+        and torch.equal(dv, got[2])
+
+
+def test_f32_fused_refuses_before_launch(cuda):
+    """What float32 D and F cannot take raises before any pack or loop
+    launch: a head dim other than 64, mismatched shapes, a bias or stats
+    of another shape or type, a block mask other than 1, 2, 3; nothing
+    falls back to another kernel or the plain version."""
+    B, h, N, d = 1, 2, 128, 64
+    q, k, v, do, bias, scale = _f32_fused(cuda, B, h, N, N, d, "self")
+    _, stats, _ = ak.attention_fwd(q, k, v, bias, scale)
+    counts = lambda: (ak.attention_fwd.launches,  # noqa: E731
+                      ak.attention_bwd.launches, ak.hopper_attention.packs)
+    before = counts()
+    x = torch.zeros(B, h, N, 32, device="cuda")
+    with pytest.raises(ValueError):
+        ak.attention_fwd(x, x, x, bias, scale)
+    with pytest.raises(ValueError):
+        ak.attention_fwd(q, k[:, :, :64], v, bias, scale)
+    with pytest.raises(ValueError):
+        ak.attention_fwd(q, k, v, bias.double(), scale)
+    with pytest.raises(ValueError):
+        ak.attention_bwd(q, k, v, do, bias, stats[:, :, :, :64], scale)
+    with pytest.raises(ValueError):
+        ak.attention_bwd(q, k, v, do[..., :32], bias, stats, scale)
+    with pytest.raises(ValueError):
+        ak.attention_bwd(q, k, v, do, bias, stats, scale, blocks=0)
     assert counts() == before
 
 
