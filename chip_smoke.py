@@ -9,13 +9,13 @@ Phases, each of which raises on failure:
     switched off for matmuls and convolutions so float32 comparisons are
     float32; the card's name and power limit are printed;
  2. the build of the Hopper loops of A, B, D, E, F and G
-    (csrc/flash_sm90.cuh, csrc/attention_bwd.cu) and of float32 A, B, D
-    and F's 3xTF32 loops (csrc/flash_tf32.cuh, csrc/attention_bwd.cu):
+    (csrc/flash_sm90.cuh, csrc/attention_bwd.cu) and of their float32
+    3xTF32 loops (csrc/flash_tf32.cuh, csrc/attention_bwd.cu):
     their kernels' ptxas lines (no spill, no C7508 "setmaxnreg
     ignored"), shared memory, and HGMMA and UTMALDG instructions in the
     SASS of each library, and of each 3xTF32 loop alone (F's c pass too),
-    where the toolkit has cuobjdump; the float32 pack pass of A, B, D and
-    F bit-exact against its plain version; then every
+    where the toolkit has cuobjdump; the float32 pack pass of A, B, D, E,
+    F and G bit-exact against its plain version; then every
     kernel (A-G) against its plain PyTorch version at the paths' shapes,
     in float32 and bfloat16 (E at block_q 64 and 128, with and without
     rot; G at 1024 and 2048 tokens
@@ -37,10 +37,11 @@ Phases, each of which raises on failure:
     (each run alone); one table of A, B, D, E, F and G (`kernel_table`:
     the call, SDPA's call, the bound) timed by device time in each dtype,
     the float32 instances (the float32 configs' path) against their bound
-    at float32's peak (A, B, D and F at the 3xTF32 peak of the tensor
-    cores, also reported at the CUDA cores', and split into the pack pass
-    and the loop, F also into its c pass and each block kind alone; E and
-    G at the CUDA cores') and SDPA's float32 call; F's gradients are also
+    at the 3xTF32 peak of the tensor cores (also reported at the CUDA
+    cores'), split into the pack pass and the loop (F also into its c pass
+    and each block kind alone), and SDPA's float32 call, and float32 E
+    rot-free and at block_q 128 and G at 2048 tokens likewise; F's
+    gradients are also
     held to a
     relative norm, which planted faults of its inputs (the neighbouring
     row's statistics, the row sum doubled, the neighbouring batch row's
@@ -58,8 +59,10 @@ Phases, each of which raises on failure:
     each attention setting of `build_flagship`: "auto" (A=18, B=9, C=2
     launches a forward), "flash" (G=36, C=2) and "auto" with block_q=64
     (E=36, C=2), and "auto" in float32 (A=18, B=9, C=2; the eval entries'
-    type), launch counts read around one forward (and the pack passes: 18
-    under "auto", 18 q-blocked, 18 "flash", 27 under "auto" in float32),
+    type), "flash" in float32 (G=36, C=2) and q-blocked in float32 (E=36,
+    C=2), launch counts read around one forward (and the pack passes: 18
+    under "auto", 18 q-blocked, 18 "flash"; in float32 27 under "auto", 36
+    "flash", 36 q-blocked),
     then timed one forward at a time (latency) and back to back
     (throughput, pairs/s);
     the flash forward is then chained with the pose tail as the JAX
@@ -424,13 +427,13 @@ def _sum_ms(times: dict, fragment: str = "") -> float:
 # ---------------------------------------------------------------------------
 
 # the Hopper loops of A, B, D, E, F and G (csrc/flash_sm90.cuh; F's in
-# csrc/attention_bwd.cu; float32 A, B, D and F's in csrc/flash_tf32.cuh
+# csrc/attention_bwd.cu; the float32 instances' in csrc/flash_tf32.cuh
 # and csrc/attention_bwd.cu) and their pack passes
 HOPPER_LIBS = ("self_attention", "qblock_attention", "cross_attention",
                "attention_fwd", "attention_bwd", "flash_segment")
 # their kernels, by a fragment of the name: the loops, the pack passes and
-# F's c pass; float32 A, B, D and F's 3xTF32 loops, F's c pass and the
-# pack pass
+# F's c pass; the float32 3xTF32 loops of A, B, D, E, F and G, F's c pass
+# and the pack pass
 HOPPER_KERNELS = ("sm90_kernel", "attention_pack_kernel",
                   "attention_bwd_rowsum_kernel", "tf32_kernel")
 # the float32 3xTF32 loops, by library: their SASS is counted alone
@@ -438,14 +441,16 @@ TF32_LOOPS = {"self_attention": ("self_attention_tf32_kernel",),
               "cross_attention": ("cross_attention_tf32_kernel",),
               "attention_fwd": ("attention_fwd_tf32_kernel",),
               "attention_bwd": ("attention_bwd_rowsum_tf32_kernel",
-                                "attention_bwd_tf32_kernel")}
+                                "attention_bwd_tf32_kernel"),
+              "qblock_attention": ("qblock_attention_tf32_kernel",),
+              "flash_segment": ("flash_segment_tf32_kernel",)}
 
 
 def check_hopper_build(logs: dict) -> dict:
     """Print ptxas's lines for the Hopper kernels and the float32 3xTF32
-    loops of A, B, D and F, F's c pass and the pack pass (registers, spills,
-    stack; their dynamic shared memory from the library; any C75xx remark
-    such as C7508, setmaxnreg ignored) and require no spill and no C7508;
+    loops of A, B, D, E, F and G, F's c pass and the pack pass (registers,
+    spills, stack; their dynamic shared memory from the library; any C75xx
+    remark such as C7508, setmaxnreg ignored) and require no spill and no C7508;
     where the toolkit has cuobjdump, count HGMMA (wgmma) and UTMALDG (TMA
     load) instructions in each library's SASS, and in the 3xTF32 loops'
     own functions, and require both. Returns {library: {"HGMMA": n,
@@ -759,13 +764,16 @@ def check_flash(dtype, tol, gen):
     return worst, kept
 
 
-def flash_bound_ms(q: torch.Tensor, k: torch.Tensor) -> tuple:
-    """Bound of one call in q's dtype of kernel G: QK^T and PV (4BhNMd);
-    reads q, k, v and the int32 segment ids, writes the output."""
+def flash_bound_ms(q: torch.Tensor, k: torch.Tensor,
+                   peak: float = 0.0) -> tuple:
+    """Bound of one call in q's dtype of kernel G: QK^T and PV (4BhNMd)
+    at `peak` (default: the dtype's, `peak_flops`); reads q, k, v and the
+    int32 segment ids, writes the output."""
     B, h, N, d = q.shape
     M = k.shape[2]
     nbytes = (2 * N + 2 * M) * B * h * d * q.element_size() + 4 * B * (N + M)
-    return _bound(4.0 * B * h * N * M * d, peak_flops(q.dtype), nbytes)
+    return _bound(4.0 * B * h * N * M * d, peak or peak_flops(q.dtype),
+                  nbytes)
 
 
 def sdpa_segment(x):
@@ -908,9 +916,8 @@ def kernel_table(x, fused, qblock, flash) -> dict:
     unit stride on d), D and F's the unmasked rows of x["mask0"] (a fully
     masked bool row is NaN there); B's is two calls, E's is A's, G's its
     segment mask, and F's the pair (forward + backward, forward), whose
-    difference is its yardstick. Float32 A, B, D and F are bound at the
-    3xTF32 peak of their tensor-core loops, float32 E and G at the CUDA
-    cores'."""
+    difference is its yardstick. Float32 A-G (all but C, which has no
+    product) are bound at the 3xTF32 peak of their tensor-core loops."""
     from ei_nexus_tpu_torch.ops import attention_kernels as ak
     from ei_nexus_tpu_torch.ops import flash_kernel as fk
     tc_peak = PEAK_TF32X3_FLOPS if x["q"].dtype == torch.float32 else 0.0
@@ -965,20 +972,23 @@ def kernel_table(x, fused, qblock, flash) -> dict:
             (sdpa_fwd_bwd, sdpa_fwd), fused_bound_ms("bwd", q, k, tc_peak)),
         "qblock_attention": (
             lambda: ak.qblock_attention(eq, ek, ev, ebias, escale, 64, erot),
-            sdpa_self, attention_bound_ms("self", eq, ek)),
+            sdpa_self, attention_bound_ms("self", eq, ek, tc_peak)),
         "flash_attention": (
             lambda: fk.flash_attention(*xg, MAIN_D ** -0.5),
-            sdpa_segment(xg), flash_bound_ms(xg[0], xg[1])),
+            sdpa_segment(xg), flash_bound_ms(xg[0], xg[1], tc_peak)),
     }
 
 
 def check_f32_pack(x) -> None:
-    """The float32 pack pass of A, B, D and F on phase 2's float32
+    """The float32 pack pass of A, B, D, E, F and G on phase 2's float32
     operands, bit for bit against `pack_f32_plain`: A's stride-3 q and k
-    rotated, its v transposed; B's head views of both sides; D's rotated q
-    and k and stride-3 v (transposed), as the training step hands them; F's
-    seven planes of those and of dO (autograd's (B, h, N, d) view of a
-    (B, N, h, d) buffer): q, k, v, dO split, q, k, dO transposed."""
+    rotated, its v transposed (E's self-attention calls pack the same);
+    B's head views of both sides (E's cross directions: one side's q and
+    the other's k and v); D's rotated q and k and stride-3 v (transposed),
+    as the training step hands them, which is also what G's "flash"
+    self-attention packs; F's seven planes of those and of dO (autograd's
+    (B, h, N, d) view of a (B, N, h, d) buffer): q, k, v, dO split, q, k,
+    dO transposed."""
     from ei_nexus_tpu_torch.ops import attention_kernels as ak
     rot = tuple(t.contiguous() for t in x["rot"])
     q, k, v, _, _ = fused_cases(x)["self"]
@@ -990,7 +1000,9 @@ def check_f32_pack(x) -> None:
              "cross_attention": ((x["qk0"], x["qk1"]), (x["v0"], x["v1"]),
                                  None),
              "attention_fwd": ((q, k), (v,), None),
-             "attention_bwd": ((q, k, v, do), (q, k, do), None)}
+             "attention_bwd": ((q, k, v, do), (q, k, do), None),
+             "qblock_attention": ((x["qk0"], x["qk1"]), (x["v1"],), None),
+             "flash_segment": ((q, k), (v,), None)}
     for kernel, args in cases.items():
         got = ak.pack_f32(*args, kernel=kernel)
         want = ak.pack_f32_plain(*args)
@@ -999,22 +1011,31 @@ def check_f32_pack(x) -> None:
             require(a.shape == b.shape and torch.equal(a, b),
                     f"the float32 pack pass of {kernel} is not bit-exact: "
                     f"{int((a != b).sum())} values differ")
-    print(f"[kernels] float32 pack pass of A, B, D and F: bit-exact "
+    print(f"[kernels] float32 pack pass of A, B, D, E, F and G: bit-exact "
           f"against pack_f32_plain at ({MAIN_B}, {MAIN_H}, {MAIN_N}, "
           f"{MAIN_D}) (A's q, k rotated and v transposed from the stride-3 "
           f"views; B's head views of both sides; D's q, k and transposed "
-          f"stride-3 v; F's q, k, v, dO and transposed q, k, dO)")
+          f"stride-3 v, as G packs them; E's cross direction; F's q, k, v, "
+          f"dO and transposed q, k, dO)")
 
 
-def report_f32_loops(tab: dict, x, fused: tuple) -> dict:
-    """Float32 A, B, D and F from phase 2's float32 table: device ms split
-    into the pack pass and the 3xTF32 loop (F: the pack pass, the c pass
-    and the loop, and each block kind alone on `fused`, the self case's
-    tensors of `check_fused`), the bound at both peaks (3xTF32 on the
-    tensor cores, which they are held to, and the CUDA cores' 67 TFLOP/s),
-    SDPA's float32 ms. Returns each one's extra JSON keys."""
+def report_f32_loops(tab: dict, x, fused: tuple, qblock: dict,
+                     flash: dict) -> dict:
+    """Float32 A, B, D, E, F and G from phase 2's float32 table: device ms
+    split into the pack pass and the 3xTF32 loop (F: the pack pass, the c
+    pass and the loop, and each block kind alone on `fused`, the self
+    case's tensors of `check_fused`), the bound at both peaks (3xTF32 on
+    the tensor cores, which they are held to, and the CUDA cores' 67
+    TFLOP/s), SDPA's float32 ms; then E rot-free and at block_q 128 (on
+    `qblock`, `check_qblock`'s cases; rot-free against SDPA's call on the
+    cross direction) and G at 2048 tokens (on `flash`, `check_flash`'s
+    operands), each split the same way. Returns each one's extra JSON
+    keys."""
     from ei_nexus_tpu_torch.ops import attention_kernels as ak
+    from ei_nexus_tpu_torch.ops import flash_kernel as fk
     q, k, v, _, scale, bias, stats, do, v_read = fused
+    eq, ek = qblock["rot"][:2]
+    xg = flash[FLASH_TOKENS[0]]
     out = {}
     for name, loop_name, bound in (
             ("self_attention_rot", "attention_tf32_kernel",
@@ -1024,7 +1045,11 @@ def report_f32_loops(tab: dict, x, fused: tuple) -> dict:
             ("attention_fwd", "attention_fwd_tf32_kernel",
              lambda pk: fused_bound_ms("fwd", q, k, pk)),
             ("attention_bwd", "attention_bwd_tf32_kernel",
-             lambda pk: fused_bound_ms("bwd", q, k, pk))):
+             lambda pk: fused_bound_ms("bwd", q, k, pk)),
+            ("qblock_attention", "qblock_attention_tf32_kernel",
+             lambda pk: attention_bound_ms("self", eq, ek, pk)),
+            ("flash_attention", "flash_segment_tf32_kernel",
+             lambda pk: flash_bound_ms(xg[0], xg[1], pk))):
         t = tab[name]
         dev, lib = t["device_ms"], t["library_device_ms"]
         parts = {"pack_ms_f32": _sum_ms(t["kernels"], "pack_tf32"),
@@ -1047,6 +1072,56 @@ def report_f32_loops(tab: dict, x, fused: tuple) -> dict:
               f"{PEAK_F32_FLOPS:.4g} ({cc / dev:.1%}); SDPA float32 "
               f"{lib:.4f} ms (kernel / SDPA {dev / lib:.3f})")
         out[name] = dict(parts, bound_ms_f32_cuda_cores=cc)
+
+    # E rot-free and at block_q 128, G at 2048 tokens: device ms split,
+    # bound at 3xTF32, SDPA's float32 call on the same operands and mask
+    rot, free = qblock["rot"], qblock["rot-free"]
+    xn = flash[FLASH_TOKENS[1]]
+
+    def e_call(case, block_q):
+        cq, ck, cv, cbias, cscale, crot = case
+        return lambda: ak.qblock_attention(cq, ck, cv, cbias, cscale,
+                                           block_q, crot)
+
+    def sdpa_rot_free():
+        F.scaled_dot_product_attention(
+            free[0], free[1], free[2],
+            attn_mask=x["mask1"][:, None, None, :], scale=1.0)
+
+    e_bound = attention_bound_ms("self", eq, ek, PEAK_TF32X3_FLOPS)[0]
+    free_bound = attention_bound_ms("self", free[0], free[1],
+                                    PEAK_TF32X3_FLOPS)[0]
+    loops = {"qblock_attention": "qblock_attention_tf32_kernel",
+             "flash_attention": "flash_segment_tf32_kernel"}
+    for name, tag, call, sdpa, tc in (
+            ("qblock_attention", "rot_free", e_call(free, 64),
+             sdpa_rot_free, free_bound),
+            ("qblock_attention", "block_q128", e_call(rot, 128), None,
+             e_bound),
+            ("qblock_attention", "block_q128_rot_free", e_call(free, 128),
+             sdpa_rot_free, free_bound),
+            ("flash_attention", "2048",
+             lambda: fk.flash_attention(*xn, MAIN_D ** -0.5),
+             sdpa_segment(xn),
+             flash_bound_ms(xn[0], xn[1], PEAK_TF32X3_FLOPS)[0])):
+        times = device_ms(call)
+        dev = _sum_ms(times)
+        keys = {f"device_ms_{tag}_f32": dev,
+                f"pack_ms_{tag}_f32": _sum_ms(times, "pack_tf32"),
+                f"loop_ms_{tag}_f32": _sum_ms(times, loops[name]),
+                f"bound_ms_{tag}_f32": tc}
+        line = (f"[kernels] float32 {name} ({tag}): "
+                f"device {dev:.4f} ms a call (pack "
+                f"{keys[f'pack_ms_{tag}_f32']:.4f}, loop "
+                f"{keys[f'loop_ms_{tag}_f32']:.4f}); bound {tc:.4f} ms at "
+                f"3xTF32, share {tc / dev:.1%}")
+        if sdpa is not None:
+            lib = _sum_ms(device_ms(sdpa))
+            keys[f"library_device_ms_{tag}_f32"] = lib
+            line += (f"; SDPA float32 {lib:.4f} ms (kernel / SDPA "
+                     f"{dev / lib:.3f})")
+        print(line)
+        out[name].update(keys)
     return out
 
 
@@ -1112,13 +1187,15 @@ def phase_kernels(logs: dict):
         qblock_errs[dtype] = check_qblock(x, dtype, tol)
         flash_errs[dtype] = check_flash(dtype, tol, gen)
         # device ms of each kernel and its SDPA call, bound at the dtype's
-        # peak (float32: the CUDA-core loops of the float32 configs)
+        # peak (float32: 3xTF32 on the tensor cores)
         calls = kernel_table(x, fused_errs[dtype], qblock_errs[dtype],
                              flash_errs[dtype])
         tables[dtype] = time_kernels(dtype, calls)
         if dtype == torch.float32:
             f32_loops = report_f32_loops(tables[dtype], x,
-                                         fused_errs[dtype][2]["self"])
+                                         fused_errs[dtype][2]["self"],
+                                         qblock_errs[dtype][1],
+                                         flash_errs[dtype][1])
     # bfloat16 (the bf16 configs' type; x and calls hold its operands):
     # CUDA-event ms a call back to back, host-paced where the wrapper costs
     # the host more than the card, of each kernel and its SDPA call
@@ -1300,7 +1377,10 @@ def phase_kernels(logs: dict):
              design="bf16: the Hopper loop of A with block_q 64 (one "
                     "consumer warpgroup) or 128 (two); the rotary calls "
                     "packed first, rot-free head views read by TMA in "
-                    "place; f32: CUDA-core flash loop",
+                    "place; f32: pack pass (rotary for the self calls, "
+                    "TF32 hi/lo split, V transposed) then A's TMA + 3xTF32 "
+                    "wgmma loop over N queries and M keys, 64 rows a block "
+                    "at either block_q",
              pack_ms=_sum_ms(dev_e["rot", 64], "attention_pack"),
              device_ms_rot_free=_sum_ms(dev_e["rot-free", 64]),
              device_ms_block_q128=_sum_ms(dev_e["rot", 128]),
@@ -1318,7 +1398,9 @@ def phase_kernels(logs: dict):
                     "the TMA + wgmma warp-specialised flash loop of A in "
                     "its segment mode, 128 rows a block, the key ids "
                     "written beside each K/V tile by the producer, the "
-                    "query ids in registers; f32: CUDA-core flash loop",
+                    "query ids in registers; f32: pack pass (TF32 hi/lo "
+                    "split, V transposed) then the TMA + 3xTF32 wgmma loop "
+                    "in the same segment mode, 64 rows a block",
              loop_ms=_sum_ms(dev_g_all, "sm90_kernel"),
              pack_ms=_sum_ms(dev_g_all, "attention_pack"),
              ms_2048=t_g2, plain_ms_2048=g_plain[n1], bound_ms_2048=b_g2,
@@ -4852,6 +4934,15 @@ def main() -> int:
     qblock_launches, qblock_ms, _, _ = timed(
         "forward (q-blocked)", phase_forward, "qblock",
         {"qblock_attention": 36, "nms_rounds": 2}, 18, block_q=64)
+    # float32 under "flash" and q-blocked: G and E each pack once a call
+    f32_flash_launches, f32_flash_ms, _, _ = timed(
+        "forward (flash, float32)", phase_forward, "flash-f32",
+        {"flash_attention": 36, "nms_rounds": 2}, 36, attention_impl="flash",
+        dtype="float32")
+    f32_qblock_launches, f32_qblock_ms, _, _ = timed(
+        "forward (q-blocked, float32)", phase_forward, "qblock-f32",
+        {"qblock_attention": 36, "nms_rounds": 2}, 36, block_q=64,
+        dtype="float32")
     timed("pose check", phase_pose_check)
     train_launches, step_ms, step_peak = timed("stage-2 step", phase_stage2)
     f32_launches, f32_step_ms, f32_peak = timed(
@@ -4864,6 +4955,8 @@ def main() -> int:
         r["launches"] = path_of.get(r["name"], launches)[r["name"]]
         r["launches_stage2_step_f32"] = f32_launches[r["name"]]
         r["launches_forward_f32"] = f32_fwd_launches[r["name"]]
+        r["launches_forward_flash_f32"] = f32_flash_launches[r["name"]]
+        r["launches_forward_qblock_f32"] = f32_qblock_launches[r["name"]]
     loader_rate, host_rate, host_share, buckets, stages = timed(
         "loader-fed forward (auto)", phase_loader_forward)
     mnn_ms, _ = timed("MNN forward", phase_mnn_forward)
@@ -4963,7 +5056,13 @@ def main() -> int:
                      f"{f32_fwd_ms / fwd_ms:.3f}x the bf16 forward's ms)",
                      f32_fwd_ms),
                     ("flash forward", flash_ms),
+                    ("flash forward in float32 "
+                     f"({f32_flash_ms / flash_ms:.3f}x the bf16 flash "
+                     "forward's ms)", f32_flash_ms),
                     ("q-blocked forward (block_q 64)", qblock_ms),
+                    ("q-blocked forward in float32 (block_q 64; "
+                     f"{f32_qblock_ms / qblock_ms:.3f}x the bf16 q-blocked "
+                     "forward's ms)", f32_qblock_ms),
                     ("flash forward + pose", serve_ms)):
         print(f"{tag}: {B / ms * 1e3:.2f} pairs/s ({ms:.3f} ms per batch of "
               f"{B}, back to back) on {smi}")

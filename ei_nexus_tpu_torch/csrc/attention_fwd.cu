@@ -83,27 +83,15 @@ extern "C" int ei_attention_fwd_tf32(const float* q_planes,
                                      void* out, const long long* out_strides,
                                      float* stats, int B, int H, int N, int M,
                                      float scale, void* stream) {
-  using namespace ei::tf32;
-  CUtensorMap maps[3];
-  int err = row_map(&maps[0], q_planes, N, H, B);
-  if (err == 0) err = row_map(&maps[1], k_planes, M, H, B);
-  if (err == 0) err = value_map(&maps[2], v_planes, M, H, B);
-  if (err != 0) return err;
-  StatsArgs a{};
-  static_cast<Args&>(a) =
-      Args{bias, static_cast<float*>(out),
-           {out_strides[0], out_strides[1], out_strides[2]}, N, M, scale};
+  ei::tf32::StatsArgs a{};
+  static_cast<ei::tf32::Args&>(a) =
+      ei::tf32::bias_args(bias, out, out_strides, N, M, scale);
   a.row_max = stats;
   a.row_sum = stats + (long long)B * H * N;
   a.heads = H;
-  err = configure(
-      reinterpret_cast<const void*>(ei::attention_fwd_tf32_kernel));
-  if (err != 0) return err;
-  const dim3 grid((N + 63) / 64, H, B);
-  ei::attention_fwd_tf32_kernel<<<grid, kThreads, kSmemBytes,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], a);
-  return (int)cudaGetLastError();
+  return ei::tf32::attention(ei::attention_fwd_tf32_kernel, q_planes,
+                             k_planes, v_planes, a, B, H,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // bfloat16: the pack pass (where the operand plan asks for it) and the

@@ -6,8 +6,8 @@
 // segment ids in place of the bias); kernel F's bf16 backward
 // (csrc/attention_bwd.cu) is built from the same pieces (TMA ring,
 // producer warpgroup, wgmma forms, pack pass, guard). The float32
-// instances of A, B, D and F run the 3xTF32 pieces of flash_tf32.cuh,
-// those of E and G the CUDA-core loop of flash_attention.cuh.
+// instances of A, B, D, E, F and G run the 3xTF32 pieces of
+// flash_tf32.cuh.
 //
 // What it computes is what `qblock_attention_plain` defines
 // (ops/attention_kernels.py): rotated q and k rounded to bf16 as

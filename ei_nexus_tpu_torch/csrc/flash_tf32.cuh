@@ -1,21 +1,27 @@
 // Hopper (sm_90a) 3xTF32 machinery of the float32 row-softmax attention
 // with a key-side bias, on the tensor cores: the loop of the float32
 // instances of kernel A (csrc/self_attention.cu), kernel B
-// (csrc/cross_attention.cu, both directions in one launch) and kernel D
-// (csrc/attention_fwd.cu, with each row's statistics for F), the pack
+// (csrc/cross_attention.cu, both directions in one launch), kernel D
+// (csrc/attention_fwd.cu, with each row's statistics for F), kernel E
+// (csrc/qblock_attention.cu, N queries against M keys) and kernel G
+// (csrc/flash_segment.cu, segment ids in place of the bias), the pack
 // pass, and the pieces of kernel F's float32 blocks (csrc/attention_bwd.cu:
-// the split products, the A fragments, the tensor maps). The float32
-// instances of E and G keep the CUDA-core loop of flash_attention.cuh.
+// the split products, the A fragments, the tensor maps).
 //
 // What the loop computes is what `self_attention_plain`,
-// `cross_attention_bidir_plain` and `fused_attention_plain` define
-// (ops/attention_kernels.py) in float32: q and k rotated (A) as
-// t*cos + rotate_half(t)*sin with each product and the sum rounded to
-// float32; S = Q K^T to float32 accuracy, then x scale, then + the float32
-// key bias, rounded apart; an online float32 softmax; O = P V to float32
-// accuracy, divided by the row sum at the end. With StatsArgs (D) it also
-// writes each row's max m and sum l of exp(s - m), m in natural units with
-// s - m formed first, so a fully masked row gets m = -1e9 and l = M.
+// `cross_attention_bidir_plain`, `qblock_attention_plain` and
+// `fused_attention_plain` define (ops/attention_kernels.py) in float32: q
+// and k rotated (A; E's self-attention calls) as t*cos + rotate_half(t)*sin
+// with each product and the sum rounded to float32; S = Q K^T to float32
+// accuracy, then x scale, then + the float32 key bias, rounded apart; an
+// online float32 softmax; O = P V to float32 accuracy, divided by the row
+// sum at the end. The loop's argument type picks two compile-time
+// additions: with StatsArgs (D) it also writes each row's max m and sum l
+// of exp(s - m), m in natural units with s - m formed first, so a fully
+// masked row gets m = -1e9 and l = M; with SegArgs (G) it adds jax's
+// segment rule in place of the bias, what `flash_attention_plain`
+// (ops/flash_kernel.py) defines: kMaskValue (-0.7 FLT_MAX) after the scale
+// where the query's and the key's int32 ids differ, 0 where they agree.
 //
 // What bounds it: float32 products need not run on the CUDA cores (67
 // TFLOP/s). Each operand x is split into two TF32 values, hi = tf32(x) and
@@ -24,32 +30,35 @@
 // dense, ~165 TFLOP/s for the three) whose dropped lo*lo term and TF32
 // inputs leave ~2^-21 relative per product, far inside the float32
 // tolerance of 1e-4 x max(1, max|ref|). At the flagship shapes (B=8, h=4,
-// N=M=1024, d=64) A and D are 8.6 GFLOP of float32 products, 25.8 GFLOP of
-// TF32 (~0.052 ms at 495 TFLOP/s); B computes S once a direction, 17.2 and
-// 51.5 GFLOP (~0.104 ms).
+// N=M=1024, d=64) A, D, E and G are 8.6 GFLOP of float32 products, 25.8
+// GFLOP of TF32 (~0.052 ms at 495 TFLOP/s); B computes S once a direction,
+// 17.2 and 51.5 GFLOP (~0.104 ms).
 //
 // Design:
 //  - a pack pass (attention_pack_tf32_kernel), once per token: it reads
 //    each operand through its element strides (any strides: SelfBlock's
-//    stride-3 Wqkv views, CrossBlock's head views), applies A's rotary to
-//    q and k, splits every value into hi and lo (tf32_round: cvt.rna.
-//    tf32.f32's rounding, to nearest with ties away from zero, the 13 low
-//    bits cleared) and writes contiguous planes: row planes (B, h, 2,
-//    rows, 64) (hi, lo) and transposed planes (B, h, 2, 64, rows rounded
-//    up to 64), each 8-row group in the permuted order below, zeros past
-//    the last row. TF32 wgmma reads both shared-memory operands K-major
-//    only, so a product that sums over tokens (P V; F's P^T dO, dS^T Q and
-//    dS K) takes the transposed plane of its B operand;
+//    stride-3 Wqkv views, CrossBlock's head views), applies the rotary to
+//    q and k where asked, splits every value into hi and lo (tf32_round:
+//    cvt.rna.tf32.f32's rounding, to nearest with ties away from zero, the
+//    13 low bits cleared) and writes contiguous planes: row planes (B, h,
+//    2, rows, 64) (hi, lo) and transposed planes (B, h, 2, 64, rows
+//    rounded up to 64), each 8-row group in the permuted order below,
+//    zeros past the last row. TF32 wgmma reads both shared-memory operands
+//    K-major only, so a product that sums over tokens (P V; F's P^T dO,
+//    dS^T Q and dS K) takes the transposed plane of its B operand;
 //  - the loop (attention_block) is warp specialised as the bf16 loop of
 //    flash_sm90.cuh: one producer warp keeps TMA loads (128-byte swizzle:
 //    a 64-float row is two 32-float atoms, so a 64 x 64 plane is two boxes
 //    8 KB apart) of the K and V^T hi/lo planes of each 64-key tile
 //    kStages tiles ahead and writes the tile's 64 key-bias floats beside
-//    them (-inf past the last key); each consumer warpgroup owns 64 query
+//    them (-inf past the last key; G: the 64 int32 key ids, 0 past the
+//    last key, never read there); each consumer warpgroup owns 64 query
 //    rows and computes S = Qlo Khi^T + Qhi Klo^T + Qhi Khi^T with
 //    wgmma.m64n64k8.f32.tf32.tf32 (both operands from shared memory, the
 //    descriptor stepping 32 bytes a k8 slice inside an atom), the score
-//    s = fl(fl(S x scale) + bias), the online softmax in registers (exp
+//    s = fl(fl(S x scale) + bias) (G: + 0 or kMaskValue, each consumer
+//    warp holding its two rows' query ids in registers, and -inf for keys
+//    past the last by their index), the online softmax in registers (exp
 //    as exp2 of the difference scaled by log2(e), as the bf16 loop takes
 //    it, faster than expf), and O += Plo Vhi + Phi Vlo + Phi Vhi with P
 //    split in registers as the A operand. F forms every score with these
@@ -72,10 +81,16 @@
 //    (128 rows) spilled under ptxas's register cap for their block and
 //    spread B = 1 over half as many SMs;
 //  - query rows and keys past the ends are zero-filled by TMA (V^T's by
-//    the pack pass); keys past nk get -inf through the bias tile, rows
-//    past nq are not written. A fully masked batch row has every
-//    s = -1e9 (|S x scale| < 32 rounds away), so P is uniform, as in the
-//    plain version.
+//    the pack pass); keys past nk get -inf through the bias tile (G: by
+//    their index), rows past nq are not written. A fully masked batch row
+//    has every s = -1e9 (|S x scale| < 32 rounds away), so P is uniform,
+//    as in the plain version; in G every s = kMaskValue, so m is that
+//    value, exp(s - m) = 1 for each key and the row is the mean of V, as
+//    jax's kernel gives. exp_diff forms s - m before it scales by log2(e):
+//    a masked score against a finite max then overflows to -inf and gives
+//    0, and a first tile wholly masked before valid keys gives alpha = 0,
+//    where s log2(e) - m log2(e) would be -inf - (-inf) = NaN on a fully
+//    masked row.
 #pragma once
 
 #include <type_traits>
@@ -116,7 +131,7 @@ struct Shared {
 constexpr size_t kSmemBytes = sizeof(Shared) + 1024;
 
 struct Args {
-  const float* bias;  // (B, nk) float32, contiguous
+  const float* bias;  // (B, nk) float32, contiguous (SegArgs: unused)
   float* out;         // (B, h, nq, 64) through os (b, h, n); d unit
   long long os[3];
   int nq, nk;
@@ -130,6 +145,13 @@ struct StatsArgs : Args {
   float* row_max;  // (B, heads, nq) float32, contiguous
   float* row_sum;
   int heads;
+};
+
+// Kernel G: jax's segment rule in place of the bias: kMaskValue added
+// after the scale wherever the ids differ.
+struct SegArgs : Args {
+  const int* q_seg;   // (B, nq) int32, contiguous
+  const int* kv_seg;  // (B, nk) int32, contiguous
 };
 
 // cvt.rna.tf32.f32's rounding of x: to 10 fraction bits, to nearest with
@@ -295,7 +317,7 @@ __device__ __forceinline__ void product_pv(float (&o)[32],
 // The loop over the query rows [q0, q0 + 64) of problem (b, h): tq, tk are
 // 5-D (64, rows, 2, h, B) maps of the Q and K planes, tv the
 // (keys, 64, 2, h, B) map of the V^T planes, all with 32 x 64 boxes; A is
-// Args or StatsArgs.
+// Args, StatsArgs or SegArgs.
 template <typename A>
 __device__ __forceinline__ void attention_block(const CUtensorMap& tq,
                                                 const CUtensorMap& tk,
@@ -303,6 +325,7 @@ __device__ __forceinline__ void attention_block(const CUtensorMap& tq,
                                                 const A& a, int q0, int h,
                                                 int b) {
   constexpr bool kStats = std::is_same<A, StatsArgs>::value;
+  constexpr bool kSeg = std::is_same<A, SegArgs>::value;
   auto& S = sm90::shared_as<Shared>();
   const int ntiles = (a.nk + kBK - 1) / kBK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -319,19 +342,28 @@ __device__ __forceinline__ void attention_block(const CUtensorMap& tq,
 
   if (warp == 4) {
     // ---- producer: Q once, then the K and V^T planes of each tile and
-    // its key bias
+    // its key bias (G: its key ids)
     if (lane == 0) {
       mbar_arrive_tx(&S.qbar, 2 * kPlaneBytes);
       for (int p = 0; p < 2; ++p)
         load_plane(S.q[p], tq, 0, q0, p, h, b, &S.qbar);
     }
-    const float* bias = a.bias + (long long)b * a.nk;
     for (int it = 0; it < ntiles; ++it) {
       const int st = it % kStages;
       mbar_wait(&S.empty[st], ((it / kStages) & 1) ^ 1);
       const int c = it * kBK + 2 * lane;
-      S.bias[st][2 * lane] = c < a.nk ? bias[c] : -INFINITY;
-      S.bias[st][2 * lane + 1] = c + 1 < a.nk ? bias[c + 1] : -INFINITY;
+      if constexpr (kSeg) {
+        // the key ids as float bit patterns; the consumers mask keys past
+        // nk by their index, so any id value stays usable
+        const int* ids = a.kv_seg + (long long)b * a.nk;
+        S.bias[st][2 * lane] = __int_as_float(c < a.nk ? ids[c] : 0);
+        S.bias[st][2 * lane + 1] =
+            __int_as_float(c + 1 < a.nk ? ids[c + 1] : 0);
+      } else {
+        const float* bias = a.bias + (long long)b * a.nk;
+        S.bias[st][2 * lane] = c < a.nk ? bias[c] : -INFINITY;
+        S.bias[st][2 * lane + 1] = c + 1 < a.nk ? bias[c + 1] : -INFINITY;
+      }
       if (lane == 0) {
         mbar_arrive_tx(&S.full[st], 4 * kPlaneBytes);
         for (int p = 0; p < 2; ++p) {
@@ -351,6 +383,15 @@ __device__ __forceinline__ void attention_block(const CUtensorMap& tq,
     float o[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    // G: the ids of the warp's rows g and g + 8 (0 past nq, never stored)
+    [[maybe_unused]] int qid[2] = {0, 0};
+    if constexpr (kSeg) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int n = q0 + 16 * warp + g + 8 * hr;
+        if (n < a.nq) qid[hr] = a.q_seg[(long long)b * a.nq + n];
+      }
+    }
     mbar_wait(&S.qbar, 0);
 
     for (int it = 0; it < ntiles; ++it) {
@@ -369,9 +410,23 @@ __device__ __forceinline__ void attention_block(const CUtensorMap& tq,
         const float2 bb =
             *reinterpret_cast<const float2*>(&S.bias[st][8 * j + 2 * t]);
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[4 * j + e] = __fadd_rn(__fmul_rn(s[4 * j + e], a.scale),
-                                   (e & 1) ? bb.y : bb.x);
+        for (int e = 0; e < 4; ++e) {
+          float add = (e & 1) ? bb.y : bb.x;
+          if constexpr (kSeg)
+            add = __float_as_int(add) == qid[e >> 1] ? 0.f : kMaskValue;
+          s[4 * j + e] = __fadd_rn(__fmul_rn(s[4 * j + e], a.scale), add);
+        }
+      }
+      if constexpr (kSeg) {
+        // keys past nk (in the last tile only): -inf
+        const int valid = a.nk - it * kBK;
+        if (valid < kBK) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (8 * j + 2 * t + (e & 1) >= valid) s[4 * j + e] = -INFINITY;
+        }
       }
 
       // online softmax of rows g (hr 0) and g + 8 (hr 1); a row's keys
@@ -573,6 +628,38 @@ inline int configure(const void* kernel) {
     seen = kernel;
   }
   return status;
+}
+
+// The loop's arguments of the bias kernels (A, D, E; G's with a null
+// bias): the (B, M) float32 key bias, the float32 output through
+// `out_strides` (b, h, n; d unit).
+inline Args bias_args(const float* bias, void* out,
+                      const long long* out_strides, int N, int M,
+                      float scale) {
+  return Args{bias, static_cast<float*>(out),
+              {out_strides[0], out_strides[1], out_strides[2]}, N, M,
+              scale};
+}
+
+// One launch of a loop kernel (A, D, E or G) over the planes the pack
+// pass wrote: q_planes (B, H, 2, a.nq, 64), k_planes (B, H, 2, a.nk, 64),
+// v_planes (B, H, 2, 64, a.nk rounded up to 64); grid
+// ((a.nq + 63) / 64, H, B). Returns 0, a CUDA error code or one of
+// ei::sm90's kErr* codes.
+template <typename Kernel, typename A>
+int attention(Kernel kernel, const float* q_planes, const float* k_planes,
+              const float* v_planes, const A& a, int B, int H,
+              cudaStream_t stream) {
+  CUtensorMap maps[3];
+  int err = row_map(&maps[0], q_planes, a.nq, H, B);
+  if (err == 0) err = row_map(&maps[1], k_planes, a.nk, H, B);
+  if (err == 0) err = value_map(&maps[2], v_planes, a.nk, H, B);
+  if (err == 0) err = configure(reinterpret_cast<const void*>(kernel));
+  if (err != 0) return err;
+  const dim3 grid((a.nq + 63) / 64, H, B);
+  kernel<<<grid, kThreads, kSmemBytes, stream>>>(maps[0], maps[1], maps[2],
+                                                 a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace tf32

@@ -12,8 +12,10 @@
 // the cross-attention (rotary-free, scale 1, pre-scaled operands).
 //
 // What bounds it on an H100: at the flagship shapes (B=8, h=4, N=M=1024,
-// d=64, bf16) one call does 8.6 GFLOP of products against ~17-19 MB of
-// inputs and outputs, so it is compute-bound (~8.7 us at 989 TFLOP/s).
+// d=64) one call does 8.6 GFLOP of products against ~17-19 MB of inputs
+// and outputs (bf16; twice that in float32), so it is compute-bound in
+// either type: ~8.7 us at 989 TFLOP/s in bf16, ~52 us at the 3xTF32 rate
+// (495 / 3 TFLOP/s) in float32.
 //
 // Design: a Hopper block already owns a query tile, so the TPU's q block
 // becomes a flash loop with its query tile set to block_q, not a copy of
@@ -28,35 +30,28 @@
 //    read (the rot-free cross directions' head views) are read in place;
 //    the rotary calls' q and k, and stride-3 views, are packed first into
 //    contiguous scratch, once per token.
-//  - float32 (the float32 configs): flash_attention.cuh's CUDA-core loop, 64
-//    rows a row group, two groups for block_q 128.
-#include "flash_attention.cuh"
+//  - float32 (the float32 configs): the pack pass of flash_tf32.cuh (the
+//    rotary calls' q and k rotated, the rot-free directions' not; q and k
+//    split into TF32 hi/lo row planes, v into permuted V^T planes, any
+//    strides), then the 3xTF32 loop of A over N queries and M keys, 64
+//    query rows a block in one consumer warpgroup, grid ((N + 63) / 64,
+//    h, B) for block_q 64 and 128 alike: E's output does not depend on
+//    block_q (each query row's softmax is its own, whichever block holds
+//    it), and two consumer warpgroups sharing a tile spilled on this loop
+//    (flash_tf32.cuh, "budgets").
 #include "flash_sm90.cuh"
+#include "flash_tf32.cuh"
 
 namespace ei {
 
-template <typename T, bool ROT, int BQ>
-__global__ void __launch_bounds__(kThreads)
-    qblock_attention_kernel(const Problem p) {
-  extern __shared__ float4 smem4[];
-  flash_block<T, ROT, BQ>(p, blockIdx.z, blockIdx.y, blockIdx.x * BQ, smem4);
-}
-
-template <bool ROT, int BQ>
-static int launch(const Problem& p, int B, cudaStream_t stream) {
-  using Tl = Tiles<float, BQ>;
-  auto kernel = qblock_attention_kernel<float, ROT, BQ>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tl::smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.nq + BQ - 1) / BQ, p.heads, B);
-  kernel<<<grid, Tl::threads, Tl::smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-template <int BQ>
-static int launch_rot(const Problem& p, bool rot, int B, cudaStream_t s) {
-  return rot ? launch<true, BQ>(p, B, s) : launch<false, BQ>(p, B, s);
+// float32: rows 64x.. of head y, batch z.
+__global__ void __launch_bounds__(tf32::kThreads, 1)
+    qblock_attention_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 const tf32::Args a) {
+  tf32::attention_block(tq, tk, tv, a, blockIdx.x * 64, blockIdx.y,
+                        blockIdx.z);
 }
 
 template <int NWG>
@@ -72,39 +67,24 @@ __global__ void __launch_bounds__(sm90::Config<NWG>::threads,
 
 }  // namespace ei
 
-// float32: q: (B, H, N, 64); k, v: (B, H, M, 64), through `qkv_strides`
-// (12 element strides: q, k, v, each (b, h, n, d)); cos, sin: (B, N, 64)
-// contiguous, read only when `rot` is 1 (then N == M); bias: (B, M)
-// float32 contiguous; out: (B, H, N, 64) through `out_strides` (4);
-// block_q: 64 or 128. Returns the CUDA error code of the launch (0 on
-// success); bfloat16 takes ei_qblock_attention_sm90.
-extern "C" int ei_qblock_attention(int dtype, int block_q, int rot,
-                                   const void* q, const void* k,
-                                   const void* v,
-                                   const long long* qkv_strides,
-                                   const void* cos, const void* sin,
-                                   const float* bias, void* out,
-                                   const long long* out_strides, int B,
-                                   int H, int N, int M, float scale,
-                                   void* stream) {
-  ei::Problem p;
-  p.q = ei::make_operand(q, qkv_strides);
-  p.k = ei::make_operand(k, qkv_strides + 4);
-  p.v = ei::make_operand(v, qkv_strides + 8);
-  p.cos = cos;
-  p.sin = sin;
-  p.bias = bias;
-  p.o = ei::make_output(out, out_strides);
-  p.nq = N;
-  p.nk = M;
-  p.scale = scale;
-  p.heads = H;
-  if (dtype != ei::kFloat32 || (rot && N != M))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (block_q == 64) return ei::launch_rot<64>(p, rot != 0, B, s);
-  if (block_q == 128) return ei::launch_rot<128>(p, rot != 0, B, s);
-  return (int)cudaErrorInvalidValue;
+// float32: the loop over the planes the pack pass (ei_attention_pack_tf32)
+// wrote: q_planes (B, H, 2, N, 64), k_planes (B, H, 2, M, 64) split (and
+// rotated for the rotary calls), v_planes (B, H, 2, 64, M rounded up to
+// 64) transposed and split; bias: (B, M) float32 contiguous; out:
+// (B, H, N, 64) float32 through `out_strides` (b, h, n; d unit). block_q
+// 64 and 128 both launch this loop (the wrapper refuses other values).
+// Returns 0, a CUDA error code or one of ei::sm90's kErr* codes.
+extern "C" int ei_qblock_attention_tf32(const float* q_planes,
+                                        const float* k_planes,
+                                        const float* v_planes,
+                                        const float* bias, void* out,
+                                        const long long* out_strides, int B,
+                                        int H, int N, int M, float scale,
+                                        void* stream) {
+  return ei::tf32::attention(
+      ei::qblock_attention_tf32_kernel, q_planes, k_planes, v_planes,
+      ei::tf32::bias_args(bias, out, out_strides, N, M, scale), B, H,
+      static_cast<cudaStream_t>(stream));
 }
 
 // bfloat16: the pack pass (where the operand plan asks for it) and the

@@ -64,23 +64,10 @@ extern "C" int ei_self_attention_tf32(const float* q_planes,
                                       const long long* out_strides, int B,
                                       int H, int N, float scale,
                                       void* stream) {
-  using namespace ei::tf32;
-  CUtensorMap maps[3];
-  int err = row_map(&maps[0], q_planes, N, H, B);
-  if (err == 0) err = row_map(&maps[1], k_planes, N, H, B);
-  if (err == 0) err = value_map(&maps[2], v_planes, N, H, B);
-  if (err != 0) return err;
-  const Args a{bias, static_cast<float*>(out),
-               {out_strides[0], out_strides[1], out_strides[2]}, N, N,
-               scale};
-  err = configure(
-      reinterpret_cast<const void*>(ei::self_attention_tf32_kernel));
-  if (err != 0) return err;
-  const dim3 grid((N + 63) / 64, H, B);
-  ei::self_attention_tf32_kernel<<<grid, kThreads, kSmemBytes,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], a);
-  return (int)cudaGetLastError();
+  return ei::tf32::attention(
+      ei::self_attention_tf32_kernel, q_planes, k_planes, v_planes,
+      ei::tf32::bias_args(bias, out, out_strides, N, N, scale), B, H,
+      static_cast<cudaStream_t>(stream));
 }
 
 // bfloat16: the pack pass and the Hopper loop. ops: q, k, v as 3 x 8 long

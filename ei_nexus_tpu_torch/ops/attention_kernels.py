@@ -32,21 +32,21 @@ own block_q query rows instead of 128), so the plain versions are shared.
 The kernels read q/k/v through strides (no copy of the strided views the
 LightGlue blocks produce) and write their outputs as (B, h, N, d) views of
 (B, N, h, d) buffers, so the caller's merge of the heads is free. The
-float32 instances of A, B, D and F run 3xTF32 products on the tensor cores
-after a pack pass (`pack_f32`, plain version `pack_f32_plain`) that reads
-the operands through their strides, rotates A's q and k, splits each value
-x into TF32 hi = tf32(x) and lo = tf32(x - hi) (`tf32_split_plain`) and
-writes the operands a product sums over tokens with (V; F's q, k and dO)
-transposed, each 8-token group in the order the loops' register
-fragments take (`vt_key_order`). The bfloat16 instances of A, B, D, E, F
-and G (`hopper_attention`, `cross_attention_bidir`, `attention_fwd`,
-`attention_bwd`,
-`flash_kernel.flash_attention`) read their operands by TMA, which needs a
-unit d stride and 16-byte alignment: `operand_plan` decides for each
-operand whether the loop reads it in place or a pack pass first writes it
-(rotated where the rotary applies) as contiguous scratch, and refuses what
-neither takes (`hopper_operands` builds the kernels' operand array from the
-plans). In training one packing serves D and F: D hands the v it packed
+float32 instances of A, B, D, E, F and G (`flash_kernel.flash_attention`)
+run 3xTF32 products on the tensor cores after a pack pass (`pack_f32`,
+plain version `pack_f32_plain`) that reads the operands through their
+strides, rotates A's q and k (and E's where it takes the rotary), splits
+each value x into TF32 hi = tf32(x) and lo = tf32(x - hi)
+(`tf32_split_plain`) and writes the operands a product sums over tokens
+with (V; F's q, k and dO) transposed, each 8-token group in the order the
+loops' register fragments take (`vt_key_order`). The bfloat16 instances
+of A, B, D, E, F and G (`hopper_attention`, `cross_attention_bidir`,
+`attention_fwd`, `attention_bwd`, `flash_kernel.flash_attention`) read
+their operands by TMA, which needs a unit d stride and 16-byte alignment:
+`operand_plan` decides for each operand whether the loop reads it in
+place or a pack pass first writes it (rotated where the rotary applies)
+as contiguous scratch, and refuses what neither takes (`hopper_operands`
+builds the kernels' operand array from the plans). In training one packing serves D and F: D hands the v it packed
 (the self-attention's stride-3 view) to F through `_FusedAttention`, and F
 reads it in place.
 
@@ -171,7 +171,7 @@ def _padded_keys(n: int) -> int:
 
 def pack_f32_plain(rows, values, rot: Optional[Tuple[torch.Tensor,
                                                      torch.Tensor]] = None):
-    """Plain version of the float32 pack pass of kernels A, B, D and F:
+    """Plain version of the float32 pack pass of kernels A, B, D, E, F and G:
     (the (B, h, 2, n, 64) hi/lo planes of each (B, h, n, 64) operand of
     `rows`, rotated first by rot = (cos, sin) (B, n, 64) tables when given;
     the (B, h, 2, 64, keys) hi/lo planes of the transpose of each operand
@@ -228,9 +228,10 @@ def fused_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor,
-                differentiable: bool = False) -> int:
-    """Common checks of the kernel wrappers; returns the dtype code. Only
-    the autograd pieces (D, F) may see tensors that require grad."""
+                differentiable: bool = False) -> None:
+    """Common checks of the kernel wrappers (a dtype other than float32 and
+    bfloat16 raises TypeError). Only the autograd pieces (D, F) may see
+    tensors that require grad."""
     dev, dt = tensors[0].device, tensors[0].dtype
     for t in tensors:
         if t.device != dev or t.dtype != dt:
@@ -240,7 +241,7 @@ def _check_cuda(name: str, *tensors: torch.Tensor,
                              f"operands, got {tuple(t.shape)}")
         if not differentiable and t.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(f"{name} has no backward")
-    return dtype_code(dt)
+    dtype_code(dt)
 
 
 def _check_rows(name: str, t: torch.Tensor, shape) -> torch.Tensor:
@@ -359,9 +360,9 @@ def _pack_f32_launch(rows, values, rot=None, kernel: str = "self_attention"):
     """One launch of the float32 pack pass (counted in
     `hopper_attention.packs`) into one fresh buffer: (the buffer, and for
     each operand of rows, then values, (its planes' pointer, shape, offset
-    in the buffer)). D's and F's wrappers pass the pointers on, so the host
-    makes no view of a plane; they hold the buffer until their loop is
-    launched."""
+    in the buffer)). D's, E's, F's and G's wrappers pass the pointers on,
+    so the host makes no view of a plane; they hold the buffer until their
+    loop is launched."""
     B, h = rows[0].shape[:2]
     shapes = ([(B, h, 2, t.shape[2], _HEAD_DIM) for t in rows]
               + [(B, h, 2, _HEAD_DIM, _padded_keys(v.shape[2]))
@@ -390,7 +391,7 @@ def _pack_f32_launch(rows, values, rot=None, kernel: str = "self_attention"):
 def pack_f32(rows, values, rot: Optional[Tuple[torch.Tensor,
                                                torch.Tensor]] = None,
              kernel: str = "self_attention"):
-    """The float32 pack pass of kernels A, B, D and F on the card, one
+    """The float32 pack pass of kernels A, B, D, E, F and G on the card, one
     launch of up to 8 operands (counted in `hopper_attention.packs`): what
     `pack_f32_plain` defines, from (B, h, n, 64) float32 operands of any
     strides; rot = (cos, sin) contiguous (B, n, 64) float32 tables, n the
@@ -493,8 +494,12 @@ def qblock_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32 key bias and softmax scale, blocks of block_q query rows; rot =
     (cos, sin) (B, N, d) tables fused into q and k (then N == M).
 
-    CPU tensors: the plain version. CUDA tensors: the CUDA kernel, or an
-    exception (d must be 64; block_q 64 or 128, the compiled tiles)."""
+    CPU tensors: the plain version. CUDA tensors: the CUDA kernel
+    (bfloat16: the Hopper loop, block_q rows a block, its operands as
+    `operand_plan` takes them; float32: the pack pass's Q, K (rotated with
+    rot) and V^T planes, then the 3xTF32 loop, 64 rows a block at either
+    block_q, which the output does not depend on), or an exception (d must
+    be 64; block_q 64 or 128, the compiled tiles)."""
     if q.device.type == "cpu":
         return qblock_attention_plain(q, k, v, bias, scale, rot)
     if q.device.type != "cuda":
@@ -502,7 +507,7 @@ def qblock_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if block_q not in (64, 128):
         raise ValueError(f"qblock_attention: block_q={block_q}; the kernel "
                          f"is compiled for 64 and 128")
-    code = _check_cuda("qblock_attention", q, k, v)
+    _check_cuda("qblock_attention", q, k, v)
     B, h, N, d = q.shape
     M = k.shape[2]
     if k.shape[:2] != (B, h) or v.shape != k.shape:
@@ -514,19 +519,17 @@ def qblock_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = hopper_attention(q, k, v, bias, scale, block_q, rot)
         qblock_attention.launches += 1
         return out
-    cos = sin = None
+    # float32: the pack pass, then the 3xTF32 loop
     if rot is not None:
-        cos, sin = _rot_tables("qblock_attention", rot, q)
+        rot = _rot_tables("qblock_attention", rot, q)
+    buf, ((qp, *_), (kp, *_), (vp, *_)) = _pack_f32_launch(
+        (q, k), (v,), rot, kernel="qblock_attention")
     out = _heads_out(B, h, N, d, q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = library("qblock_attention").ei_qblock_attention(
-            code, block_q, int(rot is not None), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), int64_array(q.stride() + k.stride() + v.stride()),
-            None if cos is None else cos.data_ptr(),
-            None if sin is None else sin.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), int64_array(out.stride()), B, h, N, M,
-            float(scale), stream)
+    with _on_device(q.device):
+        err = library("qblock_attention").ei_qblock_attention_tf32(
+            qp, kp, vp, bias.data_ptr(), out.data_ptr(),
+            int64_array(out.stride()[:3]), B, h, N, M, float(scale),
+            torch.cuda.current_stream().cuda_stream)
     check(err, "qblock_attention")
     qblock_attention.launches += 1
     return out

@@ -85,21 +85,25 @@ SIGNATURES = {
         "ei_bwd_tf32_smem_bytes": ([], ctypes.c_longlong),
     },
     "qblock_attention": {
-        "ei_qblock_attention": (
-            [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-             ctypes.c_float, _P], _I),
+        "ei_qblock_attention_tf32": (
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
+            _I),
         "ei_qblock_attention_sm90": (
             [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
              _P], _I),
+        "ei_attention_pack_tf32": ([_P, _I, _P, _P, _I, _I, _P], _I),
         "ei_sm90_smem_bytes": ([_I], ctypes.c_longlong),
+        "ei_tf32_smem_bytes": ([], ctypes.c_longlong),
     },
     "flash_segment": {
-        "ei_flash_segment": (
-            [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-             ctypes.c_float, _P], _I),
+        "ei_flash_segment_tf32": (
+            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
+            _I),
         "ei_flash_segment_sm90": (
             [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P], _I),
+        "ei_attention_pack_tf32": ([_P, _I, _P, _P, _I, _I, _P], _I),
         "ei_sm90_smem_bytes": ([_I], ctypes.c_longlong),
+        "ei_tf32_smem_bytes": ([], ctypes.c_longlong),
     },
 }
 

@@ -20,11 +20,16 @@ The plain version repeats the library's arithmetic step for step (one key
 block when M <= 128, where the library normalises P before the cast). The
 kernel keeps its accumulator unnormalised over 64-key tiles and divides at
 the end: equal up to float32 rounding. No N*M limit; ragged N and M are
-masked in the kernel. d must be 64 on the card. The bfloat16 instance is
-the Hopper loop of kernels A and D in its segment mode, its operands as
+masked in the kernel. d must be 64 on the card. Both instances are a
+Hopper loop of kernels A and D in its segment mode (the key ids written
+beside each key tile, the query ids in registers, the general rule: any
+ids). The bfloat16 instance takes its operands as
 `attention_kernels.operand_plan` takes them (the "flash" self-attention's
 stride-3 v packed first, counted in `hopper_attention.packs`; the rotated
-q, k and the cross-attention's head views read in place).
+q, k and the cross-attention's head views read in place); the float32
+instance runs the float32 pack pass (`attention_kernels.pack_f32`: q and k
+split into TF32 hi/lo planes, v into V^T planes, any strides, one launch a
+call, counted there too), then the 3xTF32 loop.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ import numpy as np
 import torch
 
 from .attention_kernels import (_check_cuda, _heads_out, _on_device,
-                                hopper_attention, hopper_operands)
+                                _pack_f32_launch, hopper_attention,
+                                hopper_operands)
 from .cuda_build import check, int64_array, library
 
 # jax's DEFAULT_MASK_VALUE (a Python float; float32 where it meets a score)
@@ -125,7 +131,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors: the plain version. CUDA tensors: the CUDA kernel
     (bfloat16: the Hopper loop; an operand `operand_plan` refuses raises
-    ValueError), or an exception (d must be 64)."""
+    ValueError; float32: the pack pass, then the 3xTF32 loop), or an
+    exception (d must be 64)."""
     if (q_segment_ids is None) != (kv_segment_ids is None):
         raise ValueError("flash_attention: give both segment ids or neither")
     if q.device.type == "cpu":
@@ -133,7 +140,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    code = _check_cuda("flash_attention", q, k, v)
+    _check_cuda("flash_attention", q, k, v)
     B, h, N, d = q.shape
     M = k.shape[2]
     if k.shape[:2] != (B, h) or v.shape != k.shape:
@@ -148,6 +155,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scratch = None
     if q.dtype == torch.bfloat16:
         ops, scratch, _ = hopper_operands((q, k, v))
+    else:
+        buf, ((qp, *_), (kp, *_), (vp, *_)) = _pack_f32_launch(
+            (q, k), (v,), kernel="flash_segment")
     out = _heads_out(B, h, N, d, q)
     lib = library("flash_segment")
     with _on_device(q.device):
@@ -158,12 +168,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 int64_array(out.stride()[:3]), B, h, N, M, float(sm_scale),
                 stream)
         else:
-            err = lib.ei_flash_segment(
-                code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                int64_array(q.stride() + k.stride() + v.stride()),
-                q_seg.data_ptr(), kv_seg.data_ptr(), out.data_ptr(),
-                int64_array(out.stride()), B, h, N, M, float(sm_scale),
-                stream)
+            err = lib.ei_flash_segment_tf32(
+                qp, kp, vp, q_seg.data_ptr(), kv_seg.data_ptr(),
+                out.data_ptr(), int64_array(out.stride()[:3]), B, h, N, M,
+                float(sm_scale), stream)
     check(err, "flash_attention")
     hopper_attention.packs += scratch is not None
     flash_attention.launches += 1

@@ -102,3 +102,18 @@ def test_device_ms_reads_only_a_whole_trace(cs, monkeypatch, short):
     assert cs.device_ms(lambda: None, iters=4) == pytest.approx(
         {"k1": 5.0 / 1e3, "k2": 5.0 / 1e3})
     assert len(calls) == short + 1
+
+
+@pytest.mark.parametrize("helper,kind,tokens,want", [
+    ("attention_bound_ms", "self", 1024, 0.0521),
+    ("flash_bound_ms", None, 1024, 0.0521),
+    ("flash_bound_ms", None, 2048, 0.2082)])
+def test_float32_e_and_g_bounds_at_the_3xtf32_peak(cs, helper, kind, tokens,
+                                                   want):
+    """Float32 E and G run the 3xTF32 loop and are held to its peak (495 /
+    3 TFLOP/s): 4BhNMd operations, 0.0521 ms at the flagship's 1024
+    tokens, G 0.2082 ms at 2048."""
+    q = torch.empty(8, 4, tokens, 64, dtype=torch.float32)
+    args = (q, q) if kind is None else (kind, q, q)
+    ms, by = getattr(cs, helper)(*args, cs.PEAK_TF32X3_FLOPS)
+    assert by == "operations" and round(ms, 4) == want

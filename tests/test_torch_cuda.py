@@ -939,6 +939,120 @@ def test_f32_fused_refuses_before_launch(cuda):
 
 
 # ---------------------------------------------------------------------------
+# float32 E and G on the 3xTF32 loop
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case,N,M", [("rot", 200, 200), ("rot", 1024, 1024),
+                                      ("rot-free", 200, 136),
+                                      ("rot-free", 64, 320),
+                                      ("rot-free", 1024, 1024)])
+def test_f32_qblock_attention_loop(cuda, case, N, M):
+    """Float32 E on the 3xTF32 loop: rot (SelfBlock's stride-3 Wqkv views,
+    the pack pass rotating q and k, scale d^-0.5) or rot-free (CrossBlock's
+    pre-scaled head views, N != M, scale 1), the last batch row's keys all
+    masked (the mean of v); at block_q 64 and 128 each against the plain
+    version to 1e-4 x max(1, max|ref|), one pack launch and one loop launch
+    a call, the two block_q bit-equal (both run 64-row blocks) and the same
+    bits on a second call."""
+    B, h, d = 2, 3, 64
+    if case == "rot":
+        q, k, v = _f32_wqkv(cuda, B, N, h, d)
+        rot = _rot_tables(cuda, B, N, d, torch.float32)
+        scale = d ** -0.5
+    else:
+        q = _f32_heads(cuda, B, N, h, d, d ** -0.25)
+        k = _f32_heads(cuda, B, M, h, d, d ** -0.25)
+        v = _f32_heads(cuda, B, M, h, d)
+        rot, scale = None, 1.0
+    mask = torch.rand(B, M, generator=cuda, device="cuda") > 0.2
+    mask[-1] = False
+    bias = ak.key_bias(mask, B, M, "cuda")
+    want = ak.qblock_attention_plain(q, k, v, bias, scale, rot)
+    got = {}
+    for block_q in (64, 128):
+        before, packs = ak.qblock_attention.launches, ak.hopper_attention.packs
+        got[block_q] = ak.qblock_attention(q, k, v, bias, scale, block_q, rot)
+        assert ak.qblock_attention.launches == before + 1
+        assert ak.hopper_attention.packs == packs + 1
+        out = got[block_q]
+        assert out.dtype == torch.float32 and torch.isfinite(out).all()
+        assert _close(out, want, 1e-4)
+        mean = v[-1].mean(dim=1, keepdim=True).expand(-1, N, -1)
+        assert _close(out[-1], mean, 1e-4)
+    assert torch.equal(got[64], got[128])
+    assert torch.equal(ak.qblock_attention(q, k, v, bias, scale, 64, rot),
+                       got[64])
+
+
+@pytest.mark.parametrize("N,M", [(1024, 1024), (2048, 2048), (200, 136)])
+def test_f32_flash_segment_loop(cuda, N, M):
+    """Float32 G on the 3xTF32 loop in its segment mode, as the "flash"
+    self-attention hands it its operands (q, k rotated, v the stride-3
+    view): random query and key ids; batch row 1's keys in a segment no
+    query has (every row the mean of V), batch row 0's first 64 keys too
+    (a first tile wholly masked before valid keys); against the plain
+    version to 1e-4 x max(1, max|ref|), finite, one pack launch and one
+    loop launch a call, the same bits on a second call; without ids, no
+    mask."""
+    from ei_nexus_tpu_torch.ops import flash_kernel as fk
+    B, h, d = 3, 2, 64
+    q, _, _ = _f32_wqkv(cuda, B, N, h, d)
+    _, k, v = _f32_wqkv(cuda, B, M, h, d)
+
+    def rotated(t, n):
+        cos, sin = (x[:, None] for x in _rot_tables(cuda, B, n, d,
+                                                    torch.float32))
+        return t * cos + ak.rotate_half(t) * sin
+    q, k = rotated(q, N), rotated(k, M)
+    q_seg = torch.randint(0, 3, (B, N), generator=cuda, device="cuda",
+                          dtype=torch.int32)
+    kv_seg = torch.randint(0, 3, (B, M), generator=cuda, device="cuda",
+                           dtype=torch.int32)
+    kv_seg[1] = -5
+    kv_seg[0, :64] = 7
+    before, packs = fk.flash_attention.launches, ak.hopper_attention.packs
+    got = fk.flash_attention(q, k, v, q_seg, kv_seg, d ** -0.5)
+    assert fk.flash_attention.launches == before + 1
+    assert ak.hopper_attention.packs == packs + 1
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert _close(got, fk.flash_attention_plain(q, k, v, q_seg, kv_seg,
+                                                d ** -0.5), 1e-4)
+    mean = v[1].mean(dim=1, keepdim=True).expand(-1, N, -1)
+    assert _close(got[1], mean, 1e-4)
+    assert torch.equal(fk.flash_attention(q, k, v, q_seg, kv_seg,
+                                          d ** -0.5), got)
+    got = fk.flash_attention(q, k, v, sm_scale=1.0)
+    assert _close(got, fk.flash_attention_plain(q, k, v, sm_scale=1.0), 1e-4)
+
+
+def test_f32_e_and_g_refuse_before_launch(cuda):
+    """What float32 E and G cannot take raises before the pack pass: a
+    block_q other than 64 and 128, the rotary with N != M, segment ids of
+    another type or shape; nothing falls back to another kernel or the
+    plain version."""
+    from ei_nexus_tpu_torch.ops import flash_kernel as fk
+    B, h, N, d = 1, 2, 128, 64
+    q, k, v = _f32_wqkv(cuda, B, N, h, d)
+    bias = ak.key_bias(None, B, N, "cuda")
+    rot = _rot_tables(cuda, B, N, d, torch.float32)
+    ids = torch.ones(B, N, dtype=torch.int32, device="cuda")
+    counts = lambda: (ak.qblock_attention.launches,  # noqa: E731
+                      fk.flash_attention.launches, ak.hopper_attention.packs)
+    before = counts()
+    with pytest.raises(ValueError):
+        ak.qblock_attention(q, k, v, bias, 1.0, 96)
+    with pytest.raises(ValueError):
+        ak.qblock_attention(q, k[:, :, :64], v[:, :, :64], bias[:, :64],
+                            1.0, 64, rot=rot)
+    with pytest.raises(ValueError):
+        fk.flash_attention(q, k, v, ids.float(), ids)
+    with pytest.raises(ValueError):
+        fk.flash_attention(q, k, v, ids[:, :64], ids)
+    assert counts() == before
+
+
+# ---------------------------------------------------------------------------
 # kernels D and G on the Hopper loop (bf16)
 # ---------------------------------------------------------------------------
 

@@ -110,17 +110,19 @@ def _exp_diff(x, m):
 
 def emulate_loop(qp, kp, vt, bias, scale):
     """The 3xTF32 loop over the pack pass's planes: qp (B, h, 2, N, 64), kp
-    (B, h, 2, M, 64), vt (B, h, 2, 64, keys), bias (B, M) float32. 64-key
-    tiles; S split products, s = fl(fl(S x scale) + bias), -inf past M;
-    online softmax (m, l, O rescaled by exp(m_old - m_new), exp(x - m) as
-    exp2(fl((x - m) log2(e)))); P split and its columns taken in V^T's key
-    order; O / l at the end."""
+    (B, h, 2, M, 64), vt (B, h, 2, 64, keys), bias (B, M) float32, or
+    (B, 1, N, M) where the term depends on the query too (G's segment
+    rule). 64-key tiles; S split products, s = fl(fl(S x scale) + bias),
+    -inf past M; online softmax (m, l, O rescaled by exp(m_old - m_new),
+    exp(x - m) as exp2(fl((x - m) log2(e)))); P split and its columns taken
+    in V^T's key order; O / l at the end."""
     B, h, _, N, d = qp.shape
     M, keys = kp.shape[3], vt.shape[-1]
     kpad = torch.zeros(B, h, 2, keys, d)
     kpad[:, :, :, :M] = kp
-    bpad = torch.full((B, keys), -torch.inf)
-    bpad[:, :M] = bias
+    add = bias[:, None, None] if bias.ndim == 2 else bias
+    bpad = torch.full(add.shape[:-1] + (keys,), -torch.inf)
+    bpad[..., :M] = add
     order = ak.vt_key_order(keys)
     o = torch.zeros(B, h, N, d)
     m = torch.full((B, h, N), -torch.inf)
@@ -129,7 +131,7 @@ def emulate_loop(qp, kp, vt, bias, scale):
         t = slice(k0, k0 + 64)
         s = _split_product(qp[:, :, 0], qp[:, :, 1], kpad[:, :, 0, t],
                            kpad[:, :, 1, t])
-        s = s * scale + bpad[:, None, None, t]
+        s = s * scale + bpad[..., t]
         m_new = torch.maximum(m, s.amax(-1))
         alpha = _exp_diff(m, m_new)
         p = _exp_diff(s, m_new[..., None])

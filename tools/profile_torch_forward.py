@@ -52,10 +52,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 # kernel-name fragment -> group, first match wins
 GROUPS = (
     ("attention_pack_kernel", "pack pass (A, B, D, E, F, G)"),
-    ("attention_pack_tf32_kernel", "pack pass, float32 (A, B, D, F)"),
+    ("attention_pack_tf32_kernel", "pack pass, float32 (A, B, D, E, F, G)"),
     ("self_attention_tf32_kernel", "A self_attention_rot"),
     ("cross_attention_tf32_kernel", "B cross_attention_bidir"),
     ("attention_fwd_tf32_kernel", "D attention_fwd"),
+    ("qblock_attention_tf32_kernel", "E qblock_attention"),
+    ("flash_segment_tf32_kernel", "G flash_attention"),
     ("attention_bwd_rowsum_tf32_kernel", "F attention_bwd"),
     ("attention_bwd_tf32_kernel", "F attention_bwd"),
     ("self_attention_sm90_kernel", "A self_attention_rot"),
@@ -64,11 +66,7 @@ GROUPS = (
     ("qblock_attention_sm90_kernel", "E qblock_attention"),
     ("cross_attention_sm90_kernel", "B cross_attention_bidir"),
     ("attention_bwd_sm90_kernel", "F attention_bwd"),
-    ("self_attention_kernel", "A self_attention_rot"),
-    ("cross_attention_kernel", "B cross_attention_bidir"),
     ("nms_kernel", "C nms_rounds"),
-    ("qblock_attention_kernel", "E qblock_attention"),
-    ("flash_segment_kernel", "G flash_attention"),
     ("bwd_rowsum_kernel", "F attention_bwd"),
     ("multi_tensor_apply", "optimizer (AdamW, foreach)"),
     ("upsample", "descriptor upsampling (bilinear)"),

@@ -6,8 +6,7 @@ variants of their own source, on one GPU.
 
 Builds copies of csrc/ into a temporary directory, each with one text edit
 of csrc/flash_tf32.cuh (`VARIANTS`: the softmax's exp as expf of the
-difference, as the CUDA-core loop takes it; three K/V^T stages in place
-of two), and the unedited source, with nvcc (all at once); loads each
+difference; three K/V^T stages in place of two), and the unedited source, with nvcc (all at once); loads each
 library's self_attention and cross_attention entry points; and, at
 (B, 4, 1024, 64) for each --batch, packs A's and B's float32 operands
 once (the shipped pack pass) and times each build's loop on the same
