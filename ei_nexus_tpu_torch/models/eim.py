@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..parallel.mesh import active_mesh, local_rows
+from ..utils.profiling import annotate
 from .extractor import KeypointExtractorConfig, VGGExtractor
 from .lightglue import LightGlue, LightGlueConfig
 from .mnn import mnn_match
@@ -226,24 +227,25 @@ class Matcher(nn.Module):
         cfg = self.config
         if cfg.type is None:
             return None
-        mesh = active_mesh()
-        if not (training and cfg.pad_mode == "random"):
-            fill = (None, None)
-        elif fill is None:
-            fill = tuple(random_fill(f, cfg.max_points_num,
-                                     cfg.desc_scale_factor, generator)
-                         for f in (feats0, feats1))
-        elif mesh is not None:
-            rows = local_rows(feats0["sparse_positions"].shape[0]
-                              * mesh.data, mesh)
-            fill = tuple((p[rows], d[rows]) for p, d in fill)
-        f0 = self._fit_slots(feats0, fill[0])
-        f1 = self._fit_slots(feats1, fill[1])
-        if cfg.type == "MNN":
-            out = mnn_match(f0, f1, cfg.ratio_thresh, cfg.distance_thresh,
-                            mutual_check=True)
-        else:
-            out = self.lightglue(f0, f1, training=training)
+        with annotate("ei.match"):
+            mesh = active_mesh()
+            if not (training and cfg.pad_mode == "random"):
+                fill = (None, None)
+            elif fill is None:
+                fill = tuple(random_fill(f, cfg.max_points_num,
+                                         cfg.desc_scale_factor, generator)
+                             for f in (feats0, feats1))
+            elif mesh is not None:
+                rows = local_rows(feats0["sparse_positions"].shape[0]
+                                  * mesh.data, mesh)
+                fill = tuple((p[rows], d[rows]) for p, d in fill)
+            f0 = self._fit_slots(feats0, fill[0])
+            f1 = self._fit_slots(feats1, fill[1])
+            if cfg.type == "MNN":
+                out = mnn_match(f0, f1, cfg.ratio_thresh,
+                                cfg.distance_thresh, mutual_check=True)
+            else:
+                out = self.lightglue(f0, f1, training=training)
         keys = ("sparse_positions", "sparse_descriptors", "sparse_valid",
                 "image_size")
         out["input_feats0"] = {k: f0[k] for k in keys}
@@ -279,10 +281,12 @@ class EIM(nn.Module):
         ev_train = training and not cfg.event_extractor.freeze
         im_train = training and not cfg.image_extractor.freeze
         stage1 = ev_train or im_train
-        events_feats = run_extractor(self.event_extractor, ev_train, events,
-                                     events_mask, dense, stage1)
-        image_feats = run_extractor(self.image_extractor, im_train, image,
-                                    image_mask, dense, stage1)
+        with annotate("ei.extract.event"):
+            events_feats = run_extractor(self.event_extractor, ev_train,
+                                         events, events_mask, dense, stage1)
+        with annotate("ei.extract.image"):
+            image_feats = run_extractor(self.image_extractor, im_train,
+                                        image, image_mask, dense, stage1)
         if stage1:
             return events_feats, image_feats, None
         matches = self.matcher(events_feats, image_feats,
@@ -313,10 +317,12 @@ class ImageImageMatcher(nn.Module):
         mode one after the other, and no matches."""
         cfg = self.config
         train = training and not cfg.image_extractor.freeze
-        feats0 = run_extractor(self.image_extractor, train, image0, mask0,
-                               dense, stage1=train)
-        feats1 = run_extractor(self.image_extractor, train, image1, mask1,
-                               dense, stage1=train)
+        with annotate("ei.extract.image"):
+            feats0 = run_extractor(self.image_extractor, train, image0,
+                                   mask0, dense, stage1=train)
+        with annotate("ei.extract.image"):
+            feats1 = run_extractor(self.image_extractor, train, image1,
+                                   mask1, dense, stage1=train)
         if train:
             return feats0, feats1, None
         matches = self.matcher(feats0, feats1,

@@ -34,6 +34,7 @@ from ..ops import (
     sample_descriptors_lowres, sample_descriptors_fullres,
     upsample_descriptors, dense_descriptors, dense_positions,
 )
+from ..utils.profiling import annotate
 from .vgg import VGGBackbone, VGGDetectorHead, VGGDescriptorHead
 
 
@@ -168,22 +169,25 @@ def extract_keypoints(
     padded_size = (logits.shape[1] * cfg.cell_size,
                    logits.shape[2] * cfg.cell_size)
     probability, bordered = _score_maps(logits, padder, cfg, score_mask)
-    nms_map = nms(bordered.detach(), cfg.nms_radius, impl=cfg.nms_impl)
+    with annotate("ei.extract.nms"):
+        nms_map = nms(bordered.detach(), cfg.nms_radius, impl=cfg.nms_impl)
     # after nms(radius=r) survivors are > r apart, so top-k may first
     # reduce to per-(r+1)-block candidates
-    positions, valid = select_topk_keypoints(
-        nms_map, cfg.detection_top_k, cfg.detection_threshold, cfg.ordering,
-        min_distance=cfg.nms_radius + 1)
+    with annotate("ei.extract.topk"):
+        positions, valid = select_topk_keypoints(
+            nms_map, cfg.detection_top_k, cfg.detection_threshold,
+            cfg.ordering, min_distance=cfg.nms_radius + 1)
 
-    if cfg.sparse_desc_from == "lowres":
-        sparse_desc = sample_descriptors_lowres(
-            raw_desc, positions, padded_size, cfg.descriptor_scale_factor,
-            True, cfg.ordering)
-    else:
-        sparse_desc = sample_descriptors_fullres(
-            raw_desc, positions, cfg.descriptor_scale_factor, True,
-            cfg.ordering)
-    coarse = normalize_descriptors(raw_desc, cfg.descriptor_scale_factor)
+    with annotate("ei.extract.describe"):
+        if cfg.sparse_desc_from == "lowres":
+            sparse_desc = sample_descriptors_lowres(
+                raw_desc, positions, padded_size,
+                cfg.descriptor_scale_factor, True, cfg.ordering)
+        else:
+            sparse_desc = sample_descriptors_fullres(
+                raw_desc, positions, cfg.descriptor_scale_factor, True,
+                cfg.ordering)
+        coarse = normalize_descriptors(raw_desc, cfg.descriptor_scale_factor)
 
     if padder is not None:
         score_u = padder.unpad(bordered, hw_axes=(-2, -1))

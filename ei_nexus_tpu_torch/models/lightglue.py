@@ -81,6 +81,7 @@ from ..ops.attention_kernels import (cross_attention_bidir, fused_attention,
 from ..ops.flash_kernel import flash_attention, segment_ids_from_mask
 from ..parallel.collectives import copy_to_group, reduce_from_group
 from ..parallel.mesh import active_mesh, use_mesh
+from ..utils.profiling import annotate
 from .layers import LayerNorm, Linear
 
 _MASK_BIAS = -1e9
@@ -388,9 +389,12 @@ class TransformerLayer(nn.Module):
 
     def forward(self, desc0, desc1, enc0, enc1, mask0=None, mask1=None,
                 training: bool = False):
-        desc0 = self.self_attn(desc0, enc0, mask0, training)
-        desc1 = self.self_attn(desc1, enc1, mask1, training)
-        return self.cross_attn(desc0, desc1, mask0, mask1, training)
+        with annotate("ei.match.self"):
+            desc0 = self.self_attn(desc0, enc0, mask0, training)
+        with annotate("ei.match.self"):
+            desc1 = self.self_attn(desc1, enc1, mask1, training)
+        with annotate("ei.match.cross"):
+            return self.cross_attn(desc0, desc1, mask0, mask1, training)
 
 
 def sigmoid_log_double_softmax(sim: torch.Tensor, z0: torch.Tensor,
@@ -542,13 +546,14 @@ class LightGlue(nn.Module):
                                      training)
                 if training or i == L - 1:
                     d0f, d1f = desc0.float(), desc1.float()
-                    scores, sim = self.log_assignment[str(i)](d0f, d1f)
+                    with annotate("ei.match.assign"):
+                        scores, sim = self.log_assignment[str(i)](d0f, d1f)
                     all_scores.append(scores)
                 if training and i < L - 1:
                     token = self.token_confidence[str(i)]
                     conf0.append(token(d0f.detach())[..., 0])
                     conf1.append(token(d1f.detach())[..., 0])
-        with torch.no_grad():
+        with torch.no_grad(), annotate("ei.match.filter"):
             out = self._matches(scores, mask0, mask1)
         out["similarity"] = sim
         out["log_assignment"] = scores
@@ -607,9 +612,10 @@ class LightGlue(nn.Module):
                 stop = bool(((1.0 - low / num) > cfg.depth_confidence).all())
                 LightGlue.host_syncs += 1
             if stop:
-                scores, sim = self.log_assignment[str(i)](
-                    desc0.float(), desc1.float(),
-                    p0 if do_prune else None, p1 if do_prune else None)
+                with annotate("ei.match.assign"):
+                    scores, sim = self.log_assignment[str(i)](
+                        desc0.float(), desc1.float(),
+                        p0 if do_prune else None, p1 if do_prune else None)
                 exit_layer = i
                 break
             if do_prune:

@@ -48,6 +48,7 @@ from ..models.lightglue import head_sliced_parameters
 from ..ops.homographic import (extract_crops_batched,
                                perspective_transform_from_points)
 from ..parallel.mesh import local_rows, use_mesh
+from ..utils.profiling import annotate
 from .optim import set_learning_rate
 from .partition import check_frozen
 from .state import TrainState
@@ -200,22 +201,24 @@ def batch_representation(batch_view: Mapping[str, object], kind: str,
     (VoxelGrid, TimeSurface, EventStack, DistanceMap, AccumulationImage),
     with the JAX package's `fast=False` semantics: the voxel grid is the
     exact scatter, not the TPU's matmul splat."""
-    dev = resolve_device(device)
-    batch_view = _decode_event_view(batch_view, dev)
+    with annotate("ei.repr"):
+        dev = resolve_device(device)
+        batch_view = _decode_event_view(batch_view, dev)
 
-    def get(key, dtype):
-        return torch.as_tensor(batch_view[key]).to(device=dev, dtype=dtype)
+        def get(key, dtype):
+            return torch.as_tensor(batch_view[key]).to(device=dev,
+                                                       dtype=dtype)
 
-    x = get("events_x", torch.float32)
-    y = get("events_y", torch.float32)
-    t = get("events_t", torch.float32)
-    p = get("events_p", torch.float32)
-    m = get("events_valid", torch.bool)
-    rep = reps.build_representation(kind, x, y, t, p, bins=bins,
-                                    height=height, width=width, mask=m)
-    acc = reps.events_to_accumulation_image(x, y, height=height, width=width,
-                                            mask=m)
-    return rep.permute(0, 2, 3, 1), acc > 0
+        x = get("events_x", torch.float32)
+        y = get("events_y", torch.float32)
+        t = get("events_t", torch.float32)
+        p = get("events_p", torch.float32)
+        m = get("events_valid", torch.bool)
+        rep = reps.build_representation(kind, x, y, t, p, bins=bins,
+                                        height=height, width=width, mask=m)
+        acc = reps.events_to_accumulation_image(x, y, height=height,
+                                                width=width, mask=m)
+        return rep.permute(0, 2, 3, 1), acc > 0
 
 
 def _all_reduce_flat(grads, group, scale: Optional[float] = None) -> None:
@@ -398,17 +401,20 @@ def make_stage2_train_step(
             _, _, matches = model(ev_rep, get(data1["image"]), ev_mask,
                                   None, training=True, generator=generator,
                                   fill=fill)
-            with torch.no_grad():
+            with torch.no_grad(), annotate("ei.train.gt"):
                 kp0 = matches["input_feats0"]["sparse_positions"][..., :2]
                 kp1 = matches["input_feats1"]["sparse_positions"][..., :2]
                 gt = gt_matches_from_pose_depth(
                     kp0, kp1, cam, cam, depth0, depth1, T_0to1, T_1to0,
                     pos_th=pos_th, neg_th=neg_th, ordering="yx")
-            loss, info = lightglue_loss(matches, gt, gamma=gamma,
-                                        nll_balancing=nll_balancing,
-                                        training=True)
-            loss.backward()
-        grad_norm = _apply_gradients(state)
+            with annotate("ei.train.loss"):
+                loss, info = lightglue_loss(matches, gt, gamma=gamma,
+                                            nll_balancing=nll_balancing,
+                                            training=True)
+            with annotate("ei.train.backward"):
+                loss.backward()
+        with annotate("ei.train.optim"):
+            grad_norm = _apply_gradients(state)
         n_gt = (gt["matches0"] > -1).sum(dim=-1).float().mean()
         return _global_info(state, {
             "loss": loss.detach(), "gt_matches": n_gt,

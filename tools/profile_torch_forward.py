@@ -27,8 +27,11 @@ torch.profiler and prints the device time by kernel group (the port's
 kernels A-G and the Hopper loops' pack pass, the pose tail's QR, SVD and
 sampling, convolutions, matrix products, norms, voxel scatter, sorting,
 the optimizer, everything else),
-the device's busy and idle share of the traced wall time, the 25
-heaviest kernels; then, over a second traced window that records input
+the device's busy time (the union of its operations' intervals) and idle
+share of the traced wall time, the 25 heaviest kernels, and by each of
+the program's `ei.` spans (`utils/profiling.py`) its device ms, the part
+its own body launched, its launches and its host ms in calls that waited
+on the card; then, over a second traced window that records input
 shapes, the 25 heaviest operators by their own device time and the device
 time by each operator's largest input; unless --no-trace, writes the chrome trace to
 chiprun_out/profile_torch_<what>.json. Needs a CUDA device.
@@ -48,6 +51,8 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from ei_nexus_tpu_torch.utils.profiling import SpanTrace  # noqa: E402
 
 # kernel-name fragment -> group, first match wins
 GROUPS = (
@@ -95,9 +100,6 @@ GROUPS = (
     ("reduce", "reductions"),
     ("elementwise", "elementwise"),
 )
-
-
-ANNOTATION = re.compile(r"[\w.]+#[\w.]+")
 
 
 def group_of(name: str) -> str:
@@ -152,32 +154,39 @@ def profile_run(what: str, run, B: int, args) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    # device-side events, without the ranges the profiler annotates on the
-    # device timeline ("Optimizer.step#AdamW.step"), which overlap the
-    # kernels they enclose (kernel names may hold "#" too: "{lambda()#3}")
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and not ANNOTATION.fullmatch(e.name)]
+    # the device's operations, without the ranges the profiler and the
+    # program's spans annotate on its timeline
+    spans = SpanTrace(prof.events())
     by_name, by_group = {}, {}
-    for e in kernels:
-        us = e.device_time if hasattr(e, "device_time") else e.cuda_time
-        by_name[e.name] = by_name.get(e.name, 0.0) + us
-        g = group_of(e.name)
-        by_group[g] = by_group.get(g, 0.0) + us
-    busy_ms = sum(by_name.values()) / 1e3
+    for name, t0, t1, _ in spans.ops:
+        by_name[name] = by_name.get(name, 0.0) + t1 - t0
+        g = group_of(name)
+        by_group[g] = by_group.get(g, 0.0) + t1 - t0
+    kernel_ms = sum(by_name.values()) / 1e3
+    busy_ms = spans.busy_us / 1e3
     per = args.iters
     print(f"{torch.cuda.get_device_name(0)}: {per} traced runs of {what} "
           f"(B={B}), wall {wall_ms / per:.3f} ms each (host clock, traced), "
           f"device busy {busy_ms / per:.3f} ms each, idle share "
           f"{1 - busy_ms / wall_ms:.3f}")
-    print(f"device time per {what} by group:")
+    print(f"device time per {what} by group (summed, "
+          f"{kernel_ms / per:.3f} ms):")
     for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        print(f"  {us / 1e3 / per:9.3f} ms  {100 * us / 1e3 / busy_ms:5.1f}%"
-              f"  {g}")
+        print(f"  {us / 1e3 / per:9.3f} ms  "
+              f"{100 * us / 1e3 / kernel_ms:5.1f}%  {g}")
     print(f"heaviest kernels per {what}:")
     for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
         print(f"  {us / 1e3 / per:9.3f} ms  {n[:110]}")
+    rows = spans.table()
+    print(f"by span per {what}: device ms (own body), launches (own body), "
+          f"host ms waiting, count; {spans.launches() / per:.0f} launches "
+          f"inside a span")
+    for name, r in sorted(rows.items()):
+        print(f"  {r['device_us'] / 1e3 / per:9.3f} "
+              f"({r['self_device_us'] / 1e3 / per:8.3f}) ms  "
+              f"{r['launches'] / per:6.0f} ({r['self_launches'] / per:5.0f})"
+              f"  {r['wait_us'] / 1e3 / per:8.3f} ms  "
+              f"{r['count'] / per:4.0f}x  {name}")
     # the operators that launched them (host-side events), with their
     # input shapes: which tensors the device time is spent on. A second
     # traced window: recording shapes costs the host enough to move the
@@ -218,7 +227,10 @@ def profile_run(what: str, run, B: int, args) -> None:
         "device": torch.cuda.get_device_name(0), "batch": B, "run": what,
         "traced_wall_ms": wall_ms / per, "device_busy_ms": busy_ms / per,
         "idle_share": 1 - busy_ms / wall_ms,
-        "groups_ms": {g: us / 1e3 / per for g, us in by_group.items()}}))
+        "launches_in_spans": spans.launches() / per,
+        "groups_ms": {g: us / 1e3 / per for g, us in by_group.items()},
+        "spans_device_ms": {n: r["device_us"] / 1e3 / per
+                            for n, r in rows.items()}}))
 
 
 def forward_runners(B: int, seed: int, attention: str, pose: bool,
