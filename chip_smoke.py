@@ -54,6 +54,16 @@ Phases, each of which raises on failure:
     that fit at once, bit-exact there in float32 and bfloat16 and at
     (1, 1080, 3840), which the plan cuts into row and column strips with
     ghost rows and columns, and its device time at both;
+ 2b. kernel L (csrc/linear_tf32.cu, LightGlue's float32 linears on
+    3xTF32 wgmma): its ptxas line (no spill) and HGMMA/UTMALDG count; at
+    the flagship's linear shapes (a 16-pair batch, 16,384 tokens: 256 ->
+    768, 256, 512 -> 512, 256, and a ragged M) against its plain version
+    and a float64 product, its device ms beside its bound and cuBLAS's
+    float32 F.linear (`library_ms`, no longer called on this path); the
+    FFN's two-part and residual forms; LightGlue's product kernels, by
+    device ms, at the cell's batch; its launches in one float32 flagship
+    forward (164; W's planes split on the first forward only) and in a
+    float32 stage-2 step (none);
  3. the flagship EIM forward at full width (260x346, 16 bins, K=1024,
     9 LightGlue layers of 4x64, bfloat16, B=8) on bursty events, once for
     each attention setting of `build_flagship`: "auto" (A=18, B=9, C=2
@@ -1420,6 +1430,196 @@ def phase_kernels(logs: dict):
               f"{r['bound_ms']:.4f} by {r['bound_by']}); device "
               f"{r['device_ms']:.4f} ms (library {r['library_device_ms']})")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: kernel L, LightGlue's float32 linear layers
+# ---------------------------------------------------------------------------
+
+# (M, K, N): a 16-pair batch of 1024 slots a side through Wqkv, the square
+# projections, the FFN's first and second products, and a ragged M
+LINEAR_SHAPES = ((16384, 256, 768), (16384, 256, 256), (16384, 512, 512),
+                 (16384, 512, 256), (16381, 256, 256))
+# kernel L's launches in one float32 flagship forward: 18 a layer (on each
+# side Wqkv, out_proj and the FFN's two products; to_qk, to_v, to_out and
+# the FFN's two), and the assignment head's final_proj on each side
+LINEAR_LAUNCHES = 18 * 9 + 2
+
+
+def linear_bound_ms(M: int, K: int, N: int) -> tuple:
+    """Kernel L's bound: 2MNK float32 products at the 3xTF32 peak, against
+    x read once, y written once and W's two planes read once."""
+    return _bound(2.0 * M * N * K, PEAK_TF32X3_FLOPS,
+                  4.0 * (M * K + M * N) + 8.0 * N * K)
+
+
+def check_linear_build(logs: dict) -> dict:
+    """Kernel L's ptxas lines (registers, spills, any C75xx remark or
+    warning, such as wgmma serialised) with no spill allowed, and its HGMMA
+    and UTMALDG count in the SASS, both required where the toolkit has
+    cuobjdump."""
+    from ei_nexus_tpu_torch.ops import cuda_build
+    log = logs.get("linear_tf32")
+    if log is None:
+        print("[linear] built before this run, no ptxas log")
+    else:
+        fn = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                fn = m.group(1)
+                continue
+            if "C75" in line or "warning" in line:
+                print(f"[linear] {line.strip()}")
+            if fn and "linear_tf32_kernel" in fn and (
+                    "spill" in line or "registers" in line):
+                print(f"[linear] {fn}: {line.strip()}")
+                m = re.search(r"(\d+) bytes spill stores", line)
+                require(m is None or int(m.group(1)) == 0,
+                        f"{fn} spills: {line.strip()}")
+    lib = cuda_build.library("linear_tf32")
+    print(f"[linear] dynamic shared memory {lib.ei_linear_tf32_smem_bytes()} "
+          f"bytes a block")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        print("[linear] no cuobjdump in the toolkit: SASS not counted")
+        return {}
+    sass = subprocess.run(
+        [tool, "-sass", str(cuda_build.library_path("linear_tf32"))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    part = next((p for p in sass.split("Function : ")[1:]
+                 if "linear_tf32_kernel" in p.split()[0]), "")
+    counts = {op: part.count(op) for op in ("HGMMA", "UTMALDG")}
+    print(f"[linear] SASS of linear_tf32_kernel: {counts}")
+    require(all(counts.values()), "kernel L: no wgmma or no TMA load")
+    return counts
+
+
+def phase_linear(logs: dict) -> dict:
+    """Kernel L at LightGlue's shapes: against its plain version and a
+    float64 product (1e-4 x max(1, max|ref|)), also reading the FFN's two
+    parts of K and adding a residual; its device ms by torch.profiler
+    beside its bound and cuBLAS's float32 `F.linear` (`library_ms`, the
+    call the port made before); then its launches in one float32 flagship
+    forward (one a routed linear call; W's planes split on the first
+    forward only) and in a float32 stage-2 step (none: it wants a graph)."""
+    from ei_nexus_tpu_torch.flagship import build_flagship
+    from ei_nexus_tpu_torch.ops import linear_kernel as lk
+    from ei_nexus_tpu_torch.train.steps import batch_representation
+
+    sass = check_linear_build(logs)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for M, K, N in LINEAR_SHAPES:
+        x = torch.randn(M, K, generator=gen, device="cuda")
+        w = torch.randn(N, K, generator=gen, device="cuda") * K ** -0.5
+        b = torch.randn(N, generator=gen, device="cuda") * 0.1
+        planes = lk.weight_planes(w)
+        got = lk.linear_tf32(x, w, b, planes=planes)
+        want = lk.linear_tf32_plain(x, w, b)
+        ref = F.linear(x.double(), w.double(), b.double())
+        tol = 1e-4 * max(1.0, float(ref.abs().max()))
+        err, err64 = max_err(got, want), max_err(got.double(), ref)
+        require(err <= tol and err64 <= tol,
+                f"kernel L at {(M, K, N)}: max|err| {err:.2e} against the "
+                f"plain version, {err64:.2e} against float64 (tol {tol:.2e})")
+        dev = _sum_ms(device_ms(lambda: lk.linear_tf32(x, w, b,
+                                                       planes=planes)))
+        lib = _sum_ms(device_ms(lambda: F.linear(x, w, b)))
+        plain = cuda_ms(lambda: lk.linear_tf32_plain(x, w, b), iters=5)
+        bound, by = linear_bound_ms(M, K, N)
+        row = dict(M=M, K=K, N=N, device_ms=dev, bound_ms=bound,
+                   bound_by=by, share=bound / dev, library_ms=lib,
+                   plain_ms=plain, max_abs_err=err, max_abs_err_f64=err64,
+                   rel_err_f64=rel_err(got.double(), ref))
+        rows.append(row)
+        print(f"[linear] ({M}, {K} -> {N}): device {dev:.4f} ms a call; "
+              f"bound {bound:.4f} by {by}, share {bound / dev:.1%}; cuBLAS "
+              f"float32 F.linear {lib:.4f} (kernel / library "
+              f"{dev / lib:.3f}); plain {plain:.4f}; max|err| {err:.2e} "
+              f"(plain), {err64:.2e} (float64), rel {row['rel_err_f64']:.2e}")
+    # the FFN's fused forms at the flagship shape: [x, message] read as two
+    # parts of K, the residual added as the second product stores
+    M, D = 16384, 256
+    x, msg, r = (torch.randn(M, D, generator=gen, device="cuda")
+                 for _ in range(3))
+    w1 = torch.randn(2 * D, 2 * D, generator=gen, device="cuda") * 0.05
+    w2 = torch.randn(D, 2 * D, generator=gen, device="cuda") * 0.05
+    b1 = torch.randn(2 * D, generator=gen, device="cuda") * 0.1
+    xm = torch.cat([x, msg], -1)
+    for tag, got, ref in (
+            ("two parts", lk.linear_tf32((x, msg), w1, b1),
+             F.linear(xm.double(), w1.double(), b1.double())),
+            ("residual", lk.linear_tf32(xm, w2, None, r),
+             r.double() + F.linear(xm.double(), w2.double()))):
+        e = max_err(got.double(), ref)
+        tol = 1e-4 * max(1.0, float(ref.abs().max()))
+        print(f"[linear] {tag}: max|err| {e:.2e} against float64 (tol "
+              f"{tol:.2e})")
+        require(e <= tol, f"kernel L, {tag}: max|err| {e:.2e}")
+
+    # LightGlue alone at the cell's batch: which library GEMMs are left
+    from ei_nexus_tpu_torch.models.layers import init_parameters
+    from ei_nexus_tpu_torch.models.lightglue import LightGlue
+    lg = LightGlue()
+    init_parameters(lg, torch.Generator().manual_seed(1))
+    lg = lg.eval().cuda()
+
+    def feats():
+        return {"sparse_descriptors": torch.randn(
+                    16, 1024, 256, generator=gen, device="cuda"),
+                "sparse_positions": torch.rand(
+                    16, 1024, 3, generator=gen, device="cuda") * 300,
+                "sparse_valid": torch.rand(16, 1024, generator=gen,
+                                           device="cuda") > 0.05,
+                "image_size": torch.full((16, 2), 346.0, device="cuda")}
+
+    f0, f1 = feats(), feats()
+    with torch.inference_mode():
+        kernels = device_ms(lambda: lg(f0, f1), iters=3)
+    gemms = {n[:90]: round(ms, 4) for n, ms in kernels.items()
+             if "gemm" in n or "gemv" in n or "linear_tf32" in n}
+    print(f"[linear] LightGlue (B=16, 1024 slots) device ms a forward by "
+          f"product kernel: {json.dumps(gemms)}")
+    del lg
+
+    model, (H, W, bins) = build_flagship(
+        dtype="float32", generator=torch.Generator().manual_seed(0))
+    ev, image = flagship_inputs()
+    counts = []
+    with torch.inference_mode():
+        for _ in range(2):
+            before = (lk.linear_tf32.launches, lk.linear_tf32.plane_builds)
+            rep, mask = batch_representation(ev, "VoxelGrid", bins, H, W)
+            model(rep, image, mask)
+            torch.cuda.synchronize()
+            counts.append((lk.linear_tf32.launches - before[0],
+                           lk.linear_tf32.plane_builds - before[1]))
+    print(f"[linear] float32 flagship forward: (launches, plane splits) "
+          f"{counts[0]} first, {counts[1]} next")
+    require(counts[0][0] == counts[1][0] == LINEAR_LAUNCHES
+            and counts[1][1] == 0,
+            f"kernel L launches {counts} in float32 forwards, want "
+            f"{LINEAR_LAUNCHES} a forward and no split after the first")
+    del model
+    from ei_nexus_tpu_torch.data.synth import stage2_batch
+    from ei_nexus_tpu_torch.flagship import stage2_train_state
+    from ei_nexus_tpu_torch.train.steps import make_stage2_train_step
+    rng = np.random.default_rng(2)
+    batch = stage2_batch(rng, SMALL["B"], 6000, 8192, SMALL["H"],
+                         SMALL["W"])
+    fill = tuple((p.cuda(), d.cuda()) for p, d in small_fill(rng))
+    state = stage2_train_state(small_stage2_model(2).cuda())
+    step = make_stage2_train_step("VoxelGrid", SMALL["bins"], SMALL["H"],
+                                  SMALL["W"])
+    before = lk.linear_tf32.launches
+    step(state, batch, fill=fill)
+    torch.cuda.synchronize()
+    step_launches = lk.linear_tf32.launches - before
+    print(f"[linear] float32 stage-2 step: {step_launches} launches")
+    require(step_launches == 0, "kernel L launched in a training step")
+    return dict(rows=rows, lightglue_gemms=gemms, sass=sass,
+                forward=counts, stage2_step=step_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -4916,6 +5116,7 @@ def main() -> int:
         return out
 
     rows = timed("kernels", phase_kernels, logs)
+    linear = timed("kernel L", phase_linear, logs)
     launches, fwd_ms, B, _ = timed(
         "forward (auto)", phase_forward, "main",
         {"self_attention_rot": 18, "cross_attention_bidir": 9,
@@ -5051,6 +5252,7 @@ def main() -> int:
                 adaptive15["held"][r["name"]][1]
 
     print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernel_L": linear}))
     for tag, ms in (("flagship forward", fwd_ms),
                     ("flagship forward in float32 (the eval entries' type; "
                      f"{f32_fwd_ms / fwd_ms:.3f}x the bf16 forward's ms)",

@@ -9,12 +9,13 @@ explicit `torch.Generator`. Convolutions take NCHW tensors.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.linear_kernel import linear_route, linear_tf32, weight_planes
 from ..parallel.collectives import all_reduce_sum
 from ..parallel.mesh import data_group
 
@@ -29,7 +30,13 @@ def _lecun_normal_(w: torch.Tensor, generator=None) -> None:
 
 class Linear(nn.Linear):
     """flax nn.Dense. `dtype=None` computes in the input's dtype;
-    `init_std` replaces the lecun-normal init with a plain normal."""
+    `init_std` replaces the lecun-normal init with a plain normal.
+
+    A call that computes in float32 on a CUDA input, wants no autograd
+    graph, and has in and out features that are multiples of 4 runs kernel
+    L (`ops/linear_kernel.py`: 3xTF32 on the tensor cores, float32
+    accuracy), with the weight's split planes kept beside it and split
+    again when the weight changes; every other call runs `F.linear`."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: Optional[torch.dtype] = None,
@@ -48,10 +55,45 @@ class Linear(nn.Linear):
             if self.bias is not None:
                 self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype or x.dtype
+    def wants_graph(self, *inputs: Optional[torch.Tensor]) -> bool:
+        """Whether a call on `inputs` builds an autograd graph."""
+        return torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (*inputs, self.weight, self.bias))
+
+    def weight_planes(self) -> torch.Tensor:
+        """Kernel L's split planes of the weight, split again when its
+        version counter or its storage changes."""
+        w = self.weight
+        # an inference tensor keeps no version counter: split every call
+        key = None if w.is_inference() else (w._version, w.data_ptr(),
+                                             w.device)
+        kept = getattr(self, "_planes", None)
+        if key is None or kept is None or kept[0] != key:
+            kept = (key, weight_planes(w))
+            self._planes = kept
+        return kept[1]
+
+    def forward(self, x: Union[torch.Tensor, Tuple[torch.Tensor, ...]],
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: a tensor, or a tuple of the consecutive parts of its last
+        dimension (read in place where kernel L takes the call); residual:
+        added to the output, in its dtype."""
+        parts = x if isinstance(x, tuple) else (x,)
+        dt = self.compute_dtype or parts[0].dtype
+        parts = tuple(p.to(dt) for p in parts)
+        if linear_route(self.in_features, self.out_features, dt,
+                        parts[0].device.type,
+                        self.wants_graph(*parts, residual)) \
+                and (residual is None or residual.dtype == dt):
+            if len(parts) > 1 and parts[0].shape[-1] % 32:
+                parts = (torch.cat(parts, -1),)
+            return linear_tf32(parts, self.weight, self.bias, residual,
+                               planes=self.weight_planes())
+        x = torch.cat(parts, -1) if len(parts) > 1 else parts[0]
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        y = F.linear(x, self.weight.to(dt), bias)
+        return y if residual is None else residual + y.to(residual.dtype)
 
 
 class Conv2d(nn.Conv2d):

@@ -31,6 +31,12 @@ passes at scale 1 for the cross-attention; elsewhere, and in training, the
 einsum path. "xla" takes the plain einsum path with `_attention_xla` and
 the CrossBlock's joint mask, under autograd in training.
 
+The linear layers (`layers.Linear`) take kernel L (ops/linear_kernel.py,
+3xTF32 products) on the card in float32 wherever no autograd graph is
+wanted; there the FFN's first product reads [x, message] in place of
+their concatenation and its second adds the residual as it stores
+(`_ffn_residual`). Elsewhere, F.linear, torch.cat and an add.
+
 Adaptive inference (`depth_confidence` / `width_confidence` > 0, the
 reference's defaults 0.95 / 0.99; training ignores them): after each layer
 the token-confidence heads decide whether the whole batch stops (every
@@ -219,6 +225,15 @@ def _ffn(dim: int, dtype) -> nn.Sequential:
                          Linear(2 * dim, dim, dtype=dtype))
 
 
+def _ffn_residual(ffn: nn.Sequential, x: torch.Tensor,
+                  message: torch.Tensor) -> torch.Tensor:
+    """x + ffn([x, message]) in x's dtype. Where kernel L takes the
+    products, the first reads x and the message in place of their
+    concatenation and the second adds x as it stores."""
+    first, norm, act, last = ffn
+    return last(act(norm(first((x, message)))), residual=x)
+
+
 class SelfBlock(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int,
                  dtype=torch.float32, attn_impl: str = "xla",
@@ -281,8 +296,7 @@ class SelfBlock(nn.Module):
         else:
             message = _merged_out(self.out_proj, message,
                                   slice(hd * h0, hd * (h0 + h)), group)
-        y = self.ffn(torch.cat([x, message], dim=-1))
-        return x + y.to(x.dtype)
+        return _ffn_residual(self.ffn, x, message)
 
 
 class CrossBlock(nn.Module):
@@ -371,10 +385,8 @@ class CrossBlock(nn.Module):
         m0 = merge(m0, N)
         m1 = merge(m1, M)
 
-        def ffn(x, m):
-            return x + self.ffn(torch.cat([x, m], dim=-1)).to(x.dtype)
-
-        return ffn(x0, m0), ffn(x1, m1)
+        return (_ffn_residual(self.ffn, x0, m0),
+                _ffn_residual(self.ffn, x1, m1))
 
 
 class TransformerLayer(nn.Module):

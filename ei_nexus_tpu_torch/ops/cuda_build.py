@@ -31,12 +31,14 @@ SOURCES = {
     "attention_bwd": "attention_bwd.cu",
     "qblock_attention": "qblock_attention.cu",
     "flash_segment": "flash_segment.cu",
+    "linear_tf32": "linear_tf32.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures (argtypes, restype) of each library's entry points
 SIGNATURES = {
     "self_attention": {
@@ -104,6 +106,11 @@ SIGNATURES = {
         "ei_attention_pack_tf32": ([_P, _I, _P, _P, _I, _I, _P], _I),
         "ei_sm90_smem_bytes": ([_I], ctypes.c_longlong),
         "ei_tf32_smem_bytes": ([], ctypes.c_longlong),
+    },
+    "linear_tf32": {
+        "ei_linear_tf32": (
+            [_P, _L, _I, _P, _L, _I, _P, _P, _P, _L, _P, _L, _I, _I, _P], _I),
+        "ei_linear_tf32_smem_bytes": ([], ctypes.c_longlong),
     },
 }
 

@@ -201,6 +201,18 @@ class SpanTrace:
                                                         self._op_spans)
                    if any(self.spans[i][0] in names for i in h))
 
+    def kernel_us(self, fragment: str, names: Sequence[str]
+                  ) -> Tuple[int, float]:
+        """(count, device us) of the operations whose name holds
+        `fragment` launched inside any span of `names`."""
+        count, us = 0, 0.0
+        for (name, t0, t1, _), h in zip(self.ops, self._op_spans):
+            if fragment in name and any(self.spans[i][0] in names
+                                        for i in h):
+                count += 1
+                us += t1 - t0
+        return count, us
+
     def table(self) -> Dict[str, Dict[str, float]]:
         """By span name: its count, host us, and the device us, launches
         and waiting host us inside it, with what its own body (not a

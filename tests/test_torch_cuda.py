@@ -1812,3 +1812,77 @@ def test_pth_loads_on_the_card(cuda, tmp_path):
     for k, v in src.state_dict().items():
         got = model.state_dict()[k]
         assert got.is_cuda and torch.equal(got.cpu(), v), k
+
+
+# kernel L (ops/linear_kernel.py): (M, K, N, parts of K, residual); the
+# flagship's shapes (a 16-pair batch of 1024 slots a side), a ragged M, K
+# not a multiple of the 32-column chunk, the FFN's two parts of K
+LINEAR_CASES = [(16384, 256, 768, 1, False), (16384, 256, 256, 1, False),
+                (16384, 512, 512, 2, False), (16384, 512, 256, 1, True),
+                (3001, 256, 256, 1, False), (77, 36, 12, 1, True),
+                (130, 100, 20, 2, True)]
+
+
+@pytest.mark.parametrize("M,K,N,parts,res", LINEAR_CASES)
+def test_linear_kernel(cuda, M, K, N, parts, res):
+    """Kernel L against a float64 product within the 3xTF32 tolerance of
+    csrc/flash_tf32.cuh, 1e-4 x max(1, max|ref|); one launch a call."""
+    from ei_nexus_tpu_torch.ops import linear_kernel as lk
+    x = torch.randn(M, K, generator=cuda, device="cuda")
+    w = torch.randn(N, K, generator=cuda, device="cuda") * K ** -0.5
+    b = torch.randn(N, generator=cuda, device="cuda") * 0.1
+    r = torch.randn(M, N, generator=cuda, device="cuda") if res else None
+    k0 = 64 if K == 100 else K // 2
+    xs = (x[:, :k0], x[:, k0:]) if parts == 2 else x
+    before = lk.linear_tf32.launches
+    got = lk.linear_tf32(xs, w, b, r)
+    torch.cuda.synchronize()
+    assert lk.linear_tf32.launches == before + 1
+    ref = torch.nn.functional.linear(x.double(), w.double(), b.double())
+    if res:
+        ref = ref + r.double()
+    assert float((got.double() - ref).abs().max()) \
+        <= 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+def test_linear_kernel_lightglue_forward(cuda, monkeypatch):
+    """A float32 LightGlue forward on the card through kernel L against the
+    same forward with every linear on F.linear (cuBLAS): one launch a routed
+    call (18 a layer, 2 for the assignment head), the weights split once,
+    the log assignment within 1e-3 and the matches alike."""
+    from ei_nexus_tpu_torch.models import layers
+    from ei_nexus_tpu_torch.models.layers import init_parameters
+    from ei_nexus_tpu_torch.models.lightglue import LightGlue, LightGlueConfig
+    from ei_nexus_tpu_torch.ops import linear_kernel as lk
+    B, N, D, L = 2, 256, 256, 2
+    model = LightGlue(LightGlueConfig(n_layers=L))
+    init_parameters(model, torch.Generator().manual_seed(11))
+    model = model.eval().cuda()
+
+    def feats():
+        return {"sparse_descriptors": torch.randn(B, N, D, generator=cuda,
+                                                  device="cuda"),
+                "sparse_positions": torch.rand(B, N, 3, generator=cuda,
+                                               device="cuda") * 60,
+                "sparse_valid": torch.rand(B, N, generator=cuda,
+                                           device="cuda") > 0.1,
+                "image_size": torch.full((B, 2), 64.0, device="cuda")}
+
+    f0, f1 = feats(), feats()
+    counts = []
+    with torch.inference_mode():
+        for _ in range(2):
+            before = (lk.linear_tf32.launches, lk.linear_tf32.plane_builds)
+            got = model(f0, f1)
+            torch.cuda.synchronize()
+            counts.append((lk.linear_tf32.launches - before[0],
+                           lk.linear_tf32.plane_builds - before[1]))
+        monkeypatch.setattr(layers, "linear_route", lambda *a: False)
+        before = lk.linear_tf32.launches
+        want = model(f0, f1)
+        assert lk.linear_tf32.launches == before
+    assert counts == [(18 * L + 2, 9 * L + 1), (18 * L + 2, 0)]
+    gap = (got["log_assignment"] - want["log_assignment"]).abs().max()
+    assert float(gap) <= 1e-3
+    same = (got["matches0"] == want["matches0"]).float().mean()
+    assert float(same) >= 0.99

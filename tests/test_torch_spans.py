@@ -260,6 +260,19 @@ def test_span_trace_readings():
     assert SpanTrace(_events(False)).launches() == 0
 
 
+def test_span_trace_kernel_by_span():
+    """A kernel's launches and device time by the spans that launched it
+    (tools/trace_spans.py reads kernel L's so): the attention kernel of the
+    synthetic batch is launched in `ei.match.self`, inside `ei.match`."""
+    tr = SpanTrace(_events(True))
+    frag = "self_attention_tf32_kernel"
+    assert tr.kernel_us(frag, ("ei.match.self",)) == (2, 2 * 20.0)
+    assert tr.kernel_us(frag, ("ei.match",)) == (2, 2 * 20.0)
+    assert tr.kernel_us(frag, ("ei.match.cross", "ei.repr")) == (0, 0.0)
+    assert tr.kernel_us("linear_tf32_kernel", ("ei.match",)) == (0, 0.0)
+    assert tr.kernel_us("nms_kernel", ("ei.extract.nms",)) == (2, 2 * 2.0)
+
+
 def test_span_trace_gap_labels_and_union():
     """Each idle gap takes the innermost span that held the launch of the
     operation ending it (the program's or the harness's), or, with no

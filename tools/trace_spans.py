@@ -13,6 +13,9 @@ also written to chiprun_out/trace_spans_<cell>_<seed>.json:
    on the card (`profiling.waits`), by call and by innermost span;
  - `select_dev_ms`: device ms a batch launched inside `ei.extract.nms` and
    `ei.extract.topk`;
+ - `linear_kernel`: kernel L's (`linear_tf32_kernel`, LightGlue's float32
+   linears) launches and device ms a batch inside `ei.match.self`,
+   `ei.match.cross`, `ei.match.assign` and the whole `ei.match`;
  - `spans`: each span's count, host ms, device ms (with what its own body
    launched, `self_`), launches and waiting ms, a batch;
  - `calls`: every runtime call a batch inside an `ei.` span, by name:
@@ -42,6 +45,12 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
+# the spans kernel L is read in: LightGlue's blocks, its assignment head,
+# and the matcher's whole span
+LINEAR_SPANS = ("ei.match.self", "ei.match.cross", "ei.match.assign",
+                "ei.match")
+
+
 def readings(trace) -> dict:
     """The span readings of a benchmark `Trace` that kept its events."""
     from ei_nexus_tpu_torch.utils.profiling import SpanTrace
@@ -66,6 +75,11 @@ def readings(trace) -> dict:
         "host_wait_ms_by_span": {k: v / 1e3 / n for k, v in by_span.items()},
         "select_dev_ms": st.device_us(("ei.extract.nms",
                                        "ei.extract.topk")) / 1e3 / n,
+        "linear_kernel": {
+            span: dict(zip(("launches", "device_ms"), (
+                c / n, us / 1e3 / n))) for span, (c, us) in (
+                    (span, st.kernel_us("linear_tf32_kernel", (span,)))
+                    for span in LINEAR_SPANS)},
         "calls": {k: [c / n, us / 1e3 / n]
                   for k, (c, us) in sorted(st.call_us().items())},
         "traced_host_ms": sum(host) / len(host) / 1e3 if host else None,
